@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Chip smoke test for paddle_tpu_torch: drive the port's serving main
-path on one CUDA card and hold every kernel on it against its plain
-PyTorch version.
+"""Chip smoke test for paddle_tpu_torch: drive the port's serving and
+training main paths on one CUDA card and hold every kernel on them
+against its plain PyTorch version.
 
     python3 chip_smoke.py            # every phase, one card
 
@@ -10,7 +10,8 @@ non-zero):
 
   1. device  — the card's name and power limit (nvidia-smi), refusing
                to run without CUDA;
-  2. build   — nvcc builds the kernel from csrc/;
+  2. build   — nvcc builds every kernel source of csrc/, one nvcc per
+               source, all started together;
   3. kernel  — the ragged paged-attention kernel against its plain
                version on one mixed wave at Llama-3-8B attention widths
                (QH=32, KVH=8, D=128, page 16): a 256-token prefill chunk
@@ -30,7 +31,27 @@ non-zero):
                4 greedy requests must give identical tokens;
   5. serve   — Llama-3-8B at full width (32 layers, bf16 random weights
                from a seed) serving 8 requests through run_pipelined(),
-               with a bf16 pool and with an int8 pool.
+               with a bf16 pool and with an int8 pool;
+  6. train_kernel — the three flash-attention kernels (forward, dQ,
+               dK/dV) against their plain versions at the attention
+               shapes of Llama-3-8B training (B=2, H=32 after the GQA
+               repeat, S=2048, D=128, causal), bf16 and fp32. `bound_ms`
+               counts the causal half of the S x S pairs and each operand
+               byte once; `library_ms` is F.scaled_dot_product_attention
+               (is_causal) for the forward and its backward (forward +
+               backward, minus forward) for dQ and dK/dV together, a
+               yardstick only;
+  7. train_parity — Llama-3-8B widths at depth 1 with the vocabulary cut
+               to 4096, fp32, TF32 off, remat on, batch 1 x 512: two
+               steps of make_train_step on the card and on the CPU from
+               the same weights, holding the losses, the step-1
+               gradients and the parameters after the steps;
+  8. train   — Llama-3-8B widths at depth 4 (the one cut: 8B parameters
+               with fp32 AdamW state do not fit one 80 GB card), bf16
+               params, fp32 AdamW state, remat on, batch 2 x 2048, 6 steps
+               on one fixed batch: median step time, tokens/s, the
+               model-flops share of 989 TFLOP/s, peak memory, and losses
+               that are finite and fall.
 
 The line before the last lists every kernel with its launches on the
 main path, its error against the plain version and its times; the last
@@ -41,16 +62,22 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
 import time
 
-PHASES = ("device", "build", "kernel", "parity", "serve")
+PHASES = ("device", "build", "kernel", "parity", "serve", "train_kernel",
+          "train_parity", "train")
+SOURCES = ("ragged_paged_attention", "flash_attention")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # fp32 CUDA cores; bf16 dense
 TPU_KERNEL = "paddle_tpu/kernels/ragged_paged_attention.py:185"
+FLASH_TPU_KERNELS = {"flash_fwd": "paddle_tpu/ops/flash_attention.py:107",
+                     "flash_bwd_dq": "paddle_tpu/ops/flash_attention.py:220",
+                     "flash_bwd_dkv": "paddle_tpu/ops/flash_attention.py:277"}
 
 
 def emit(obj):
@@ -94,13 +121,18 @@ def phase_device():
 
 
 def phase_build(card):
+    from concurrent.futures import ThreadPoolExecutor
     from paddle_tpu_torch.kernels import _build
-    name = "ragged_paged_attention"
-    secs = _build.build(name)
-    ptxas = [ln.strip() for ln in _build.ptxas_report(name).splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "card": card, "seconds": secs,
-          "source": str(_build.lib_path(name).name), "ptxas": ptxas})
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as ex:   # one nvcc per source
+        secs = dict(zip(SOURCES, ex.map(_build.build, SOURCES)))
+    wall = time.perf_counter() - t0
+    for name in SOURCES:
+        ptxas = [ln.strip() for ln in _build.ptxas_report(name).splitlines()
+                 if "registers" in ln or "spill" in ln]
+        emit({"phase": "build", "card": card, "seconds": secs[name],
+              "wall_seconds_all_sources": wall,
+              "source": str(_build.lib_path(name).name), "ptxas": ptxas})
 
 
 # kernel-phase variants: name -> (pool dtype, q dtype)
@@ -472,6 +504,304 @@ def phase_serve(card):
     return runs
 
 
+# ------------------------------------------------------------- training
+TRAIN_ATTN = {"B": 2, "H": 32, "S": 2048, "D": 128}
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# Kernel vs plain, by dtype, as TOL above: both compute in fp32 from the
+# same operands and sum in another order; bf16 outputs round the same
+# fp32 value, one ulp apart at most. lse is fp32 on both sides.
+LSE_TOL = (1e-5, 1e-5)
+
+
+def _flash_counts():
+    import paddle_tpu_torch.ops.flash_attention as fa
+    return {"flash_fwd": fa.launches_fwd, "flash_bwd_dq": fa.launches_dq,
+            "flash_bwd_dkv": fa.launches_dkv}
+
+
+def _reset_flash_counts():
+    import paddle_tpu_torch.ops.flash_attention as fa
+    fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+
+
+def _flash_bound(kernel, dtype, b, h, s, d):
+    """Least time for one causal call: flops over the causal pairs
+    (4, 6, 8 flops per pair and head dim: QK^T and PV; S, dP and dQ; S,
+    dP, dV and dK) over the peak for the dtype, or each operand byte
+    once over the memory rate."""
+    pairs = s * (s + 1) // 2
+    flops = {"flash_fwd": 4, "flash_bwd_dq": 6,
+             "flash_bwd_dkv": 8}[kernel] * b * h * d * pairs
+    big = b * h * s * d * (4 if dtype == "float32" else 2)
+    vec = b * h * s * 4                                   # lse, delta
+    nbytes = {"flash_fwd": 4 * big + vec,       # q k v in, o and lse out
+              "flash_bwd_dq": 5 * big + 2 * vec,   # q k v dO lse delta, dQ
+              "flash_bwd_dkv": 6 * big + 2 * vec}[kernel]  # ..., dK dV
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def phase_train_kernel(card):
+    import math
+    import torch
+    import torch.nn.functional as F
+    import paddle_tpu_torch.ops.flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    b, h, s, d = (TRAIN_ATTN[x] for x in "BHSD")
+    scale = 1.0 / math.sqrt(d)
+    out = {}
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(0)
+        q, k, v, do = (torch.randn((b, h, s, d), generator=g,
+                                   device="cuda").to(dt) for _ in range(4))
+        o, lse = fa._launch_fwd(q, k, v, True, scale)
+        o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, True, scale)
+        delta = (do.float() * o_ref.float()).sum(-1)
+        args = (q, k, v, do, lse_ref, delta, True, scale)
+        dq = fa._launch_dq(*args)
+        dk, dv = fa._launch_dkv(*args)
+        torch.cuda.synchronize()
+        dq_ref = fa.flash_bwd_dq_reference(*args)
+        dk_ref, dv_ref = fa.flash_bwd_dkv_reference(*args)
+        atol, rtol = TOL[dname]
+        pairs = {"flash_fwd": [(o, o_ref)], "flash_bwd_dq": [(dq, dq_ref)],
+                 "flash_bwd_dkv": [(dk, dk_ref), (dv, dv_ref)]}
+        if not torch.allclose(lse, lse_ref, atol=LSE_TOL[0],
+                              rtol=LSE_TOL[1]):
+            fail(f"flash_fwd ({dname}): lse off by "
+                 f"{float((lse - lse_ref).abs().max())}")
+        errs = {}
+        for kname, ps in pairs.items():
+            errs[kname] = max(float((a.float() - r.float()).abs().max())
+                              for a, r in ps)
+            if not all(torch.allclose(a.float(), r.float(), atol=atol,
+                                      rtol=rtol) for a, r in ps):
+                fail(f"{kname} ({dname}) vs plain: max |err| {errs[kname]}")
+        lse_err = float((lse - lse_ref).abs().max())
+        del o, lse, dq, dk, dv, dq_ref, dk_ref, dv_ref
+        kernel_ms = {
+            "flash_fwd": cuda_ms(lambda: fa._launch_fwd(q, k, v, True, scale),
+                                 reps=10),
+            "flash_bwd_dq": cuda_ms(lambda: fa._launch_dq(*args), reps=10),
+            "flash_bwd_dkv": cuda_ms(lambda: fa._launch_dkv(*args), reps=10)}
+        plain_ms = {
+            "flash_fwd": cuda_ms(lambda: fa.flash_fwd_reference(
+                q, k, v, True, scale), reps=3, warmup=1),
+            "flash_bwd_dq": cuda_ms(lambda: fa.flash_bwd_dq_reference(*args),
+                                    reps=3, warmup=1),
+            "flash_bwd_dkv": cuda_ms(
+                lambda: fa.flash_bwd_dkv_reference(*args), reps=3, warmup=1)}
+        lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), reps=10)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+        def fwd_bwd():
+            F.scaled_dot_product_attention(qg, kg, vg,
+                                           is_causal=True).backward(do)
+        lib_bwd = cuda_ms(fwd_bwd, reps=10) - lib_fwd
+        library_ms = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd,
+                      "flash_bwd_dkv": lib_bwd}
+        for kname in FLASH_KERNELS:
+            bound_ms, bound_by, nbytes, flops = _flash_bound(
+                kname, dname, b, h, s, d)
+            row = {"phase": "train_kernel", "card": card, "kernel": kname,
+                   "dtype": dname, "shape_bhsd": [b, h, s, d],
+                   "causal": True, "atol": atol, "rtol": rtol,
+                   "max_abs_err": errs[kname], "kernel_ms": kernel_ms[kname],
+                   "plain_ms": plain_ms[kname],
+                   "library_ms": library_ms[kname],
+                   "library_call": ("sdpa forward" if kname == "flash_fwd"
+                                    else "sdpa backward (dQ, dK, dV)"),
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bound_bytes": nbytes, "bound_flops": flops,
+                   "tflops": flops / kernel_ms[kname] / 1e9, "tf32": False}
+            if kname == "flash_fwd":
+                row["lse_max_abs_err"] = lse_err
+            emit(row)
+            out[(kname, dname)] = row
+        del q, k, v, do, qg, kg, vg, args, o_ref, lse_ref, delta
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tree_to(tree, dev):
+    return {k: (_tree_to(v, dev) if isinstance(v, dict)
+                else v.to(dev, copy=True)) for k, v in tree.items()}
+
+
+def _train_batch(vocab, b, s, seed):
+    """(input_ids, labels): random tokens from a numpy seed, labels the
+    next token; the last position and the first 16 labels of row 0 are
+    ignored (-1)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, (b, s + 1))
+    labels = toks[:, 1:].copy()
+    labels[:, -1] = -1
+    labels[0, :16] = -1
+    return toks[:, :-1], labels
+
+
+# card vs CPU, fp32, TF32 off, at 8B widths: the losses to 1e-5
+# relative plus 1e-5 (the one fixed batch is memorised within a step,
+# and near a loss of 0 the per-token NLLs are differences of fp32
+# logits some tens in size, whose ulps are a few 1e-6); each gradient
+# elementwise to 1e-3 relative plus 1e-4 of its leaf's largest
+# magnitude (matmuls over K = 4096 and 14336 sum in another order on
+# each side); parameters to 2.5 lr per step (AdamW's first steps move
+# an element by about lr whatever its gradient's size, so a near-zero
+# gradient whose sign differs moves it by up to 2 lr) and to 1e-5 in
+# relative norm
+PARITY_GRAD_RTOL, PARITY_GRAD_SCALE = 1e-3, 1e-4
+
+
+def phase_train_parity(card):
+    import torch
+    from paddle_tpu_torch.models import llama_spmd as T
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_hidden_layers=1,
+                              vocab_size=4096)
+    b, s, steps, lr = 1, 512, 2, 3e-4
+    ids, labels = _train_batch(cfg.vocab_size, b, s, seed=3)
+    cpu_params = T.init_params(cfg, seed=0, dtype=torch.float32,
+                               device="cpu")
+    res = {}
+    for dev in ("cuda", "cpu"):
+        params = _tree_to(cpu_params, dev)
+        opt = T.init_opt_state(params)
+        batch = (torch.from_numpy(ids).to(dev),
+                 torch.from_numpy(labels).to(dev))
+        _, grads = T.loss_and_grads(params, batch, cfg, remat=True)
+        grads = [g.cpu() for g in T._leaves(grads)]
+        step = T.make_train_step(cfg, remat=True, lr=lr, device=dev)
+        _reset_flash_counts()
+        t0 = time.perf_counter()
+        losses = [float(step(params, opt, i, batch)[2]) for i in range(steps)]
+        res[dev] = {"losses": losses, "grads": grads,
+                    "params": [p.cpu() for p in T._leaves(params)],
+                    "launches": _flash_counts(),
+                    "seconds": time.perf_counter() - t0}
+        del params, opt, batch
+    del cpu_params
+    torch.cuda.empty_cache()
+    L = cfg.num_hidden_layers
+    want = {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
+            "flash_bwd_dkv": L * steps}
+    if res["cuda"]["launches"] != want:
+        fail(f"train_parity: launches {res['cuda']['launches']}, want {want}")
+    if any(res["cpu"]["launches"].values()):
+        fail("train_parity: the CPU step launched a CUDA kernel")
+    gpu, cpu = res["cuda"], res["cpu"]
+    loss_err = [abs(a - c) for a, c in zip(gpu["losses"], cpu["losses"])]
+    if any(e > 1e-5 * abs(c) + 1e-5
+           for e, c in zip(loss_err, cpu["losses"])):
+        fail(f"train_parity: losses {gpu['losses']} vs {cpu['losses']}")
+    grad_worst = 0.0        # largest |err| / (allowed |err|)
+    for a, c in zip(gpu["grads"], cpu["grads"]):
+        allowed = (PARITY_GRAD_RTOL * c.abs()
+                   + PARITY_GRAD_SCALE * float(c.abs().max()) + 1e-30)
+        grad_worst = max(grad_worst, float(((a - c).abs() / allowed).max()))
+    if grad_worst > 1.0:
+        fail(f"train_parity: step-1 gradients off, worst {grad_worst} of "
+             "the tolerance")
+    p_err = max(float((a - c).abs().max())
+                for a, c in zip(gpu["params"], cpu["params"]))
+    p_rel = max(float((a - c).norm() / c.norm())
+                for a, c in zip(gpu["params"], cpu["params"]))
+    if p_err > 2.5 * lr * steps or p_rel > 1e-5:
+        fail(f"train_parity: parameters off by {p_err} (relative norm "
+             f"{p_rel})")
+    emit({"phase": "train_parity", "card": card,
+          "config": "llama3_8b widths, 1 layer, vocab 4096, fp32, TF32 off, "
+                    "remat, batch 1 x 512", "steps": steps,
+          "losses_cuda": gpu["losses"], "losses_cpu": cpu["losses"],
+          "loss_abs_err": loss_err,
+          "grad_worst_share_of_tol": grad_worst,
+          "param_max_abs_err": p_err, "param_max_rel_norm_err": p_rel,
+          "launches": gpu["launches"], "cuda_seconds": gpu["seconds"],
+          "cpu_seconds": cpu["seconds"]})
+
+
+TRAIN_CONFIG = ("llama3_8b widths, 4 layers, bf16 params, fp32 AdamW state, "
+                "remat, random weights (seed 0), batch 2 x 2048")
+
+
+def train_setup():
+    """The train phase's run: Llama-3-8B widths cut to 4 layers, bf16
+    random weights from seed 0 on the card, fp32 AdamW state, one fixed
+    batch of 2 x 2048 tokens (numpy seed 4), the step with remat on.
+    Returns (config, params, opt_state, batch, step)."""
+    import torch
+    from paddle_tpu_torch.models import llama_spmd as T
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_hidden_layers=4)
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    opt = T.init_opt_state(params)
+    ids, labels = _train_batch(cfg.vocab_size, 2, 2048, seed=4)
+    batch = (torch.from_numpy(ids).cuda(), torch.from_numpy(labels).cuda())
+    return cfg, params, opt, batch, T.make_train_step(cfg, remat=True,
+                                                      device="cuda")
+
+
+def phase_train(card):
+    import gc
+    import statistics as st
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg, params, opt, batch, step = train_setup()
+    (b, s), steps = batch[0].shape, 6
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _reset_flash_counts()
+    losses, times = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        _, _, loss = step(params, opt, i, batch)
+        losses.append(loss.item())          # waits for the step
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = _flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.num_hidden_layers
+    want = {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
+            "flash_bwd_dkv": L * steps}
+    if launches != want:
+        fail(f"train: launches {launches}, want {want}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train: losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"train: loss did not fall: {losses}")
+    # model flops per token, the strict convention of bench.py: 6 N over
+    # the matmul parameters (lm_head once, no embedding gather) plus
+    # attention charged at the full (non-causal) 12 L H S
+    H, F_, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    kv = cfg.num_key_value_heads * (H // cfg.num_attention_heads)
+    n_layers = L * (2 * H * H + 2 * H * kv + 3 * H * F_)
+    flops_tok = 6 * (n_layers + V * H) + 12 * L * H * s
+    step_ms = st.median(times[1:])          # the first step allocates
+    tok_s = b * s / (step_ms / 1e3)
+    row = {"phase": "train", "card": card, "config": TRAIN_CONFIG,
+           "steps": steps, "losses": losses, "step_ms": times,
+           "median_step_ms": step_ms, "tokens_per_s": tok_s,
+           "model_flops_per_token": flops_tok,
+           "model_flops_share_of_989T": flops_tok * tok_s / 989e12,
+           "max_memory_allocated_gb": peak / 1e9, "launches": launches,
+           "params_and_state_init_s": init_s}
+    emit(row)
+    del params, opt, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -493,6 +823,10 @@ def main(argv=None):
     if "parity" in phases:
         phase_parity(smi)
     serve = phase_serve(smi) if "serve" in phases else {}
+    tk = phase_train_kernel(smi) if "train_kernel" in phases else {}
+    if "train_parity" in phases:
+        phase_train_parity(smi)
+    train = phase_train(smi) if "train" in phases else {}
     kernels = []
     for kname, pools, run in (("ragged_paged_attention", "bfloat16", "bf16"),
                               ("ragged_paged_attention_int8", "int8",
@@ -505,6 +839,18 @@ def main(argv=None):
             "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
             "replaces": TPU_KERNEL,
             "launches": serve[run]["launches"] if run in serve else None,
+            "max_abs_err": k["max_abs_err"], "ms": k["kernel_ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+    for kname in FLASH_KERNELS:
+        k = tk.get((kname, "bfloat16"))
+        if k is None:
+            continue
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+            "replaces": FLASH_TPU_KERNELS[kname],
+            "launches": train["launches"][kname] if train else None,
             "max_abs_err": k["max_abs_err"], "ms": k["kernel_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"]})

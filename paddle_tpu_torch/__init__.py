@@ -8,9 +8,11 @@ and never `paddle_tpu`. Entry points run on the card by default
 `device="cpu"` to run on the CPU. Kernels written for Hopper live under
 `csrc/` and are built from source at first use (`kernels/_build.py`).
 
-This slice covers the serving main path: the stacked-parameter Llama
-run through `models.llama_serving.unified_step`, driven by the ragged
-`ServingEngine` pump.
+The port covers the serving main path (the stacked-parameter Llama run
+through `models.llama_serving.unified_step`, driven by the ragged
+`ServingEngine` pump) and the single-device pretrain step
+(`models.llama_spmd.make_train_step`, on the flash-attention kernels of
+`ops.flash_attention`).
 """
 from ._device import DEFAULT_DEVICE, resolve_device
 

@@ -1,0 +1,595 @@
+// Flash attention for Hopper (sm_90a): forward, dQ and dK/dV, plain C
+// interface for ctypes.
+//
+// Replaces the three TPU kernels of paddle_tpu/ops/flash_attention.py:
+//   fa_fwd     -> `_fwd_kernel`     (:107, launched by `_fwd_pallas`)
+//   fa_bwd_dq  -> `_bwd_dq_kernel`  (:220, launched by `_bwd_pallas`)
+//   fa_bwd_dkv -> `_bwd_dkv_kernel` (:277, launched by `_bwd_pallas`)
+// What they compute, per (batch*head) slice of (BH, S, D) operands:
+//   S = Q K^T * scale, masked to cols < sk and, if causal, rows >= cols
+//   (top-left alignment, as the TPU kernel masks); forward: O = softmax(S)
+//   V and lse = logsumexp(S) per row; backward, from lse and delta =
+//   rowsum(dO * O): P = exp(S - lse), dP = dO V^T, dS = P (dP - delta)
+//   scale, dQ = dS K, dK = dS^T Q, dV = P^T dO.
+//
+// Design. The TPU kernels carry fp32 accumulators in VMEM scratch across
+// a sequential grid axis. Blocks here run in parallel and in no order, so
+// that axis becomes a loop inside the block, and nothing is reduced
+// across blocks: no atomics, results repeat from run to run.
+//   * fwd and dQ: one block per (q tile of 64 rows, batch*head), looping
+//     over k tiles; fwd keeps an online softmax (m, l, acc in fp32
+//     registers), dQ accumulates dQ in fp32 registers.
+//   * dK/dV: one block per (k tile of 64 rows, batch*head), looping over
+//     q tiles, with dK and dV accumulated in fp32 registers.
+// Under causal masking, tiles wholly above the diagonal are skipped.
+// Tiles are staged in shared memory as fp32, d-major with a stride of 65
+// floats, so that both the score product (rows of Q against rows of K)
+// and the output product (columns of K, V, Q or dO) read without bank
+// conflicts. 256 threads as a 16 x 16 grid: thread (ty, tx) owns 4 rows
+// (ty*4 .. ty*4+3) and every 16th column starting at tx, so row
+// statistics reduce over 16 lanes of one warp with shuffles. Head dims
+// up to 128 run through instantiations for 32, 64 and 128, padded with
+// zeros; ragged final tiles are zero-filled on load and masked.
+//
+// The TPU forward casts P to V's dtype to feed the MXU; the products run
+// here on CUDA cores in fp32, so P stays fp32 (the plain PyTorch version
+// does the same). bf16 operands are widened to fp32 on load; outputs are
+// written in the operands' dtype, lse in fp32.
+//
+// What bounds it: at the training shapes (S = 2048, D = 128, causal) each
+// kernel does 4-8 flops per S-pair per head dim, hundreds of flops per
+// byte of its operands, so it is bound by operations: the bf16 tensor
+// core rate, where this simple design runs on fp32 CUDA cores instead.
+// At B = 2, H = 32 (Llama-3-8B training), bf16, counting the causal half:
+//   fwd   QK^T, PV          68.7 GFLOP -> 0.0695 ms at 989 TFLOP/s
+//   dQ    S, dP, dQ         103  GFLOP -> 0.104 ms
+//   dK/dV S, dP, dV, dK     137  GFLOP -> 0.139 ms
+// (134-202 MB of operands, 0.04-0.06 ms at 3.35 TB/s); in fp32, against
+// the 67 TFLOP/s of the CUDA cores, 1.03, 1.54 and 2.05 ms.
+// What it leaves on the table: tensor cores (mma.sync / wgmma), TMA or
+// cp.async pipelining of the next tile behind the current one, and
+// occupancy: the staged tiles take 117-168 KB of shared memory at
+// D = 128, so one block of 256 threads runs per SM (hence the launch
+// bound of one block, which lets each thread keep its accumulators in
+// up to 255 registers). Those belong to the PR that redesigns it.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+
+namespace {
+
+constexpr int kThreads = 256;    // 16 x 16
+constexpr int kTile = 64;        // rows of a q tile and of a k tile
+constexpr int kPad = kTile + 1;  // stride of a d-major staged tile
+constexpr int kPS = kTile + 4;   // stride of a row of a score tile
+constexpr float kNegInf = -1e30f;
+
+enum DType { kF32 = 0, kBF16 = 1 };
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Sum / max over the 16 lanes that share a row (tx = lane % 16). The
+// butterfly leaves the identical value in every one of them.
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// Stage rows [row0, row0 + kTile) of one (rows, D) slice into shared
+// memory, d-major: dst[d * kPad + r]. Rows past `rows` and dims past D
+// (up to DP) are zero. Consecutive threads read consecutive elements.
+template <int DP, typename T>
+__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
+                                      int row0, int rows, int D) {
+  for (int i = threadIdx.x; i < kTile * DP; i += kThreads) {
+    const int r = i / DP;
+    const int d = i % DP;
+    float x = 0.f;
+    if (row0 + r < rows && d < D)
+      x = to_float(src[static_cast<size_t>(row0 + r) * D + d]);
+    dst[d * kPad + r] = x;
+  }
+}
+
+__device__ __forceinline__ bool visible(int row, int col, int sq, int sk,
+                                        int causal) {
+  return row < sq && col < sk && (!causal || row >= col);
+}
+
+// ------------------------------------------------------------- forward
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+    fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, T* __restrict__ o,
+               float* __restrict__ lse, int sq, int sk, int D, float scale,
+               int causal) {
+  constexpr int NC = DP / 16;  // output dims per thread
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* ks = qs + DP * kPad;
+  float* vs = ks + DP * kPad;
+  float* ps = vs + DP * kPad;  // kTile x kPS
+
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int n_qt = (sq + kTile - 1) / kTile;
+  const int q0 = (n_qt - 1 - blockIdx.x) * kTile;  // longest causal rows first
+  const size_t bh = blockIdx.y;
+  const T* qb = q + bh * sq * D;
+  const T* kb = k + bh * sk * D;
+  const T* vb = v + bh * sk * D;
+
+  stage<DP>(qs, qb, q0, sq, D);
+  float m[4], l[4], acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  }
+  int n_kt = (sk + kTile - 1) / kTile;
+  if (causal) n_kt = min(n_kt, (q0 + kTile - 1) / kTile + 1);
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();  // the previous tile's reads of ks, vs, ps are done
+    stage<DP>(ks, kb, k0, sk, D);
+    stage<DP>(vs, vb, k0, sk, D);
+    __syncthreads();
+
+    float s[4][4] = {};
+#pragma unroll 8
+    for (int d = 0; d < DP; ++d) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = qs[d * kPad + ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = ks[d * kPad + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // a row past sq sees nothing: its m stays kNegInf, its l 0, and it
+      // is never written
+      const int row = q0 + ty * 4 + i;
+      bool ok[4];
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        ok[j] = visible(row, k0 + tx + 16 * j, sq, sk, causal);
+        s[i][j] = ok[j] ? s[i][j] * scale : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      const float alpha = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // masked columns give exactly 0, even while m_new is kNegInf
+        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
+        ps[(ty * 4 + i) * kPS + tx + 16 * j] = p;
+        sum += p;
+      }
+      l[i] = alpha * l[i] + row_sum(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();
+
+#pragma unroll 8
+    for (int j = 0; j < kTile; ++j) {
+      float p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = ps[(ty * 4 + i) * kPS + j];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const float w = vs[(tx + 16 * c) * kPad + j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], w, acc[i][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    if (row >= sq) continue;
+    const float ls = l[i] == 0.f ? 1.f : l[i];
+    T* orow = o + (bh * sq + row) * D;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int d = tx + 16 * c;
+      if (d < D) orow[d] = from_float<T>(acc[i][c] / ls);
+    }
+    if (tx == 0) lse[bh * sq + row] = m[i] + logf(ls);
+  }
+}
+
+// ------------------------------------------------------------------ dQ
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+    dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              T* __restrict__ dq, int sq, int sk, int D, float scale,
+              int causal) {
+  constexpr int NC = DP / 16;
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* dos = qs + DP * kPad;
+  float* ks = dos + DP * kPad;
+  float* vs = ks + DP * kPad;
+  float* dss = vs + DP * kPad;  // kTile x kPS
+
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int n_qt = (sq + kTile - 1) / kTile;
+  const int q0 = (n_qt - 1 - blockIdx.x) * kTile;
+  const size_t bh = blockIdx.y;
+  const T* kb = k + bh * sk * D;
+  const T* vb = v + bh * sk * D;
+
+  stage<DP>(qs, q + bh * sq * D, q0, sq, D);
+  stage<DP>(dos, dout + bh * sq * D, q0, sq, D);
+  float lr[4], dr[4], acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    lr[i] = row < sq ? lse[bh * sq + row] : 0.f;
+    dr[i] = row < sq ? delta[bh * sq + row] : 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  }
+  int n_kt = (sk + kTile - 1) / kTile;
+  if (causal) n_kt = min(n_kt, (q0 + kTile - 1) / kTile + 1);
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();
+    stage<DP>(ks, kb, k0, sk, D);
+    stage<DP>(vs, vb, k0, sk, D);
+    __syncthreads();
+
+    float s[4][4] = {}, dp[4][4] = {};
+#pragma unroll 4
+    for (int d = 0; d < DP; ++d) {
+      float a[4], g[4], b[4], w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = qs[d * kPad + ty * 4 + i];
+        g[i] = dos[d * kPad + ty * 4 + i];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        b[j] = ks[d * kPad + tx + 16 * j];
+        w[j] = vs[d * kPad + tx + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(a[i], b[j], s[i][j]);
+          dp[i][j] = fmaf(g[i], w[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool ok =
+            visible(q0 + ty * 4 + i, k0 + tx + 16 * j, sq, sk, causal);
+        const float p = ok ? expf(s[i][j] * scale - lr[i]) : 0.f;
+        dss[(ty * 4 + i) * kPS + tx + 16 * j] =
+            ok ? p * (dp[i][j] - dr[i]) * scale : 0.f;
+      }
+    __syncthreads();
+
+#pragma unroll 8
+    for (int j = 0; j < kTile; ++j) {
+      float ds[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ds[i] = dss[(ty * 4 + i) * kPS + j];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const float kk = ks[(tx + 16 * c) * kPad + j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(ds[i], kk, acc[i][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    if (row >= sq) continue;
+    T* drow = dq + (bh * sq + row) * D;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int d = tx + 16 * c;
+      if (d < D) drow[d] = from_float<T>(acc[i][c]);
+    }
+  }
+}
+
+// --------------------------------------------------------------- dK/dV
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+    dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const T* __restrict__ dout,
+               const float* __restrict__ lse,
+               const float* __restrict__ delta, T* __restrict__ dk,
+               T* __restrict__ dv, int sq, int sk, int D, float scale,
+               int causal) {
+  constexpr int NC = DP / 16;
+  extern __shared__ float smem[];
+  float* ks = smem;
+  float* vs = ks + DP * kPad;
+  float* qs = vs + DP * kPad;
+  float* dos = qs + DP * kPad;
+  float* pts = dos + DP * kPad;  // kTile x kPS: P^T of the tile
+  float* dst = pts + kTile * kPS;  // kTile x kPS: dS^T of the tile
+  float* ls = dst + kTile * kPS;   // lse of the tile's q rows
+  float* dl = ls + kTile;          // delta of the tile's q rows
+
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int k0 = blockIdx.x * kTile;
+  const size_t bh = blockIdx.y;
+  const T* qb = q + bh * sq * D;
+  const T* ob = dout + bh * sq * D;
+
+  stage<DP>(ks, k + bh * sk * D, k0, sk, D);
+  stage<DP>(vs, v + bh * sk * D, k0, sk, D);
+  float dka[4][NC], dva[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) dka[i][c] = dva[i][c] = 0.f;
+
+  const int n_qt = (sq + kTile - 1) / kTile;
+  // the first q tile holding a row >= k0 (rows below see none of k0..)
+  const int qt0 = causal ? k0 / kTile : 0;
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int q0 = qt * kTile;
+    __syncthreads();
+    stage<DP>(qs, qb, q0, sq, D);
+    stage<DP>(dos, ob, q0, sq, D);
+    for (int r = threadIdx.x; r < kTile; r += kThreads) {
+      const bool in = q0 + r < sq;
+      ls[r] = in ? lse[bh * sq + q0 + r] : 0.f;
+      dl[r] = in ? delta[bh * sq + q0 + r] : 0.f;
+    }
+    __syncthreads();
+
+    // thread (ty, tx): key rows ty*4+i, q rows tx+16j
+    float s[4][4] = {}, dp[4][4] = {};
+#pragma unroll 4
+    for (int d = 0; d < DP; ++d) {
+      float a[4], w[4], b[4], g[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = ks[d * kPad + ty * 4 + i];
+        w[i] = vs[d * kPad + ty * 4 + i];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        b[j] = qs[d * kPad + tx + 16 * j];
+        g[j] = dos[d * kPad + tx + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(a[i], b[j], s[i][j]);
+          dp[i][j] = fmaf(w[i], g[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = tx + 16 * j;
+        const bool ok = visible(q0 + r, k0 + ty * 4 + i, sq, sk, causal);
+        const float p = ok ? expf(s[i][j] * scale - ls[r]) : 0.f;
+        pts[(ty * 4 + i) * kPS + r] = p;
+        dst[(ty * 4 + i) * kPS + r] =
+            ok ? p * (dp[i][j] - dl[r]) * scale : 0.f;
+      }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int r = 0; r < kTile; ++r) {
+      float p[4], ds[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        p[i] = pts[(ty * 4 + i) * kPS + r];
+        ds[i] = dst[(ty * 4 + i) * kPS + r];
+      }
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const float g = dos[(tx + 16 * c) * kPad + r];
+        const float a = qs[(tx + 16 * c) * kPad + r];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          dva[i][c] = fmaf(p[i], g, dva[i][c]);
+          dka[i][c] = fmaf(ds[i], a, dka[i][c]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = k0 + ty * 4 + i;
+    if (row >= sk) continue;
+    T* krow = dk + (bh * sk + row) * D;
+    T* vrow = dv + (bh * sk + row) * D;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int d = tx + 16 * c;
+      if (d < D) {
+        krow[d] = from_float<T>(dka[i][c]);
+        vrow[d] = from_float<T>(dva[i][c]);
+      }
+    }
+  }
+}
+
+// Shared memory of each kernel, in floats, for padded head dim DP.
+size_t fwd_floats(int dp) { return 3 * dp * kPad + kTile * kPS; }
+size_t dq_floats(int dp) { return 4 * dp * kPad + kTile * kPS; }
+size_t dkv_floats(int dp) {
+  return 4 * dp * kPad + 2 * kTile * kPS + 2 * kTile;
+}
+
+template <typename K>
+cudaError_t prepare(K kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+int padded_dim(int d) { return d <= 32 ? 32 : d <= 64 ? 64 : 128; }
+
+template <typename T, int DP>
+cudaError_t fwd_typed(const void* q, const void* k, const void* v, void* o,
+                      void* lse, int bh, int sq, int sk, int d, float scale,
+                      int causal, cudaStream_t stream) {
+  auto kernel = fwd_kernel<T, DP>;
+  const size_t smem = fwd_floats(DP) * sizeof(float);
+  cudaError_t e = prepare(kernel, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((sq + kTile - 1) / kTile, bh);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+      sq, sk, d, scale, causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int DP>
+cudaError_t dq_typed(const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     void* dq, int bh, int sq, int sk, int d, float scale,
+                     int causal, cudaStream_t stream) {
+  auto kernel = dq_kernel<T, DP>;
+  const size_t smem = dq_floats(DP) * sizeof(float);
+  cudaError_t e = prepare(kernel, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((sq + kTile - 1) / kTile, bh);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dq), sq, sk, d, scale, causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int DP>
+cudaError_t dkv_typed(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      void* dk, void* dv, int bh, int sq, int sk, int d,
+                      float scale, int causal, cudaStream_t stream) {
+  auto kernel = dkv_kernel<T, DP>;
+  const size_t smem = dkv_floats(DP) * sizeof(float);
+  cudaError_t e = prepare(kernel, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((sk + kTile - 1) / kTile, bh);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, d, scale, causal);
+  return cudaGetLastError();
+}
+
+bool args_ok(int bh, int sq, int sk, int d, int dtype) {
+  return bh >= 1 && bh <= 65535 && sq >= 1 && sk >= 1 && d >= 1 &&
+         d <= 128 && (dtype == kF32 || dtype == kBF16);
+}
+
+}  // namespace
+
+// Pick the instantiation for (dtype, padded head dim) and call F with it.
+#define FA_DISPATCH(F, ...)                                              \
+  if (!args_ok(bh, sq, sk, d, dtype))                                    \
+    return static_cast<int>(cudaErrorInvalidValue);                      \
+  cudaStream_t s = static_cast<cudaStream_t>(stream);                    \
+  const int dp = padded_dim(d);                                          \
+  if (dtype == kF32) {                                                   \
+    if (dp == 32) return F<float, 32>(__VA_ARGS__, s);                   \
+    if (dp == 64) return F<float, 64>(__VA_ARGS__, s);                   \
+    return F<float, 128>(__VA_ARGS__, s);                                \
+  }                                                                      \
+  if (dp == 32) return F<__nv_bfloat16, 32>(__VA_ARGS__, s);             \
+  if (dp == 64) return F<__nv_bfloat16, 64>(__VA_ARGS__, s);             \
+  return F<__nv_bfloat16, 128>(__VA_ARGS__, s)
+
+extern "C" {
+
+const char* fa_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Bytes of dynamic shared memory each kernel needs at head_dim d.
+size_t fa_smem_bytes(int kernel, int d) {
+  const int dp = padded_dim(d);
+  const size_t f = kernel == 0 ? fwd_floats(dp)
+                   : kernel == 1 ? dq_floats(dp)
+                                 : dkv_floats(dp);
+  return f * sizeof(float);
+}
+
+// Operands are contiguous (bh, sq|sk, d) slices in `dtype` (0 fp32, 1
+// bf16); lse and delta are (bh, sq) fp32. Each call launches one kernel
+// on `stream`, allocates nothing, and returns cudaGetLastError().
+int fa_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+           int bh, int sq, int sk, int d, float scale, int causal, int dtype,
+           void* stream) {
+  FA_DISPATCH(fwd_typed, q, k, v, o, lse, bh, sq, sk, d, scale, causal);
+}
+
+int fa_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, void* dq, int bh, int sq,
+              int sk, int d, float scale, int causal, int dtype,
+              void* stream) {
+  FA_DISPATCH(dq_typed, q, k, v, dout, lse, delta, dq, bh, sq, sk, d, scale,
+              causal);
+}
+
+int fa_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* dk, void* dv,
+               int bh, int sq, int sk, int d, float scale, int causal,
+               int dtype, void* stream) {
+  FA_DISPATCH(dkv_typed, q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d,
+              scale, causal);
+}
+
+}  // extern "C"

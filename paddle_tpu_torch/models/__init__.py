@@ -1,2 +1,2 @@
-"""Llama configuration, stacked parameters, and the serving step and
-engine (counterpart of `paddle_tpu/models`)."""
+"""Llama configuration, stacked parameters, the serving step and
+engine, and the pretrain step (counterpart of `paddle_tpu/models`)."""

@@ -1,1 +1,2 @@
-"""Tensor ops of the serving step (counterpart of `paddle_tpu/ops`)."""
+"""Tensor ops of the serving and training steps (counterpart of
+`paddle_tpu/ops`)."""

@@ -101,3 +101,18 @@ def test_build_is_lazy_and_names_the_sources():
     lib = _build.lib_path(name)
     assert lib.parent == _build.BUILD_DIR
     assert lib.name.startswith(name + "-") and lib.suffix == ".so"
+
+
+def test_make_train_step_without_device_raises_on_a_box_without_cuda(
+        no_card):
+    from paddle_tpu_torch.models.llama_spmd import make_train_step
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_train_step(LlamaConfig.tiny())
+
+
+def test_flash_attention_has_its_own_source():
+    from paddle_tpu_torch.kernels import _build
+    assert (_build.CSRC / "flash_attention.cu").is_file()
+    lib = _build.lib_path("flash_attention")
+    assert lib.name.startswith("flash_attention-") and lib.suffix == ".so"
+    assert lib != _build.lib_path("ragged_paged_attention")

@@ -31,6 +31,8 @@ def _group(name):
     n = name.lower()
     if "ragged_kernel" in n:
         return "attention (ragged_paged_attention.cu)"
+    if any(s in n for s in ("fwd_kernel", "dq_kernel", "dkv_kernel")):
+        return "attention (flash_attention.cu)"
     if any(s in n for s in ("gemm", "xmma", "cutlass", "nvjet", "matmul")):
         return "matmul"
     return "other"
