@@ -51,7 +51,26 @@ non-zero):
                params, fp32 AdamW state, remat on, batch 2 x 2048, 6 steps
                on one fixed batch: median step time, tokens/s, the
                model-flops share of 989 TFLOP/s, peak memory, and losses
-               that are finite and fall.
+               that are finite and fall;
+  9. mask_kernel — the three FlashMask kernels (forward, dQ, dK/dV)
+               against their plain versions, bf16 and fp32: (a) at the
+               packed-document shape of Llama-3-8B training (B=1, H=32,
+               S=8192, D=128, eight documents of 192-3000 tokens, the
+               (1, 1, S, 1) mask from doc_end_indices), with times;
+               `bound_ms` counts the kept pairs exactly from the mask and
+               each operand byte once; `library_ms` is
+               F.scaled_dot_product_attention (is_causal) once per
+               document, summed (forward; forward + backward minus forward
+               for dQ and dK/dV), a yardstick only; `causal_only_ms` is
+               the same kernel with no mask, and each kernel must take
+               less than half of it (the block skip); (b) correctness
+               over every mask flavor at B=2, H=4, S=1000, D=64 and 128;
+ 10. packed_parity — train_parity with packed documents: batch 2 x 512,
+               row 0 four documents, row 1 one, card against CPU;
+ 11. train_packed — the train phase's model on one 1 x 8192 row of the
+               eight documents: median step, tokens/s, the model-flops
+               share (attention charged at the full 12 L H S, and as
+               kept), peak memory, falling losses.
 
 The line before the last lists every kernel with its launches on the
 main path, its error against the plain version and its times; the last
@@ -70,14 +89,19 @@ import sys
 import time
 
 PHASES = ("device", "build", "kernel", "parity", "serve", "train_kernel",
-          "train_parity", "train")
-SOURCES = ("ragged_paged_attention", "flash_attention")
+          "train_parity", "train", "mask_kernel", "packed_parity",
+          "train_packed")
+SOURCES = ("ragged_paged_attention", "flash_attention", "flashmask_attention")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # fp32 CUDA cores; bf16 dense
 TPU_KERNEL = "paddle_tpu/kernels/ragged_paged_attention.py:185"
 FLASH_TPU_KERNELS = {"flash_fwd": "paddle_tpu/ops/flash_attention.py:107",
                      "flash_bwd_dq": "paddle_tpu/ops/flash_attention.py:220",
                      "flash_bwd_dkv": "paddle_tpu/ops/flash_attention.py:277"}
+FLASHMASK_TPU_KERNELS = {
+    "flashmask_fwd": "paddle_tpu/ops/flashmask_attention.py:248",
+    "flashmask_bwd_dq": "paddle_tpu/ops/flashmask_attention.py:305",
+    "flashmask_bwd_dkv": "paddle_tpu/ops/flashmask_attention.py:353"}
 
 
 def emit(obj):
@@ -513,30 +537,49 @@ FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 LSE_TOL = (1e-5, 1e-5)
 
 
-def _flash_counts():
+def _train_counts():
+    """Launches of the six training kernels, by kernel name."""
     import paddle_tpu_torch.ops.flash_attention as fa
+    import paddle_tpu_torch.ops.flashmask_attention as fm
     return {"flash_fwd": fa.launches_fwd, "flash_bwd_dq": fa.launches_dq,
-            "flash_bwd_dkv": fa.launches_dkv}
+            "flash_bwd_dkv": fa.launches_dkv,
+            "flashmask_fwd": fm.launches_fwd,
+            "flashmask_bwd_dq": fm.launches_dq,
+            "flashmask_bwd_dkv": fm.launches_dkv}
 
 
-def _reset_flash_counts():
+def _reset_train_counts():
     import paddle_tpu_torch.ops.flash_attention as fa
+    import paddle_tpu_torch.ops.flashmask_attention as fm
     fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+    fm.launches_fwd = fm.launches_dq = fm.launches_dkv = 0
 
 
-def _flash_bound(kernel, dtype, b, h, s, d):
-    """Least time for one causal call: flops over the causal pairs
-    (4, 6, 8 flops per pair and head dim: QK^T and PV; S, dP and dQ; S,
-    dP, dV and dK) over the peak for the dtype, or each operand byte
-    once over the memory rate."""
-    pairs = s * (s + 1) // 2
-    flops = {"flash_fwd": 4, "flash_bwd_dq": 6,
-             "flash_bwd_dkv": 8}[kernel] * b * h * d * pairs
+def _want_counts(family, layers, steps):
+    """The launches of `steps` remat steps of `layers` layers on one
+    family of kernels ("flash" or "flashmask"), none on the other: the
+    forward twice per layer and step (forward and recompute), dQ and
+    dK/dV once."""
+    want = {k: 0 for k in _train_counts()}
+    want.update({f"{family}_fwd": 2 * layers * steps,
+                 f"{family}_bwd_dq": layers * steps,
+                 f"{family}_bwd_dkv": layers * steps})
+    return want
+
+
+def _attn_bound(kernel, dtype, b, h, s, d, pairs, extra_bytes=0):
+    """Least time for one attention call: flops over the `pairs` (summed
+    over batch and heads) it computes (4, 6, 8 flops per pair and head
+    dim: QK^T and PV; S, dP and dQ; S, dP, dV and dK) over the peak for
+    the dtype, or each operand byte once (plus `extra_bytes`, a mask)
+    over the memory rate. `kernel` ends in fwd, dq or dkv."""
+    kind = kernel.rsplit("_", 1)[1]
+    flops = {"fwd": 4, "dq": 6, "dkv": 8}[kind] * d * pairs
     big = b * h * s * d * (4 if dtype == "float32" else 2)
     vec = b * h * s * 4                                   # lse, delta
-    nbytes = {"flash_fwd": 4 * big + vec,       # q k v in, o and lse out
-              "flash_bwd_dq": 5 * big + 2 * vec,   # q k v dO lse delta, dQ
-              "flash_bwd_dkv": 6 * big + 2 * vec}[kernel]  # ..., dK dV
+    nbytes = extra_bytes + {"fwd": 4 * big + vec,  # q k v in, o, lse out
+                            "dq": 5 * big + 2 * vec,  # q k v dO lse delta, dQ
+                            "dkv": 6 * big + 2 * vec}[kind]  # ..., dK dV
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
@@ -568,20 +611,13 @@ def phase_train_kernel(card):
         dq_ref = fa.flash_bwd_dq_reference(*args)
         dk_ref, dv_ref = fa.flash_bwd_dkv_reference(*args)
         atol, rtol = TOL[dname]
-        pairs = {"flash_fwd": [(o, o_ref)], "flash_bwd_dq": [(dq, dq_ref)],
-                 "flash_bwd_dkv": [(dk, dk_ref), (dv, dv_ref)]}
-        if not torch.allclose(lse, lse_ref, atol=LSE_TOL[0],
-                              rtol=LSE_TOL[1]):
-            fail(f"flash_fwd ({dname}): lse off by "
-                 f"{float((lse - lse_ref).abs().max())}")
-        errs = {}
-        for kname, ps in pairs.items():
-            errs[kname] = max(float((a.float() - r.float()).abs().max())
-                              for a, r in ps)
-            if not all(torch.allclose(a.float(), r.float(), atol=atol,
-                                      rtol=rtol) for a, r in ps):
-                fail(f"{kname} ({dname}) vs plain: max |err| {errs[kname]}")
-        lse_err = float((lse - lse_ref).abs().max())
+        errs = _check_kernels(
+            "train_kernel", dname,
+            {"flash_fwd": [o], "flash_bwd_dq": [dq],
+             "flash_bwd_dkv": [dk, dv]},
+            {"flash_fwd": [o_ref], "flash_bwd_dq": [dq_ref],
+             "flash_bwd_dkv": [dk_ref, dv_ref]}, lse, lse_ref)
+        lse_err = errs["lse"]
         del o, lse, dq, dk, dv, dq_ref, dk_ref, dv_ref
         kernel_ms = {
             "flash_fwd": cuda_ms(lambda: fa._launch_fwd(q, k, v, True, scale),
@@ -606,8 +642,8 @@ def phase_train_kernel(card):
         library_ms = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd,
                       "flash_bwd_dkv": lib_bwd}
         for kname in FLASH_KERNELS:
-            bound_ms, bound_by, nbytes, flops = _flash_bound(
-                kname, dname, b, h, s, d)
+            bound_ms, bound_by, nbytes, flops = _attn_bound(
+                kname, dname, b, h, s, d, b * h * s * (s + 1) // 2)
             row = {"phase": "train_kernel", "card": card, "kernel": kname,
                    "dtype": dname, "shape_bhsd": [b, h, s, d],
                    "causal": True, "atol": atol, "rtol": rtol,
@@ -659,126 +695,201 @@ def _train_batch(vocab, b, s, seed):
 PARITY_GRAD_RTOL, PARITY_GRAD_SCALE = 1e-3, 1e-4
 
 
-def phase_train_parity(card):
+def _step_parity(name, cfg, batch_np, steps, lr, family):
+    """`steps` steps of make_train_step from the same fp32 weights on the
+    card and on the CPU, held to the limits above; the kernels of
+    `family` must launch on the card (none of the other family) and
+    nothing on the CPU. Returns the phase's measurements."""
     import torch
     from paddle_tpu_torch.models import llama_spmd as T
-    from paddle_tpu_torch.models.llama import LlamaConfig
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_hidden_layers=1,
-                              vocab_size=4096)
-    b, s, steps, lr = 1, 512, 2, 3e-4
-    ids, labels = _train_batch(cfg.vocab_size, b, s, seed=3)
     cpu_params = T.init_params(cfg, seed=0, dtype=torch.float32,
                                device="cpu")
     res = {}
     for dev in ("cuda", "cpu"):
         params = _tree_to(cpu_params, dev)
         opt = T.init_opt_state(params)
-        batch = (torch.from_numpy(ids).to(dev),
-                 torch.from_numpy(labels).to(dev))
+        batch = tuple(torch.from_numpy(a).to(dev) for a in batch_np)
         _, grads = T.loss_and_grads(params, batch, cfg, remat=True)
         grads = [g.cpu() for g in T._leaves(grads)]
         step = T.make_train_step(cfg, remat=True, lr=lr, device=dev)
-        _reset_flash_counts()
+        _reset_train_counts()
         t0 = time.perf_counter()
         losses = [float(step(params, opt, i, batch)[2]) for i in range(steps)]
         res[dev] = {"losses": losses, "grads": grads,
                     "params": [p.cpu() for p in T._leaves(params)],
-                    "launches": _flash_counts(),
+                    "launches": _train_counts(),
                     "seconds": time.perf_counter() - t0}
         del params, opt, batch
     del cpu_params
     torch.cuda.empty_cache()
-    L = cfg.num_hidden_layers
-    want = {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
-            "flash_bwd_dkv": L * steps}
+    want = _want_counts(family, cfg.num_hidden_layers, steps)
     if res["cuda"]["launches"] != want:
-        fail(f"train_parity: launches {res['cuda']['launches']}, want {want}")
+        fail(f"{name}: launches {res['cuda']['launches']}, want {want}")
     if any(res["cpu"]["launches"].values()):
-        fail("train_parity: the CPU step launched a CUDA kernel")
+        fail(f"{name}: the CPU step launched a CUDA kernel")
     gpu, cpu = res["cuda"], res["cpu"]
     loss_err = [abs(a - c) for a, c in zip(gpu["losses"], cpu["losses"])]
     if any(e > 1e-5 * abs(c) + 1e-5
            for e, c in zip(loss_err, cpu["losses"])):
-        fail(f"train_parity: losses {gpu['losses']} vs {cpu['losses']}")
+        fail(f"{name}: losses {gpu['losses']} vs {cpu['losses']}")
     grad_worst = 0.0        # largest |err| / (allowed |err|)
     for a, c in zip(gpu["grads"], cpu["grads"]):
         allowed = (PARITY_GRAD_RTOL * c.abs()
                    + PARITY_GRAD_SCALE * float(c.abs().max()) + 1e-30)
         grad_worst = max(grad_worst, float(((a - c).abs() / allowed).max()))
     if grad_worst > 1.0:
-        fail(f"train_parity: step-1 gradients off, worst {grad_worst} of "
-             "the tolerance")
+        fail(f"{name}: step-1 gradients off, worst {grad_worst} of the "
+             "tolerance")
     p_err = max(float((a - c).abs().max())
                 for a, c in zip(gpu["params"], cpu["params"]))
     p_rel = max(float((a - c).norm() / c.norm())
                 for a, c in zip(gpu["params"], cpu["params"]))
     if p_err > 2.5 * lr * steps or p_rel > 1e-5:
-        fail(f"train_parity: parameters off by {p_err} (relative norm "
-             f"{p_rel})")
+        fail(f"{name}: parameters off by {p_err} (relative norm {p_rel})")
+    return {"steps": steps, "losses_cuda": gpu["losses"],
+            "losses_cpu": cpu["losses"], "loss_abs_err": loss_err,
+            "grad_worst_share_of_tol": grad_worst,
+            "param_max_abs_err": p_err, "param_max_rel_norm_err": p_rel,
+            "launches": gpu["launches"], "cuda_seconds": gpu["seconds"],
+            "cpu_seconds": cpu["seconds"]}
+
+
+def _parity_config():
+    """Llama-3-8B widths at depth 1 with the vocabulary cut to 4096, so
+    that the CPU side takes seconds; TF32 off."""
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return dataclasses.replace(LlamaConfig.llama3_8b(), num_hidden_layers=1,
+                               vocab_size=4096)
+
+
+def phase_train_parity(card):
+    cfg = _parity_config()
+    batch = _train_batch(cfg.vocab_size, 1, 512, seed=3)
     emit({"phase": "train_parity", "card": card,
           "config": "llama3_8b widths, 1 layer, vocab 4096, fp32, TF32 off, "
-                    "remat, batch 1 x 512", "steps": steps,
-          "losses_cuda": gpu["losses"], "losses_cpu": cpu["losses"],
-          "loss_abs_err": loss_err,
-          "grad_worst_share_of_tol": grad_worst,
-          "param_max_abs_err": p_err, "param_max_rel_norm_err": p_rel,
-          "launches": gpu["launches"], "cuda_seconds": gpu["seconds"],
-          "cpu_seconds": cpu["seconds"]})
+                    "remat, batch 1 x 512",
+          **_step_parity("train_parity", cfg, batch, 2, 3e-4, "flash")})
+
+
+# the packed rows: documents per row, each row summing to its length
+PACKED_PARITY_ROWS = ([200, 150, 100, 62], [512])
+PACKED_DOCS = (3000, 1500, 1200, 900, 700, 400, 300, 192)
+
+
+def _packed_batch(vocab, rows, seed):
+    """(input_ids, labels, doc_ids) of packed rows (`rows`: the document
+    lengths of each row): random tokens from a numpy seed, labels the
+    next token, -1 at each document's last token."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    s = sum(rows[0])
+    toks = rng.integers(0, vocab, (len(rows), s + 1))
+    labels = toks[:, 1:].copy()
+    for r, lens in enumerate(rows):
+        labels[r, np.cumsum(lens) - 1] = -1
+    doc = np.stack([np.repeat(np.arange(len(lens)), lens) for lens in rows])
+    return toks[:, :-1], labels, doc
+
+
+def phase_packed_parity(card):
+    cfg = _parity_config()
+    batch = _packed_batch(cfg.vocab_size, PACKED_PARITY_ROWS, seed=3)
+    emit({"phase": "packed_parity", "card": card,
+          "config": "llama3_8b widths, 1 layer, vocab 4096, fp32, TF32 off, "
+                    "remat, batch 2 x 512 packed: documents "
+                    f"{list(map(list, PACKED_PARITY_ROWS))}",
+          **_step_parity("packed_parity", cfg, batch, 2, 3e-4, "flashmask")})
 
 
 TRAIN_CONFIG = ("llama3_8b widths, 4 layers, bf16 params, fp32 AdamW state, "
                 "remat, random weights (seed 0), batch 2 x 2048")
+TRAIN_PACKED_CONFIG = ("llama3_8b widths, 4 layers, bf16 params, fp32 AdamW "
+                       "state, remat, random weights (seed 0), batch 1 x "
+                       f"8192 packed: documents {list(PACKED_DOCS)}")
 
 
-def train_setup():
-    """The train phase's run: Llama-3-8B widths cut to 4 layers, bf16
-    random weights from seed 0 on the card, fp32 AdamW state, one fixed
-    batch of 2 x 2048 tokens (numpy seed 4), the step with remat on.
-    Returns (config, params, opt_state, batch, step)."""
+def _train_model():
+    """Llama-3-8B widths cut to 4 layers, bf16 random weights from seed 0
+    on the card, fp32 AdamW state, the step with remat on (lr 3e-4,
+    clip 1.0). Returns (config, params, opt_state, step)."""
     import torch
     from paddle_tpu_torch.models import llama_spmd as T
     from paddle_tpu_torch.models.llama import LlamaConfig
     cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_hidden_layers=4)
     params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
-    opt = T.init_opt_state(params)
+    return cfg, params, T.init_opt_state(params), T.make_train_step(
+        cfg, remat=True, device="cuda")
+
+
+def train_setup():
+    """The train phase's run: `_train_model` and one fixed batch of 2 x
+    2048 tokens (numpy seed 4). Returns (config, params, opt_state,
+    batch, step)."""
+    import torch
+    cfg, params, opt, step = _train_model()
     ids, labels = _train_batch(cfg.vocab_size, 2, 2048, seed=4)
     batch = (torch.from_numpy(ids).cuda(), torch.from_numpy(labels).cuda())
-    return cfg, params, opt, batch, T.make_train_step(cfg, remat=True,
-                                                      device="cuda")
+    return cfg, params, opt, batch, step
 
 
-def phase_train(card):
+def train_packed_setup():
+    """The train_packed phase's run: `_train_model` and one fixed row of
+    8192 tokens (numpy seed 5) packing the eight documents of
+    PACKED_DOCS. Returns (config, params, opt_state, batch, step)."""
+    import torch
+    cfg, params, opt, step = _train_model()
+    batch = _packed_batch(cfg.vocab_size, [PACKED_DOCS], seed=5)
+    return cfg, params, opt, tuple(torch.from_numpy(a).cuda()
+                                   for a in batch), step
+
+
+def _attention_pairs(batch):
+    """Query-key pairs one head attends to over the batch: causal, and
+    within each document when the batch carries doc_ids."""
+    import numpy as np
+    ids = batch[0]
+    b, s = ids.shape
+    if len(batch) < 3:
+        return b * s * (s + 1) // 2
+    doc = batch[2].cpu().numpy()
+    lens = [np.unique(row, return_counts=True)[1] for row in doc]
+    return int(sum((n * (n + 1) // 2).sum() for n in lens))
+
+
+def _train_run(card, phase, config, setup, family):
+    """Six steps of `setup`'s run on its one fixed batch: launches of
+    `family`'s kernels only, finite and falling losses; the phase row."""
     import gc
     import statistics as st
     import torch
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    cfg, params, opt, batch, step = train_setup()
+    cfg, params, opt, batch, step = setup()
     (b, s), steps = batch[0].shape, 6
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    _reset_flash_counts()
+    _reset_train_counts()
     losses, times = [], []
     for i in range(steps):
         t0 = time.perf_counter()
         _, _, loss = step(params, opt, i, batch)
         losses.append(loss.item())          # waits for the step
         times.append((time.perf_counter() - t0) * 1e3)
-    launches = _flash_counts()
+    launches = _train_counts()
     peak = torch.cuda.max_memory_allocated()
     L = cfg.num_hidden_layers
-    want = {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
-            "flash_bwd_dkv": L * steps}
+    want = _want_counts(family, L, steps)
     if launches != want:
-        fail(f"train: launches {launches}, want {want}")
+        fail(f"{phase}: launches {launches}, want {want}")
     if not all(math.isfinite(x) for x in losses):
-        fail(f"train: losses not finite: {losses}")
+        fail(f"{phase}: losses not finite: {losses}")
     if not losses[-1] < losses[0]:
-        fail(f"train: loss did not fall: {losses}")
+        fail(f"{phase}: loss did not fall: {losses}")
     # model flops per token, the strict convention of bench.py: 6 N over
     # the matmul parameters (lm_head once, no embedding gather) plus
     # attention charged at the full (non-causal) 12 L H S
@@ -786,13 +897,21 @@ def phase_train(card):
     kv = cfg.num_key_value_heads * (H // cfg.num_attention_heads)
     n_layers = L * (2 * H * H + 2 * H * kv + 3 * H * F_)
     flops_tok = 6 * (n_layers + V * H) + 12 * L * H * s
+    # attention as the step computes it: 12 L H flops per pair kept
+    attn_kept = 12 * L * H * _attention_pairs(batch)
     step_ms = st.median(times[1:])          # the first step allocates
     tok_s = b * s / (step_ms / 1e3)
-    row = {"phase": "train", "card": card, "config": TRAIN_CONFIG,
+    kept_flops = 6 * (n_layers + V * H) * b * s + attn_kept
+    row = {"phase": phase, "card": card, "config": config,
            "steps": steps, "losses": losses, "step_ms": times,
            "median_step_ms": step_ms, "tokens_per_s": tok_s,
            "model_flops_per_token": flops_tok,
+           "model_flops_convention": "bench.py strict: 6 N per token "
+                                     "plus attention at the full 12 L H S",
            "model_flops_share_of_989T": flops_tok * tok_s / 989e12,
+           "attention_flops_strict_per_step": 12 * L * H * s * b * s,
+           "attention_flops_kept_per_step": attn_kept,
+           "kept_flops_share_of_989T": kept_flops / (step_ms / 1e3) / 989e12,
            "max_memory_allocated_gb": peak / 1e9, "launches": launches,
            "params_and_state_init_s": init_s}
     emit(row)
@@ -800,6 +919,283 @@ def phase_train(card):
     gc.collect()
     torch.cuda.empty_cache()
     return row
+
+
+def phase_train(card):
+    return _train_run(card, "train", TRAIN_CONFIG, train_setup, "flash")
+
+
+def phase_train_packed(card):
+    return _train_run(card, "train_packed", TRAIN_PACKED_CONFIG,
+                      train_packed_setup, "flashmask")
+
+
+# ------------------------------------------------------------- FlashMask
+MASK_ATTN = {"B": 1, "H": 32, "S": 8192, "D": 128}
+FLASHMASK_KERNELS = ("flashmask_fwd", "flashmask_bwd_dq", "flashmask_bwd_dkv")
+# The plain versions run over slices of 8 heads at the packed shape: one
+# (1, 32, 8192, 8192) fp32 score tensor is 8.6 GB and the backward holds
+# several. The kernels run on all 32 heads at once.
+PLAIN_HEADS = 8
+
+
+def _by_heads(fn, *args):
+    """fn(*args) over slices of PLAIN_HEADS heads, concatenated: every
+    tensor argument with the heads' count on dim 1 is sliced, the shared
+    (B, 1, S, n) mask is not. Without dropout only (its hash takes the
+    head index)."""
+    import torch
+    h = args[0].shape[1]
+    parts = []
+    for a in range(0, h, PLAIN_HEADS):
+        parts.append(fn(*(x[:, a:a + PLAIN_HEADS]
+                          if torch.is_tensor(x) and x.dim() >= 3
+                          and x.shape[1] == h else x for x in args)))
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p, dim=1) for p in zip(*parts))
+    return torch.cat(parts, dim=1)
+
+
+def _kept_pairs(sri):
+    """Pairs an n=1 causal mask (B, 1, S, 1) keeps per head, summed over
+    B: column j keeps rows j .. min(start_j, S) - 1."""
+    import torch
+    s = sri.shape[2]
+    j = torch.arange(s, device=sri.device)
+    return int((sri[..., 0].long().clamp(max=s) - j).clamp(min=0).sum())
+
+
+def _tile_counts(sri, tile=64):
+    """(causal 64 x 64 tiles, those the n=1 mask wholly masks) of row 0:
+    a tile is skipped when its first row is at or past the largest start
+    over its columns, the kernels' test."""
+    import torch
+    start = sri[0, 0, :, 0].long()
+    nt = -(-start.numel() // tile)
+    pad = torch.full((nt * tile - start.numel(),), -(1 << 31),
+                     device=start.device)
+    mx = torch.cat([start, pad]).reshape(nt, tile).amax(1)
+    qt = torch.arange(nt, device=start.device)[:, None]
+    causal = torch.arange(nt, device=start.device)[None, :] <= qt
+    return int(causal.sum()), int((causal & (qt * tile >= mx[None])).sum())
+
+
+def _doc_sdpa(q, k, v, do, lens):
+    """Closures timing F.scaled_dot_product_attention (is_causal) once
+    per document: the forward, and forward + backward (one autograd pass
+    over every document, so that the host adds one engine call, not
+    eight). The per-document copies are made beforehand and not
+    timed."""
+    import torch
+    import torch.nn.functional as F
+    edges = [0]
+    for n in lens:
+        edges.append(edges[-1] + n)
+    docs = [[t[:, :, a:b].contiguous() for t in (q, k, v, do)]
+            for a, b in zip(edges, edges[1:])]
+    grads = [[t.detach().requires_grad_() for t in d[:3]] + [d[3]]
+             for d in docs]
+
+    def fwd():
+        return [F.scaled_dot_product_attention(qd, kd, vd, is_causal=True)
+                for qd, kd, vd, _ in docs]
+
+    def fwd_bwd():
+        torch.autograd.backward(
+            [F.scaled_dot_product_attention(qd, kd, vd, is_causal=True)
+             for qd, kd, vd, _ in grads], [dod for *_, dod in grads])
+    return fwd, fwd_bwd
+
+
+def _check_kernels(label, dname, got, want, lse, lse_ref):
+    """Hold kernel outputs to plain ones (TOL, LSE_TOL); returns the max
+    |error| of each kernel."""
+    import torch
+    atol, rtol = TOL[dname]
+    if not torch.allclose(lse, lse_ref, atol=LSE_TOL[0], rtol=LSE_TOL[1]):
+        fail(f"{label} ({dname}): lse off by "
+             f"{float((lse - lse_ref).abs().max())}")
+    errs = {}
+    for kname in got:
+        pairs = list(zip(got[kname], want[kname]))
+        errs[kname] = max(float((a.float() - r.float()).abs().max())
+                          for a, r in pairs)
+        if not all(torch.allclose(a.float(), r.float(), atol=atol,
+                                  rtol=rtol) for a, r in pairs):
+            fail(f"{label} {kname} ({dname}) vs plain: max |err| "
+                 f"{errs[kname]}")
+    errs["lse"] = float((lse - lse_ref).abs().max())
+    return errs
+
+
+def _mask_case(name, b, h, s, rng):
+    """(sri numpy array or None, causal, window, dropout, seed) of one
+    correctness case of the mask_kernel phase."""
+    import numpy as np
+
+    def band(lo, hi):
+        start = rng.integers(lo, hi, (b, h, s, 1))
+        return start, np.minimum(start + rng.integers(0, s // 4 + 1,
+                                                      (b, h, s, 1)), s)
+    if name == "causal_n2_band":
+        return np.concatenate(band(0, s), -1), True, None, 0.0, None
+    if name == "noncausal_n2":
+        return (np.concatenate([rng.integers(s // 2, s + 1, (b, h, s, 1)),
+                                rng.integers(0, s // 2, (b, h, s, 1))], -1),
+                False, None, 0.0, None)
+    if name == "noncausal_n4":
+        return (np.concatenate([*band(0, s // 4), *band(s // 2, s)], -1),
+                False, None, 0.0, None)
+    if name == "causal_n1_window":
+        return rng.integers(1, s + 1, (b, h, s, 1)), True, (256, 0), 0.0, None
+    if name == "window_no_sri":
+        return None, True, (256, 0), 0.0, None
+    if name == "causal_n1_dropout":
+        return rng.integers(1, s + 1, (b, h, s, 1)), True, None, 0.1, 1234567
+    assert name == "masked_rows"   # rows [s/4, s/2) see nothing
+    sri = np.full((b, 1, s, 1), s, np.int64)
+    sri[:, :, : s // 2] = s // 4
+    return sri, True, None, 0.0, None
+
+
+MASK_CASES = ("causal_n2_band", "noncausal_n2", "noncausal_n4",
+              "causal_n1_window", "window_no_sri", "causal_n1_dropout",
+              "masked_rows")
+
+
+def _mask_flavors(card):
+    """Correctness only: every mask flavor at B=2, H=4, S=1000 (a ragged
+    final tile), D=64 and 128, bf16 and fp32."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch.ops.flashmask_attention as fm
+    b, h, s = 2, 4, 1000
+    errs = {}
+    for name in MASK_CASES:
+        for d in (64, 128):
+            for dname in ("bfloat16", "float32"):
+                rng = np.random.default_rng(d)
+                sri, causal, window, rate, seed = _mask_case(name, b, h, s,
+                                                             rng)
+                g = torch.Generator(device="cuda")
+                g.manual_seed(d)
+                q, k, v, do = (torch.randn((b, h, s, d), generator=g,
+                                           device="cuda").to(
+                    getattr(torch, dname)) for _ in range(4))
+                sri = None if sri is None else torch.from_numpy(
+                    sri.astype(np.int32)).cuda()
+                m = fm._Mask(causal, window, 1.0 / math.sqrt(d), rate, seed)
+                o, lse = fm._launch_fwd(q, k, v, sri, m)
+                o_ref, lse_ref = fm.flashmask_fwd_reference(q, k, v, sri, *m)
+                delta = (do.float() * o_ref.float()).sum(-1)
+                args = (q, k, v, sri, do, lse_ref, delta)
+                dq = fm._launch_dq(*args, m)
+                dk, dv = fm._launch_dkv(*args, m)
+                torch.cuda.synchronize()
+                dk_ref, dv_ref = fm.flashmask_bwd_dkv_reference(*args, *m)
+                got = {"flashmask_fwd": [o], "flashmask_bwd_dq": [dq],
+                       "flashmask_bwd_dkv": [dk, dv]}
+                want = {"flashmask_fwd": [o_ref], "flashmask_bwd_dq":
+                        [fm.flashmask_bwd_dq_reference(*args, *m)],
+                        "flashmask_bwd_dkv": [dk_ref, dv_ref]}
+                errs[f"{name}/d{d}/{dname}"] = _check_kernels(
+                    name, dname, got, want, lse, lse_ref)
+    emit({"phase": "mask_kernel", "card": card, "part": "flavors",
+          "shape_bhsd": [b, h, s, "64|128"], "cases": list(MASK_CASES),
+          "tol": TOL, "lse_tol": LSE_TOL,
+          "max_abs_err": {k: max(v.values()) for k, v in errs.items()}})
+
+
+def phase_mask_kernel(card):
+    import numpy as np
+    import torch
+    import paddle_tpu_torch.ops.flashmask_attention as fm
+    from paddle_tpu_torch.models.llama_spmd import doc_end_indices
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    b, h, s, d = (MASK_ATTN[x] for x in "BHSD")
+    doc = np.repeat(np.arange(len(PACKED_DOCS)), PACKED_DOCS)[None]
+    sri = doc_end_indices(torch.from_numpy(doc).cuda())     # (1, 1, S, 1)
+    pairs = _kept_pairs(sri) * h
+    tiles, skipped = _tile_counts(sri)
+    m = fm._Mask(True, None, 1.0 / math.sqrt(d), 0.0, None)
+    out = {}
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(0)
+        q, k, v, do = (torch.randn((b, h, s, d), generator=g,
+                                   device="cuda").to(dt) for _ in range(4))
+        o, lse = fm._launch_fwd(q, k, v, sri, m)
+        o_ref, lse_ref = _by_heads(fm.flashmask_fwd_reference, q, k, v, sri,
+                                   *m)
+        delta = (do.float() * o_ref.float()).sum(-1)
+        args = (q, k, v, sri, do, lse_ref, delta)
+        dq = fm._launch_dq(*args, m)
+        dk, dv = fm._launch_dkv(*args, m)
+        torch.cuda.synchronize()
+        dk_ref, dv_ref = _by_heads(fm.flashmask_bwd_dkv_reference, *args, *m)
+        errs = _check_kernels(
+            "mask_kernel", dname,
+            {"flashmask_fwd": [o], "flashmask_bwd_dq": [dq],
+             "flashmask_bwd_dkv": [dk, dv]},
+            {"flashmask_fwd": [o_ref], "flashmask_bwd_dq":
+             [_by_heads(fm.flashmask_bwd_dq_reference, *args, *m)],
+             "flashmask_bwd_dkv": [dk_ref, dv_ref]}, lse, lse_ref)
+        del o, lse, dq, dk, dv, dk_ref, dv_ref
+        launch = {"flashmask_fwd": lambda mk: fm._launch_fwd(q, k, v, mk, m),
+                  "flashmask_bwd_dq": lambda mk: fm._launch_dq(
+                      q, k, v, mk, do, lse_ref, delta, m),
+                  "flashmask_bwd_dkv": lambda mk: fm._launch_dkv(
+                      q, k, v, mk, do, lse_ref, delta, m)}
+        plain = {"flashmask_fwd": fm.flashmask_fwd_reference,
+                 "flashmask_bwd_dq": fm.flashmask_bwd_dq_reference,
+                 "flashmask_bwd_dkv": fm.flashmask_bwd_dkv_reference}
+        plain_args = {"flashmask_fwd": (q, k, v, sri, *m)}
+        lib_fwd, lib_fwd_bwd = _doc_sdpa(q, k, v, do, PACKED_DOCS)
+        fwd_ms = cuda_ms(lib_fwd, reps=10)
+        bwd_ms = cuda_ms(lib_fwd_bwd, reps=10) - fwd_ms
+        for kname in FLASHMASK_KERNELS:
+            kernel_ms = cuda_ms(lambda: launch[kname](sri), reps=10)
+            causal_ms = cuda_ms(lambda: launch[kname](None), reps=5)
+            pa = plain_args.get(kname, (*args, *m))
+            plain_ms = cuda_ms(lambda: _by_heads(plain[kname], *pa), reps=3,
+                               warmup=1)
+            if not kernel_ms < 0.5 * causal_ms:
+                fail(f"{kname} ({dname}): {kernel_ms} ms with the document "
+                     f"mask, {causal_ms} ms causal only: the block skip "
+                     "does not pay")
+            bound_ms, bound_by, nbytes, flops = _attn_bound(
+                kname, dname, b, h, s, d, pairs, sri.numel() * 4)
+            row = {"phase": "mask_kernel", "card": card, "kernel": kname,
+                   "dtype": dname, "shape_bhsd": [b, h, s, d],
+                   "documents": list(PACKED_DOCS), "causal": True,
+                   "kept_pairs_per_head": pairs // h,
+                   "causal_pairs_per_head": s * (s + 1) // 2,
+                   "tiles_causal": tiles, "tiles_skipped": skipped,
+                   "atol": TOL[dname][0], "rtol": TOL[dname][1],
+                   "max_abs_err": errs[kname],
+                   "plain_compared_by_heads": PLAIN_HEADS,
+                   "kernel_ms": kernel_ms, "causal_only_ms": causal_ms,
+                   "plain_ms": plain_ms,
+                   "library_ms": fwd_ms if kname == "flashmask_fwd"
+                   else bwd_ms,
+                   "library_call": ("sdpa forward per document, summed"
+                                    if kname == "flashmask_fwd" else
+                                    "sdpa backward per document (dQ, dK, "
+                                    "dV), summed"),
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bound_bytes": nbytes, "bound_flops": flops,
+                   "tflops": flops / kernel_ms / 1e9, "tf32": False}
+            if kname == "flashmask_fwd":
+                row["lse_max_abs_err"] = errs["lse"]
+            emit(row)
+            out[(kname, dname)] = row
+        del q, k, v, do, args, o_ref, lse_ref, delta, lib_fwd, lib_fwd_bwd
+        torch.cuda.empty_cache()
+    _mask_flavors(card)
+    torch.cuda.empty_cache()
+    return out
 
 
 def main(argv=None):
@@ -827,6 +1223,10 @@ def main(argv=None):
     if "train_parity" in phases:
         phase_train_parity(smi)
     train = phase_train(smi) if "train" in phases else {}
+    mk = phase_mask_kernel(smi) if "mask_kernel" in phases else {}
+    if "packed_parity" in phases:
+        phase_packed_parity(smi)
+    packed = phase_train_packed(smi) if "train_packed" in phases else {}
     kernels = []
     for kname, pools, run in (("ragged_paged_attention", "bfloat16", "bf16"),
                               ("ragged_paged_attention_int8", "int8",
@@ -851,6 +1251,18 @@ def main(argv=None):
             "source": "paddle_tpu_torch/csrc/flash_attention.cu",
             "replaces": FLASH_TPU_KERNELS[kname],
             "launches": train["launches"][kname] if train else None,
+            "max_abs_err": k["max_abs_err"], "ms": k["kernel_ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+    for kname in FLASHMASK_KERNELS:
+        k = mk.get((kname, "bfloat16"))
+        if k is None:
+            continue
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flashmask_attention.cu",
+            "replaces": FLASHMASK_TPU_KERNELS[kname],
+            "launches": packed["launches"][kname] if packed else None,
             "max_abs_err": k["max_abs_err"], "ms": k["kernel_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"]})

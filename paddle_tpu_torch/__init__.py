@@ -12,7 +12,8 @@ The port covers the serving main path (the stacked-parameter Llama run
 through `models.llama_serving.unified_step`, driven by the ragged
 `ServingEngine` pump) and the single-device pretrain step
 (`models.llama_spmd.make_train_step`, on the flash-attention kernels of
-`ops.flash_attention`).
+`ops.flash_attention`, or with packed documents on the FlashMask
+kernels of `ops.flashmask_attention`).
 """
 from ._device import DEFAULT_DEVICE, resolve_device
 

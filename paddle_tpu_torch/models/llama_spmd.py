@@ -7,12 +7,14 @@ A parameter tree is a plain dict: `embed` (V, H), `final_norm` (H,),
 the same nesting with {"m", "v", "master"} (fp32) at every leaf.
 
 The train step runs on one device: causal flash attention on the
-Hopper kernels of `ops/flash_attention.py`, optional activation
-checkpointing around each layer, gradient accumulation weighted by
-valid-token counts, global-norm clipping and AdamW with fp32 master
-weights. Meshes of more than one device, sequence parallelism, pipeline
-schedules, packed documents (FlashMask), the fused linear+CE head and
-`remat="dots"` raise NotImplementedError naming their ROADMAP item."""
+Hopper kernels of `ops/flash_attention.py` or, for packed documents (a
+third batch element, doc_ids), the FlashMask kernels of
+`ops/flashmask_attention.py`; optional activation checkpointing around
+each layer, gradient accumulation weighted by valid-token counts,
+global-norm clipping and AdamW with fp32 master weights. Meshes of more
+than one device, sequence parallelism, pipeline schedules, the fused
+linear+CE head and `remat="dots"` raise NotImplementedError naming their
+ROADMAP item."""
 from __future__ import annotations
 
 import numpy as np
@@ -22,13 +24,15 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import DEFAULT_DEVICE, resolve_device
 from ..ops.flash_attention import flash_attention_bhsd
+from ..ops.flashmask_attention import flashmask_attention_bhsd
 from ..ops.fused import rms_norm as _rms
 from ..ops.fused import swiglu
 from ..ops.rope import apply_rotary_emb, rope_cos_sin
 from .llama import LlamaConfig
 from .llama_serving import _not_ported
 
-__all__ = ["init_params", "params_from_jax", "decoder_layer", "forward",
+__all__ = ["init_params", "params_from_jax", "doc_end_indices",
+           "decoder_layer", "forward",
            "loss_fn", "loss_sum_fn", "loss_and_grads", "init_opt_state",
            "adamw_update", "make_train_step"]
 
@@ -102,11 +106,29 @@ def params_from_jax(np_tree, device, dtype=None):
 
 
 # ---------------------------------------------------------------- forward
+def doc_end_indices(doc_ids):
+    """(B, S) contiguous per-token document ids -> (B, 1, S, 1) int32
+    FlashMask startend_row_indices: for key column j, the first row that
+    must NOT attend to it (its document's end), a reverse running
+    minimum of the per-position end candidates."""
+    b, s = doc_ids.shape
+    idx = torch.arange(s, device=doc_ids.device)
+    is_last = torch.cat([doc_ids[:, 1:] != doc_ids[:, :-1],
+                         torch.ones((b, 1), dtype=torch.bool,
+                                    device=doc_ids.device)], dim=1)
+    cand = torch.where(is_last, idx + 1, s + 1)
+    end = torch.cummin(cand.flip(1), dim=1).values.flip(1)
+    return end.to(torch.int32)[:, None, :, None]
+
+
 def decoder_layer(lp, h, rope, config: LlamaConfig):
     """One decoder layer. lp: the layer's weights (one slice of each
-    stack); h: (B, S, H); rope: (cos, sin), each (S, head_dim)."""
+    stack); h: (B, S, H); rope: (cos, sin), each (S, head_dim), or (cos,
+    sin, sri) with sri the (B, 1, S, 1) FlashMask indices of packed
+    documents."""
     c = config
-    cos, sin = rope
+    cos, sin = rope[0], rope[1]
+    sri = rope[2] if len(rope) > 2 else None
     nh, nkv = c.num_attention_heads, c.num_key_value_heads
     hd = c.hidden_size // nh
     b, s, H = h.shape
@@ -122,7 +144,12 @@ def decoder_layer(lp, h, rope, config: LlamaConfig):
         # j*rep .. j*rep+rep-1 (Tensor.repeat would tile them instead)
         k = k.repeat_interleave(rep, dim=1)
         v = v.repeat_interleave(rep, dim=1)
-    o = flash_attention_bhsd(q, k, v, causal=True)
+    if sri is None:
+        o = flash_attention_bhsd(q, k, v, causal=True)
+    else:
+        # packed documents: causal within each, blocked across them; the
+        # kernels read the one (B, 1, S, 1) mask for every head in place
+        o = flashmask_attention_bhsd(q, k, v, sri, causal=True)
     h = h + o.transpose(1, 2).reshape(b, s, H) @ lp["wo"]
 
     x = _rms(h, lp["ln2"], c.rms_norm_eps)
@@ -134,18 +161,26 @@ def _check_remat(remat):
         raise _not_ported('remat="dots" (save the matmul outputs)', "9c")
 
 
-def forward(params, input_ids, config: LlamaConfig, remat=True):
+def forward(params, input_ids, config: LlamaConfig, remat=True,
+            doc_ids=None):
     """-> logits (B, S, V) in the params' dtype. A Python loop over the
     stacked layers takes the place of `lax.scan`; with `remat`, each
     layer runs under `torch.utils.checkpoint` (non-reentrant), as
     `jax.checkpoint` wraps it: its activations are recomputed in the
-    backward pass."""
+    backward pass.
+
+    doc_ids: optional (B, S) contiguous document ids of packed
+    sequences: attention stays causal within a document and is blocked
+    across documents by the FlashMask kernels (no dense mask); the mask
+    indices are computed once and handed to every layer."""
     c = config
     _check_remat(remat)
     s = input_ids.shape[1]
     cos, sin = rope_cos_sin(s, c.hidden_size // c.num_attention_heads,
                             c.rope_theta, torch.float32,
                             device=input_ids.device)
+    rope = (cos, sin) if doc_ids is None else (cos, sin,
+                                               doc_end_indices(doc_ids))
     h = F.embedding(input_ids, params["embed"])
     names = sorted(params["layers"])
     # one unbind per stack: its backward stacks the layers' gradients
@@ -154,10 +189,10 @@ def forward(params, input_ids, config: LlamaConfig, remat=True):
     for slices in zip(*stacks):
         lp = dict(zip(names, slices))
         if remat:
-            h = checkpoint(decoder_layer, lp, h, (cos, sin), c,
+            h = checkpoint(decoder_layer, lp, h, rope, c,
                            use_reentrant=False)
         else:
-            h = decoder_layer(lp, h, (cos, sin), c)
+            h = decoder_layer(lp, h, rope, c)
     h = _rms(h, params["final_norm"], c.rms_norm_eps)
     return h @ params["lm_head"]
 
@@ -171,23 +206,20 @@ def _masked_nll(logits, labels):
     return -(picked[..., 0] * valid).sum(), valid.sum()
 
 
-def _check_batch(batch):
-    if len(batch) > 2:
-        raise _not_ported("packed-document training (doc_ids, a third "
-                          "batch element, on the FlashMask kernels)", "9b")
-
-
 def loss_sum_fn(params, batch, config, remat=True):
-    """(nll_sum, valid_count) of batch = (input_ids, labels): the
+    """(nll_sum, valid_count) of batch = (input_ids, labels) or
+    (input_ids, labels, doc_ids) for packed documents: the
     gradient-accumulation path sums these, so microbatches are weighted
     by their valid-token counts."""
-    _check_batch(batch)
     input_ids, labels = batch[0], batch[1]
-    return _masked_nll(forward(params, input_ids, config, remat), labels)
+    doc_ids = batch[2] if len(batch) > 2 else None
+    return _masked_nll(forward(params, input_ids, config, remat, doc_ids),
+                       labels)
 
 
 def loss_fn(params, batch, config, remat=True):
-    """Mean NLL over the labels >= 0 of batch = (input_ids, labels)."""
+    """Mean NLL over the labels >= 0 of batch = (input_ids, labels[,
+    doc_ids])."""
     s, n = loss_sum_fn(params, batch, config, remat)
     return s / n.clamp_min(1.0)
 
@@ -223,9 +255,8 @@ def loss_and_grads(params, batch, config, n_micro=None, remat=True):
     batch is cut into n_micro equal microbatches whose summed NLL and
     valid counts are accumulated (fp32) and divided at the end, so the
     result equals the one-shot step's even with uneven ignore labels.
-    `params` is not modified and need not require grad."""
-    _check_batch(batch)
-    input_ids, labels = batch[0], batch[1]
+    Every batch element (doc_ids too) is cut the same way. `params` is
+    not modified and need not require grad."""
     flat = _leaves(params)
     # detached aliases share the storage, so the caller's tensors keep
     # requires_grad False and are never part of a graph
@@ -233,15 +264,14 @@ def loss_and_grads(params, batch, config, n_micro=None, remat=True):
     tree = _rebuild(params, iter(leaves))
     with torch.enable_grad():
         if n_micro and n_micro > 1:
-            B = input_ids.shape[0]
+            B = batch[0].shape[0]
             if B % n_micro:
                 raise ValueError(f"batch {B} not divisible by "
                                  f"n_micro={n_micro}")
             grads = [torch.zeros_like(p, dtype=torch.float32) for p in flat]
             tot_s = tot_n = 0.0
-            for ids, lab in zip(input_ids.chunk(n_micro),
-                                labels.chunk(n_micro)):
-                s, n = loss_sum_fn(tree, (ids, lab), config, remat)
+            for micro in zip(*(x.chunk(n_micro) for x in batch)):
+                s, n = loss_sum_fn(tree, micro, config, remat)
                 for acc, g in zip(grads, torch.autograd.grad(s, leaves)):
                     acc.add_(g)
                 tot_s = tot_s + s.detach()
@@ -251,7 +281,7 @@ def loss_and_grads(params, batch, config, n_micro=None, remat=True):
             for g in grads:
                 g.div_(denom)
         else:
-            loss = loss_fn(tree, (input_ids, labels), config, remat)
+            loss = loss_fn(tree, batch, config, remat)
             grads = list(torch.autograd.grad(loss, leaves))
     return loss.detach(), _rebuild(params, iter(grads))
 
@@ -302,8 +332,9 @@ def make_train_step(config, mesh=None, n_micro=None, remat=True,
 
         step(params, opt_state, step, batch) -> (params, opt_state, loss)
 
-    batch = (input_ids, labels), (B, S) integer tensors or arrays (moved
-    to `device`); labels < 0 are ignored; loss is a 0-dim fp32 tensor on
+    batch = (input_ids, labels) or (input_ids, labels, doc_ids) for
+    packed documents, (B, S) integer tensors or arrays (moved to
+    `device`); labels < 0 are ignored; loss is a 0-dim fp32 tensor on
     the device. params and opt_state must live on `device` and are
     updated IN PLACE: the JAX step donates both buffers, and the tensors
     returned are the ones passed in.
@@ -315,13 +346,13 @@ def make_train_step(config, mesh=None, n_micro=None, remat=True,
     `adamw_update`, at `lr`.
 
     `mesh` is accepted when it holds one device (a JAX `Mesh`, or any
-    object whose `devices` is an array of devices). A larger mesh,
-    `sp_axis`, `schedule`, `fused_ce=True` and `remat="dots"` raise
-    NotImplementedError, as does a batch with doc_ids."""
+    object whose `devices` is an array of devices). A larger mesh (with
+    or without doc_ids), `sp_axis`, `schedule`, `fused_ce=True` and
+    `remat="dots"` raise NotImplementedError."""
     dev = resolve_device(device)
     for on, what, item in (
             (mesh is not None and np.size(mesh.devices) > 1,
-             "a mesh of more than one device", 12),
+             "a mesh of more than one device (doc_ids or not)", 12),
             (sp_axis is not None, "sequence parallelism (sp_axis=)", 12),
             (schedule is not None, "pipeline schedules (schedule=)", 12),
             (bool(fused_ce), "the fused linear+CE head (fused_ce=True)",
@@ -331,18 +362,16 @@ def make_train_step(config, mesh=None, n_micro=None, remat=True,
     _check_remat(remat)
 
     def step_fn(params, opt_state, step, batch):
-        _check_batch(batch)
         for t in _leaves(params) + _leaves(opt_state):
             if t.device != dev:
                 raise ValueError(
                     f"params or optimizer state live on {t.device}, the "
                     f"step on {dev}: build them there (init_params(device=)"
                     " / params_from_jax(device=))")
-        ids, labels = (torch.as_tensor(
+        batch = tuple(torch.as_tensor(
             x if torch.is_tensor(x) else np.asarray(x), device=dev)
             for x in batch)
-        loss, grads = loss_and_grads(params, (ids, labels), config, n_micro,
-                                     remat)
+        loss, grads = loss_and_grads(params, batch, config, n_micro, remat)
         if clip_norm is not None:
             flat = _leaves(grads)
             gn = torch.sqrt(sum((g.float() ** 2).sum() for g in flat))

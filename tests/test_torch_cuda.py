@@ -1,7 +1,8 @@
-"""paddle_tpu_torch on the card: the Hopper ragged paged-attention kernel
-and the three flash-attention kernels against their plain PyTorch
-versions over the shapes they cover, the card engine against the CPU
-engine, and a tiny-width train step on the card against the CPU.
+"""paddle_tpu_torch on the card: the Hopper ragged paged-attention kernel,
+the three flash-attention kernels and the three FlashMask kernels
+against their plain PyTorch versions over the shapes and masks they
+cover, the card engine against the CPU engine, and tiny-width train
+steps (plain and packed documents) on the card against the CPU.
 
 Every test here needs a CUDA device and skips without one. This file
 imports neither jax nor paddle_tpu, so on a machine without jax it runs
@@ -17,6 +18,7 @@ import torch
 
 import paddle_tpu_torch.kernels.ragged_paged_attention as rpa
 import paddle_tpu_torch.ops.flash_attention as fa
+import paddle_tpu_torch.ops.flashmask_attention as fm
 from paddle_tpu_torch.models import llama_spmd as T
 from paddle_tpu_torch.models.llama import LlamaConfig
 from paddle_tpu_torch.models.llama_spmd import init_params
@@ -262,6 +264,175 @@ def test_train_step_on_card_matches_cpu(card):
     L = cfg.num_hidden_layers
     assert res["cuda"][3] == (2 * L * steps, L * steps, L * steps)
     assert res["cpu"][3] == (0, 0, 0)
+    np.testing.assert_allclose(res["cuda"][0], res["cpu"][0], rtol=1e-5)
+    for a, b in zip(res["cuda"][1], res["cpu"][1]):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=1e-4)
+    for a, b in zip(res["cuda"][2], res["cpu"][2]):
+        torch.testing.assert_close(a.cpu(), b, atol=2.5 * lr * steps, rtol=0)
+
+
+# ------------------------------------------------------------ FlashMask
+def _fm_counts():
+    return fm.launches_fwd, fm.launches_dq, fm.launches_dkv
+
+
+def _fm_mask(flavor, b, h, s, rng):
+    """(sri as a numpy array or None, causal, window) of one flavor."""
+    def band(lo, hi):
+        start = rng.integers(lo, hi, (b, h, s, 1))
+        return start, np.minimum(start + rng.integers(0, s // 4 + 1,
+                                                      (b, h, s, 1)), s)
+    if flavor == "causal_n1_docs":
+        ends = np.empty((b, s), np.int64)
+        for r in range(b):
+            cuts = np.sort(rng.choice(np.arange(1, s), 5, replace=False))
+            edges = np.concatenate([[0], cuts, [s]])
+            ends[r] = np.repeat(edges[1:], np.diff(edges))
+        return ends[:, None, :, None], True, None
+    if flavor == "causal_n2_band":
+        return np.concatenate(band(0, s), -1), True, None
+    if flavor == "noncausal_n2":
+        return np.concatenate([rng.integers(s // 2, s + 1, (b, h, s, 1)),
+                               rng.integers(0, s // 2, (b, h, s, 1))],
+                              -1), False, None
+    if flavor == "noncausal_n4":
+        return np.concatenate([*band(0, s // 4), *band(s // 2, s)],
+                              -1), False, None
+    if flavor == "causal_n1_window":
+        return rng.integers(1, s + 1, (b, h, s, 1)), True, (s // 4, 0)
+    if flavor == "window_no_sri":
+        return None, True, (s // 4, 0)
+    if flavor == "noncausal_window_no_sri":
+        return None, False, (s // 5, s // 7)
+    assert flavor == "masked_rows"     # rows [s/4, s/2) see nothing
+    sri = np.full((b, 1, s, 1), s, np.int64)
+    sri[:, :, : s // 2] = s // 4
+    return sri, True, None
+
+
+FM_FLAVORS = ("causal_n1_docs", "causal_n2_band", "noncausal_n2",
+              "noncausal_n4", "causal_n1_window", "window_no_sri",
+              "noncausal_window_no_sri", "masked_rows")
+
+
+def _fm_check(card, dt, s, d, flavor, dropout=0.0, seed=None):
+    b, h = 2, 4
+    rng = np.random.default_rng(s + d)
+    sri, causal, window = _fm_mask(flavor, b, h, s, rng)
+    g = torch.Generator(device=card)
+    g.manual_seed(s + d)
+    q, k, v, do = (torch.randn((b, h, s, d), generator=g, device=card).to(dt)
+                   for _ in range(4))
+    sri = None if sri is None else torch.from_numpy(
+        sri.astype(np.int32)).to(card)
+    m = fm._Mask(causal, window, 1.0 / math.sqrt(d), dropout, seed)
+    before = _fm_counts()
+    o, lse = fm._launch_fwd(q, k, v, sri, m)
+    o_ref, lse_ref = fm.flashmask_fwd_reference(q, k, v, sri, *m)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    args = (q, k, v, sri, do, lse_ref, delta)
+    dq = fm._launch_dq(*args, m)
+    dk, dv = fm._launch_dkv(*args, m)
+    torch.cuda.synchronize()
+    assert _fm_counts() == tuple(c + 1 for c in before)
+    dq_ref = fm.flashmask_bwd_dq_reference(*args, *m)
+    dk_ref, dv_ref = fm.flashmask_bwd_dkv_reference(*args, *m)
+    atol, rtol = FLASH_TOL[dt]
+    for name, a, r in (("o", o, o_ref), ("dq", dq, dq_ref),
+                       ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+        assert a.dtype == dt, name
+        torch.testing.assert_close(a.float(), r.float(), atol=atol,
+                                   rtol=rtol, msg=name)
+    torch.testing.assert_close(lse, lse_ref, atol=LSE_TOL[0],
+                               rtol=LSE_TOL[1])
+
+
+@pytest.mark.parametrize("flavor", FM_FLAVORS)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [64, 200, 1024])
+@pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
+def test_flashmask_kernels_match_plain(card, dtype, s, d, flavor):
+    _fm_check(card, FLASH_DTYPES[dtype], s, d, flavor)
+
+
+@pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
+def test_flashmask_dropout_kernels_match_plain(card, dtype):
+    """The hash regenerated in all three kernels is the plain version's
+    mask: rate 0.1, seed 1234567."""
+    _fm_check(card, FLASH_DTYPES[dtype], 200, 64, "causal_n1_docs",
+              dropout=0.1, seed=1234567)
+
+
+def test_flashmask_autograd_on_card_matches_cpu(card):
+    """Through the autograd Function with a (B, 1, S, 1) document mask
+    shared by every head, fp32: the card's kernels against the CPU's
+    plain versions."""
+    rng = np.random.default_rng(0)
+    sri = _fm_mask("causal_n1_docs", 1, 1, 300, rng)[0].astype(np.int32)
+    q, k, v, w = (rng.standard_normal((1, 4, 300, 64)).astype(np.float32)
+                  for _ in range(4))
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        ts = [torch.from_numpy(a).to(dev).requires_grad_() for a in (q, k, v)]
+        o = fm.flashmask_attention_bhsd(*ts, torch.from_numpy(sri).to(dev),
+                                        causal=True)
+        (o * torch.from_numpy(w).to(dev)).sum().backward()
+        out[dev.type] = [o.detach().cpu()] + [t.grad.cpu() for t in ts]
+    for name, a, b in zip(("o", "dq", "dk", "dv"), out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4, msg=name)
+
+
+def test_flashmask_kernels_refuse_what_they_do_not_take(card):
+    q = torch.zeros((1, 2, 64, 32), device=card)
+    sri = torch.full((1, 1, 64, 1), 64, dtype=torch.int32, device=card)
+    m = fm._Mask(True, None, 1.0, 0.0, None)
+    before = _fm_counts()
+    with pytest.raises(ValueError, match="int32"):
+        fm._launch_fwd(q, q, q, sri.long(), m)
+    with pytest.raises(ValueError, match="must be"):
+        fm._launch_fwd(q, q, q, torch.zeros((1, 3, 64, 1), dtype=torch.int32,
+                                            device=card), m)
+    with pytest.raises(ValueError, match="head_dim"):
+        big = torch.zeros((1, 2, 64, 160), device=card)
+        fm._launch_fwd(big, big, big, sri, m)
+    with pytest.raises(ValueError, match="invalid"):
+        fm._launch_fwd(q, q, q, sri.repeat(1, 1, 1, 4).contiguous(), m)
+    assert _fm_counts() == before
+
+
+def test_packed_train_step_on_card_matches_cpu(card):
+    """fp32, TF32 off, remat on: two steps of the tiny model on packed
+    documents, card against CPU. Only the FlashMask kernels launch on
+    the card (twice per layer and step forward, once dQ, once dK/dV);
+    nothing launches on the CPU."""
+    cfg = LlamaConfig.tiny(vocab=128, hidden=128, layers=2, heads=4,
+                           kv_heads=2, ffn=256)
+    lr, steps = 3e-4, 2
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 128, (2, 64))
+    y = rng.integers(0, 128, (2, 64))
+    doc = np.stack([np.repeat(np.arange(3), [20, 30, 14]),
+                    np.zeros(64, np.int64)])
+    y[0, [19, 49, 63]] = -1
+    cpu = init_params(cfg, seed=0, device="cpu")
+    res = {}
+    for dev in (card, torch.device("cpu")):
+        params = T.params_from_jax(
+            {k: ({kk: vv.numpy() for kk, vv in v.items()}
+                 if isinstance(v, dict) else v.numpy())
+             for k, v in cpu.items()}, dev)
+        opt = T.init_opt_state(params)
+        batch = tuple(torch.from_numpy(a).to(dev) for a in (x, y, doc))
+        _, grads = T.loss_and_grads(params, batch, cfg)
+        step = T.make_train_step(cfg, lr=lr, device=dev)
+        fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+        fm.launches_fwd = fm.launches_dq = fm.launches_dkv = 0
+        losses = [float(step(params, opt, i, batch)[2]) for i in range(steps)]
+        res[dev.type] = (losses, T._leaves(grads), T._leaves(params),
+                         _fm_counts() + _counts())
+    L = cfg.num_hidden_layers
+    assert res["cuda"][3] == (2 * L * steps, L * steps, L * steps, 0, 0, 0)
+    assert res["cpu"][3] == (0,) * 6
     np.testing.assert_allclose(res["cuda"][0], res["cpu"][0], rtol=1e-5)
     for a, b in zip(res["cuda"][1], res["cpu"][1]):
         torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=1e-4)

@@ -116,3 +116,22 @@ def test_flash_attention_has_its_own_source():
     lib = _build.lib_path("flash_attention")
     assert lib.name.startswith("flash_attention-") and lib.suffix == ".so"
     assert lib != _build.lib_path("ragged_paged_attention")
+
+
+def test_flashmask_attention_has_its_own_source():
+    from paddle_tpu_torch.kernels import _build
+    assert (_build.CSRC / "flashmask_attention.cu").is_file()
+    lib = _build.lib_path("flashmask_attention")
+    assert lib.name.startswith("flashmask_attention-") and lib.suffix == ".so"
+    assert lib not in (_build.lib_path("flash_attention"),
+                       _build.lib_path("ragged_paged_attention"))
+
+
+def test_flashmask_wrapper_raises_off_cpu_and_cuda():
+    import paddle_tpu_torch.ops.flashmask_attention as fm
+    q = torch.empty((1, 2, 8, 16), device="meta")
+    sri = torch.zeros((1, 1, 8, 1), dtype=torch.int32, device="meta")
+    before = (fm.launches_fwd, fm.launches_dq, fm.launches_dkv)
+    with pytest.raises(ValueError, match="meta"):
+        fm.flashmask_attention_bhsd(q, q, q, sri, causal=True)
+    assert (fm.launches_fwd, fm.launches_dq, fm.launches_dkv) == before

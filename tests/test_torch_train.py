@@ -3,9 +3,11 @@ package's `llama_spmd.make_train_step`.
 
 Both packages start from the same weights and optimizer state (the JAX
 trees carried across by `params_from_jax`) and take 3 steps on the same
-batch, whose labels are partly ignored (< 0). On the CPU the port's
-attention runs the plain versions of the flash kernels, the JAX step its
-XLA reference (`mha_reference`)."""
+batch, whose labels are partly ignored (< 0), with and without packed
+documents (a third batch element, doc_ids). On the CPU the port's
+attention runs the plain versions of the flash and FlashMask kernels,
+the JAX step its XLA references (`mha_reference`,
+`flashmask_reference`)."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -14,6 +16,7 @@ import torch
 from jax.sharding import Mesh
 
 import paddle_tpu_torch.ops.flash_attention as fa
+import paddle_tpu_torch.ops.flashmask_attention as fm
 from paddle_tpu.models import llama_spmd as M
 from paddle_tpu.models.llama import LlamaConfig as JaxConfig
 from paddle_tpu_torch.models import llama_spmd as T
@@ -43,6 +46,14 @@ def _batch():
     return x, y
 
 
+def _packed_batch():
+    """The batch with contiguous documents of uneven lengths per row."""
+    x, y = _batch()
+    doc = np.stack([np.repeat(np.arange(len(lens)), lens) for lens in
+                    ([5, 7, 4], [16], [3, 3, 10], [8, 8])])
+    return x, y, doc
+
+
 def _jax_params():
     return M.init_params(JaxConfig.tiny(**DIMS), seed=3)
 
@@ -51,39 +62,39 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def _jax_grads():
+def _jax_grads(packed):
     """The one-shot step's gradients (remat changes none of them)."""
-    x, y = _batch()
-    return _np(jax.grad(M.loss_fn)(_jax_params(), (x, y),
+    batch = _packed_batch() if packed else _batch()
+    return _np(jax.grad(M.loss_fn)(_jax_params(), batch,
                                    JaxConfig.tiny(**DIMS)))
 
 
-def _jax_run(n_micro, remat):
+def _jax_run(n_micro, remat, packed):
     cfg = JaxConfig.tiny(**DIMS)
     mesh = Mesh(np.asarray(jax.devices()[:1]), ("dp",))
-    x, y = _batch()
+    batch = _packed_batch() if packed else _batch()
     params = _jax_params()
     opt = M.init_opt_state(params)
     step = M.make_train_step(cfg, mesh, n_micro=n_micro, remat=remat,
                              donate=False)
     losses = []
     for i in range(STEPS):
-        params, opt, loss = step(params, opt, jnp.asarray(i), (x, y))
+        params, opt, loss = step(params, opt, jnp.asarray(i), batch)
         losses.append(float(loss))
     return {"losses": losses, "params": _np(params), "opt": _np(opt)}
 
 
-def _torch_run(n_micro, remat):
-    x, y = _batch()
+def _torch_run(n_micro, remat, packed):
+    batch = _packed_batch() if packed else _batch()
     params = T.params_from_jax(_np(_jax_params()), "cpu")
     opt = T.params_from_jax(_np(M.init_opt_state(_jax_params())), "cpu")
-    batch = (torch.from_numpy(x), torch.from_numpy(y))
-    _, grads = T.loss_and_grads(params, batch, CFG, n_micro, remat)
+    _, grads = T.loss_and_grads(params, tuple(map(torch.from_numpy, batch)),
+                                CFG, n_micro, remat)
     step = T.make_train_step(CFG, n_micro=n_micro, remat=remat, lr=LR,
                              device="cpu")
     losses = []
     for i in range(STEPS):
-        params, opt, loss = step(params, opt, i, (x, y))
+        params, opt, loss = step(params, opt, i, batch)
         losses.append(float(loss))
     return {"losses": losses, "grads": grads, "params": params, "opt": opt}
 
@@ -96,14 +107,18 @@ def _pairs(np_tree, t_tree, path=""):
         yield path, np_tree, t_tree.detach().numpy()
 
 
-RUNS = {"remat": (None, True), "no_remat": (None, False),
-        "n_micro2": (2, True)}
+# name -> (n_micro, remat, packed documents)
+RUNS = {"remat": (None, True, False), "no_remat": (None, False, False),
+        "n_micro2": (2, True, False), "packed": (None, True, True),
+        "packed_no_remat": (None, False, True),
+        "packed_n_micro2": (2, True, True)}
 
 
 @pytest.fixture(scope="module")
 def runs():
-    grads = _jax_grads()
-    return {name: (dict(_jax_run(*args), grads=grads), _torch_run(*args))
+    grads = {packed: _jax_grads(packed) for packed in (False, True)}
+    return {name: (dict(_jax_run(*args), grads=grads[args[2]]),
+                   _torch_run(*args))
             for name, args in RUNS.items()}
 
 
@@ -145,6 +160,87 @@ def test_params_and_opt_state_after_steps_match_jax(runs, name):
 def test_grad_accumulation_equals_one_shot_step(runs):
     one, acc = runs["remat"][1], runs["n_micro2"][1]
     np.testing.assert_allclose(acc["losses"], one["losses"], rtol=LOSS_RTOL)
+
+
+def _np_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    return tree.detach().numpy()
+
+
+def test_packed_grad_accumulation_equals_one_shot_step(runs):
+    """n_micro=2 cuts every batch element, doc_ids included."""
+    one, acc = runs["packed"][1], runs["packed_n_micro2"][1]
+    np.testing.assert_allclose(acc["losses"], one["losses"], rtol=LOSS_RTOL)
+    for path, a, b in _pairs(_np_tree(one["grads"]), acc["grads"]):
+        np.testing.assert_allclose(b, a, err_msg=path, **GRAD_TOL)
+
+
+def test_packed_masking_changes_the_loss(runs):
+    assert abs(runs["packed"][1]["losses"][0]
+               - runs["remat"][1]["losses"][0]) > 1e-6
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_doc_end_indices_equal_jax(seed):
+    rng = np.random.default_rng(seed)
+    doc = np.stack([np.repeat(np.arange(n), np.diff(np.concatenate(
+        [[0], np.sort(rng.choice(np.arange(1, 50), n - 1, replace=False)),
+         [50]]))) for n in (1, 3, 7)])
+    want = np.asarray(M.doc_end_indices(jnp.asarray(doc)))
+    got = T.doc_end_indices(torch.from_numpy(doc))
+    assert got.dtype == torch.int32 and got.shape == (3, 1, 50, 1)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_packed_forward_equals_separate_documents():
+    """Packed (doc_ids) forward equals each document run as its own
+    sequence: attention across documents is fully blocked."""
+    params = T.params_from_jax(_np(M.init_params(JaxConfig.tiny(**DIMS),
+                                                 seed=0)), "cpu")
+    rng = np.random.default_rng(0)
+    lens = [10, 6, 16]
+    ids = torch.from_numpy(rng.integers(0, DIMS["vocab"], (1, 32)))
+    doc = torch.from_numpy(np.repeat(np.arange(3), lens)[None])
+    with torch.no_grad():
+        packed = T.forward(params, ids, CFG, remat=False, doc_ids=doc)
+        off = 0
+        for n in lens:
+            solo = T.forward(params, ids[:, off:off + n], CFG, remat=False)
+            torch.testing.assert_close(packed[:, off:off + n], solo,
+                                       atol=1e-5, rtol=1e-5)
+            off += n
+
+
+def test_packed_step_runs_flashmask_not_flash(monkeypatch):
+    """doc_ids route every layer through the FlashMask plain versions on
+    the CPU (the forward twice per layer and step under remat) and none
+    through the flash ones; no kernel launches."""
+    calls = {}
+
+    def counting(mod, attr):
+        fn = getattr(mod, attr)
+
+        def wrapped(*a):
+            calls[attr] = calls.get(attr, 0) + 1
+            return fn(*a)
+        monkeypatch.setattr(mod, attr, wrapped)
+    for attr in ("flash_fwd_reference", "flash_bwd_dq_reference",
+                 "flash_bwd_dkv_reference"):
+        counting(fa, attr)
+    for attr in ("flashmask_fwd_reference", "flashmask_bwd_dq_reference",
+                 "flashmask_bwd_dkv_reference"):
+        counting(fm, attr)
+    before = (fm.launches_fwd, fm.launches_dq, fm.launches_dkv)
+    params = T.params_from_jax(_np(_jax_params()), "cpu")
+    step = T.make_train_step(CFG, remat=True, device="cpu")
+    for i in range(2):
+        step(params, T.init_opt_state(params), i, _packed_batch())
+    L = CFG.num_hidden_layers
+    assert calls == {"flashmask_fwd_reference": 2 * L * 2,
+                     "flashmask_bwd_dq_reference": L * 2,
+                     "flashmask_bwd_dkv_reference": L * 2}
+    assert (fm.launches_fwd, fm.launches_dq, fm.launches_dkv) == before
 
 
 def test_params_from_jax_carries_the_opt_state_tree():
@@ -227,12 +323,12 @@ def test_mesh_of_more_than_one_device_raises():
         T.make_train_step(CFG, mesh=two, device="cpu")
 
 
-def test_doc_ids_raise():
-    x, y = _batch()
-    params = T.params_from_jax(_np(_jax_params()), "cpu")
-    step = T.make_train_step(CFG, device="cpu")
+def test_doc_ids_with_a_mesh_of_more_than_one_device_raise():
+    """Packed documents on a mesh (the JAX package's dp-sharded packed
+    step) wait for parallel training; the step refuses the mesh."""
+    two = Mesh(np.asarray(jax.devices()[:2]), ("dp",))
     with pytest.raises(NotImplementedError, match="doc_ids"):
-        step(params, T.init_opt_state(params), 0, (x, y, np.zeros_like(x)))
+        T.make_train_step(CFG, mesh=two, device="cpu")
 
 
 def test_params_on_another_device_raise():

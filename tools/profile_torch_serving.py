@@ -31,6 +31,9 @@ def _group(name):
     n = name.lower()
     if "ragged_kernel" in n:
         return "attention (ragged_paged_attention.cu)"
+    if any(s in n for s in ("fm_fwd_kernel", "fm_dq_kernel",
+                            "fm_dkv_kernel")):
+        return "attention (flashmask_attention.cu)"
     if any(s in n for s in ("fwd_kernel", "dq_kernel", "dkv_kernel")):
         return "attention (flash_attention.cu)"
     if any(s in n for s in ("gemm", "xmma", "cutlass", "nvjet", "matmul")):

@@ -4,17 +4,21 @@ card.
 
 Builds the run of `chip_smoke.py`'s train phase (`chip_smoke.
 train_setup`: Llama-3-8B widths cut to 4 layers, bf16 params, fp32
-AdamW state, remat, one batch of 2 x 2048 tokens), takes two warm-up
-steps, then profiles STEPS steps with torch.profiler. Prints one JSON
-line with the window's wall time, summed kernel time, the device's busy
-share (summed kernel time over wall time, one stream), and kernel time
-grouped as attention (the port's flash kernels), matmul and everything
-else, with the kernels that take the most device time.
+AdamW state, remat, one batch of 2 x 2048 tokens) or, with --packed, of
+its train_packed phase (`chip_smoke.train_packed_setup`: the same model
+on one row of 8192 tokens packing eight documents, on the FlashMask
+kernels), takes two warm-up steps, then profiles STEPS steps with
+torch.profiler. Prints one JSON line with the window's wall time, summed
+kernel time, the device's busy share (summed kernel time over wall time,
+one stream), and kernel time grouped as attention (the port's flash or
+FlashMask kernels), matmul and everything else, with the kernels that
+take the most device time.
 
-    python3 tools/profile_torch_train.py
+    python3 tools/profile_torch_train.py [--packed]
 """
 from __future__ import annotations
 
+import argparse
 import os
 import subprocess
 import sys
@@ -23,6 +27,10 @@ STEPS = 2           # train steps in the profiled window
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--packed", action="store_true",
+                    help="profile the packed-document step (train_packed)")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("profile_torch_train: no CUDA device", file=sys.stderr)
@@ -35,7 +43,10 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    cfg, params, opt, batch, step = chip_smoke.train_setup()
+    setup, config = ((chip_smoke.train_packed_setup,
+                      chip_smoke.TRAIN_PACKED_CONFIG) if args.packed else
+                     (chip_smoke.train_setup, chip_smoke.TRAIN_CONFIG))
+    cfg, params, opt, batch, step = setup()
     for i in range(2):                          # warm-up
         step(params, opt, i, batch)
 
@@ -43,7 +54,7 @@ def main():
         for i in range(2, 2 + STEPS):
             step(params, opt, i, batch)
         return STEPS
-    _window(f"train step ({chip_smoke.TRAIN_CONFIG})", steps, card)
+    _window(f"train step ({config})", steps, card)
     print(card, flush=True)
     return 0
 
