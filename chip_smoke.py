@@ -70,7 +70,34 @@ non-zero):
  11. train_packed — the train phase's model on one 1 x 8192 row of the
                eight documents: median step, tokens/s, the model-flops
                share (attention charged at the full 12 L H S, and as
-               kept), peak memory, falling losses.
+               kept), peak memory, falling losses;
+ 12. bucket_kernel — the bucketed serving kernels against their plain
+               versions: (a) va_fwd at the serve phase's prefill wave
+               (its 8 prompts packed into an 8192 bucket; H=32, KVH=8,
+               D=128, causal, same offsets), bf16 and fp32, with times
+               and the tiles it computed per head, which must equal the
+               skip rule's count; `bound_ms` counts the kept pairs and
+               the real rows; `library_ms` is
+               F.scaled_dot_product_attention (is_causal) once per
+               prompt, summed; (b) va_fwd correctness on ragged token
+               axes of 700-1000 (causal and not, unequal q/k offsets,
+               rows that see nothing), GQA groups 1 and 4, D=64 and 128;
+               (c) pa_decode at 8B widths on 8 slots of 100-2000 cached
+               tokens and a free slot (exactly zero), fp32, bf16 and
+               int8 pools (int8 with bf16 and with fp32 q), with times;
+               `library_ms` is F.scaled_dot_product_attention over the
+               live slots' KV gathered dense;
+ 13. bucket_parity — parity with the bucketed engine (`ragged=False`,
+               max_seqs 3, run_pipelined): three requests admit in one
+               prefill_varlen wave and the fourth alone through prefill;
+               fp32 and int8 pools; tokens as in parity, and the exact
+               launches of va_fwd, fa_fwd and pa_decode (none ragged;
+               the CPU engine launches nothing);
+ 14. bucket_serve — the serve phase's model and 8 requests on the
+               bucketed engine through run_pipelined(), bf16 and int8
+               pools, with the same measurements, pad_tokens, and the
+               launches of every kernel (the 8B parameters are built
+               once for serve and bucket_serve).
 
 The line before the last lists every kernel with its launches on the
 main path, its error against the plain version and its times; the last
@@ -90,8 +117,9 @@ import time
 
 PHASES = ("device", "build", "kernel", "parity", "serve", "train_kernel",
           "train_parity", "train", "mask_kernel", "packed_parity",
-          "train_packed")
-SOURCES = ("ragged_paged_attention", "flash_attention", "flashmask_attention")
+          "train_packed", "bucket_kernel", "bucket_parity", "bucket_serve")
+SOURCES = ("ragged_paged_attention", "flash_attention", "flashmask_attention",
+           "varlen_attention", "paged_attention")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # fp32 CUDA cores; bf16 dense
 TPU_KERNEL = "paddle_tpu/kernels/ragged_paged_attention.py:185"
@@ -102,6 +130,18 @@ FLASHMASK_TPU_KERNELS = {
     "flashmask_fwd": "paddle_tpu/ops/flashmask_attention.py:248",
     "flashmask_bwd_dq": "paddle_tpu/ops/flashmask_attention.py:305",
     "flashmask_bwd_dkv": "paddle_tpu/ops/flashmask_attention.py:353"}
+# the bucketed serving kernels: name -> (source, TPU kernel, the
+# bucket_kernel row that times it, the bucket_serve run that counts it)
+BUCKET_KERNELS = {
+    "varlen_fwd": ("varlen_attention",
+                   "paddle_tpu/ops/varlen_attention.py:92",
+                   ("varlen_fwd", "bfloat16"), "bf16"),
+    "paged_decode": ("paged_attention",
+                     "paddle_tpu/ops/paged_attention.py:109",
+                     ("paged_decode", "bfloat16"), "bf16"),
+    "paged_decode_int8": ("paged_attention",
+                          "paddle_tpu/ops/paged_attention.py:159",
+                          ("paged_decode_int8", "int8"), "int8")}
 
 
 def emit(obj):
@@ -444,18 +484,24 @@ def serve_params():
                             device="cuda")
 
 
-def serve_engine(cfg, params, cache_dtype, new_tokens=64):
+def _serve_rng():
+    """The serve phases' numpy generator: 8 prompt lengths in 64-1500
+    come first, then the prompts' tokens. Returns (rng, lengths)."""
+    import numpy as np
+    rng = np.random.default_rng(2)
+    return rng, rng.integers(64, 1501, 8).tolist()
+
+
+def serve_engine(cfg, params, cache_dtype, new_tokens=64, ragged=True):
     """The serve phase's engine with its 8 requests submitted: prompts
     of 64-1500 tokens (numpy seed 2), requests 0 and 1 sampled
-    (temperature 0.8, top_k 50, seed = rid), the rest greedy. Returns
-    (engine, requests)."""
-    import numpy as np
+    (temperature 0.8, top_k 50, seed = rid), the rest greedy; ragged, or
+    bucketed with `ragged=False`. Returns (engine, requests)."""
     from paddle_tpu_torch.models.llama_serving import Request, ServingEngine
-    rng = np.random.default_rng(2)
-    lens = rng.integers(64, 1501, 8).tolist()
+    rng, lens = _serve_rng()
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
     eng = ServingEngine(params, cfg, max_seqs=8, max_seq_len=2048,
-                        page_size=16, ragged_tokens=256,
+                        page_size=16, ragged_tokens=256, ragged=ragged,
                         cache_dtype=cache_dtype, device="cuda")
     reqs = [Request(i, p, max_new_tokens=new_tokens,
                     **({"temperature": 0.8, "top_k": 50, "seed": i}
@@ -466,13 +512,9 @@ def serve_engine(cfg, params, cache_dtype, new_tokens=64):
     return eng, reqs
 
 
-def phase_serve(card):
+def phase_serve(card, cfg, params, init_s):
     import torch
     import paddle_tpu_torch.kernels.ragged_paged_attention as rpa
-    t0 = time.perf_counter()
-    cfg, params = serve_params()
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
     runs = {}
     for cache in (None, "int8"):
         eng, reqs = serve_engine(cfg, params, cache)
@@ -1198,6 +1240,509 @@ def phase_mask_kernel(card):
     return out
 
 
+# ------------------------------------------------------- bucketed serving
+# The serve prefill wave: the serve phase's 8 prompts packed into one
+# power-of-two bucket, at Llama-3-8B attention widths.
+BUCKET_ATTN = {"T": 8192, "H": 32, "KVH": 8, "D": 128}
+# pa_decode at 8B widths: 8 slots of 100-2000 cached tokens and a free
+# (length-0) slot, page 16, room for 2048 tokens a slot
+DECODE_LENS = (100, 400, 700, 1000, 1300, 1700, 2000, 1500, 0)
+DECODE_SHAPE = {"QH": 32, "KVH": 8, "D": 128, "PAGE": 16, "MAX_LEN": 2048}
+
+
+def _segments(lens, total):
+    """(total,) int32 segment ids of prompts `lens` packed back to back,
+    -1 on the padding."""
+    import numpy as np
+    seg = np.full((total,), -1, np.int32)
+    seg[:sum(lens)] = np.repeat(np.arange(len(lens)), lens)
+    return seg
+
+
+def _varlen_tiles(seg_q, seg_k, causal_diag, tile=64):
+    """(64 x 64 tiles a head computes under the kernel's rule, causal
+    tiles): a tile is skipped when the [min, max] of the non-negative
+    segment ids of its rows and of its columns are disjoint or empty,
+    or, with `causal_diag`, when it lies above the diagonal."""
+    import numpy as np
+
+    def ranges(seg):
+        out = []
+        for a in range(0, len(seg), tile):
+            s = seg[a:a + tile]
+            s = s[s >= 0]
+            out.append((s.min(), s.max()) if len(s) else None)
+        return out
+    rq, rk = ranges(np.asarray(seg_q)), ranges(np.asarray(seg_k))
+    n = 0
+    for qt, a in enumerate(rq):
+        for kt, b in enumerate(rk):
+            if a is None or b is None or (causal_diag and kt > qt):
+                continue
+            n += int(b[0] <= a[1] and b[1] >= a[0])
+    return n, len(rq) * (len(rq) + 1) // 2
+
+
+def _varlen_case(name, dname, h, kvh, d, seed):
+    """One correctness case of va_fwd on a ragged token axis: (q, k, v,
+    seg_q, seg_k, causal, same_offsets). Real segment ids are
+    non-decreasing and padding trails."""
+    import numpy as np
+    import torch
+    if name == "causal_same":        # packed prompts, T = 1000
+        seg_q = seg_k = _segments([300, 1, 250, 333], 1000)
+        causal, same = True, True
+    elif name in ("causal_unequal", "noncausal_unequal"):
+        # more keys than queries per segment: bottom-right alignment
+        seg_q = _segments([200, 150, 300], 700)
+        seg_k = _segments([260, 150, 420], 1000)
+        causal, same = name == "causal_unequal", False
+    else:                            # masked_rows: q segment 1 has no keys
+        seg_q = _segments([100, 200, 300], 1000)
+        seg_k = np.concatenate([np.zeros(150, np.int32),
+                                np.full(400, 2, np.int32),
+                                np.full(450, -1, np.int32)])
+        causal, same = False, False
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    dt = getattr(torch, dname)
+    q = torch.randn((len(seg_q), h, d), generator=g, device="cuda").to(dt)
+    k = torch.randn((len(seg_k), kvh, d), generator=g, device="cuda").to(dt)
+    v = torch.randn((len(seg_k), kvh, d), generator=g, device="cuda").to(dt)
+    sq = torch.from_numpy(np.ascontiguousarray(seg_q)).cuda()
+    sk = sq if same else torch.from_numpy(np.ascontiguousarray(seg_k)).cuda()
+    return q, k, v, sq, sk, causal, same
+
+
+VARLEN_CASES = ("causal_same", "causal_unequal", "noncausal_unequal",
+                "masked_rows")
+
+
+def _varlen_flavors():
+    """Correctness only: every case of VARLEN_CASES, GQA groups 1 and 4,
+    D = 64 and 128, bf16 and fp32. Returns the max |error| of each."""
+    import torch
+    import paddle_tpu_torch.ops.varlen_attention as va
+    errs = {}
+    for name in VARLEN_CASES:
+        for h, kvh in ((8, 8), (8, 2)):
+            for d in (64, 128):
+                for dname in ("bfloat16", "float32"):
+                    q, k, v, sq, sk, causal, same = _varlen_case(
+                        name, dname, h, kvh, d, seed=d + kvh)
+                    scale = 1.0 / math.sqrt(d)
+                    sqs, sks = va._sentinels(sq, sk)
+                    o, lse = va._launch_fwd(q, k, v, sqs, sks, causal, scale,
+                                            same)
+                    torch.cuda.synchronize()
+                    o_ref, lse_ref = va.varlen_fwd_reference(
+                        q, k, v, sq, sk, causal, scale)
+                    key = f"{name}/g{h // kvh}/d{d}/{dname}"
+                    errs[key] = _check_kernels(
+                        f"bucket_kernel {key}", dname, {"varlen_fwd": [o]},
+                        {"varlen_fwd": [o_ref]}, lse, lse_ref)["varlen_fwd"]
+                    dead = sqs < 0
+                    if name == "masked_rows":
+                        dead = dead | (sqs == 1)
+                    if not (bool((o[dead] == 0).all()) and
+                            bool((lse[:, dead] == -1e30).all())):
+                        fail(f"bucket_kernel {key}: a row that sees nothing "
+                             "is not o = 0, lse = -1e30")
+    return errs
+
+
+def _varlen_sdpa(q, k, v, lens):
+    """A closure timing F.scaled_dot_product_attention (is_causal) once
+    per packed prompt, summed; the per-prompt (1, H, n, D) copies, K/V
+    repeated to the query heads, are made beforehand and not timed."""
+    import torch.nn.functional as F
+    grp = q.shape[1] // k.shape[1]
+    docs, a = [], 0
+    for n in lens:
+        docs.append([t[a:a + n].transpose(0, 1)[None].repeat_interleave(
+            r, dim=1).contiguous() for t, r in ((q, 1), (k, grp), (v, grp))])
+        a += n
+
+    def call():
+        return [F.scaled_dot_product_attention(qd, kd, vd, is_causal=True)
+                for qd, kd, vd in docs]
+    return call
+
+
+def _varlen_bound(dname, lens, t, h, kvh, d):
+    """Least time for the serve prefill wave's attention: the real rows
+    of q, k and v read once, the segment ids and distances (4 x T int32),
+    o and lse written for every row, over the memory rate; or 4 flops
+    per kept pair and head dim over the peak for the dtype."""
+    elem = 4 if dname == "float32" else 2
+    real = sum(lens)
+    nbytes = (real * (h + 2 * kvh) * d * elem + 4 * t * 4
+              + t * h * d * elem + h * t * 4)
+    flops = 4 * d * h * sum(n * (n + 1) // 2 for n in lens)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dname]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def _decode_batch(variant, seed=0):
+    """The pa_decode operands at 8B widths: (q, k, v, ks, vs, ptab,
+    lengths) on the card, pages in random order."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops.paged_attention import quantize_kv
+    QH, KVH, D, PAGE = (DECODE_SHAPE[x] for x in ("QH", "KVH", "D", "PAGE"))
+    pps = DECODE_SHAPE["MAX_LEN"] // PAGE
+    B = len(DECODE_LENS)
+    P = B * pps + 1
+    rng = np.random.default_rng(seed)
+    ptab = rng.permutation(P - 1)[:B * pps].reshape(B, pps).astype(np.int32)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    pools, qname = VARIANTS[variant]
+    qdt = getattr(torch, qname)
+    q = torch.randn((B, QH, D), generator=g, device="cuda").to(qdt)
+    k = torch.randn((KVH, P, PAGE, D), generator=g, device="cuda")
+    v = torch.randn((KVH, P, PAGE, D), generator=g, device="cuda")
+    ks = vs = None
+    if pools == "int8":
+        k, ks = quantize_kv(k)
+        v, vs = quantize_kv(v)
+    else:
+        k, v = k.to(qdt), v.to(qdt)
+    return (q, k.contiguous(), v.contiguous(), ks, vs,
+            torch.from_numpy(ptab).cuda(),
+            torch.tensor(DECODE_LENS, dtype=torch.int32, device="cuda"))
+
+
+def _decode_bound(variant):
+    """Least time for one pa_decode call: the KV of the cached tokens
+    (and their int8 scales), q, the output, the page table and lengths
+    moved once, over the memory rate; or 4 flops per (query head, cached
+    token, head dim) over the peak for q's type."""
+    pools, qname = VARIANTS[variant]
+    QH, KVH, D = (DECODE_SHAPE[x] for x in ("QH", "KVH", "D"))
+    kv_elem = {"float32": 4, "bfloat16": 2, "int8": 1}[pools]
+    q_elem = 4 if qname == "float32" else 2
+    toks = sum(DECODE_LENS)
+    per_tok = KVH * D * kv_elem * 2 + (KVH * 4 * 2 if pools == "int8" else 0)
+    B = len(DECODE_LENS)
+    nbytes = (toks * per_tok + 2 * B * QH * D * q_elem
+              + B * (DECODE_SHAPE["MAX_LEN"] // DECODE_SHAPE["PAGE"] + 1) * 4)
+    flops = 4 * QH * D * toks
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[qname]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def phase_bucket_kernel(card):
+    import torch
+    import torch.nn.functional as F
+    import paddle_tpu_torch.ops.paged_attention as pa
+    import paddle_tpu_torch.ops.varlen_attention as va
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t, h, kvh, d = (BUCKET_ATTN[x] for x in ("T", "H", "KVH", "D"))
+    _, lens = _serve_rng()
+    seg_np = _segments(lens, t)
+    want_tiles, causal_tiles = _varlen_tiles(seg_np, seg_np, True)
+    seg = torch.from_numpy(seg_np).cuda()
+    sq, sk = va._sentinels(seg, seg)
+    scale = 1.0 / math.sqrt(d)
+    out = {}
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(0)
+        q = torch.randn((t, h, d), generator=g, device="cuda").to(dt)
+        k = torch.randn((t, kvh, d), generator=g, device="cuda").to(dt)
+        v = torch.randn((t, kvh, d), generator=g, device="cuda").to(dt)
+        o, lse, tiles = va._launch_fwd(q, k, v, sq, sk, True, scale, True,
+                                       count_tiles=True)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = va.varlen_fwd_reference(q, k, v, seg, seg, True,
+                                                 scale)
+        err = _check_kernels("bucket_kernel", dname, {"varlen_fwd": [o]},
+                             {"varlen_fwd": [o_ref]}, lse, lse_ref)
+        if tiles != want_tiles * h:
+            fail(f"va_fwd ({dname}): computed {tiles} tiles, the skip rule "
+                 f"gives {want_tiles} x {h} heads")
+        if not bool((o[sq < 0] == 0).all()):
+            fail(f"va_fwd ({dname}): padding rows are not zero")
+        del o, lse, o_ref, lse_ref
+        ms = cuda_ms(lambda: va._launch_fwd(q, k, v, sq, sk, True, scale,
+                                            True), reps=20)
+        plain_ms = cuda_ms(lambda: va.varlen_fwd_reference(
+            q, k, v, seg, seg, True, scale), reps=3, warmup=1)
+        library_ms = cuda_ms(_varlen_sdpa(q, k, v, lens), reps=20)
+        bound_ms, bound_by, nbytes, flops = _varlen_bound(dname, lens, t, h,
+                                                          kvh, d)
+        row = {"phase": "bucket_kernel", "kernel": "varlen_fwd",
+               "card": card, "dtype": dname, "T": t, "H": h, "KVH": kvh,
+               "D": d, "prompt_lens": lens, "causal": True,
+               "same_offsets": True, "tiles_computed_per_head": tiles // h,
+               "tiles_causal_per_head": causal_tiles,
+               "atol": TOL[dname][0], "rtol": TOL[dname][1],
+               "max_abs_err": err["varlen_fwd"],
+               "lse_max_abs_err": err["lse"], "kernel_ms": ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "library_call": "sdpa (is_causal) per prompt, summed",
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_bytes": nbytes, "bound_flops": flops,
+               "tflops": flops / ms / 1e9, "tf32": False}
+        emit(row)
+        out[("varlen_fwd", dname)] = row
+        del q, k, v
+        torch.cuda.empty_cache()
+    emit({"phase": "bucket_kernel", "part": "varlen flavors", "card": card,
+          "cases": list(VARLEN_CASES), "groups": [1, 4], "head_dims":
+          [64, 128], "tol": TOL, "lse_tol": LSE_TOL,
+          "max_abs_err": _varlen_flavors()})
+    for name in VARIANTS:
+        q, k, v, ks, vs, ptab, lengths = _decode_batch(name)
+        kw = {"k_scale": ks, "v_scale": vs}
+        ker = pa.paged_attention(q, k, v, ptab, lengths, **kw)
+        torch.cuda.synchronize()
+        ref = pa.paged_decode_reference(q, k, v, ptab, lengths, **kw)
+        atol, rtol = TOL[VARIANTS[name][1]]
+        max_err = float((ker.float() - ref.float()).abs().max())
+        if not torch.allclose(ker.float(), ref.float(), atol=atol, rtol=rtol):
+            fail(f"pa_decode vs plain ({name}): max |err| {max_err}")
+        if not bool((ker[lengths == 0] == 0).all()):
+            fail(f"pa_decode ({name}): the length-0 slot is not zero")
+        ms = cuda_ms(lambda: pa.paged_attention(q, k, v, ptab, lengths, **kw),
+                     reps=50)
+        plain_ms = cuda_ms(lambda: pa.paged_decode_reference(
+            q, k, v, ptab, lengths, **kw), reps=5, warmup=1)
+        live = torch.nonzero(lengths > 0)[:, 0]
+        grp = DECODE_SHAPE["QH"] // DECODE_SHAPE["KVH"]
+        ncols = int(lengths.max())
+        kd = _dense_kv(k, ks, ptab, live, ncols, grp, q.dtype)
+        vd = _dense_kv(v, vs, ptab, live, ncols, grp, q.dtype)
+        qd = q[live][:, :, None].contiguous()
+        mask = (torch.arange(ncols, device="cuda")[None, :]
+                < lengths[live][:, None])[:, None, None]
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask), reps=20)
+        bound_ms, bound_by, nbytes, flops = _decode_bound(name)
+        kname = "paged_decode_int8" if VARIANTS[name][0] == "int8" \
+            else "paged_decode"
+        row = {"phase": "bucket_kernel", "kernel": kname, "card": card,
+               "variant": name, "pools": VARIANTS[name][0],
+               "q_dtype": VARIANTS[name][1], "lengths": list(DECODE_LENS),
+               **DECODE_SHAPE, "atol": atol, "rtol": rtol,
+               "max_abs_err": max_err, "length0_zero": True,
+               "kernel_ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms,
+               "library_call": "sdpa over the live slots' KV gathered "
+                               "dense, masked to each length",
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_bytes": nbytes, "bound_flops": flops, "tf32": False}
+        emit(row)
+        out[(kname, name)] = row
+        del q, k, v, ks, vs, ker, ref, kd, vd
+        torch.cuda.empty_cache()
+    return out
+
+
+def _bucket_counts():
+    """Launches of every serving kernel, by kernel name."""
+    import paddle_tpu_torch.kernels.ragged_paged_attention as rpa
+    import paddle_tpu_torch.ops.flash_attention as fa
+    import paddle_tpu_torch.ops.paged_attention as pa
+    import paddle_tpu_torch.ops.varlen_attention as va
+    return {"varlen_fwd": va.launches_fwd, "flash_fwd": fa.launches_fwd,
+            "paged_decode": pa.launches_decode,
+            "paged_decode_int8": pa.launches_decode_int8,
+            "ragged_paged_attention": rpa.launches}
+
+
+def _reset_bucket_counts():
+    import paddle_tpu_torch.kernels.ragged_paged_attention as rpa
+    import paddle_tpu_torch.ops.flash_attention as fa
+    import paddle_tpu_torch.ops.paged_attention as pa
+    import paddle_tpu_torch.ops.varlen_attention as va
+    va.launches_fwd = fa.launches_fwd = rpa.launches = 0
+    pa.launches_decode = pa.launches_decode_int8 = 0
+
+
+def _bucket_run(eng, pipelined, marks=None):
+    """Run a bucketed engine with its prefill calls counted: (finished
+    requests, {"waves": packed prefill_varlen waves, "singles": lone
+    prefills}, launches by kernel). Given `marks`, appends the host time
+    at which each admission's prefill was done: when the engine's
+    prefill method returns, having read the seed logits, which waits
+    for the device."""
+    from paddle_tpu_torch.models import llama_serving as S
+    calls = {"waves": 0, "singles": 0}
+    originals = (S.prefill_varlen, S.prefill)
+
+    def counted(fn, key):
+        def wrapper(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return wrapper
+    S.prefill_varlen = counted(originals[0], "waves")
+    S.prefill = counted(originals[1], "singles")
+    if marks is not None:
+        for name in ("_prefill_packed", "_prefill_into"):
+            def marked(*a, _fn=getattr(eng, name), **k):
+                out = _fn(*a, **k)
+                marks.append(time.perf_counter())
+                return out
+            setattr(eng, name, marked)
+    _reset_bucket_counts()
+    try:
+        done = eng.run_pipelined() if pipelined else eng.run()
+    finally:
+        S.prefill_varlen, S.prefill = originals
+    return done, calls, _bucket_counts()
+
+
+def _want_bucket_counts(layers, calls, steps, int8):
+    """The launches of a bucketed run: va_fwd per layer and packed wave,
+    fa_fwd per layer and lone prefill, pa_decode (its int8 variant with
+    int8 pools) per layer and decode step, nothing ragged."""
+    want = {k: 0 for k in _bucket_counts()}
+    want["varlen_fwd"] = layers * calls["waves"]
+    want["flash_fwd"] = layers * calls["singles"]
+    want["paged_decode_int8" if int8 else "paged_decode"] = layers * steps
+    return want
+
+
+def phase_bucket_parity(card):
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.models.llama_spmd import init_params
+    from paddle_tpu_torch.models.llama_serving import Request, ServingEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_hidden_layers=2)
+    cpu_params = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    gpu_params = _tree_to(cpu_params, "cuda")
+    rng = np.random.default_rng(1)
+    lens = [17, 90, 180, 300]
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    L = cfg.num_hidden_layers
+    runs = {}
+    for cache in (None, "int8"):
+        results, info = {}, {}
+        for dev, params in (("cuda", gpu_params), ("cpu", cpu_params)):
+            eng = ServingEngine(params, cfg, max_seqs=3, max_seq_len=512,
+                                page_size=16, cache_dtype=cache,
+                                ragged=False, device=dev)
+            for i, p in enumerate(prompts):
+                eng.submit(Request(i, p, max_new_tokens=16))
+            t0 = time.perf_counter()
+            done, calls, launches = _bucket_run(eng, pipelined=True)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            info[dev] = {"seconds": time.perf_counter() - t0,
+                         "device_steps": eng.device_steps, "calls": calls,
+                         "launches": launches, "pad_tokens": eng.pad_tokens}
+            if len(done) != 4 or not eng.pool.conserved(drained=True):
+                fail(f"bucket_parity ({dev}): {len(done)} of 4 finished or "
+                     "pool leaked")
+            results[dev] = {r.rid: list(r.output) for r in done}
+        g = info["cuda"]
+        if g["calls"] != {"waves": 1, "singles": 1}:
+            fail(f"bucket_parity: prefill calls {g['calls']}, want one "
+                 "packed wave of three and one lone prefill")
+        want = _want_bucket_counts(L, g["calls"], g["device_steps"],
+                                   cache == "int8")
+        if g["launches"] != want:
+            fail(f"bucket_parity: launches {g['launches']}, want {want}")
+        if any(info["cpu"]["launches"].values()):
+            fail("bucket_parity: the CPU engine launched a CUDA kernel")
+        compared = {}
+        for rid, p in enumerate(prompts):
+            a, b = results["cuda"][rid], results["cpu"][rid]
+            j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                     None)
+            if j is None:
+                compared[rid] = {"identical": len(a), "stopped_at": None}
+                continue
+            margin = _top2_margin(cpu_params, cfg, p + b[:j], 16)
+            if margin >= 1e-3:
+                fail(f"bucket_parity: request {rid} diverges at token {j} "
+                     f"with CPU top-2 margin {margin}")
+            compared[rid] = {"identical": j, "stopped_at": j,
+                             "cpu_top2_margin": margin}
+        name = "fp32" if cache is None else "int8"
+        row = {"phase": "bucket_parity", "card": card, "pool": name,
+               "config": "llama3_8b widths, 2 layers, fp32, TF32 off, "
+                         "ragged=False, max_seqs 3, run_pipelined",
+               "prompt_lens": lens, "new_tokens": 16, "requests": compared,
+               "prefill_calls": g["calls"], "launches": g["launches"],
+               "device_steps": g["device_steps"],
+               "pad_tokens": g["pad_tokens"],
+               "cuda_seconds": g["seconds"],
+               "cpu_seconds": info["cpu"]["seconds"]}
+        emit(row)
+        runs[name] = row
+    del gpu_params
+    torch.cuda.empty_cache()
+    return runs
+
+
+def phase_bucket_serve(card, cfg, params, init_s):
+    import torch
+    runs = {}
+    for cache in (None, "int8"):
+        eng, reqs = serve_engine(cfg, params, cache, ragged=False)
+        lens = [len(r.prompt) for r in reqs]
+        finishes, prefills = [], []
+        finish = eng.step_finish
+
+        def timed_finish(ticket, inflight=None, _finish=finish):
+            n = _finish(ticket, inflight=inflight)
+            finishes.append(time.perf_counter())
+            return n
+        eng.step_finish = timed_finish
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done, calls, launches = _bucket_run(eng, pipelined=True,
+                                            marks=prefills)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        name = "bf16" if cache is None else "int8"
+        if len(done) != 8:
+            fail(f"bucket_serve ({name}): {len(done)} of 8 requests finished")
+        for r in done:
+            if len(r.output) != 64:
+                fail(f"bucket_serve ({name}): request {r.rid} has "
+                     f"{len(r.output)} tokens, want 64")
+            if not all(0 <= t < cfg.vocab_size for t in r.output):
+                fail(f"bucket_serve ({name}): request {r.rid} left the "
+                     "vocabulary")
+        want = _want_bucket_counts(cfg.num_hidden_layers, calls,
+                                   eng.device_steps, cache == "int8")
+        if launches != want:
+            fail(f"bucket_serve ({name}): launches {launches}, want {want}")
+        if not eng.pool.conserved(drained=True):
+            fail(f"bucket_serve ({name}): page pool not conserved")
+        # decode-only intervals: consecutive finishes with no prefill
+        # call returning between them
+        gaps = [b - a for a, b in zip(finishes, finishes[1:])
+                if not any(a < p <= b for p in prefills)]
+        last_prefill = max(prefills, default=t0)
+        row = {"phase": "bucket_serve", "card": card, "pool": name,
+               "config": SERVE_CONFIG + ", ragged=False",
+               "prompt_lens": lens, "new_tokens": 64, "sampled": [0, 1],
+               "wall_s": wall, "device_steps": eng.device_steps,
+               "prefill_calls": calls, "prefill_tokens": eng.prefill_tokens,
+               "pad_tokens": eng.pad_tokens,
+               "prefill_tok_s": eng.prefill_tokens / (last_prefill - t0),
+               "decode_step_ms_median": (statistics.median(gaps) * 1e3
+                                         if gaps else None),
+               "output_tok_s": 8 * 64 / wall, "launches": launches,
+               "params_init_s": init_s}
+        emit(row)
+        runs[name] = row
+        del eng
+        torch.cuda.empty_cache()
+    return runs
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1218,7 +1763,19 @@ def main(argv=None):
     kern = phase_kernel(smi) if "kernel" in phases else {}
     if "parity" in phases:
         phase_parity(smi)
-    serve = phase_serve(smi) if "serve" in phases else {}
+    serve, bserve = {}, {}
+    if "serve" in phases or "bucket_serve" in phases:
+        # the 8B parameters, built once for both serve phases
+        t0 = time.perf_counter()
+        cfg, params = serve_params()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        if "serve" in phases:
+            serve = phase_serve(smi, cfg, params, init_s)
+        if "bucket_serve" in phases:
+            bserve = phase_bucket_serve(smi, cfg, params, init_s)
+        del params
+        torch.cuda.empty_cache()
     tk = phase_train_kernel(smi) if "train_kernel" in phases else {}
     if "train_parity" in phases:
         phase_train_parity(smi)
@@ -1227,6 +1784,9 @@ def main(argv=None):
     if "packed_parity" in phases:
         phase_packed_parity(smi)
     packed = phase_train_packed(smi) if "train_packed" in phases else {}
+    bk = phase_bucket_kernel(smi) if "bucket_kernel" in phases else {}
+    if "bucket_parity" in phases:
+        phase_bucket_parity(smi)
     kernels = []
     for kname, pools, run in (("ragged_paged_attention", "bfloat16", "bf16"),
                               ("ragged_paged_attention_int8", "int8",
@@ -1263,6 +1823,18 @@ def main(argv=None):
             "source": "paddle_tpu_torch/csrc/flashmask_attention.cu",
             "replaces": FLASHMASK_TPU_KERNELS[kname],
             "launches": packed["launches"][kname] if packed else None,
+            "max_abs_err": k["max_abs_err"], "ms": k["kernel_ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+    for kname, (src, tpu, row, run) in BUCKET_KERNELS.items():
+        k = bk.get(row)
+        if k is None:
+            continue
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"paddle_tpu_torch/csrc/{src}.cu", "replaces": tpu,
+            "launches": bserve[run]["launches"][kname] if run in bserve
+            else None,
             "max_abs_err": k["max_abs_err"], "ms": k["kernel_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"]})

@@ -10,10 +10,17 @@ and never `paddle_tpu`. Entry points run on the card by default
 
 The port covers the serving main path (the stacked-parameter Llama run
 through `models.llama_serving.unified_step`, driven by the ragged
-`ServingEngine` pump) and the single-device pretrain step
-(`models.llama_spmd.make_train_step`, on the flash-attention kernels of
-`ops.flash_attention`, or with packed documents on the FlashMask
-kernels of `ops.flashmask_attention`).
+`ServingEngine` pump), bucketed serving (`ServingEngine(...,
+ragged=False)`: `prefill`, `prefill_varlen` and `decode_step`, on the
+kernels of `ops.varlen_attention` and `ops.paged_attention`; on the CPU
+`ServingEngine(params, config, ragged=False, device="cpu")`) and the
+single-device pretrain step (`models.llama_spmd.make_train_step`, on the
+flash-attention kernels of `ops.flash_attention`, or with packed
+documents on the FlashMask kernels of `ops.flashmask_attention`). Each
+kernel module counts its launches (`launches`, `launches_fwd`,
+`launches_decode`, `launches_decode_int8`, ...). `python3 chip_smoke.py`
+drives every path on the card; `--phases
+device,build,bucket_kernel,bucket_parity,bucket_serve` the bucketed one.
 """
 from ._device import DEFAULT_DEVICE, resolve_device
 

@@ -1,6 +1,6 @@
-"""Llama serving: the unified ragged step and the continuous-batching
-engine that drives it (counterpart of
-`paddle_tpu/models/llama_serving.py`, ragged path only).
+"""Llama serving: the unified ragged step, the bucketed entry points,
+and the continuous-batching engine that drives them (counterpart of
+`paddle_tpu/models/llama_serving.py`).
 
 One `unified_step` call serves an arbitrary mix of prefill chunks and
 single-token decodes from a flat token buffer: token gather, RMSNorm
@@ -8,6 +8,23 @@ and QKV, RoPE, the paged KV scatter (int8-quantized on write when the
 pool is int8), ragged paged attention, SwiGLU, the lean `lm_head`, and
 device-side sampling. The engine keeps page tables and lengths on the
 host, ships one snapshot of them per step, and reads one record back.
+
+The bucketed entry points (`ServingEngine(..., ragged=False)`) split
+the same work in three: `prefill` runs one prompt padded to a
+power-of-two bucket through causal flash attention
+(`ops/flash_attention.py`, after the GQA repeat); `prefill_varlen`
+runs an admission wave of several prompts packed into one bucket
+through varlen attention (`ops/varlen_attention.py`); `decode_step`
+feeds one token per slot through paged decode attention
+(`ops/paged_attention.py`) and samples on the device. Prefill K/V is
+scattered into the pools afterwards (quantized then, with int8 pools).
+On the CPU: `ServingEngine(params, config, ragged=False,
+device="cpu")`; on the card, `python3 chip_smoke.py --phases
+device,build,bucket_kernel,bucket_parity,bucket_serve` checks and
+times this path. Its kernels count their launches in
+`ops.varlen_attention.launches_fwd`, `ops.flash_attention.launches_fwd`
+(a lone prefill) and `ops.paged_attention.launches_decode` /
+`launches_decode_int8`.
 
 Differences from the JAX package that a reader should know:
 
@@ -27,9 +44,8 @@ Differences from the JAX package that a reader should know:
 Out of scope in this slice, raising NotImplementedError that names the
 ROADMAP.md item: the prefix cache, the host tier's spill side and KV
 handoff (Queue 1 item 6); metrics, fault injection and the observability
-hooks (item 7); speculative decoding and chunked prefill (item 8); the
-bucketed entry points (`ragged=False`) and tensor-parallel serving
-(`mesh`) (item 10).
+hooks (item 7); speculative decoding, chunked prefill and `verify_step`
+(item 8); tensor-parallel serving (`mesh`, item 10b).
 """
 from __future__ import annotations
 
@@ -41,16 +57,20 @@ import torch
 from .. import _prng
 from .._device import DEFAULT_DEVICE, resolve_device
 from ..kernels.ragged_paged_attention import ragged_paged_attention
+from ..ops.flash_attention import flash_attention_bhsd
 from ..ops.fused import rms_norm as _rms
 from ..ops.fused import swiglu
-from ..ops.paged_attention import quantize_kv
+from ..ops.paged_attention import paged_attention, quantize_kv
+from ..ops.varlen_attention import (flash_attention_varlen,
+                                    seg_ids_from_cu_seqlens)
 from ..ops.rope import apply_rotary_emb, rope_cos_sin
 from ..serving.kvcache import PagePool
 from ..serving.kvtier import HostTier
 from .generation import sample_logits_np
 from .llama import LlamaConfig
 
-__all__ = ["unified_step", "Request", "RaggedTicket", "PipelineStall",
+__all__ = ["unified_step", "prefill", "prefill_varlen", "decode_step",
+           "Request", "StepTicket", "RaggedTicket", "PipelineStall",
            "ServingEngine"]
 
 _M32 = 0xFFFFFFFF
@@ -123,6 +143,21 @@ def _filter_draw(lg, temp, top_k, top_p, key, fold):
     return tok, lp
 
 
+def _sample_record(logits, lengths, active, sample):
+    """One draw per slot for `decode_step`: per-slot sampling params
+    (temp, top_k, top_p, key, eos, remaining), PRNG fold `lengths` (the
+    length including the fed token, i.e. its position + 1: the same
+    (seed, position) key as the ragged step's). Returns (next_token (B,)
+    int64, done (B,) bool, logprob (B,) f32)."""
+    tok, lp = _filter_draw(logits.to(torch.float32), sample["temp"],
+                           sample["top_k"], sample["top_p"], sample["key"],
+                           lengths.long())
+    eos = sample["eos"]
+    done = active & ((sample["remaining"] <= 1) |
+                     ((eos >= 0) & (tok == eos)))
+    return tok, done, lp
+
+
 def _sample_flat(logits, tok_slot, tok_pos, row_on, sample):
     """One draw per buffer row: per-slot sampling params gathered
     through `tok_slot`, PRNG fold `tok_pos + 1` (the request's
@@ -139,6 +174,14 @@ def _sample_flat(logits, tok_slot, tok_pos, row_on, sample):
     done = row_on & ((g(sample["remaining"]) <= 1) |
                      ((eos >= 0) & (tok == eos)))
     return tok, done, lp
+
+
+def _qkv(x, lw, li, shape, nh, nkv, hd):
+    """Layer li's q, k, v projections of x, reshaped to (*shape, heads,
+    head_dim)."""
+    return ((x @ lw["wq"][li]).reshape(*shape, nh, hd),
+            (x @ lw["wk"][li]).reshape(*shape, nkv, hd),
+            (x @ lw["wv"][li]).reshape(*shape, nkv, hd))
 
 
 def unified_step(params, k_pool, v_pool, page_table, tokens, tok_slot,
@@ -201,9 +244,7 @@ def unified_step(params, k_pool, v_pool, page_table, tokens, tok_slot,
     lw = params["layers"]
     for li in range(k_pool.shape[0]):
         x = _rms(h, lw["ln1"][li], eps)
-        q = (x @ lw["wq"][li]).reshape(t, nh, hd)
-        k = (x @ lw["wk"][li]).reshape(t, nkv, hd)
-        v = (x @ lw["wv"][li]).reshape(t, nkv, hd)
+        q, k, v = _qkv(x, lw, li, (t,), nh, nkv, hd)
         q, k = apply_rotary_emb(q, k, cos[:, None], sin[:, None])
         kl, vl, ksl, vsl = _scatter_kv(
             k_pool, v_pool, k_scale, v_scale, li, page_ids, off,
@@ -240,6 +281,143 @@ def unified_step(params, k_pool, v_pool, page_table, tokens, tok_slot,
     return logits, rec
 
 
+@torch.no_grad()
+def prefill(params, input_ids, length, config: LlamaConfig):
+    """One prompt, padded to its bucket. input_ids: (1, S_padded) token
+    ids; length: the prompt's real length. Causal flash attention over
+    the padded row (the GQA K/V heads repeated first; rows past `length`
+    compute values nobody reads). Returns (next-token logits (V,),
+    k_all, v_all: (L, KVH, S_padded, D)), K after RoPE."""
+    c = config
+    nh, nkv = c.num_attention_heads, c.num_key_value_heads
+    hd = c.hidden_size // nh
+    eps = c.rms_norm_eps
+    b, s = input_ids.shape
+    cos, sin = rope_cos_sin(s, hd, base=c.rope_theta,
+                            device=input_ids.device)
+    h = params["embed"][input_ids.long()]                 # (1, S, H)
+    lw = params["layers"]
+    ks, vs = [], []
+    for li in range(lw["wq"].shape[0]):
+        x = _rms(h, lw["ln1"][li], eps)
+        q, k, v = (t.transpose(1, 2)
+                   for t in _qkv(x, lw, li, (b, s), nh, nkv, hd))
+        q, k = apply_rotary_emb(q, k, cos[None, None], sin[None, None])
+        rep = nh // nkv
+        kr = k.repeat_interleave(rep, dim=1) if rep > 1 else k
+        vr = v.repeat_interleave(rep, dim=1) if rep > 1 else v
+        o = flash_attention_bhsd(q, kr, vr, causal=True)  # (1, QH, S, D)
+        h = h + o.transpose(1, 2).reshape(b, s, -1) @ lw["wo"][li]
+        x = _rms(h, lw["ln2"][li], eps)
+        h = h + swiglu(x, lw["w_gate"][li], lw["w_up"][li], lw["w_down"][li])
+        ks.append(k[0])
+        vs.append(v[0])
+    h = _rms(h, params["final_norm"], eps)
+    logits = h[0, int(length) - 1] @ params["lm_head"]
+    return logits, torch.stack(ks), torch.stack(vs)
+
+
+@torch.no_grad()
+def prefill_varlen(params, input_ids, cu_seqlens, config: LlamaConfig):
+    """An admission wave in ONE call: input_ids (T_pad,) all prompts
+    packed back to back; cu_seqlens (B+1,) prefix sums (unused tail
+    entries repeat the last offset: zero-length segments). Each token's
+    RoPE position is its place in its segment; attention is causal
+    within a segment (`flash_attention_varlen`, same offsets). Returns
+    (per-segment next-token logits (B, V), k_all, v_all: (L, KVH, T_pad,
+    D)), K after RoPE."""
+    c = config
+    nh, nkv = c.num_attention_heads, c.num_key_value_heads
+    hd = c.hidden_size // nh
+    eps = c.rms_norm_eps
+    t = input_ids.shape[0]
+    dev = input_ids.device
+    seg = seg_ids_from_cu_seqlens(cu_seqlens, t)
+    cu = cu_seqlens.long()
+    # in-segment position; a pad (seg -1) takes start 0, as in the JAX
+    # package (its rows are masked and its K/V lands on the trash page)
+    starts = torch.cat([cu[:1] * 0, cu])[seg.long() + 1]
+    pos = torch.clamp_min(torch.arange(t, device=dev) - starts, 0)
+    cos, sin = rope_cos_sin(None, hd, base=c.rope_theta, position_ids=pos)
+    h = params["embed"][input_ids.long()]                 # (T, H)
+    lw = params["layers"]
+    ks, vs = [], []
+    for li in range(lw["wq"].shape[0]):
+        x = _rms(h, lw["ln1"][li], eps)
+        q, k, v = _qkv(x, lw, li, (t,), nh, nkv, hd)
+        q, k = apply_rotary_emb(q, k, cos[:, None], sin[:, None])
+        o = flash_attention_varlen(q, k, v, seg, seg, causal=True,
+                                   same_offsets=True)    # (T, QH, D)
+        h = h + o.reshape(t, -1) @ lw["wo"][li]
+        x = _rms(h, lw["ln2"][li], eps)
+        h = h + swiglu(x, lw["w_gate"][li], lw["w_up"][li], lw["w_down"][li])
+        ks.append(k)
+        vs.append(v)
+    h = _rms(h, params["final_norm"], eps)
+    # row-sparse epilogue: one final row per packed segment
+    last = torch.clamp_min(cu[1:] - 1, 0)
+    logits = h[last] @ params["lm_head"]                  # (B, V)
+    # (L, T, KVH, D) -> (L, KVH, T, D), the pool scatter layout
+    return (logits, torch.stack(ks).transpose(1, 2),
+            torch.stack(vs).transpose(1, 2))
+
+
+@torch.no_grad()
+def decode_step(params, k_pool, v_pool, page_table, lengths, tokens, active,
+                config: LlamaConfig, page_size, k_scale=None, v_scale=None,
+                sample=None, carry_tok=None, carry_mask=None):
+    """One token for every slot.
+
+    k_pool/v_pool: (L, KVH, P, page, D); page_table (B, pages_per_seq)
+    int32; tokens (B,) the input tokens; lengths (B,) int32 INCLUDING
+    the fed token; active (B,) bool. An inactive slot's K/V lands on the
+    trash page (the last one). The new token's K/V is scattered (int8
+    quantized, with its scales, when the pool is int8) and then every
+    slot attends over its first `lengths` columns. The pools and scales
+    are updated IN PLACE.
+
+    `sample` (dict of per-slot tensors: temp, top_k, top_p, key, eos,
+    remaining) turns on device-side sampling; `carry_tok`/`carry_mask`
+    feed slot s the previous step's device-resident token where the mask
+    is set, so a pipelined pump launches step N+1 before reading step N.
+    Returns logits (B, V), or (logits, (next_token, done, logprob)) when
+    `sample` is given."""
+    c = config
+    if carry_tok is not None:
+        tokens = torch.where(carry_mask, carry_tok, tokens)
+    nh, nkv = c.num_attention_heads, c.num_key_value_heads
+    hd = c.hidden_size // nh
+    eps = c.rms_norm_eps
+    B = tokens.shape[0]
+    Pn = k_pool.shape[2]
+    quant = k_scale is not None
+    pos = torch.clamp_min(lengths.long() - 1, 0)
+    cos, sin = rope_cos_sin(None, hd, base=c.rope_theta, position_ids=pos)
+    h = params["embed"][tokens.long()]                    # (B, H)
+    page_ids = page_table.long()[torch.arange(B, device=pos.device),
+                                 pos // page_size]
+    page_ids = torch.where(active, page_ids, Pn - 1)      # trash page
+    off = pos % page_size
+    lw = params["layers"]
+    for li in range(k_pool.shape[0]):
+        x = _rms(h, lw["ln1"][li], eps)
+        q, k, v = _qkv(x, lw, li, (B,), nh, nkv, hd)
+        q, k = apply_rotary_emb(q, k, cos[:, None], sin[:, None])
+        kl, vl, ksl, vsl = _scatter_kv(
+            k_pool, v_pool, k_scale, v_scale, li, page_ids, off,
+            k.transpose(0, 1), v.transpose(0, 1), quant)
+        o = paged_attention(q, kl, vl, page_table, lengths, k_scale=ksl,
+                            v_scale=vsl)                  # (B, QH, D)
+        h = h + o.reshape(B, -1).to(h.dtype) @ lw["wo"][li]
+        x = _rms(h, lw["ln2"][li], eps)
+        h = h + swiglu(x, lw["w_gate"][li], lw["w_up"][li], lw["w_down"][li])
+    h = _rms(h, params["final_norm"], eps)
+    logits = h @ params["lm_head"]                        # (B, V)
+    if sample is None:
+        return logits
+    return logits, _sample_record(logits, lengths, active, sample)
+
+
 # ---------------------------------------------------------------------------
 # engine (host-side orchestration)
 # ---------------------------------------------------------------------------
@@ -247,6 +425,26 @@ class PipelineStall(RuntimeError):
     """`step_launch(carry=...)` needed a preemption victim while a step
     was still in flight. The caller must consume the in-flight ticket
     first (`step_finish`), then relaunch with carry=None."""
+
+
+class StepTicket:
+    """One launched-but-unconsumed bucketed `decode_step`. `reqs` maps a
+    launched slot to the Request that held it at launch: `step_finish`
+    applies a slot's result only while that identity still holds (a slot
+    released or reused in between makes the result a discarded zombie),
+    and sets a finishing slot's entry to None in the NEXT ticket so its
+    overrun token is never emitted. `next_tok` is the device record's
+    token row (the carry); `host` holds the record's pinned host copies
+    (next_tok, done, logprob), complete once `event` has fired."""
+
+    __slots__ = ("slots", "reqs", "next_tok", "host", "event")
+
+    def __init__(self, slots, reqs, next_tok, host, event):
+        self.slots = slots          # launched slot ids, ascending
+        self.reqs = reqs            # slot -> Request at launch
+        self.next_tok = next_tok    # device (B,) next tokens (the carry)
+        self.host = host            # (next_tok, done, logprob)
+        self.event = event          # CUDA event after the copies, or None
 
 
 class RaggedTicket:
@@ -331,8 +529,13 @@ class Request:
 
 
 class ServingEngine:
-    """Continuous batching over a paged KV cache, every dispatch one
-    `unified_step` over a flat buffer of `ragged_tokens` rows.
+    """Continuous batching over a paged KV cache. With `ragged=True` (the
+    default) every dispatch is one `unified_step` over a flat buffer of
+    `ragged_tokens` rows. With `ragged=False` (the bucketed entry
+    points) admission prefills at once — `prefill` for a single request,
+    one packed `prefill_varlen` for a wave of two or more, padded to a
+    power-of-two bucket (`pad_tokens` counts the padding) — and every
+    step is one `decode_step` with one row per slot.
 
     submit() rejects requests that can never fit `max_seq_len`; requests
     that fit but exceed the current capacity queue. `num_pages` may
@@ -345,7 +548,8 @@ class ServingEngine:
     `cache_dtype="int8"` stores the pool int8 with per-token fp32
     scales; otherwise the pool stores `dtype` (default: the parameters'
     dtype). `lean` gathers the logits rows a wave samples before
-    `lm_head`; `tokbuf` keeps token values in a device ring.
+    `lm_head`; `tokbuf` keeps token values in a device ring (both apply
+    to the ragged step only).
 
     Runs on `device` ("cuda" by default; raises without a CUDA device —
     pass device="cpu" to run on the CPU). `params` must already live
@@ -365,8 +569,8 @@ class ServingEngine:
                 (faults is not None, "fault injection (faults=)", 7),
                 (spec_decode > 1, "spec_decode > 1", 8),
                 (chunked_prefill, "chunked_prefill", 8),
-                (not ragged, "ragged=False (bucketed entry points)", 10),
-                (mesh is not None, "tensor-parallel serving (mesh=)", 10)):
+                (mesh is not None, "tensor-parallel serving (mesh=)",
+                 "10b")):
             if on:
                 raise _not_ported(what, item)
         c = config
@@ -404,10 +608,13 @@ class ServingEngine:
         self.preemptions = 0
         self.prefill_tokens = 0
         self.device_steps = 0
+        # padding rows the bucketed prefills dispatched (`_bucket_for`)
+        self.pad_tokens = 0
+        self.ragged = bool(ragged)
         if ragged_tokens is None:
             ragged_tokens = 1 << math.ceil(math.log2(max(max_seqs, 16)))
         self.ragged_buf = int(ragged_tokens)
-        if self.ragged_buf < max_seqs:
+        if self.ragged and self.ragged_buf < max_seqs:
             raise ValueError(
                 f"ragged_tokens={self.ragged_buf} cannot hold one row per "
                 f"slot ({max_seqs} slots)")
@@ -416,9 +623,10 @@ class ServingEngine:
         # seed row per prefilling slot, and a slot is never both
         self.need_buf = max_seqs
         dev = self.device
+        # a bucketed decode is one row per slot already: no token ring
         self.tok_buf = torch.zeros((max_seqs, max_seq_len + 1),
                                    dtype=torch.int32, device=dev) \
-            if tokbuf else None
+            if tokbuf and self.ragged else None
         kvh = c.num_key_value_heads
         hd = c.hidden_size // c.num_attention_heads
         L = c.num_hidden_layers
@@ -589,7 +797,9 @@ class ServingEngine:
 
     def _admit(self):
         """Admit the waiting requests that both slots and KV pages can
-        hold, reserving the pages live slots will need this step."""
+        hold, reserving the pages live slots will need this step. The
+        ragged engine attaches them to feed their prompts through the
+        coming waves; the bucketed engine prefills them here."""
         free_slots = [s for s in range(self.max_seqs)
                       if self._slots[s] is None]
 
@@ -602,6 +812,8 @@ class ServingEngine:
                 horizon = min(int(self.lengths[s]) + 1, self.max_seq_len)
             return max(0, -(-horizon // self.page_size)
                        - len(self._seq_pages[s]))
+        # (a bucketed slot is never mid-prefill: it needs one page exactly
+        # when its next token crosses a page boundary)
         reserve = sum(_reserve(s) for s in sorted(self._live))
         take = 0
         for req in self._waiting[:len(free_slots)]:
@@ -620,6 +832,9 @@ class ServingEngine:
                 break
             reserve += need
             take += 1
+        if not self.ragged:
+            self._admit_bucketed(free_slots[:take])
+            return
         for slot in free_slots[:take]:
             req = self._waiting.pop(0)
             if req._offload is not None:
@@ -636,6 +851,125 @@ class ServingEngine:
             self._order += 1
             self._attach(slot, req)
             self._stage_tokbuf(slot, req)
+
+    def _admit_bucketed(self, slots):
+        """Bucketed admission of the head of the queue into `slots`:
+        offloaded victims scatter their pages back; the rest prefill at
+        once, alone through `prefill` or as ONE packed `prefill_varlen`
+        wave."""
+        reqs, fresh = [], []
+        for slot in slots:
+            req = self._waiting.pop(0)
+            if req._offload is not None:
+                self._restore_into(slot, req)
+            else:
+                reqs.append(req)
+                fresh.append(slot)
+        if len(reqs) == 1:
+            self._prefill_into(fresh[0], reqs[0])
+        elif reqs:
+            self._prefill_packed(fresh, reqs)
+
+    def _bucket_for(self, n):
+        """The power-of-two padding bucket of an n-token bucketed
+        prefill; counts its `b - n` padding rows into `pad_tokens`."""
+        b = max(self.page_size, 1 << math.ceil(math.log2(max(n, 1))))
+        self.pad_tokens += b - n
+        return b
+
+    def _seat(self, slot, req, row):
+        """Occupy `slot` with a just-prefilled request; seed its first
+        token from `row` (its last-position logits, numpy (V,)) unless
+        it resumes after a preemption with its next token pending."""
+        req.slot = slot
+        req._admit_order = self._order
+        self._order += 1
+        self._attach(slot, req)
+        if req._resume:
+            req._resume = False
+        else:
+            self._seed_first_token(slot, req, row)
+
+    def _prefill_into(self, slot, req):
+        """One request's prefill through `prefill`, padded to its
+        bucket, and the scatter of its K/V into fresh pages."""
+        feed = self._feed_ids(req)
+        S = len(feed)
+        self.prefill_tokens += S
+        ids = np.zeros((1, self._bucket_for(S)), np.int32)
+        ids[0, :S] = feed
+        logits, k_all, v_all = prefill(self.params, self._h2d(ids), S,
+                                       self.config)
+        self._scatter_prompt(slot, k_all, v_all, S)
+        row = None if req._resume else \
+            logits.to(torch.float32).cpu().numpy()
+        self._seat(slot, req, row)
+
+    def _prefill_packed(self, slots, reqs):
+        """An admission wave of two or more requests: their feeds packed
+        back to back into one bucket, ONE `prefill_varlen` call, one
+        read of the seed rows, one scatter of the packed K/V."""
+        feeds = [self._feed_ids(r) for r in reqs]
+        lens = [len(f) for f in feeds]
+        total = sum(lens)
+        self.prefill_tokens += total
+        ids = np.zeros((self._bucket_for(total),), np.int32)
+        cu = np.zeros((self.max_seqs + 1,), np.int32)
+        off = 0
+        for i, f in enumerate(feeds):
+            ids[off:off + lens[i]] = f
+            off += lens[i]
+            cu[i + 1] = off
+        cu[len(reqs) + 1:] = off      # unused tail: zero-length segments
+        d = self._stage({"ids": ids, "cu": cu})
+        logits, k_all, v_all = prefill_varlen(self.params, d["ids"],
+                                              d["cu"], self.config)
+        pg, po = self._packed_indices(ids.shape[0])
+        seed = [i for i, r in enumerate(reqs) if not r._resume]
+        rows = dict(zip(seed, logits[seed].to(torch.float32).cpu().numpy())) \
+            if seed else {}
+        for i, (slot, req) in enumerate(zip(slots, reqs)):
+            self._fill_indices(pg, po, slot, int(cu[i]), lens[i])
+            self._seat(slot, req, rows.get(i))
+        self._scatter_packed(k_all, v_all, pg, po)
+
+    def _packed_indices(self, t):
+        """(page, offset) index arrays of length t pointing at the trash
+        page; `_fill_indices` points the real positions elsewhere."""
+        pg = np.full((t,), self.num_pages - 1, np.int32)
+        off = (np.arange(t) % self.page_size).astype(np.int32)
+        return pg, off
+
+    def _fill_indices(self, pg, off, slot, start, S):
+        """Point packed positions start..start+S at slot's freshly
+        allocated pages and set its length."""
+        self._seq_pages[slot] = []
+        pages = self._alloc_pages(slot, -(-S // self.page_size))
+        pos = np.arange(S)
+        pg[start:start + S] = np.asarray(pages)[pos // self.page_size]
+        off[start:start + S] = pos % self.page_size
+        self.lengths[slot] = S
+
+    def _scatter_packed(self, kq, vq, pg, off):
+        """Scatter packed per-layer K/V (L, KVH, T, D) into the pools at
+        (pg, off), in place, quantizing on the way into an int8 pool;
+        the trash page absorbs the padding."""
+        idx = self._stage({"pg": pg, "off": off})
+        pg_t, off_t = idx["pg"].long(), idx["off"].long()
+        if self.cache_quant:
+            kq, ks = quantize_kv(kq)
+            vq, vs = quantize_kv(vq)
+            self.k_scale[:, :, pg_t, off_t] = ks
+            self.v_scale[:, :, pg_t, off_t] = vs
+        self.k_pool[:, :, pg_t, off_t] = kq.to(self.k_pool.dtype)
+        self.v_pool[:, :, pg_t, off_t] = vq.to(self.v_pool.dtype)
+
+    def _scatter_prompt(self, slot, kq, vq, S):
+        """Scatter one prompt's per-layer K/V (L, KVH, T >= S, D) into
+        fresh pages of `slot`; positions past S land on the trash page."""
+        pg, off = self._packed_indices(kq.shape[2])
+        self._fill_indices(pg, off, slot, 0, S)
+        self._scatter_packed(kq, vq, pg, off)
 
     def _alloc_pages(self, slot, n):
         if not self.pool.can_alloc(n):
@@ -752,20 +1086,142 @@ class ServingEngine:
         return 0 if t is None else self.step_finish(t)
 
     def step_launch(self, carry=None, _admitted=False):
-        """Admission, page growth and ONE `unified_step` dispatch, with
-        no device read: returns a RaggedTicket whose record is still in
-        flight (None when nothing runs). `carry` is the previous,
-        unconsumed ticket: continuing slots take their input token from
-        its device record. Raises PipelineStall instead of preempting
-        while carrying."""
-        return self._ragged_launch(carry=carry, _admitted=_admitted)
+        """Admission, page growth and ONE device dispatch — a
+        `unified_step` wave (RaggedTicket) or, bucketed, a `decode_step`
+        (StepTicket) — with no device read: the returned ticket's record
+        is still in flight (None when nothing runs). `carry` is the
+        previous, unconsumed ticket: continuing slots take their input
+        token from its device record. Raises PipelineStall instead of
+        preempting while carrying."""
+        if self.ragged:
+            return self._ragged_launch(carry=carry, _admitted=_admitted)
+        return self._bucket_launch(carry=carry, _admitted=_admitted)
 
     def step_finish(self, ticket, inflight=None):
         """Consume a launched step. `inflight` is the ticket launched
         after it (pipelined pump): a slot finishing here ran one step
         past its end there, so that entry is zombied and its length
         rolled back."""
-        return self._ragged_finish(ticket, inflight=inflight)
+        if self.ragged:
+            return self._ragged_finish(ticket, inflight=inflight)
+        return self._bucket_finish(ticket, inflight=inflight)
+
+    def _bucket_launch(self, carry=None, _admitted=False):
+        """Page growth (preempting while the pool is dry) and ONE
+        `decode_step` over every slot. A carried slot that exhausts
+        max_new_tokens in the in-flight step is not launched (its finish
+        is host-predictable); an eos finish is not, so such a slot runs
+        one discarded zombie step and `step_finish` rolls its length
+        back."""
+        if not _admitted:
+            self._sweep_cancelled()
+            self._admit()
+        for s in sorted(self._live):
+            cur = int(self.lengths[s])
+            if cur % self.page_size == 0 and cur > 0 and \
+                    len(self._seq_pages[s]) * self.page_size <= cur:
+                self._grow_one(s, carry, "page growth")
+        if not self._live:
+            return None
+        B = self.max_seqs
+        tokens = np.zeros((B,), np.int32)
+        carry_mask = np.zeros((B,), np.int32)
+        tab = self._sampling_tables()
+        launch, reqs = [], {}
+        for s in sorted(self._live):
+            req = self._slots[s]
+            carried = carry is not None and carry.reqs.get(s) is req
+            left = req.max_new_tokens - len(req.output) \
+                - (1 if carried else 0)
+            if left <= 0:
+                continue  # the in-flight step emits its last token
+            launch.append(s)
+            reqs[s] = req
+            if carried:
+                carry_mask[s] = 1
+            else:
+                tokens[s] = req.next_token
+            self._set_sampling(tab, s, req, left)
+        if not launch:
+            return None  # every occupied slot is finishing in flight
+        active = np.zeros((B,), np.int32)
+        active[launch] = 1
+        self.lengths[launch] += 1
+        d = self._stage({"page_table": self.page_table,
+                         "lengths": self.lengths, "tokens": tokens,
+                         "active": active, "carry_mask": carry_mask, **tab})
+        sample = self._device_sampling(d)
+        c_tok = carry.next_tok if carry is not None else \
+            torch.zeros((B,), dtype=torch.int64, device=self.device)
+        _, rec = decode_step(
+            self.params, self.k_pool, self.v_pool, d["page_table"],
+            d["lengths"], d["tokens"], d["active"] != 0, self.config,
+            self.page_size, k_scale=self.k_scale, v_scale=self.v_scale,
+            sample=sample, carry_tok=c_tok, carry_mask=d["carry_mask"] != 0)
+        host, event = self._d2h(rec)
+        self.device_steps += 1
+        return StepTicket(launch, reqs, rec[0], host, event)
+
+    def _bucket_finish(self, ticket, inflight=None):
+        """ONE read of the step's record (a few values per slot), then
+        the host bookkeeping in slot order."""
+        nxt, done, lp = self._fetch_results(ticket)
+        for s in ticket.slots:
+            req = ticket.reqs.get(s)
+            if req is None or self._slots[s] is not req:
+                continue  # zombie: slot released/reused since launch
+            self._emit(s, req, int(nxt[s]), bool(done[s]), float(lp[s]),
+                       inflight)
+        return len(ticket.slots)
+
+    def _emit(self, s, req, tok, done, lp, inflight):
+        """Apply one decode row of a record to slot s's request: append
+        the token (and its logprob); on a finish, release the slot,
+        zombieing its entry in the ticket launched after it (`inflight`)
+        and rolling back the length that step took."""
+        req.output.append(tok)
+        req.next_token = tok
+        if req.want_logprobs:
+            req.logprobs.append(lp)
+        if done:
+            self.finished.append(req)
+            if inflight is not None and inflight.reqs.get(s) is req:
+                inflight.reqs[s] = None
+                self.lengths[s] -= 1
+            self._release(s)
+
+    def _sampling_tables(self):
+        """Per-slot host sampling tables of one step, at their off
+        values: greedy, no top_k/top_p, no key, no eos, one token left."""
+        B = self.max_seqs
+        return {"temp": np.zeros((B,), np.float32),
+                "top_k": np.zeros((B,), np.int32),
+                "top_p": np.ones((B,), np.float32),
+                "key": np.zeros((B, 2), np.uint32),
+                "eos": np.full((B,), -1, np.int32),
+                "remaining": np.ones((B,), np.int32)}
+
+    @staticmethod
+    def _set_sampling(tab, s, req, left):
+        """Slot s samples for `req` this step, with `left` tokens of its
+        budget left including this one."""
+        tab["temp"][s] = req.temperature
+        tab["top_k"][s] = req.top_k
+        tab["top_p"][s] = req.top_p
+        if req._base_key is not None:
+            tab["key"][s] = req._base_key
+        if req.eos_id is not None:
+            tab["eos"][s] = int(req.eos_id)
+        tab["remaining"][s] = left
+
+    @staticmethod
+    def _device_sampling(d):
+        """The step's `sample` dict from the staged int32 views of the
+        sampling tables."""
+        return {"temp": d["temp"].view(torch.float32), "top_k": d["top_k"],
+                "top_p": d["top_p"].view(torch.float32),
+                "key": d["key"].long() & _M32,
+                "eos": d["eos"], "remaining": d["remaining"]}
 
     def _ragged_launch(self, carry=None, _admitted=False):
         """Plan one wave — decode rows first, then prefill feeds into the
@@ -818,19 +1274,14 @@ class ServingEngine:
                         if self._slots[p[0]] is p[1]]
         if not decode_plan and not prefill_plan:
             return None
-        T, B = self.ragged_buf, self.max_seqs
+        T = self.ragged_buf
         E = self.need_buf if self.lean else T    # epilogue rows
         tokens = np.zeros((T,), np.int32)
         tok_slot = np.zeros((T,), np.int32)
         tok_pos = np.full((T,), -1, np.int32)
         carry_mask = np.zeros((T,), np.int32)
         carry_gather = np.zeros((T,), np.int32)
-        temps = np.zeros((B,), np.float32)
-        top_ks = np.zeros((B,), np.int32)
-        top_ps = np.ones((B,), np.float32)
-        keys = np.zeros((B, 2), np.uint32)
-        eos = np.full((B,), -1, np.int32)
-        remaining = np.ones((B,), np.int32)
+        tab = self._sampling_tables()
         flat, reqs = {}, {}
         row = 0
         for s, req, carried, left in decode_plan:
@@ -842,14 +1293,7 @@ class ServingEngine:
                     carry_gather[row] = carry.flat[s]
                 else:
                     tokens[row] = req.next_token
-            temps[s] = req.temperature
-            top_ks[s] = req.top_k
-            top_ps[s] = req.top_p
-            if req._base_key is not None:
-                keys[s] = req._base_key
-            if req.eos_id is not None:
-                eos[s] = int(req.eos_id)
-            remaining[s] = left
+            self._set_sampling(tab, s, req, left)
             self.lengths[s] += 1
             flat[s] = row
             reqs[s] = req
@@ -874,8 +1318,7 @@ class ServingEngine:
         parts = {"page_table": self.page_table, "tokens": tokens,
                  "tok_slot": tok_slot, "tok_pos": tok_pos,
                  "carry_mask": carry_mask, "carry_gather": carry_gather,
-                 "temp": temps, "top_k": top_ks, "top_p": top_ps,
-                 "key": keys, "eos": eos, "remaining": remaining}
+                 **tab}
         if self.lean:
             # decode rows sit at buffer rows 0..n_decode-1 (so flat[s]
             # doubles as the need index), seed rows follow, -1 pads
@@ -887,11 +1330,7 @@ class ServingEngine:
         bw[:n_decode] = 1
         parts["buf_write"] = bw
         d = self._stage(parts)
-        sample = {"temp": d["temp"].view(torch.float32),
-                  "top_k": d["top_k"],
-                  "top_p": d["top_p"].view(torch.float32),
-                  "key": d["key"].long() & _M32,
-                  "eos": d["eos"], "remaining": d["remaining"]}
+        sample = self._device_sampling(d)
         if self.tok_buf is not None:
             # the ring's in-step gather/scatter is the carry
             kw = {"tok_buf": self.tok_buf, "buf_write": d["buf_write"] != 0}
@@ -933,17 +1372,8 @@ class ServingEngine:
             if req is None or self._slots[s] is not req:
                 continue  # zombie: slot released/reused since launch
             i = ticket.flat[s]
-            tok = int(nxt[i])
-            req.output.append(tok)
-            req.next_token = tok
-            if req.want_logprobs:
-                req.logprobs.append(float(lp[i]))
-            if bool(done[i]):
-                self.finished.append(req)
-                if inflight is not None and inflight.reqs.get(s) is req:
-                    inflight.reqs[s] = None
-                    self.lengths[s] -= 1
-                self._release(s)
+            self._emit(s, req, int(nxt[i]), bool(done[i]), float(lp[i]),
+                       inflight)
         return len(ticket.slots)
 
     def _release(self, slot):

@@ -1,7 +1,8 @@
 """paddle_tpu_torch on the card: the Hopper ragged paged-attention kernel,
-the three flash-attention kernels and the three FlashMask kernels
-against their plain PyTorch versions over the shapes and masks they
-cover, the card engine against the CPU engine, and tiny-width train
+the three flash-attention kernels, the three FlashMask kernels, the
+varlen forward and the paged decode kernels against their plain PyTorch
+versions over the shapes and masks they cover, the card engines
+(ragged and bucketed) against the CPU engines, and tiny-width train
 steps (plain and packed documents) on the card against the CPU.
 
 Every test here needs a CUDA device and skips without one. This file
@@ -19,6 +20,8 @@ import torch
 import paddle_tpu_torch.kernels.ragged_paged_attention as rpa
 import paddle_tpu_torch.ops.flash_attention as fa
 import paddle_tpu_torch.ops.flashmask_attention as fm
+import paddle_tpu_torch.ops.paged_attention as pa
+import paddle_tpu_torch.ops.varlen_attention as va
 from paddle_tpu_torch.models import llama_spmd as T
 from paddle_tpu_torch.models.llama import LlamaConfig
 from paddle_tpu_torch.models.llama_spmd import init_params
@@ -438,3 +441,215 @@ def test_packed_train_step_on_card_matches_cpu(card):
         torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=1e-4)
     for a, b in zip(res["cuda"][2], res["cpu"][2]):
         torch.testing.assert_close(a.cpu(), b, atol=2.5 * lr * steps, rtol=0)
+
+
+# ------------------------------------------------------- bucketed serving
+def _segments(lens, total):
+    seg = np.full((total,), -1, np.int32)
+    seg[:sum(lens)] = np.repeat(np.arange(len(lens)), lens)
+    return seg
+
+
+# (q segment lengths, Tq, k segment lengths or None for the same ids, Tk)
+VARLEN_LAYOUTS = {"same": ([70, 1, 130, 64], 300, None, None),
+                  "unequal": ([40, 90, 33], 200, [60, 90, 150], 320),
+                  "one_tile": ([5, 9], 20, None, None)}
+
+
+@pytest.mark.parametrize("layout", sorted(VARLEN_LAYOUTS))
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("h,kvh,d", [(4, 4, 64), (8, 2, 128), (4, 1, 40)])
+@pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
+def test_varlen_kernel_matches_plain(card, dtype, h, kvh, d, causal, layout):
+    lq, tq, lk, tk = VARLEN_LAYOUTS[layout]
+    dt = FLASH_DTYPES[dtype]
+    seg_q = torch.from_numpy(_segments(lq, tq)).to(card)
+    seg_k = seg_q if lk is None else torch.from_numpy(
+        _segments(lk, tk)).to(card)
+    g = torch.Generator(device=card)
+    g.manual_seed(d)
+    q = torch.randn((tq, h, d), generator=g, device=card).to(dt)
+    k = torch.randn((len(seg_k), kvh, d), generator=g, device=card).to(dt)
+    v = torch.randn((len(seg_k), kvh, d), generator=g, device=card).to(dt)
+    before = va.launches_fwd
+    o = va.flash_attention_varlen(q, k, v, seg_q, seg_k, causal=causal)
+    torch.cuda.synchronize()
+    assert va.launches_fwd == before + 1 and o.dtype == dt
+    sq, sk = va._sentinels(seg_q, seg_k)
+    o2, lse = va._launch_fwd(q, k, v, sq, sk, causal, d ** -0.5,
+                             lk is None)
+    o_ref, lse_ref = va.varlen_fwd_reference(q, k, v, seg_q, seg_k, causal,
+                                             d ** -0.5)
+    atol, rtol = FLASH_TOL[dt]
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=atol,
+                               rtol=rtol)
+    torch.testing.assert_close(o2, o)
+    torch.testing.assert_close(lse, lse_ref, atol=LSE_TOL[0],
+                               rtol=LSE_TOL[1])
+    assert bool((o[seg_q < 0] == 0).all())
+
+
+def test_varlen_kernel_reads_strided_operands(card):
+    """q, k, v as column slices of one fused projection (row strides
+    larger than heads x D) give the same answer as contiguous copies."""
+    seg = torch.from_numpy(_segments([50, 80], 150)).to(card)
+    x = torch.randn((150, 4 * 32 + 2 * 2 * 32), device=card)
+    q = x[:, :128].view(150, 4, 32)
+    k = x[:, 128:192].view(150, 2, 32)
+    v = x[:, 192:].view(150, 2, 32)
+    assert not q.is_contiguous()
+    a = va.flash_attention_varlen(q, k, v, seg, seg, causal=True)
+    b = va.flash_attention_varlen(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), seg, seg, causal=True)
+    torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def test_varlen_kernel_skips_tiles_outside_the_segments(card):
+    """Two prompts of 64 in a 256 bucket, causal, same offsets: of the
+    10 causal 64 x 64 tiles a head has, only the two diagonal tiles of
+    the prompts touch a segment."""
+    seg = torch.from_numpy(_segments([64, 64], 256)).to(card)
+    q = torch.randn((256, 2, 64), device=card)
+    kv = torch.randn((256, 1, 64), device=card)
+    sq, sk = va._sentinels(seg, seg)
+    *_, tiles = va._launch_fwd(q, kv, kv, sq, sk, True, 0.125, True,
+                               count_tiles=True)
+    assert tiles == 2 * 2
+
+
+def test_varlen_kernel_refuses_what_it_does_not_take(card):
+    seg = torch.zeros((64,), dtype=torch.int32, device=card)
+    q = torch.randn((64, 4, 32), device=card)
+    kv = torch.randn((64, 2, 32), device=card)
+    with pytest.raises(ValueError, match="dtype"):
+        va.flash_attention_varlen(q, kv.bfloat16(), kv.bfloat16(), seg, seg)
+    with pytest.raises(ValueError, match="head_dim"):
+        big = torch.randn((64, 2, 160), device=card)
+        va.flash_attention_varlen(big, big, big, seg, seg)
+    with pytest.raises(ValueError, match="multiple"):
+        va.flash_attention_varlen(q, torch.randn((64, 3, 32), device=card),
+                                  torch.randn((64, 3, 32), device=card),
+                                  seg, seg)
+    with pytest.raises(ValueError, match="operand on"):
+        va.flash_attention_varlen(q, kv, kv, seg, seg.cpu())
+    with pytest.raises(NotImplementedError, match="item 9c"):
+        va.flash_attention_varlen(q.requires_grad_(), kv, kv, seg, seg)
+    with torch.no_grad():
+        va.flash_attention_varlen(q, kv, kv, seg, seg)
+
+
+@pytest.mark.parametrize("dtype", list(VARIANTS))
+@pytest.mark.parametrize("qh,kvh,d,page", [
+    (32, 8, 128, 16), (8, 8, 64, 8), (32, 1, 16, 64), (16, 2, 256, 32),
+    (12, 4, 96, 5)])
+def test_paged_decode_kernel_matches_plain(card, dtype, qh, kvh, d, page):
+    rng = np.random.default_rng(0)
+    lens = [0, 1, page, page + 1, 70, 300]
+    pps = -(-300 // page)
+    num_pages = len(lens) * pps + 1
+    ptab = rng.permutation(num_pages - 1)[:len(lens) * pps].reshape(
+        len(lens), pps).astype(np.int32)
+    g = torch.Generator(device=card)
+    g.manual_seed(d)
+    pools, qname = VARIANTS[dtype]
+    q = torch.randn((len(lens), qh, d), generator=g, device=card).to(
+        getattr(torch, qname))
+    k = torch.randn((kvh, num_pages, page, d), generator=g, device=card)
+    v = torch.randn((kvh, num_pages, page, d), generator=g, device=card)
+    ks = vs = None
+    if pools == "int8":
+        k, ks = quantize_kv(k)
+        v, vs = quantize_kv(v)
+    else:
+        k, v = k.to(q.dtype), v.to(q.dtype)
+    ptab = torch.from_numpy(ptab).to(card)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=card)
+    before = (pa.launches_decode, pa.launches_decode_int8)
+    ker = pa.paged_attention(q, k, v, ptab, lengths, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    quant = pools == "int8"
+    assert (pa.launches_decode, pa.launches_decode_int8) == \
+        (before[0] + (not quant), before[1] + quant)
+    ref = pa.paged_decode_reference(q, k, v, ptab, lengths, k_scale=ks,
+                                    v_scale=vs)
+    atol, rtol = TOL[qname]
+    torch.testing.assert_close(ker.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+    assert bool((ker[0] == 0).all())
+
+
+def test_paged_decode_kernel_refuses_what_it_does_not_take(card):
+    q = torch.randn((2, 4, 32), device=card)
+    pages = torch.randn((2, 5, 8, 32), device=card)
+    ptab = torch.zeros((2, 3), dtype=torch.int32, device=card)
+    lens = torch.tensor([3, 9], dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="int32"):
+        pa.paged_attention(q, pages, pages, ptab, lens.long())
+    with pytest.raises(ValueError, match="dtype"):
+        pa.paged_attention(q, pages.bfloat16(), pages.bfloat16(), ptab, lens)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        odd = torch.randn((2, 5, 8, 40), device=card)
+        pa.paged_attention(torch.randn((2, 4, 40), device=card), odd, odd,
+                           ptab, lens)
+    with pytest.raises(ValueError, match="int8 pages need"):
+        pa.paged_attention(q, pages.to(torch.int8), pages.to(torch.int8),
+                           ptab, lens)
+    with pytest.raises(ValueError, match="contiguous"):
+        pa.paged_attention(q.transpose(0, 1).contiguous().transpose(0, 1),
+                           pages, pages, ptab, lens)
+    with pytest.raises(ValueError, match="shared memory"):
+        wide = torch.randn((1, 2, 16, 256), device=card)
+        pa.paged_attention(torch.randn((2, 64, 256), device=card), wide,
+                           wide, ptab, lens)
+
+
+@pytest.mark.parametrize("cache_dtype", [None, "int8"])
+def test_card_bucketed_engine_matches_cpu_engine(card, cache_dtype):
+    """fp32, TF32 off: the bucketed engine (three admissions in one
+    packed wave, later ones alone) on the card against the CPU, greedy
+    and seeded; the card launches va_fwd per layer and wave, fa_fwd per
+    layer and lone prefill, pa_decode per layer and step, nothing
+    ragged; the CPU launches nothing."""
+    from paddle_tpu_torch.models import llama_serving as S
+    cfg = LlamaConfig.tiny(vocab=128, hidden=128, layers=2, heads=4,
+                           kv_heads=2, ffn=256)
+    cpu = init_params(cfg, seed=0, device="cpu")
+    gpu = {k: ({kk: vv.to(card) for kk, vv in v.items()}
+               if isinstance(v, dict) else v.to(card))
+           for k, v in cpu.items()}
+    outs = []
+    for dev, params in ((card, gpu), ("cpu", cpu)):
+        for pipelined in (False, True):
+            eng = ServingEngine(params, cfg, max_seqs=3, max_seq_len=64,
+                                page_size=8, cache_dtype=cache_dtype,
+                                ragged=False, device=dev)
+            for i, n in enumerate((5, 17, 30, 9)):
+                eng.submit(Request(i, list(range(1, n + 1)),
+                                   max_new_tokens=6 + 3 * i,
+                                   **({"temperature": 0.9, "seed": i}
+                                      if i == 1 else {})))
+            va.launches_fwd = fa.launches_fwd = rpa.launches = 0
+            pa.launches_decode = pa.launches_decode_int8 = 0
+            waves = []
+            orig = S.prefill_varlen
+
+            def counted(*a, **kw):
+                waves.append(1)
+                return orig(*a, **kw)
+            S.prefill_varlen = counted
+            try:
+                done = eng.run_pipelined() if pipelined else eng.run()
+            finally:
+                S.prefill_varlen = orig
+            L = cfg.num_hidden_layers
+            on_card = dev is card
+            decode = pa.launches_decode_int8 if cache_dtype else \
+                pa.launches_decode
+            assert decode == (L * eng.device_steps if on_card else 0)
+            assert va.launches_fwd == (L * len(waves) if on_card else 0)
+            assert fa.launches_fwd == (L * (4 - 3 * len(waves))
+                                       if on_card else 0)
+            assert rpa.launches == 0 and len(waves) == 1
+            assert eng.pool.conserved(drained=True)
+            outs.append({r.rid: r.output for r in done})
+    assert outs[0] == outs[1] == outs[2] == outs[3]

@@ -23,7 +23,9 @@ def _modules():
 
 def test_every_module_imports_without_jax_or_paddle_tpu():
     mods = _modules()
-    assert "paddle_tpu_torch.models.llama_serving" in mods
+    for m in ("models.llama_serving", "ops.varlen_attention",
+              "ops.paged_attention"):
+        assert f"paddle_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -135,3 +137,22 @@ def test_flashmask_wrapper_raises_off_cpu_and_cuda():
     with pytest.raises(ValueError, match="meta"):
         fm.flashmask_attention_bhsd(q, q, q, sri, causal=True)
     assert (fm.launches_fwd, fm.launches_dq, fm.launches_dkv) == before
+
+
+@pytest.mark.parametrize("name", ["varlen_attention", "paged_attention"])
+def test_bucketed_kernels_have_their_own_sources(name):
+    from paddle_tpu_torch.kernels import _build
+    assert (_build.CSRC / f"{name}.cu").is_file()
+    lib = _build.lib_path(name)
+    assert lib.name.startswith(f"{name}-") and lib.suffix == ".so"
+    others = ("ragged_paged_attention", "flash_attention",
+              "flashmask_attention", "varlen_attention", "paged_attention")
+    assert lib not in [_build.lib_path(o) for o in others if o != name]
+
+
+def test_bucketed_engine_without_device_raises_on_a_box_without_cuda(
+        no_card):
+    from paddle_tpu_torch.models.llama_serving import ServingEngine
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine({"embed": torch.zeros(1)}, LlamaConfig.tiny(),
+                      ragged=False)

@@ -7,13 +7,16 @@ Builds the engine and requests of `chip_smoke.py`'s serve phase
 the same 8 requests, each asking for 16 more tokens here), then profiles
 with torch.profiler one prefill-heavy wave (one synchronous step), and,
 after stepping until every request has its first token, 16 decode-only
-steps driven like run_pipelined(). Prints one JSON line per window:
-wall time, summed kernel time, the device's busy share (summed kernel
-time over wall time, one stream), and the kernels with the most device
-time, grouped as attention (the port's CUDA kernel), matmul, and
-everything else.
+steps driven like run_pipelined(). With `--bucketed` the engine is the
+bucketed one (`ragged=False`, chip_smoke's bucket_serve phase): its
+first step admits all 8 prompts in one packed prefill_varlen wave and
+decodes once, so a warm-up engine runs that step first and a fresh one
+is profiled. Prints one JSON line per window: wall time, summed kernel
+time, the device's busy share (summed kernel time over wall time, one
+stream), and the kernels with the most device time, grouped as
+attention (by the port's CUDA source), matmul, and everything else.
 
-    python3 tools/profile_torch_serving.py [--pool bf16|int8]
+    python3 tools/profile_torch_serving.py [--pool bf16|int8] [--bucketed]
 """
 from __future__ import annotations
 
@@ -31,6 +34,11 @@ def _group(name):
     n = name.lower()
     if "ragged_kernel" in n:
         return "attention (ragged_paged_attention.cu)"
+    # before the generic fwd_kernel test below: va_fwd_kernel ends in it
+    if "va_fwd_kernel" in n or "tile_ranges_kernel" in n:
+        return "attention (varlen_attention.cu)"
+    if "decode_kernel" in n:
+        return "attention (paged_attention.cu)"
     if any(s in n for s in ("fm_fwd_kernel", "fm_dq_kernel",
                             "fm_dkv_kernel")):
         return "attention (flashmask_attention.cu)"
@@ -75,6 +83,8 @@ def _window(label, fn, card):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--pool", choices=("bf16", "int8"), default="bf16")
+    ap.add_argument("--bucketed", action="store_true",
+                    help="profile the bucketed engine (ragged=False)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -88,15 +98,24 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     cfg, params = chip_smoke.serve_params()
-    eng, reqs = chip_smoke.serve_engine(
-        cfg, params, None if args.pool == "bf16" else "int8",
-        new_tokens=64 + STEPS)
+
+    def engine():
+        return chip_smoke.serve_engine(
+            cfg, params, None if args.pool == "bf16" else "int8",
+            new_tokens=64 + STEPS, ragged=not args.bucketed)
+    eng, reqs = engine()
     eng.step()                                  # warm-up: first wave
+    if args.bucketed:
+        del eng
+        eng, reqs = engine()                    # the profiled admission
+        label = "prefill_wave (prefill_varlen over 8 prompts, 1 decode)"
+    else:
+        label = "prefill_wave (256 prompt rows)"
 
     def prefill_wave():
         eng.step()
         return 1
-    _window("prefill_wave (256 prompt rows)", prefill_wave, card)
+    _window(label, prefill_wave, card)
     warm = 2
     while not all(r.output for r in reqs):      # every prompt seeded
         eng.step()
