@@ -97,7 +97,39 @@ non-zero):
                bucketed engine through run_pipelined(), bf16 and int8
                pools, with the same measurements, pad_tokens, and the
                launches of every kernel (the 8B parameters are built
-               once for serve and bucket_serve).
+               once for serve, bucket_serve and spec_serve);
+ 15. spec_kernel — pa_verify against its plain version: (a) at 8B
+               widths on bucket_kernel's 8 live slots (cache lengths
+               100-2000 before a G = 4 chunk), fp32, bf16 and int8 pools
+               (int8 with bf16 and with fp32 q), with times; `bound_ms`
+               by bytes (each slot's K/V up to base + G read once per KV
+               head, q and the output once); `library_ms` is
+               F.scaled_dot_product_attention over the slots' KV
+               gathered dense, each row masked to base + g + 1; (b) G = 1
+               against pa_decode at base + 1, both on the card; (c)
+               correctness at (QH, KVH, G) = (4, 2, 3), (4, 2, 5), (6, 2,
+               3), (32, 8, 16), (32, 8, 64), D 64 and 128, page 8 and 16;
+ 16. spec_parity — parity (depth 2, fp32, TF32 off, 4 greedy requests of
+               32 tokens on ngram-repetitive prompts: a 3-token motif
+               repeated) with spec_decode=4 on the
+               bucketed engine, the bucketed engine with chunked prefill
+               and the ragged engine, fp32 and int8 pools: tokens as in
+               parity, something drafted, and the exact launches
+               (pa_verify per layer and step and no decode kernel on the
+               bucketed engines, no prefill kernel with chunked prefill,
+               the ragged kernel per layer and step and no pa_verify on
+               the ragged engine; the CPU engine launches nothing);
+ 17. spec_serve — the serve phase's model and 8 requests of the same
+               lengths made ngram-repetitive (`echo_prompts`: a repeated
+               motif, the model's own continuation of it, and the motif's
+               tail again) through run(): bucketed spec_decode=4 with
+               bf16 and int8 pools, bucketed spec_decode=16 with chunked
+               prefill, and ragged spec_decode=4; output tok/s, the
+               median verify step
+               (one `_spec_step` that fed no prompt chunk, host clock),
+               prefill tok/s, device steps, drafted and accepted tokens,
+               the launches of every kernel, beside bucket_serve's plain
+               decode numbers.
 
 The line before the last lists every kernel with its launches on the
 main path, its error against the plain version and its times; the last
@@ -117,7 +149,8 @@ import time
 
 PHASES = ("device", "build", "kernel", "parity", "serve", "train_kernel",
           "train_parity", "train", "mask_kernel", "packed_parity",
-          "train_packed", "bucket_kernel", "bucket_parity", "bucket_serve")
+          "train_packed", "bucket_kernel", "bucket_parity", "bucket_serve",
+          "spec_kernel", "spec_parity", "spec_serve")
 SOURCES = ("ragged_paged_attention", "flash_attention", "flashmask_attention",
            "varlen_attention", "paged_attention")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
@@ -142,6 +175,12 @@ BUCKET_KERNELS = {
     "paged_decode_int8": ("paged_attention",
                           "paddle_tpu/ops/paged_attention.py:159",
                           ("paged_decode_int8", "int8"), "int8")}
+# the paged verify kernel: name -> (spec_kernel row, spec_serve run)
+SPEC_KERNELS = {
+    "paged_verify": ("paddle_tpu/ops/paged_attention.py:284", "bfloat16",
+                     "bucketed_g4_bf16"),
+    "paged_verify_int8": ("paddle_tpu/ops/paged_attention.py:339", "int8",
+                          "bucketed_g4_int8")}
 
 
 def emit(obj):
@@ -492,17 +531,52 @@ def _serve_rng():
     return rng, rng.integers(64, 1501, 8).tolist()
 
 
-def serve_engine(cfg, params, cache_dtype, new_tokens=64, ragged=True):
-    """The serve phase's engine with its 8 requests submitted: prompts
-    of 64-1500 tokens (numpy seed 2), requests 0 and 1 sampled
-    (temperature 0.8, top_k 50, seed = rid), the rest greedy; ragged, or
-    bucketed with `ragged=False`. Returns (engine, requests)."""
+def _motif_prompts(rng, vocab, lens):
+    """ngram-repetitive prompts, as bench_models.py's spec workload makes
+    them: a 3-token motif repeated to each length."""
+    out = []
+    for n in lens:
+        motif = rng.integers(1, vocab, 3).tolist()
+        out.append((motif * (n // 3 + 1))[:n])
+    return out
+
+
+def echo_prompts(cfg, params):
+    """The spec phases' ngram-repetitive traffic on the serve phase's
+    model: 8 prompts of the serve phase's lengths, each a repeated 3-token
+    motif (the base), then S, the model's own 16-token greedy
+    continuation of the base, then the base's last 8 tokens again. The
+    prompt's end then repeats text that S followed earlier, the pattern
+    prompt lookup drafts from (a request quoting or editing its context).
+    A random-weight model does not continue a repeated motif, so motif
+    prompts alone give no drafts; S is computed by the plain bucketed
+    engine on the card."""
     from paddle_tpu_torch.models.llama_serving import Request, ServingEngine
     rng, lens = _serve_rng()
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    bases = _motif_prompts(rng, cfg.vocab_size, [n - 24 for n in lens])
     eng = ServingEngine(params, cfg, max_seqs=8, max_seq_len=2048,
-                        page_size=16, ragged_tokens=256, ragged=ragged,
-                        cache_dtype=cache_dtype, device="cuda")
+                        page_size=16, ragged=False, device="cuda")
+    for i, b in enumerate(bases):
+        eng.submit(Request(i, b, max_new_tokens=16))
+    cont = {r.rid: list(r.output) for r in eng.run()}
+    return [b + cont[i] + b[-8:] for i, b in enumerate(bases)]
+
+
+def serve_engine(cfg, params, cache_dtype, new_tokens=64, ragged=True,
+                 prompts=None, **engine_kw):
+    """The serve phase's engine with its 8 requests submitted: prompts
+    of 64-1500 tokens (numpy seed 2), or `prompts`, requests 0 and 1
+    sampled (temperature 0.8, top_k 50, seed = rid), the rest greedy;
+    ragged, or bucketed with `ragged=False`; `engine_kw` overrides the
+    engine's other arguments. Returns (engine, requests)."""
+    from paddle_tpu_torch.models.llama_serving import Request, ServingEngine
+    if prompts is None:
+        rng, lens = _serve_rng()
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    kw = dict(max_seqs=8, max_seq_len=2048, page_size=16, ragged_tokens=256,
+              ragged=ragged, cache_dtype=cache_dtype, device="cuda")
+    kw.update(engine_kw)
+    eng = ServingEngine(params, cfg, **kw)
     reqs = [Request(i, p, max_new_tokens=new_tokens,
                     **({"temperature": 0.8, "top_k": 50, "seed": i}
                        if i < 2 else {}))
@@ -1384,56 +1458,6 @@ def _varlen_bound(dname, lens, t, h, kvh, d):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
-def _decode_batch(variant, seed=0):
-    """The pa_decode operands at 8B widths: (q, k, v, ks, vs, ptab,
-    lengths) on the card, pages in random order."""
-    import numpy as np
-    import torch
-    from paddle_tpu_torch.ops.paged_attention import quantize_kv
-    QH, KVH, D, PAGE = (DECODE_SHAPE[x] for x in ("QH", "KVH", "D", "PAGE"))
-    pps = DECODE_SHAPE["MAX_LEN"] // PAGE
-    B = len(DECODE_LENS)
-    P = B * pps + 1
-    rng = np.random.default_rng(seed)
-    ptab = rng.permutation(P - 1)[:B * pps].reshape(B, pps).astype(np.int32)
-    g = torch.Generator(device="cuda")
-    g.manual_seed(seed)
-    pools, qname = VARIANTS[variant]
-    qdt = getattr(torch, qname)
-    q = torch.randn((B, QH, D), generator=g, device="cuda").to(qdt)
-    k = torch.randn((KVH, P, PAGE, D), generator=g, device="cuda")
-    v = torch.randn((KVH, P, PAGE, D), generator=g, device="cuda")
-    ks = vs = None
-    if pools == "int8":
-        k, ks = quantize_kv(k)
-        v, vs = quantize_kv(v)
-    else:
-        k, v = k.to(qdt), v.to(qdt)
-    return (q, k.contiguous(), v.contiguous(), ks, vs,
-            torch.from_numpy(ptab).cuda(),
-            torch.tensor(DECODE_LENS, dtype=torch.int32, device="cuda"))
-
-
-def _decode_bound(variant):
-    """Least time for one pa_decode call: the KV of the cached tokens
-    (and their int8 scales), q, the output, the page table and lengths
-    moved once, over the memory rate; or 4 flops per (query head, cached
-    token, head dim) over the peak for q's type."""
-    pools, qname = VARIANTS[variant]
-    QH, KVH, D = (DECODE_SHAPE[x] for x in ("QH", "KVH", "D"))
-    kv_elem = {"float32": 4, "bfloat16": 2, "int8": 1}[pools]
-    q_elem = 4 if qname == "float32" else 2
-    toks = sum(DECODE_LENS)
-    per_tok = KVH * D * kv_elem * 2 + (KVH * 4 * 2 if pools == "int8" else 0)
-    B = len(DECODE_LENS)
-    nbytes = (toks * per_tok + 2 * B * QH * D * q_elem
-              + B * (DECODE_SHAPE["MAX_LEN"] // DECODE_SHAPE["PAGE"] + 1) * 4)
-    flops = 4 * QH * D * toks
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[qname]
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
-
-
 def phase_bucket_kernel(card):
     import torch
     import torch.nn.functional as F
@@ -1498,7 +1522,10 @@ def phase_bucket_kernel(card):
           [64, 128], "tol": TOL, "lse_tol": LSE_TOL,
           "max_abs_err": _varlen_flavors()})
     for name in VARIANTS:
-        q, k, v, ks, vs, ptab, lengths = _decode_batch(name)
+        # a (B, QH, 1, D) verify batch is the decode batch, its bases
+        # the lengths
+        q, k, v, ks, vs, ptab, lengths = _verify_batch(name, DECODE_LENS, 1)
+        q = q[:, :, 0].contiguous()
         kw = {"k_scale": ks, "v_scale": vs}
         ker = pa.paged_attention(q, k, v, ptab, lengths, **kw)
         torch.cuda.synchronize()
@@ -1523,7 +1550,9 @@ def phase_bucket_kernel(card):
                 < lengths[live][:, None])[:, None, None]
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qd, kd, vd, attn_mask=mask), reps=20)
-        bound_ms, bound_by, nbytes, flops = _decode_bound(name)
+        # decode at length n is a G = 1 verify chunk at base n - 1
+        bound_ms, bound_by, nbytes, flops = _verify_bound(
+            name, [n - 1 for n in DECODE_LENS], 1)
         kname = "paged_decode_int8" if VARIANTS[name][0] == "int8" \
             else "paged_decode"
         row = {"phase": "bucket_kernel", "kernel": kname, "card": card,
@@ -1553,6 +1582,8 @@ def _bucket_counts():
     return {"varlen_fwd": va.launches_fwd, "flash_fwd": fa.launches_fwd,
             "paged_decode": pa.launches_decode,
             "paged_decode_int8": pa.launches_decode_int8,
+            "paged_verify": pa.launches_verify,
+            "paged_verify_int8": pa.launches_verify_int8,
             "ragged_paged_attention": rpa.launches}
 
 
@@ -1563,6 +1594,7 @@ def _reset_bucket_counts():
     import paddle_tpu_torch.ops.varlen_attention as va
     va.launches_fwd = fa.launches_fwd = rpa.launches = 0
     pa.launches_decode = pa.launches_decode_int8 = 0
+    pa.launches_verify = pa.launches_verify_int8 = 0
 
 
 def _bucket_run(eng, pipelined, marks=None):
@@ -1743,6 +1775,367 @@ def phase_bucket_serve(card, cfg, params, init_s):
         torch.cuda.empty_cache()
     return runs
 
+
+# ------------------------------------------- speculative decoding
+# pa_verify at 8B widths: bucket_kernel's 8 live slots as the cache
+# lengths BEFORE a G = 4 chunk (the longest, 2000 + 4, fits 2048)
+VERIFY_BASES = DECODE_LENS[:8]
+VERIFY_G = 4
+# correctness shapes (QH, KVH, G): the JAX tests' awkward rows, and 8B
+# widths at chunked-prefill widths 16 (one 64-row tile) and 64 (four)
+VERIFY_CASES = ((4, 2, 3), (4, 2, 5), (6, 2, 3), (32, 8, 16), (32, 8, 64))
+
+
+def _verify_batch(variant, bases, g, qh=32, kvh=8, d=128, page=16, seed=0):
+    """pa_verify operands on the card, room for 2048 tokens a slot, pages
+    in random order: (q (B, QH, G, D), k, v, ks, vs, ptab, base)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops.paged_attention import quantize_kv
+    pps = -(-DECODE_SHAPE["MAX_LEN"] // page)
+    B = len(bases)
+    P = B * pps + 1
+    rng = np.random.default_rng(seed)
+    ptab = rng.permutation(P - 1)[:B * pps].reshape(B, pps).astype(np.int32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    pools, qname = VARIANTS[variant]
+    qdt = getattr(torch, qname)
+    q = torch.randn((B, qh, g, d), generator=gen, device="cuda").to(qdt)
+    k = torch.randn((kvh, P, page, d), generator=gen, device="cuda")
+    v = torch.randn((kvh, P, page, d), generator=gen, device="cuda")
+    ks = vs = None
+    if pools == "int8":
+        k, ks = quantize_kv(k)
+        v, vs = quantize_kv(v)
+    else:
+        k, v = k.to(qdt), v.to(qdt)
+    return (q, k.contiguous(), v.contiguous(), ks, vs,
+            torch.from_numpy(ptab).cuda(),
+            torch.tensor(bases, dtype=torch.int32, device="cuda"))
+
+
+def _verify_bound(variant, bases, g):
+    """Least time for one pa_verify call at 8B widths (a pa_decode call
+    at lengths n is one at bases n - 1, G = 1): each slot's K/V up to
+    base + G (and their int8 scales) read once for all of a KV head's
+    group x G rows, q read and the output written once, the page table
+    and base lengths, over the memory rate; or 4 flops per (query row,
+    column it sees, head dim) over the peak for q's type."""
+    pools, qname = VARIANTS[variant]
+    QH, KVH, D = (DECODE_SHAPE[x] for x in ("QH", "KVH", "D"))
+    kv_elem = {"float32": 4, "bfloat16": 2, "int8": 1}[pools]
+    q_elem = 4 if qname == "float32" else 2
+    toks = sum(b + g for b in bases)
+    per_tok = KVH * D * kv_elem * 2 + (KVH * 4 * 2 if pools == "int8" else 0)
+    B = len(bases)
+    nbytes = (toks * per_tok + 2 * B * QH * g * D * q_elem
+              + B * (DECODE_SHAPE["MAX_LEN"] // DECODE_SHAPE["PAGE"] + 1) * 4)
+    flops = 4 * QH * D * sum(b + i + 1 for b in bases for i in range(g))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[qname]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def _verify_flavors():
+    """Correctness only: every VERIFY_CASES shape, D = 64 and 128, page 8
+    and 16, every pool variant, on slots of base 0, 1, page - 1, 300 and
+    2000 - G; each held to TOL. Returns the max |error| of each."""
+    import torch
+    import paddle_tpu_torch.ops.paged_attention as pa
+    errs = {}
+    for qh, kvh, g in VERIFY_CASES:
+        for d in (64, 128):
+            for page in (8, 16):
+                for name in VARIANTS:
+                    q, k, v, ks, vs, ptab, base = _verify_batch(
+                        name, (0, 1, page - 1, 300, 2000 - g), g, qh, kvh,
+                        d, page, seed=d + g)
+                    kw = {"k_scale": ks, "v_scale": vs}
+                    ker = pa.paged_verify_attention(q, k, v, ptab, base, **kw)
+                    torch.cuda.synchronize()
+                    ref = pa.paged_verify_reference(q, k, v, ptab, base, **kw)
+                    atol, rtol = TOL[VARIANTS[name][1]]
+                    key = f"{qh}/{kvh}/g{g}/d{d}/p{page}/{name}"
+                    errs[key] = float((ker.float() - ref.float()).abs().max())
+                    if not torch.allclose(ker.float(), ref.float(), atol=atol,
+                                          rtol=rtol):
+                        fail(f"pa_verify vs plain ({key}): max |err| "
+                             f"{errs[key]}")
+    return errs
+
+
+def phase_spec_kernel(card):
+    import torch
+    import torch.nn.functional as F
+    import paddle_tpu_torch.ops.paged_attention as pa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grp = DECODE_SHAPE["QH"] // DECODE_SHAPE["KVH"]
+    out = {}
+    for name in VARIANTS:
+        q, k, v, ks, vs, ptab, base = _verify_batch(name, VERIFY_BASES,
+                                                    VERIFY_G)
+        kw = {"k_scale": ks, "v_scale": vs}
+        ker = pa.paged_verify_attention(q, k, v, ptab, base, **kw)
+        torch.cuda.synchronize()
+        ref = pa.paged_verify_reference(q, k, v, ptab, base, **kw)
+        atol, rtol = TOL[VARIANTS[name][1]]
+        max_err = float((ker.float() - ref.float()).abs().max())
+        if not torch.allclose(ker.float(), ref.float(), atol=atol, rtol=rtol):
+            fail(f"pa_verify vs plain ({name}): max |err| {max_err}")
+        # (b) G = 1 at base is pa_decode at base + 1, both kernels
+        q1 = q[:, :, :1].contiguous()
+        ver1 = pa.paged_verify_attention(q1, k, v, ptab, base, **kw)
+        dec = pa.paged_attention(q1[:, :, 0].contiguous(), k, v, ptab,
+                                 base + 1, **kw)
+        torch.cuda.synchronize()
+        g1_err = float((ver1[:, :, 0].float() - dec.float()).abs().max())
+        if not torch.allclose(ver1[:, :, 0].float(), dec.float(), atol=atol,
+                              rtol=rtol):
+            fail(f"pa_verify G=1 vs pa_decode ({name}): max |err| {g1_err}")
+        ms = cuda_ms(lambda: pa.paged_verify_attention(q, k, v, ptab, base,
+                                                       **kw), reps=50)
+        plain_ms = cuda_ms(lambda: pa.paged_verify_reference(
+            q, k, v, ptab, base, **kw), reps=5, warmup=1)
+        ncols = int(base.max()) + VERIFY_G
+        slots = torch.arange(len(VERIFY_BASES), device="cuda")
+        kd = _dense_kv(k, ks, ptab, slots, ncols, grp, q.dtype)
+        vd = _dense_kv(v, vs, ptab, slots, ncols, grp, q.dtype)
+        limit = base[:, None] + torch.arange(VERIFY_G, device="cuda") + 1
+        mask = (torch.arange(ncols, device="cuda")[None, None]
+                < limit[:, :, None])[:, None]             # (B, 1, G, cols)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, kd, vd, attn_mask=mask), reps=20)
+        bound_ms, bound_by, nbytes, flops = _verify_bound(name, VERIFY_BASES,
+                                                          VERIFY_G)
+        kname = "paged_verify_int8" if VARIANTS[name][0] == "int8" \
+            else "paged_verify"
+        row = {"phase": "spec_kernel", "kernel": kname, "card": card,
+               "variant": name, "pools": VARIANTS[name][0],
+               "q_dtype": VARIANTS[name][1], "base_lengths":
+               list(VERIFY_BASES), "G": VERIFY_G, **DECODE_SHAPE,
+               "blocks": len(VERIFY_BASES) * DECODE_SHAPE["KVH"],
+               "atol": atol, "rtol": rtol, "max_abs_err": max_err,
+               "g1_vs_pa_decode_max_abs_err": g1_err,
+               "kernel_ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms,
+               "library_call": "sdpa over the slots' KV gathered dense, "
+                               "each row masked to base + g + 1",
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_bytes": nbytes, "bound_flops": flops, "tf32": False}
+        emit(row)
+        out[name] = row
+        del q, k, v, ks, vs, ker, ref, kd, vd, ver1, dec
+        torch.cuda.empty_cache()
+    emit({"phase": "spec_kernel", "part": "verify shapes", "card": card,
+          "cases": [list(c) for c in VERIFY_CASES], "head_dims": [64, 128],
+          "pages": [8, 16], "variants": list(VARIANTS), "tol": TOL,
+          "max_abs_err": _verify_flavors()})
+    return out
+
+
+# the spec engines: name -> engine arguments
+SPEC_ENGINES = {"bucketed": {"ragged": False, "spec_decode": 4},
+                "chunked": {"ragged": False, "spec_decode": 4,
+                            "chunked_prefill": True},
+                "ragged": {"spec_decode": 4}}
+SPEC_PARITY_LENS = (17, 45, 90, 150)
+# new tokens a spec_parity request: the depth-2 random model falls into
+# repeats (which prompt lookup drafts from) only after 16-30 tokens
+SPEC_PARITY_NEW = 32
+
+
+def _want_spec_counts(ragged, layers, calls, steps, int8):
+    """The launches of a spec run: the ragged kernel per layer and step
+    on the ragged engine; else pa_verify (its int8 variant with int8
+    pools) per layer and step, va_fwd per layer and admission wave,
+    fa_fwd per layer and lone prefill (none with chunked prefill), no
+    decode kernel."""
+    want = {k: 0 for k in _bucket_counts()}
+    if ragged:
+        want["ragged_paged_attention"] = layers * steps
+        return want
+    want["paged_verify_int8" if int8 else "paged_verify"] = layers * steps
+    want["varlen_fwd"] = layers * calls["waves"]
+    want["flash_fwd"] = layers * calls["singles"]
+    return want
+
+
+def phase_spec_parity(card):
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.models.llama_spmd import init_params
+    from paddle_tpu_torch.models.llama_serving import Request, ServingEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_hidden_layers=2)
+    cpu_params = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    gpu_params = _tree_to(cpu_params, "cuda")
+    prompts = _motif_prompts(np.random.default_rng(1), cfg.vocab_size,
+                             SPEC_PARITY_LENS)
+    L = cfg.num_hidden_layers
+    runs = {}
+    for engine, ekw in SPEC_ENGINES.items():
+        for cache in (None, "int8"):
+            results, info = {}, {}
+            for dev, params in (("cuda", gpu_params), ("cpu", cpu_params)):
+                # all four requests at once: the CPU engine's steps are
+                # most of the phase's time
+                eng = ServingEngine(params, cfg, max_seqs=4, max_seq_len=512,
+                                    page_size=16, ragged_tokens=16,
+                                    cache_dtype=cache, device=dev, **ekw)
+                for i, p in enumerate(prompts):
+                    eng.submit(Request(i, p, max_new_tokens=SPEC_PARITY_NEW))
+                t0 = time.perf_counter()
+                done, calls, launches = _bucket_run(eng, pipelined=False)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                info[dev] = {"seconds": time.perf_counter() - t0,
+                             "device_steps": eng.device_steps,
+                             "calls": calls, "launches": launches,
+                             "spec_drafted": eng.spec_drafted,
+                             "spec_accepted": eng.spec_accepted}
+                if len(done) != 4 or not eng.pool.conserved(drained=True):
+                    fail(f"spec_parity ({engine}, {dev}): {len(done)} of 4 "
+                         "finished or pool leaked")
+                if eng.spec_drafted == 0:
+                    fail(f"spec_parity ({engine}, {dev}): nothing drafted")
+                results[dev] = {r.rid: list(r.output) for r in done}
+            g = info["cuda"]
+            want = _want_spec_counts(engine == "ragged", L, g["calls"],
+                                     g["device_steps"], cache == "int8")
+            if g["launches"] != want:
+                fail(f"spec_parity ({engine}): launches {g['launches']}, "
+                     f"want {want}")
+            if engine != "bucketed" and g["calls"] != {"waves": 0,
+                                                       "singles": 0}:
+                fail(f"spec_parity ({engine}): prefill calls {g['calls']}")
+            if any(info["cpu"]["launches"].values()):
+                fail(f"spec_parity ({engine}): the CPU engine launched a "
+                     "CUDA kernel")
+            compared = {}
+            for rid, p in enumerate(prompts):
+                a, b = results["cuda"][rid], results["cpu"][rid]
+                j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                         None)
+                if j is None and len(a) == len(b):
+                    compared[rid] = {"identical": len(a), "stopped_at": None}
+                    continue
+                if j is None:
+                    fail(f"spec_parity ({engine}): request {rid} lengths "
+                         f"{len(a)} / {len(b)}")
+                margin = _top2_margin(cpu_params, cfg, p + b[:j], 16)
+                if margin >= 1e-3:
+                    fail(f"spec_parity ({engine}): request {rid} diverges at "
+                         f"token {j} with CPU top-2 margin {margin}")
+                compared[rid] = {"identical": j, "stopped_at": j,
+                                 "cpu_top2_margin": margin}
+            name = f"{engine}_{'fp32' if cache is None else 'int8'}"
+            row = {"phase": "spec_parity", "card": card, "run": name,
+                   "engine": ekw, "config": "llama3_8b widths, 2 layers, "
+                   "fp32, TF32 off, max_seqs 4, run()",
+                   "prompt_lens": list(SPEC_PARITY_LENS),
+                   "new_tokens": SPEC_PARITY_NEW,
+                   "requests": compared, "prefill_calls": g["calls"],
+                   "launches": g["launches"],
+                   "device_steps": g["device_steps"],
+                   "spec_drafted": g["spec_drafted"],
+                   "spec_accepted": g["spec_accepted"],
+                   "cuda_seconds": g["seconds"],
+                   "cpu_seconds": info["cpu"]["seconds"]}
+            emit(row)
+            runs[name] = row
+    del gpu_params
+    torch.cuda.empty_cache()
+    return runs
+
+
+# the spec_serve runs: name -> (engine arguments, pool)
+SPEC_SERVE = {
+    "bucketed_g4_bf16": ({"ragged": False, "spec_decode": 4}, None),
+    "bucketed_g4_int8": ({"ragged": False, "spec_decode": 4}, "int8"),
+    "chunked_g16_bf16": ({"ragged": False, "spec_decode": 16,
+                          "chunked_prefill": True}, None),
+    "ragged_g4_bf16": ({"ragged": True, "spec_decode": 4,
+                        "ragged_tokens": None}, None)}
+
+
+def phase_spec_serve(card, cfg, params, init_s, bserve):
+    import torch
+    prompts = echo_prompts(cfg, params)
+    runs = {}
+    for name, (ekw, cache) in SPEC_SERVE.items():
+        eng, reqs = serve_engine(cfg, params, cache, prompts=prompts, **ekw)
+        lens = [len(r.prompt) for r in reqs]
+        steps, prefills = [], []
+        spec_step = eng._spec_step
+
+        def timed_step(_step=spec_step, _eng=eng):
+            pre = any(_eng._prefilling(_eng._slots[s]) for s in _eng._live)
+            a = time.perf_counter()
+            n = _step()
+            steps.append((a, time.perf_counter(), pre))
+            return n
+        eng._spec_step = timed_step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done, calls, launches = _bucket_run(eng, pipelined=False,
+                                            marks=prefills)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if len(done) != 8:
+            fail(f"spec_serve ({name}): {len(done)} of 8 requests finished")
+        for r in done:
+            if len(r.output) != 64:
+                fail(f"spec_serve ({name}): request {r.rid} has "
+                     f"{len(r.output)} tokens, want 64")
+            if not all(0 <= t < cfg.vocab_size for t in r.output):
+                fail(f"spec_serve ({name}): request {r.rid} left the "
+                     "vocabulary")
+        want = _want_spec_counts(ekw["ragged"], cfg.num_hidden_layers, calls,
+                                 eng.device_steps, cache == "int8")
+        if launches != want:
+            fail(f"spec_serve ({name}): launches {launches}, want {want}")
+        if not eng.pool.conserved(drained=True):
+            fail(f"spec_serve ({name}): page pool not conserved")
+        if eng.spec_drafted == 0:
+            fail(f"spec_serve ({name}): nothing drafted")
+        # a step that fed no prompt chunk is a pure verify step; the
+        # prefill ends with the last admission prefill or chunk fed
+        verify = [b - a for a, b, pre in steps if not pre]
+        last_prefill = max(prefills + [b for _, b, pre in steps if pre],
+                           default=t0)
+        plain = bserve.get("int8" if cache else "bf16", {})
+        row = {"phase": "spec_serve", "card": card, "run": name,
+               "engine": {k: v for k, v in ekw.items()}, "pool":
+               "int8" if cache else "bf16",
+               "config": SERVE_CONFIG + ", echo prompts (`echo_prompts`)",
+               "prompt_lens": lens, "new_tokens": 64, "sampled": [0, 1],
+               "wall_s": wall, "device_steps": eng.device_steps,
+               "verify_steps": len(verify), "prefill_calls": calls,
+               "prefill_tokens": eng.prefill_tokens,
+               "prefill_tok_s": eng.prefill_tokens / (last_prefill - t0),
+               "verify_step_ms_median": (statistics.median(verify) * 1e3
+                                         if verify else None),
+               "output_tok_s": 8 * 64 / wall,
+               "spec_drafted": eng.spec_drafted,
+               "spec_accepted": eng.spec_accepted,
+               "accept_rate": eng.spec_accepted / eng.spec_drafted,
+               "logit_rows": eng.logit_rows, "launches": launches,
+               "bucket_serve_plain": {
+                   k: plain.get(k) for k in (
+                       "output_tok_s", "decode_step_ms_median",
+                       "prefill_tok_s", "device_steps")},
+               "params_init_s": init_s}
+        emit(row)
+        runs[name] = row
+        del eng
+        torch.cuda.empty_cache()
+    return runs
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1763,9 +2156,9 @@ def main(argv=None):
     kern = phase_kernel(smi) if "kernel" in phases else {}
     if "parity" in phases:
         phase_parity(smi)
-    serve, bserve = {}, {}
-    if "serve" in phases or "bucket_serve" in phases:
-        # the 8B parameters, built once for both serve phases
+    serve, bserve, sserve = {}, {}, {}
+    if {"serve", "bucket_serve", "spec_serve"} & set(phases):
+        # the 8B parameters, built once for the three serve phases
         t0 = time.perf_counter()
         cfg, params = serve_params()
         torch.cuda.synchronize()
@@ -1774,6 +2167,8 @@ def main(argv=None):
             serve = phase_serve(smi, cfg, params, init_s)
         if "bucket_serve" in phases:
             bserve = phase_bucket_serve(smi, cfg, params, init_s)
+        if "spec_serve" in phases:
+            sserve = phase_spec_serve(smi, cfg, params, init_s, bserve)
         del params
         torch.cuda.empty_cache()
     tk = phase_train_kernel(smi) if "train_kernel" in phases else {}
@@ -1787,6 +2182,9 @@ def main(argv=None):
     bk = phase_bucket_kernel(smi) if "bucket_kernel" in phases else {}
     if "bucket_parity" in phases:
         phase_bucket_parity(smi)
+    sk = phase_spec_kernel(smi) if "spec_kernel" in phases else {}
+    if "spec_parity" in phases:
+        phase_spec_parity(smi)
     kernels = []
     for kname, pools, run in (("ragged_paged_attention", "bfloat16", "bf16"),
                               ("ragged_paged_attention_int8", "int8",
@@ -1834,6 +2232,19 @@ def main(argv=None):
             "name": kname, "route": "cuda",
             "source": f"paddle_tpu_torch/csrc/{src}.cu", "replaces": tpu,
             "launches": bserve[run]["launches"][kname] if run in bserve
+            else None,
+            "max_abs_err": k["max_abs_err"], "ms": k["kernel_ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+    for kname, (tpu, row, run) in SPEC_KERNELS.items():
+        k = sk.get(row)
+        if k is None:
+            continue
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/paged_attention.cu",
+            "replaces": tpu,
+            "launches": sserve[run]["launches"][kname] if run in sserve
             else None,
             "max_abs_err": k["max_abs_err"], "ms": k["kernel_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

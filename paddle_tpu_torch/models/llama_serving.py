@@ -26,6 +26,18 @@ times this path. Its kernels count their launches in
 (a lone prefill) and `ops.paged_attention.launches_decode` /
 `launches_decode_int8`.
 
+Speculative decoding and chunked prefill (`ServingEngine(...,
+spec_decode=G, spec_sample=..., chunked_prefill=...)`): each step
+drafts up to G-1 tokens per slot by prompt lookup
+(`prompt_lookup_draft`), verifies every chunk in ONE forward —
+`verify_step` on the bucketed engine, whose attention is the paged
+verify kernel (`ops.paged_attention.paged_verify_attention`, counted in
+`launches_verify` / `launches_verify_int8`), or `unified_step` rows on
+the ragged engine — and accepts greedily or by rejection sampling
+(`speculative_sample`, candidate probabilities from `cand_tok`). On the
+card, `python3 chip_smoke.py --phases
+device,build,spec_kernel,spec_parity,spec_serve` checks and times it.
+
 Differences from the JAX package that a reader should know:
 
   * the KV pools (and the device token ring) are updated IN PLACE —
@@ -44,8 +56,7 @@ Differences from the JAX package that a reader should know:
 Out of scope in this slice, raising NotImplementedError that names the
 ROADMAP.md item: the prefix cache, the host tier's spill side and KV
 handoff (Queue 1 item 6); metrics, fault injection and the observability
-hooks (item 7); speculative decoding, chunked prefill and `verify_step`
-(item 8); tensor-parallel serving (`mesh`, item 10b).
+hooks (item 7); tensor-parallel serving (`mesh`, item 10b).
 """
 from __future__ import annotations
 
@@ -60,16 +71,18 @@ from ..kernels.ragged_paged_attention import ragged_paged_attention
 from ..ops.flash_attention import flash_attention_bhsd
 from ..ops.fused import rms_norm as _rms
 from ..ops.fused import swiglu
-from ..ops.paged_attention import paged_attention, quantize_kv
+from ..ops.paged_attention import (paged_attention, paged_verify_attention,
+                                   quantize_kv)
 from ..ops.varlen_attention import (flash_attention_varlen,
                                     seg_ids_from_cu_seqlens)
 from ..ops.rope import apply_rotary_emb, rope_cos_sin
 from ..serving.kvcache import PagePool
 from ..serving.kvtier import HostTier
-from .generation import sample_logits_np
+from .generation import filtered_probs_np, sample_logits_np
 from .llama import LlamaConfig
 
 __all__ = ["unified_step", "prefill", "prefill_varlen", "decode_step",
+           "verify_step", "speculative_sample", "prompt_lookup_draft",
            "Request", "StepTicket", "RaggedTicket", "PipelineStall",
            "ServingEngine"]
 
@@ -158,10 +171,40 @@ def _sample_record(logits, lengths, active, sample):
     return tok, done, lp
 
 
+def _spec_dist_rows(lg, temp, top_k, top_p):
+    """Filtered sampling DISTRIBUTION rows for the spec-decode rejection
+    sampler: lg (N, V) raw logits -> (N, V) f32 softmax over
+    `_filtered_logits`, the distribution the device draw samples
+    from."""
+    return torch.softmax(_filtered_logits(lg.to(torch.float32), temp, top_k,
+                                          top_p), dim=-1)
+
+
+def _sample_grid(logits, lengths, sample):
+    """Verify-chunk twin of `_sample_record`: logits (B, G, V), one draw
+    per chunk position. The emission after chunk token g sits at cache
+    position lengths + g + 1 pre-advanced, the fold plain decode uses
+    for that emission, so an un-drafted sampled slot draws the token
+    plain decode would. Returns (token (B, G) int64, logprob (B, G)
+    f32)."""
+    B, G, V = logits.shape
+    lg = logits.to(torch.float32).reshape(B * G, V)
+    pos = (lengths.long()[:, None] +
+           torch.arange(G, device=logits.device)[None, :] + 1).reshape(-1)
+
+    def rep(a):
+        return torch.repeat_interleave(a, G, dim=0)
+    tok, lp = _filter_draw(lg, rep(sample["temp"]), rep(sample["top_k"]),
+                           rep(sample["top_p"]), rep(sample["key"]), pos)
+    return tok.reshape(B, G), lp.reshape(B, G)
+
+
 def _sample_flat(logits, tok_slot, tok_pos, row_on, sample):
     """One draw per buffer row: per-slot sampling params gathered
     through `tok_slot`, PRNG fold `tok_pos + 1` (the request's
-    (seed, position) key). Returns (next_token (T,) int64, done (T,)
+    (seed, position) key, the fold both bucketed paths use). A `sample`
+    without eos/remaining (spec engines stop on the host) gives
+    done=False everywhere. Returns (next_token (T,) int64, done (T,)
     bool, logprob (T,) f32)."""
     slot = tok_slot.long()
 
@@ -170,10 +213,28 @@ def _sample_flat(logits, tok_slot, tok_pos, row_on, sample):
     tok, lp = _filter_draw(logits.to(torch.float32), g(sample["temp"]),
                            g(sample["top_k"]), g(sample["top_p"]),
                            g(sample["key"]), tok_pos.long() + 1)
+    if "remaining" not in sample:
+        return tok, torch.zeros_like(row_on), lp
     eos = g(sample["eos"])
     done = row_on & ((g(sample["remaining"]) <= 1) |
                      ((eos >= 0) & (tok == eos)))
     return tok, done, lp
+
+
+def _cand_probs(logits, tok_slot, sample, cand):
+    """Per-row probability of a CANDIDATE token (the draft that follows
+    the row) under the filtered distribution: logits (R, V), cand (R,)
+    -> (R,) f32. Shares `_filtered_logits` with the device draw, so the
+    rejection sampler accepts a draft under exactly the distribution
+    the device samples from, and the host reads R floats instead of R
+    vocabulary rows."""
+    slot = tok_slot.long()
+
+    def g(a):
+        return a[slot]
+    dist = _spec_dist_rows(logits, g(sample["temp"]), g(sample["top_k"]),
+                           g(sample["top_p"]))
+    return torch.gather(dist, -1, cand.long()[:, None])[:, 0]
 
 
 def _qkv(x, lw, li, shape, nh, nkv, hd):
@@ -188,7 +249,7 @@ def unified_step(params, k_pool, v_pool, page_table, tokens, tok_slot,
                  tok_pos, config: LlamaConfig, page_size, k_scale=None,
                  v_scale=None, sample=None, carry_tok=None,
                  carry_gather=None, carry_mask=None, need_rows=None,
-                 tok_buf=None, buf_write=None):
+                 cand_tok=None, tok_buf=None, buf_write=None):
     """One forward over a flat token buffer of any prefill/decode mix.
 
     tokens (T,) token ids; tok_slot (T,) int32 owning slot; tok_pos
@@ -207,13 +268,16 @@ def unified_step(params, k_pool, v_pool, page_table, tokens, tok_slot,
     (`carry_tok[carry_gather[i]]`), so a pipelined pump launches step
     N+1 before it has read step N. `need_rows` ((N,), -1 = inactive) is
     the lean epilogue: the final hidden states are gathered down to
-    those rows before `lm_head`. `tok_buf` ((B, max_seq_len+1) int32)
+    those rows before `lm_head`. `cand_tok` (one per epilogue row: need
+    rows when lean) appends each row's filtered-distribution
+    probability of that candidate token to the record (`_cand_probs`),
+    for the spec-decode rejection sampler. `tok_buf` ((B, max_seq_len+1) int32)
     makes token values device-resident: rows read their input token
     from it, and rows marked in `buf_write` write their sampled token
     back at column pos+1.
 
-    Returns logits (T|N, V), or (logits, (next_token, done, logprob))
-    when `sample` is given."""
+    Returns logits (T|N, V), or (logits, (next_token, done, logprob
+    [, cand_prob])) when `sample` is given."""
     c = config
     nh, nkv = c.num_attention_heads, c.num_key_value_heads
     hd = c.hidden_size // nh
@@ -267,6 +331,8 @@ def unified_step(params, k_pool, v_pool, page_table, tokens, tok_slot,
     if sample is None:
         return logits
     rec = _sample_flat(logits, tok_slot, tok_pos, row_on, sample)
+    if cand_tok is not None:
+        rec = rec + (_cand_probs(logits, tok_slot, sample, cand_tok),)
     if tok_buf is not None:
         # the token sampled at position p is the one position p+1
         # consumes. Rows not marked for write-back (seed rows, inactive
@@ -418,6 +484,147 @@ def decode_step(params, k_pool, v_pool, page_table, lengths, tokens, active,
     return logits, _sample_record(logits, lengths, active, sample)
 
 
+@torch.no_grad()
+def verify_step(params, k_pool, v_pool, page_table, lengths, tokens, n_tok,
+                active, config: LlamaConfig, page_size, k_scale=None,
+                v_scale=None, sample=None, need_rows=None, cand_tok=None):
+    """Speculative-decoding verify and chunked prefill: G chunk tokens
+    per slot in ONE forward, every matmul at (B, G, ...).
+
+    tokens (B, G): [pending next token, draft_1 .. draft_{G-1}] or the
+    next G prompt tokens, right-padded per slot; n_tok (B,) the real
+    chunk length (1..G); lengths (B,) int32 the cache length BEFORE the
+    chunk (token g lands at position lengths + g; decode_step takes
+    lengths pre-advanced); active (B,) bool. Padded positions and
+    inactive slots write their K/V to the trash page (the last one). The
+    real tokens' K/V is scattered into the pools IN PLACE before
+    attention (`paged_verify_attention`: token g sees the columns
+    < lengths + g + 1); entries past the prefix the host accepts stay
+    beyond the slot's length, masked from every later read, and are
+    overwritten when those positions are reached.
+
+    `need_rows` ((M,) rows of the flattened (B * G) grid) is the lean
+    epilogue: only those rows reach `lm_head`, and the call returns
+    their logits (M, V) and samples nothing. Otherwise it returns logits
+    (B, G, V) (logits[:, g] follows chunk token g), or, with `sample`
+    (per-slot temp, top_k, top_p, key), (logits, (token (B, G), logprob
+    (B, G)[, cand_prob (B, G)])): the position-keyed draws
+    (`_sample_grid`) and, with `cand_tok` (B, G), the probability of
+    each candidate token under the filtered distribution
+    (`_cand_probs`)."""
+    c = config
+    nh, nkv = c.num_attention_heads, c.num_key_value_heads
+    hd = c.hidden_size // nh
+    eps = c.rms_norm_eps
+    B, G = tokens.shape
+    Pn = k_pool.shape[2]
+    quant = k_scale is not None
+    dev = tokens.device
+    ar = torch.arange(G, device=dev)
+    pos = lengths.long()[:, None] + ar[None, :]               # (B, G)
+    cos, sin = rope_cos_sin(None, hd, base=c.rope_theta,
+                            position_ids=pos)                 # (B, G, hd)
+    h = params["embed"][tokens.long()]                        # (B, G, H)
+    # a padded position may lie past the table's last page (a slot near
+    # max_seq_len); it writes the trash page, so any in-range page will do
+    pidx = torch.clamp_max(pos // page_size, page_table.shape[1] - 1)
+    page_ids = page_table.long()[torch.arange(B, device=dev)[:, None], pidx]
+    real = active[:, None] & (ar[None, :] < n_tok.long()[:, None])
+    page_ids = torch.where(real, page_ids, Pn - 1)            # trash page
+    off = pos % page_size
+    lw = params["layers"]
+    for li in range(k_pool.shape[0]):
+        x = _rms(h, lw["ln1"][li], eps)
+        q, k, v = (t.transpose(1, 2)
+                   for t in _qkv(x, lw, li, (B, G), nh, nkv, hd))
+        q, k = apply_rotary_emb(q, k, cos[:, None], sin[:, None])
+        kl, vl, ksl, vsl = _scatter_kv(
+            k_pool, v_pool, k_scale, v_scale, li, page_ids, off,
+            k.transpose(0, 1), v.transpose(0, 1), quant)
+        o = paged_verify_attention(q.contiguous(), kl, vl, page_table,
+                                   lengths, k_scale=ksl,
+                                   v_scale=vsl)           # (B, QH, G, D)
+        h = h + o.transpose(1, 2).reshape(B, G, -1).to(h.dtype) @ lw["wo"][li]
+        x = _rms(h, lw["ln2"][li], eps)
+        h = h + swiglu(x, lw["w_gate"][li], lw["w_up"][li], lw["w_down"][li])
+    h = _rms(h, params["final_norm"], eps)
+    if need_rows is not None:
+        hf = h.reshape(B * G, -1)[torch.clamp_min(need_rows, 0).long()]
+        return hf @ params["lm_head"]                         # (M, V)
+    logits = h @ params["lm_head"]                            # (B, G, V)
+    if sample is None:
+        return logits
+    rec = _sample_grid(logits, lengths, sample)
+    if cand_tok is not None:
+        slot_of = torch.repeat_interleave(torch.arange(B, device=dev), G)
+        cand_p = _cand_probs(logits.reshape(B * G, -1), slot_of, sample,
+                             cand_tok.reshape(-1))
+        rec = rec + (cand_p.reshape(B, G),)
+    return logits, rec
+
+
+def speculative_sample(prob_rows, drafts, rng, cand_probs=None):
+    """Rejection-sampled acceptance of a deterministic draft sequence
+    (speculative sampling, Leviathan et al.).
+
+    prob_rows: the request's filtered sampling distributions, row g
+    applying after chunk token g: a sequence of (V,) arrays or a
+    callable g -> (V,) array, materialized lazily. drafts: (n-1,)
+    proposed tokens d_1..d_{n-1}; rng: the request's
+    np.random.RandomState. cand_probs (optional, (n-1,)): p_g(d_{g+1})
+    precomputed (the step record's `_cand_probs`), so a row is
+    materialized only on divergence or for the final draw. The rng is
+    consumed in the same order either way: one rand() per accept test,
+    one choice() per divergence or final draw.
+
+    Accept d_{g+1} with probability p_g(d_{g+1}); on rejection sample
+    from p_g with d removed, renormalized. Every emitted token is
+    distributed exactly as p_g. Returns (tokens, n_accepted): up to n
+    tokens (accepted drafts + one final sample)."""
+    row = prob_rows if callable(prob_rows) else prob_rows.__getitem__
+    out = []
+    n = len(drafts) + 1
+    for g in range(n - 1):
+        d = int(drafts[g])
+        p_d = float(cand_probs[g]) if cand_probs is not None else None
+        if p_d is None:
+            p = row(g)
+            p_d = p[d]
+        else:
+            p = None                # materialized only on rejection
+        if rng.rand() < p_d:
+            out.append(d)           # accepted: the token IS the draft
+            continue
+        if p is None:
+            p = row(g)
+        resid = p.copy()
+        resid[d] = 0.0
+        tot = resid.sum()
+        if tot <= 0.0:              # p was a point mass on d: forced
+            out.append(d)
+            continue
+        out.append(int(rng.choice(len(resid), p=resid / tot)))
+        return out, g               # divergence: stop consuming drafts
+    p_last = row(n - 1)
+    out.append(int(rng.choice(len(p_last), p=p_last)))
+    return out, n - 1
+
+
+def prompt_lookup_draft(ctx, G, ngram=2):
+    """Draft continuation tokens by n-gram lookup in the request's own
+    context (prompt lookup, no draft model): the up-to-G tokens that
+    followed the most recent earlier occurrence of the trailing `ngram`
+    tokens. Returns [] when there is none."""
+    L = len(ctx)
+    if L < ngram + 1:
+        return []
+    key = list(ctx[-ngram:])
+    for i in range(L - ngram - 1, -1, -1):
+        if list(ctx[i:i + ngram]) == key:
+            return [int(t) for t in ctx[i + ngram:i + ngram + G]]
+    return []
+
+
 # ---------------------------------------------------------------------------
 # engine (host-side orchestration)
 # ---------------------------------------------------------------------------
@@ -548,8 +755,18 @@ class ServingEngine:
     `cache_dtype="int8"` stores the pool int8 with per-token fp32
     scales; otherwise the pool stores `dtype` (default: the parameters'
     dtype). `lean` gathers the logits rows a wave samples before
-    `lm_head`; `tokbuf` keeps token values in a device ring (both apply
-    to the ragged step only).
+    `lm_head` (ragged step), and lets a spec step's sampled slots read
+    candidate probabilities instead of vocabulary rows; `tokbuf` keeps
+    token values in a device ring (ragged plain decode only).
+
+    `spec_decode=G >= 2` verifies the pending token and up to G-1
+    prompt-lookup drafts (`spec_ngram`-gram) of each greedy slot in one
+    forward (`verify_step` bucketed, `unified_step` ragged) and emits
+    the accepted prefix plus one model token: greedy output equals plain
+    decode. `spec_sample` drafts for sampled requests too, accepted by
+    rejection sampling. `chunked_prefill` feeds prompts G tokens per
+    verify step instead of prefilling at admission. A spec engine steps
+    synchronously (`run_pipelined` runs `run`).
 
     Runs on `device` ("cuda" by default; raises without a CUDA device —
     pass device="cpu" to run on the CPU). `params` must already live
@@ -558,7 +775,8 @@ class ServingEngine:
     def __init__(self, params, config: LlamaConfig, max_seqs=4,
                  max_seq_len=512, page_size=16, dtype=None, num_pages=None,
                  cache_dtype=None, preempt_policy="offload", spec_decode=0,
-                 chunked_prefill=False, mesh=None, prefix_cache=False,
+                 spec_ngram=2, chunked_prefill=False, spec_sample=False,
+                 mesh=None, prefix_cache=False,
                  host_tier_bytes=0, faults=None, ragged=True,
                  ragged_tokens=None, lean=True, tokbuf=True,
                  device=DEFAULT_DEVICE):
@@ -567,8 +785,6 @@ class ServingEngine:
                 (prefix_cache, "prefix_cache=True", 6),
                 (host_tier_bytes, "host_tier_bytes > 0", 6),
                 (faults is not None, "fault injection (faults=)", 7),
-                (spec_decode > 1, "spec_decode > 1", 8),
-                (chunked_prefill, "chunked_prefill", 8),
                 (mesh is not None, "tensor-parallel serving (mesh=)",
                  "10b")):
             if on:
@@ -608,25 +824,53 @@ class ServingEngine:
         self.preemptions = 0
         self.prefill_tokens = 0
         self.device_steps = 0
+        # speculative decoding: spec_decode = G, the verify chunk width
+        # (the pending token + up to G-1 prompt-lookup drafts); 0/1 is
+        # plain decode
+        self.spec_decode = int(spec_decode)
+        self.spec_ngram = int(spec_ngram)
+        if self.spec_decode < 0:
+            raise ValueError(f"spec_decode={spec_decode}: want >= 0")
+        # chunked prefill: admissions feed their prompt G tokens per
+        # verify step, riding the verify chunk
+        self.chunked_prefill = bool(chunked_prefill)
+        if self.chunked_prefill and self.spec_decode < 2:
+            raise ValueError(
+                "chunked_prefill rides the spec verify chunk: set "
+                "spec_decode >= 2 (the chunk width)")
+        # spec_sample: draft for sampled requests too, accepted by
+        # rejection sampling (same output distribution, another rng
+        # order than plain sampling, so opt-in)
+        self.spec_sample = bool(spec_sample)
+        if self.spec_sample and self.spec_decode < 2:
+            raise ValueError("spec_sample needs spec_decode >= 2")
+        self.spec_drafted = 0    # draft tokens fed to verify
+        self.spec_accepted = 0   # draft tokens accepted
         # padding rows the bucketed prefills dispatched (`_bucket_for`)
         self.pad_tokens = 0
         self.ragged = bool(ragged)
+        G_ = max(self.spec_decode, 1)
         if ragged_tokens is None:
-            ragged_tokens = 1 << math.ceil(math.log2(max(max_seqs, 16)))
+            ragged_tokens = 1 << math.ceil(math.log2(max(max_seqs * G_, 16)))
         self.ragged_buf = int(ragged_tokens)
-        if self.ragged and self.ragged_buf < max_seqs:
+        if self.ragged and self.ragged_buf < max_seqs * G_:
             raise ValueError(
                 f"ragged_tokens={self.ragged_buf} cannot hold one row per "
-                f"slot ({max_seqs} slots)")
+                f"slot ({max_seqs} slots x chunk width {G_})")
         self.lean = bool(lean)
-        # a wave needs at most one sampled row per decoding slot plus one
-        # seed row per prefilling slot, and a slot is never both
-        self.need_buf = max_seqs
+        # a wave needs at most one sampled row per decoding slot (x G
+        # under spec) plus one seed row per prefilling slot, and a slot
+        # is never both
+        self.need_buf = max_seqs * G_
+        # lm_head rows computed, and rows the lean epilogue avoided
+        self.logit_rows = 0
+        self.logit_rows_skipped = 0
         dev = self.device
-        # a bucketed decode is one row per slot already: no token ring
+        # a bucketed decode is one row per slot already, and a verify
+        # chunk takes host-fed tokens: no token ring for either
         self.tok_buf = torch.zeros((max_seqs, max_seq_len + 1),
                                    dtype=torch.int32, device=dev) \
-            if tokbuf and self.ragged else None
+            if tokbuf and self.ragged and self.spec_decode <= 1 else None
         kvh = c.num_key_value_heads
         hd = c.hidden_size // c.num_attention_heads
         L = c.num_hidden_layers
@@ -711,6 +955,14 @@ class ServingEngine:
         if ticket.event is not None:
             ticket.event.synchronize()
         return tuple(None if x is None else x.numpy() for x in ticket.host)
+
+    def _read(self, tensors):
+        """Copy device tensors (None passes through) to the host now and
+        return them as numpy arrays: the synchronous spec step's read."""
+        host, event = self._d2h(tensors)
+        if event is not None:
+            event.synchronize()
+        return tuple(None if x is None else x.numpy() for x in host)
 
     # -- request admission ------------------------------------------------
     def validate(self, req: Request):
@@ -798,10 +1050,12 @@ class ServingEngine:
     def _admit(self):
         """Admit the waiting requests that both slots and KV pages can
         hold, reserving the pages live slots will need this step. The
-        ragged engine attaches them to feed their prompts through the
-        coming waves; the bucketed engine prefills them here."""
+        ragged engine, and any engine with `chunked_prefill`, attaches
+        them to feed their prompts through the coming steps; the
+        bucketed engine otherwise prefills them here."""
         free_slots = [s for s in range(self.max_seqs)
                       if self._slots[s] is None]
+        G = max(self.spec_decode, 1)
 
         def _reserve(s):
             r = self._slots[s]
@@ -809,11 +1063,10 @@ class ServingEngine:
                 # a mid-prefill slot's whole remaining prompt is spoken for
                 horizon = len(r._pf_feed)
             else:
-                horizon = min(int(self.lengths[s]) + 1, self.max_seq_len)
+                # a decode step writes one position, a verify chunk up to G
+                horizon = min(int(self.lengths[s]) + G, self.max_seq_len)
             return max(0, -(-horizon // self.page_size)
                        - len(self._seq_pages[s]))
-        # (a bucketed slot is never mid-prefill: it needs one page exactly
-        # when its next token crosses a page boundary)
         reserve = sum(_reserve(s) for s in sorted(self._live))
         take = 0
         for req in self._waiting[:len(free_slots)]:
@@ -832,7 +1085,7 @@ class ServingEngine:
                 break
             reserve += need
             take += 1
-        if not self.ragged:
+        if not self.ragged and not self.chunked_prefill:
             self._admit_bucketed(free_slots[:take])
             return
         for slot in free_slots[:take]:
@@ -898,6 +1151,7 @@ class ServingEngine:
         self.prefill_tokens += S
         ids = np.zeros((1, self._bucket_for(S)), np.int32)
         ids[0, :S] = feed
+        self.logit_rows += 1            # one final row
         logits, k_all, v_all = prefill(self.params, self._h2d(ids), S,
                                        self.config)
         self._scatter_prompt(slot, k_all, v_all, S)
@@ -921,6 +1175,7 @@ class ServingEngine:
             off += lens[i]
             cu[i + 1] = off
         cu[len(reqs) + 1:] = off      # unused tail: zero-length segments
+        self.logit_rows += self.max_seqs  # one final row per segment
         d = self._stage({"ids": ids, "cu": cu})
         logits, k_all, v_all = prefill_varlen(self.params, d["ids"],
                                               d["cu"], self.config)
@@ -1002,8 +1257,11 @@ class ServingEngine:
         `exclude`) to the head of the queue. "offload" first copies its
         KV pages to the host stash — synchronously, BEFORE `_release`
         hands the pages back: the pools are updated in place, so a later
-        step would overwrite them. Returns False when nothing can be
-        evicted."""
+        step would overwrite them. A slot in the middle of a chunked
+        prefill is evictable too: its feed cursor lives on the Request,
+        so an offloaded one resumes the feed where it stopped and a
+        recomputed one feeds its prompt again. Returns False when
+        nothing can be evicted."""
         victims = [s for s, r in enumerate(self._slots)
                    if r is not None and s != exclude]
         if not victims:
@@ -1082,6 +1340,8 @@ class ServingEngine:
         """One synchronous step (launch + consume); returns #slots run."""
         self._sweep_cancelled()
         self._admit()
+        if self.spec_decode > 1:
+            return self._spec_step()
         t = self.step_launch(_admitted=True)
         return 0 if t is None else self.step_finish(t)
 
@@ -1147,6 +1407,7 @@ class ServingEngine:
         active = np.zeros((B,), np.int32)
         active[launch] = 1
         self.lengths[launch] += 1
+        self.logit_rows += B            # one row per slot: none to skip
         d = self._stage({"page_table": self.page_table,
                          "lengths": self.lengths, "tokens": tokens,
                          "active": active, "carry_mask": carry_mask, **tab})
@@ -1217,11 +1478,15 @@ class ServingEngine:
     @staticmethod
     def _device_sampling(d):
         """The step's `sample` dict from the staged int32 views of the
-        sampling tables."""
-        return {"temp": d["temp"].view(torch.float32), "top_k": d["top_k"],
-                "top_p": d["top_p"].view(torch.float32),
-                "key": d["key"].long() & _M32,
-                "eos": d["eos"], "remaining": d["remaining"]}
+        sampling tables (eos and remaining only where staged: a spec
+        step stops requests on the host)."""
+        out = {"temp": d["temp"].view(torch.float32), "top_k": d["top_k"],
+               "top_p": d["top_p"].view(torch.float32),
+               "key": d["key"].long() & _M32}
+        for name in ("eos", "remaining"):
+            if name in d:
+                out[name] = d[name]
+        return out
 
     def _ragged_launch(self, carry=None, _admitted=False):
         """Plan one wave — decode rows first, then prefill feeds into the
@@ -1326,6 +1591,10 @@ class ServingEngine:
             need[:n_decode] = np.arange(n_decode, dtype=np.int32)
             need[n_decode:n_decode + len(seed_flat)] = seed_flat
             parts["need_rows"] = need
+            self.logit_rows += self.need_buf
+            self.logit_rows_skipped += T - self.need_buf
+        else:
+            self.logit_rows += T
         bw = np.zeros((E,), np.int32)
         bw[:n_decode] = 1
         parts["buf_write"] = bw
@@ -1376,6 +1645,288 @@ class ServingEngine:
                        inflight)
         return len(ticket.slots)
 
+    # -- speculative decoding and chunked prefill ---------------------------
+    def _spec_row_dist(self, logits, idx, req):
+        """ONE filtered sampling distribution row (`_spec_dist_rows`,
+        computed where the logits live) for the rejection sampler's
+        divergence or final draw, renormalized in float64 so
+        np.random.choice's sum-to-1 check passes on a float32 softmax
+        row. Accepted drafts never call this: their accept tests read
+        the step record's candidate probabilities."""
+        dev = logits.device
+        row = _spec_dist_rows(
+            logits[int(idx)][None],
+            torch.full((1,), req.temperature, dtype=torch.float32,
+                       device=dev),
+            torch.full((1,), req.top_k, dtype=torch.int32, device=dev),
+            torch.full((1,), req.top_p, dtype=torch.float32, device=dev))
+        p = self._read((row,))[0][0].astype(np.float64)
+        return p / p.sum()
+
+    def _spec_step(self):
+        """One speculative verify step: each greedy slot (every slot
+        with `spec_sample`) drafts up to G-1 tokens by prompt lookup, a
+        mid-prefill slot feeds its next G prompt tokens, ONE forward
+        verifies every chunk (`verify_step`, or `unified_step` rows on
+        the ragged engine), and each slot emits its accepted prefix plus
+        one model token. Greedy output equals plain decode's: at the
+        first divergence the model token is the one plain decode picks.
+        Synchronous: one read of the record per step."""
+        G = self.spec_decode
+        B = self.max_seqs
+        active_slots = sorted(self._live)
+        if not active_slots:
+            return 0
+        tokens = np.zeros((B, G), np.int32)
+        n_tok = np.ones((B,), np.int32)
+        for s in active_slots:
+            req = self._slots[s]
+            if self._prefilling(req):
+                # chunked prefill: the chunk is the next G prompt tokens
+                feed, cur = req._pf_feed, req._pf_cursor
+                n = min(G, len(feed) - cur)
+                tokens[s, :n] = feed[cur:cur + n]
+                n_tok[s] = n
+                self.prefill_tokens += n
+                continue
+            tokens[s, 0] = req.next_token
+            room = self.max_seq_len - int(self.lengths[s]) - 1
+            budget = min(G - 1, room, req.max_new_tokens - len(req.output))
+            if budget > 0 and (req.temperature == 0.0 or self.spec_sample):
+                # the context ends with the pending next token, which the
+                # n-gram keys off
+                draft = prompt_lookup_draft(req.prompt + req.output, budget,
+                                            self.spec_ngram)
+                tokens[s, 1:1 + len(draft)] = draft
+                n_tok[s] = 1 + len(draft)
+                self.spec_drafted += len(draft)
+        # page growth: every real chunk position needs its page now
+        for s in active_slots:
+            if self._slots[s] is None:
+                continue   # evicted by a preemption for an earlier slot
+            need = -(-(int(self.lengths[s]) + int(n_tok[s]))
+                     // self.page_size)
+            while len(self._seq_pages[s]) < need:
+                self._grow_one(s, None, "verify growth")
+        active_slots = sorted(self._live)
+        if not active_slots:
+            return 0
+        active = np.zeros((B,), np.int32)
+        active[active_slots] = 1
+        tab = self._sampling_tables()
+        for s in active_slots:
+            req = self._slots[s]
+            if not self._prefilling(req):   # a chunk feed samples nothing
+                self._set_sampling(tab, s, req, 1)
+        del tab["eos"], tab["remaining"]    # stops are decided here
+        # sampled slots with drafts: rejection sampling needs their
+        # filtered distributions (candidate probabilities when lean, the
+        # vocabulary rows otherwise); greedy slots read the (B, G) grid
+        need_rows = [s for s in active_slots
+                     if self._slots[s].temperature > 0.0
+                     and int(n_tok[s]) > 1
+                     and not self._prefilling(self._slots[s])]
+        seed_slots = [s for s in active_slots
+                      if self._prefilling(self._slots[s])
+                      and self._slots[s]._pf_cursor + int(n_tok[s])
+                      >= len(self._slots[s]._pf_feed)
+                      and self._slots[s]._pf_sample]
+        if self.ragged:
+            grid, lp_grid, rows_by_slot, cand_by_slot, flat_logits, \
+                row_of, seed_rows = self._spec_ragged(
+                    tokens, n_tok, active_slots, tab, need_rows,
+                    seed_slots)
+        else:
+            grid, lp_grid, rows_by_slot, cand_by_slot, flat_logits, \
+                row_of, seed_rows = self._spec_bucketed(
+                    tokens, n_tok, active, tab, need_rows, seed_slots)
+        self.device_steps += 1
+        for s in active_slots:
+            req = self._slots[s]
+            n = int(n_tok[s])
+            if self._prefilling(req):
+                # a chunk fed; once the prompt is complete its last
+                # position's logits seed generation
+                req._pf_cursor += n
+                self.lengths[s] += n
+                if req._pf_cursor >= len(req._pf_feed) and req._pf_sample:
+                    self._seed_first_token(s, req, seed_rows[s])
+                continue
+            rows = rows_by_slot.get(s)
+            if req.temperature > 0.0 and n > 1:
+                # speculative sampling: rows are filtered lazily (a
+                # rejection at g touches g + 1 rows)
+                if s in cand_by_slot:
+                    outs, a = speculative_sample(
+                        lambda g: self._spec_row_dist(
+                            flat_logits, row_of[s] + g, req),
+                        tokens[s, 1:n], req.rng,
+                        cand_probs=cand_by_slot[s])
+                else:
+                    outs, a = speculative_sample(
+                        lambda g: filtered_probs_np(
+                            rows[g], req.temperature, req.top_k,
+                            req.top_p),
+                        tokens[s, 1:n], req.rng)
+            elif req.temperature > 0.0:
+                # un-drafted sampled slot: the device drew the token with
+                # the (seed, position) key plain decode uses
+                outs, a = [int(grid[s, 0])], 0
+            else:
+                outs = [int(t) for t in grid[s, :n]]
+                # accept drafts while they match the model's own choices
+                a = 0
+                while a < n - 1 and tokens[s, a + 1] == outs[a]:
+                    a += 1
+                outs = outs[:a + 1]
+            self.spec_accepted += a
+            emitted = 0
+            for j, tok in enumerate(outs):
+                req.output.append(tok)
+                req.next_token = tok
+                if req.want_logprobs:
+                    if rows is not None:
+                        req.note_logprob(tok, rows[j])
+                    elif s in cand_by_slot:
+                        # lean sampled slot: read this emission's row
+                        req.note_logprob(tok, self._read(
+                            (flat_logits[row_of[s] + j].float(),))[0])
+                    else:
+                        # greedy: emission j IS grid token j, whose
+                        # logprob came with the record
+                        req.logprobs.append(float(lp_grid[s, j]))
+                emitted += 1
+                if req.done:
+                    break
+            # the cache keeps chunk tokens 0..emitted-1: the pending
+            # token and the drafts consumed to produce the emissions
+            self.lengths[s] += emitted
+            if req.done:
+                self.finished.append(req)
+                self._release(s)
+        return len(active_slots)
+
+    def _spec_ragged(self, tokens, n_tok, active_slots, tab, need_rows,
+                     seed_slots):
+        """The ragged engine's verify: each slot's chunk takes n_tok[s]
+        consecutive rows of one `unified_step` buffer; row base[s] + g
+        draws with fold lengths + g + 1, the bucketed grid's key.
+        Returns what the acceptance loop reads."""
+        G = self.spec_decode
+        base, row = {}, 0
+        for s in active_slots:
+            base[s] = row
+            row += int(n_tok[s])
+        T = self.ragged_buf
+        ftok = np.zeros((T,), np.int32)
+        fslot = np.zeros((T,), np.int32)
+        fpos = np.full((T,), -1, np.int32)
+        for s in active_slots:
+            n, b = int(n_tok[s]), base[s]
+            ftok[b:b + n] = tokens[s, :n]
+            fslot[b:b + n] = s
+            fpos[b:b + n] = int(self.lengths[s]) + np.arange(n,
+                                                             dtype=np.int32)
+        parts = {"page_table": self.page_table, "tokens": ftok,
+                 "tok_slot": fslot, "tok_pos": fpos, **tab}
+        if self.lean:
+            # every chunk row feeds the record: the need rows are the
+            # identity over the packed rows, and each row's candidate is
+            # the draft that follows it
+            need = np.full((self.need_buf,), -1, np.int32)
+            need[:row] = np.arange(row, dtype=np.int32)
+            cand = np.zeros((self.need_buf,), np.int32)
+            for s in active_slots:
+                n = int(n_tok[s])
+                if n > 1:
+                    cand[base[s]:base[s] + n - 1] = tokens[s, 1:n]
+            parts["need_rows"] = need
+            parts["cand"] = cand
+            self.logit_rows += self.need_buf
+            self.logit_rows_skipped += T - self.need_buf
+        else:
+            self.logit_rows += T
+        d = self._stage(parts)
+        logits, rec = unified_step(
+            self.params, self.k_pool, self.v_pool, d["page_table"],
+            d["tokens"], d["tok_slot"], d["tok_pos"], self.config,
+            self.page_size, k_scale=self.k_scale, v_scale=self.v_scale,
+            sample=self._device_sampling(d), need_rows=d.get("need_rows"),
+            cand_tok=d.get("cand"))
+        need_idx = [i for s in need_rows
+                    for i in range(base[s], base[s] + int(n_tok[s]))] \
+            if need_rows and not self.lean else None
+        seed_idx = [base[s] + int(n_tok[s]) - 1 for s in seed_slots]
+        tok_f, lp_f, row_f, cand_f, seed_vals = self._read(
+            (rec[0], rec[2],
+             logits[need_idx].float() if need_idx is not None else None,
+             rec[3] if self.lean else None,
+             logits[seed_idx].float() if seed_slots else None))
+        grid = np.zeros((self.max_seqs, G), np.int64)
+        lp_grid = np.zeros((self.max_seqs, G), np.float32)
+        for s in active_slots:
+            n = int(n_tok[s])
+            grid[s, :n] = tok_f[base[s]:base[s] + n]
+            lp_grid[s, :n] = lp_f[base[s]:base[s] + n]
+        rows_by_slot, cand_by_slot = {}, {}
+        if row_f is not None:
+            off = 0
+            for s in need_rows:
+                n = int(n_tok[s])
+                rows_by_slot[s] = row_f[off:off + n]
+                off += n
+        if cand_f is not None:
+            for s in need_rows:
+                cand_by_slot[s] = cand_f[base[s]:base[s] + int(n_tok[s]) - 1]
+        seed_rows = {} if seed_vals is None else dict(zip(seed_slots,
+                                                          seed_vals))
+        return (grid, lp_grid, rows_by_slot, cand_by_slot, logits, base,
+                seed_rows)
+
+    def _spec_bucketed(self, tokens, n_tok, active, tab, need_rows,
+                       seed_slots):
+        """The bucketed engine's verify: ONE `verify_step` over the
+        (B, G) grid. Returns what the acceptance loop reads."""
+        G = self.spec_decode
+        parts = {"page_table": self.page_table, "lengths": self.lengths,
+                 "tokens": tokens, "n_tok": n_tok, "active": active, **tab}
+        lean = self.lean and bool(need_rows)
+        if lean:
+            # sampled slots read (B, G) candidate probabilities instead
+            # of (n, V) vocabulary rows
+            cand = np.zeros((self.max_seqs, G), np.int32)
+            for s in need_rows:
+                n = int(n_tok[s])
+                cand[s, :n - 1] = tokens[s, 1:n]
+            parts["cand"] = cand
+        self.logit_rows += self.max_seqs * G
+        d = self._stage(parts)
+        logits, rec = verify_step(
+            self.params, self.k_pool, self.v_pool, d["page_table"],
+            d["lengths"], d["tokens"], d["n_tok"], d["active"] != 0,
+            self.config, self.page_size, k_scale=self.k_scale,
+            v_scale=self.v_scale, sample=self._device_sampling(d),
+            cand_tok=d.get("cand"))
+        dev = logits.device
+        grid, lp_grid, row_vals, cand_vals, seed_vals = self._read(
+            (rec[0], rec[1],
+             logits[torch.tensor(need_rows, device=dev)].float()
+             if need_rows and not lean else None,
+             rec[2] if lean else None,
+             logits[torch.tensor(seed_slots, device=dev),
+                    torch.tensor([int(n_tok[s]) - 1 for s in seed_slots],
+                                 device=dev)].float()
+             if seed_slots else None))
+        rows_by_slot = {} if row_vals is None else \
+            {s: row_vals[i][:int(n_tok[s])] for i, s in enumerate(need_rows)}
+        cand_by_slot = {} if cand_vals is None else \
+            {s: cand_vals[s, :int(n_tok[s]) - 1] for s in need_rows}
+        seed_rows = {} if seed_vals is None else dict(zip(seed_slots,
+                                                          seed_vals))
+        flat = logits.reshape(-1, logits.shape[-1])
+        return (grid, lp_grid, rows_by_slot, cand_by_slot, flat,
+                {s: s * G for s in range(self.max_seqs)}, seed_rows)
+
     def _release(self, slot):
         # decref tail-first, as the JAX engine does
         self.pool.decref(reversed(self._seq_pages[slot]))
@@ -1398,7 +1949,10 @@ class ServingEngine:
         consuming step N, so host bookkeeping overlaps the queued device
         work. Token-identical to `run()`, greedy and seeded sampling
         both, because sampling happens inside the step keyed by
-        (seed, position)."""
+        (seed, position). A spec engine runs `run()`: drafting needs the
+        host-current context."""
+        if self.spec_decode > 1:
+            return self.run(max_steps=max_steps)
         pending = None
         steps = 0
         while steps < max_steps and (self._live or self._waiting

@@ -1,8 +1,9 @@
 """paddle_tpu_torch on the card: the Hopper ragged paged-attention kernel,
 the three flash-attention kernels, the three FlashMask kernels, the
-varlen forward and the paged decode kernels against their plain PyTorch
-versions over the shapes and masks they cover, the card engines
-(ragged and bucketed) against the CPU engines, and tiny-width train
+varlen forward, the paged decode and the paged verify kernels against
+their plain PyTorch versions over the shapes and masks they cover, the
+card engines (ragged, bucketed, and bucketed with speculative decoding
+and chunked prefill) against the CPU engines, and tiny-width train
 steps (plain and packed documents) on the card against the CPU.
 
 Every test here needs a CUDA device and skips without one. This file
@@ -653,3 +654,138 @@ def test_card_bucketed_engine_matches_cpu_engine(card, cache_dtype):
             assert eng.pool.conserved(drained=True)
             outs.append({r.rid: r.output for r in done})
     assert outs[0] == outs[1] == outs[2] == outs[3]
+
+
+# (QH, KVH, G): the JAX tests' awkward rows (6, 10 and 9 per KV head), and
+# 8B widths at the chunked-prefill widths G = 16 (one 64-row tile) and 64
+# (four tiles)
+VERIFY_SHAPES = [(4, 2, 3), (4, 2, 5), (6, 2, 3), (32, 8, 16), (32, 8, 64)]
+
+
+def _verify_operands(card, dtype, qh, kvh, g, d, page, seed=0):
+    """Slots of base lengths 0, 1, page - 1, 300 and 2000 - G (G tokens
+    each on top, within the owned pages), pages in random order."""
+    rng = np.random.default_rng(seed)
+    bases = [0, 1, page - 1, 300, 2000 - g]
+    pps = -(-2000 // page)
+    num_pages = len(bases) * pps + 1
+    ptab = rng.permutation(num_pages - 1)[:len(bases) * pps].reshape(
+        len(bases), pps).astype(np.int32)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(d + g)
+    pools, qname = VARIANTS[dtype]
+    q = torch.randn((len(bases), qh, g, d), generator=gen, device=card).to(
+        getattr(torch, qname))
+    k = torch.randn((kvh, num_pages, page, d), generator=gen, device=card)
+    v = torch.randn((kvh, num_pages, page, d), generator=gen, device=card)
+    ks = vs = None
+    if pools == "int8":
+        k, ks = quantize_kv(k)
+        v, vs = quantize_kv(v)
+    else:
+        k, v = k.to(q.dtype), v.to(q.dtype)
+    return (q, k, v, ks, vs, torch.from_numpy(ptab).to(card),
+            torch.tensor(bases, dtype=torch.int32, device=card))
+
+
+@pytest.mark.parametrize("dtype", list(VARIANTS))
+@pytest.mark.parametrize("page", [8, 16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("qh,kvh,g", VERIFY_SHAPES)
+def test_paged_verify_kernel_matches_plain(card, dtype, qh, kvh, g, d, page):
+    q, k, v, ks, vs, ptab, base = _verify_operands(card, dtype, qh, kvh, g,
+                                                   d, page)
+    before = (pa.launches_verify, pa.launches_verify_int8)
+    ker = pa.paged_verify_attention(q, k, v, ptab, base, k_scale=ks,
+                                    v_scale=vs)
+    torch.cuda.synchronize()
+    quant = VARIANTS[dtype][0] == "int8"
+    assert (pa.launches_verify, pa.launches_verify_int8) == \
+        (before[0] + (not quant), before[1] + quant)
+    ref = pa.paged_verify_reference(q, k, v, ptab, base, k_scale=ks,
+                                    v_scale=vs)
+    atol, rtol = TOL[VARIANTS[dtype][1]]
+    torch.testing.assert_close(ker.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", list(VARIANTS))
+def test_paged_verify_g1_equals_paged_decode(card, dtype):
+    """G = 1 at base is pa_decode at base + 1, both kernels."""
+    q, k, v, ks, vs, ptab, base = _verify_operands(card, dtype, 32, 8, 1,
+                                                   128, 16)
+    ver = pa.paged_verify_attention(q, k, v, ptab, base, k_scale=ks,
+                                    v_scale=vs)
+    dec = pa.paged_attention(q[:, :, 0].contiguous(), k, v, ptab, base + 1,
+                             k_scale=ks, v_scale=vs)
+    atol, rtol = TOL[VARIANTS[dtype][1]]
+    torch.testing.assert_close(ver[:, :, 0].float(), dec.float(), atol=atol,
+                               rtol=rtol)
+
+
+def test_paged_verify_kernel_refuses_what_it_does_not_take(card):
+    q = torch.randn((2, 4, 3, 32), device=card)
+    pages = torch.randn((2, 5, 8, 32), device=card)
+    ptab = torch.zeros((2, 3), dtype=torch.int32, device=card)
+    base = torch.tensor([3, 9], dtype=torch.int32, device=card)
+    before = (pa.launches_verify, pa.launches_verify_int8)
+    with pytest.raises(ValueError, match="on cpu"):          # no fallback
+        pa.paged_verify_attention(q, pages, pages, ptab.cpu(), base)
+    with pytest.raises(ValueError, match=r"\(B, QH, G, D\)"):
+        pa.paged_verify_attention(q[:, :, 0], pages, pages, ptab, base)
+    with pytest.raises(ValueError, match="int32"):
+        pa.paged_verify_attention(q, pages, pages, ptab, base.long())
+    with pytest.raises(ValueError, match="dtype"):
+        pa.paged_verify_attention(q, pages.bfloat16(), pages.bfloat16(),
+                                  ptab, base)
+    with pytest.raises(ValueError, match="int8 pages need"):
+        pa.paged_verify_attention(q, pages.to(torch.int8),
+                                  pages.to(torch.int8), ptab, base)
+    with pytest.raises(ValueError, match="contiguous"):
+        pa.paged_verify_attention(q.transpose(2, 3).contiguous()
+                                  .transpose(2, 3), pages, pages, ptab, base)
+    assert (pa.launches_verify, pa.launches_verify_int8) == before
+
+
+@pytest.mark.parametrize("cache_dtype", [None, "int8"])
+@pytest.mark.parametrize("chunked", [False, True], ids=["spec", "chunked"])
+def test_card_spec_engine_matches_cpu_engine(card, cache_dtype, chunked):
+    """fp32, TF32 off, depth 2: the bucketed spec engine (spec_decode=4,
+    greedy and seeded requests on ngram-repetitive prompts, with
+    chunked prefill or without) on the card against the CPU; the card
+    launches pa_verify per layer and step and no decode kernel, the CPU
+    nothing."""
+    cfg = LlamaConfig.tiny(vocab=128, hidden=128, layers=2, heads=4,
+                           kv_heads=2, ffn=256)
+    cpu = init_params(cfg, seed=0, device="cpu")
+    gpu = {k: ({kk: vv.to(card) for kk, vv in v.items()}
+               if isinstance(v, dict) else v.to(card))
+           for k, v in cpu.items()}
+    outs = []
+    for dev, params in ((card, gpu), ("cpu", cpu)):
+        eng = ServingEngine(params, cfg, max_seqs=3, max_seq_len=64,
+                            page_size=8, cache_dtype=cache_dtype,
+                            ragged=False, spec_decode=4,
+                            chunked_prefill=chunked, device=dev)
+        for i, motif in enumerate(([1, 5, 9], [2, 4], [7, 7, 3], [6, 1])):
+            eng.submit(Request(i, motif * (3 + i), max_new_tokens=8 + 3 * i,
+                               **({"temperature": 0.9, "seed": i}
+                                  if i == 1 else {})))
+        va.launches_fwd = fa.launches_fwd = rpa.launches = 0
+        pa.launches_decode = pa.launches_decode_int8 = 0
+        pa.launches_verify = pa.launches_verify_int8 = 0
+        done = eng.run()
+        L = cfg.num_hidden_layers
+        on_card = dev is card
+        verify = pa.launches_verify_int8 if cache_dtype else \
+            pa.launches_verify
+        assert verify == (L * eng.device_steps if on_card else 0)
+        assert pa.launches_decode == pa.launches_decode_int8 == 0
+        assert pa.launches_verify + pa.launches_verify_int8 == verify
+        assert rpa.launches == 0
+        if chunked:
+            assert va.launches_fwd == fa.launches_fwd == 0
+        assert eng.spec_drafted > 0
+        assert eng.pool.conserved(drained=True)
+        outs.append({r.rid: r.output for r in done})
+    assert outs[0] == outs[1]

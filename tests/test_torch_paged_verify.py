@@ -1,0 +1,142 @@
+"""paddle_tpu_torch's paged verify attention held to the JAX package's on
+the CPU: `paged_verify_attention` (its plain version,
+`paged_verify_reference`) against JAX's `paged_verify_reference` and
+against the Pallas verify kernels run in interpret mode (`use_pallas=True,
+interpret=True`), fp32 and int8 pages, over the JAX tests' setup and its
+awkward (QH, KVH, G) shapes, with the JAX tests' own limits: fp32 to 2e-5
+and int8 to 2e-4 (the same sums in another order; int8 pages dequantize
+to values up to 127 times their scale). G = 1 equals the decode plain
+version at base + 1."""
+import importlib
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from paddle_tpu_torch.ops import paged_attention as TP
+
+# the module itself: `paddle_tpu.ops` exports a function of the same name
+JP = importlib.import_module("paddle_tpu.ops.paged_attention")
+
+ATOL = {False: 2e-5, True: 2e-4}
+SHAPES = {"setup": (8, 4, 4), "g2x3": (4, 2, 3), "g2x5": (4, 2, 5),
+          "g3x3": (6, 2, 3), "g1x16": (4, 4, 16)}
+
+
+def _setup(qh=8, kvh=4, g=4, d=64, page=16, num_pages=32, ppseq=4, seed=0,
+           quant=False, b=3):
+    """The JAX tests' inputs, in numpy: base lengths 5, 17 and the last
+    one that keeps base + G inside the owned pages; the table's unused
+    page ids hold values that no row may read."""
+    rng = np.random.RandomState(seed)
+    q = (rng.randn(b, qh, g, d) * 0.3).astype(np.float32)
+    kp = (rng.randn(kvh, num_pages, page, d) * 0.3).astype(np.float32)
+    vp = (rng.randn(kvh, num_pages, page, d) * 0.3).astype(np.float32)
+    table = rng.permutation(num_pages)[:b * ppseq].reshape(
+        b, ppseq).astype(np.int32)
+    base = np.asarray([5, 17, page * ppseq - g], np.int32)[:b]
+    ks = vs = None
+    if quant:
+        kq, ks = JP.quantize_kv(jnp.asarray(kp))
+        vq, vs = JP.quantize_kv(jnp.asarray(vp))
+        kp, vp, ks, vs = (np.array(x) for x in (kq, vq, ks, vs))
+    return q, kp, vp, table, base, ks, vs
+
+
+def _torch(q, kp, vp, table, base, ks, vs, **kw):
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    return TP.paged_verify_attention(t(q), t(kp), t(vp), t(table), t(base),
+                                     k_scale=t(ks), v_scale=t(vs),
+                                     **kw).numpy()
+
+
+def _jax(fn, q, kp, vp, table, base, ks, vs, **kw):
+    jn = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+    return np.asarray(fn(jn(q), jn(kp), jn(vp), jn(table), jn(base),
+                         k_scale=jn(ks), v_scale=jn(vs), **kw))
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_matches_jax_reference(quant, shape):
+    qh, kvh, g = SHAPES[shape]
+    args = _setup(qh=qh, kvh=kvh, g=g, quant=quant)
+    got = _torch(*args)
+    want = _jax(JP.paged_verify_reference, *args)
+    assert got.shape == want.shape == args[0].shape
+    np.testing.assert_allclose(got, want, atol=ATOL[quant], rtol=0)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_matches_pallas_kernel_interpret(quant, shape):
+    qh, kvh, g = SHAPES[shape]
+    args = _setup(qh=qh, kvh=kvh, g=g, quant=quant, seed=1)
+    got = _torch(*args)
+    want = _jax(JP.paged_verify_attention, *args, use_pallas=True,
+                interpret=True)
+    np.testing.assert_allclose(got, want, atol=ATOL[quant], rtol=0)
+
+
+def test_reference_is_the_plain_version():
+    """The wrapper on a CPU tensor is `paged_verify_reference`, bit for
+    bit, and launches nothing."""
+    args = _setup(seed=2)
+    t = torch.from_numpy
+    before = (TP.launches_verify, TP.launches_verify_int8)
+    got = _torch(*args)
+    want = TP.paged_verify_reference(*(t(a) for a in args[:5])).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (TP.launches_verify, TP.launches_verify_int8) == before
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+def test_chunk_token_equals_single_token_decode(quant):
+    """Token g of the chunk is a decode at length base + g + 1; G = 1 is
+    the decode plain version at base + 1."""
+    q, kp, vp, table, base, ks, vs = _setup(b=2, g=3, quant=quant, seed=3)
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    out = _torch(q, kp, vp, table, base, ks, vs)
+    for g in range(3):
+        single = TP.paged_decode_reference(
+            t(np.ascontiguousarray(q[:, :, g])), t(kp), t(vp), t(table),
+            t(base + g + 1), k_scale=t(ks), v_scale=t(vs)).numpy()
+        np.testing.assert_allclose(out[:, :, g], single, atol=ATOL[quant],
+                                   rtol=0)
+        one = _torch(np.ascontiguousarray(q[:, :, g:g + 1]), kp, vp, table,
+                     base + g, ks, vs)
+        np.testing.assert_allclose(one[:, :, 0], single, atol=ATOL[quant],
+                                   rtol=0)
+
+
+def test_sm_scale_and_output_dtype():
+    q, kp, vp, table, base, _, _ = _setup(seed=4)
+    got = _torch(q, kp, vp, table, base, None, None, sm_scale=0.7)
+    want = _jax(JP.paged_verify_attention, q, kp, vp, table, base, None,
+                None, sm_scale=0.7, use_pallas=True, interpret=True)
+    np.testing.assert_allclose(got, want, atol=ATOL[False], rtol=0)
+    t = torch.from_numpy
+    bf = TP.paged_verify_attention(t(q).bfloat16(), t(kp).bfloat16(),
+                                   t(vp).bfloat16(), t(table), t(base))
+    assert bf.dtype == torch.bfloat16 and bf.shape == q.shape
+
+
+def test_scales_come_together():
+    q, kp, vp, table, base, ks, _ = _setup(quant=True)
+    t = torch.from_numpy
+    with pytest.raises(ValueError, match="together"):
+        TP.paged_verify_attention(t(q), t(kp), t(vp), t(table), t(base),
+                                  k_scale=t(ks))
+
+
+def test_wrapper_raises_off_cpu_and_cuda():
+    meta = {"device": "meta"}
+    q = torch.empty((3, 4, 2, 16), **meta)
+    pages = torch.empty((2, 5, 8, 16), **meta)
+    table = torch.zeros((3, 2), dtype=torch.int32, **meta)
+    base = torch.zeros((3,), dtype=torch.int32, **meta)
+    before = (TP.launches_verify, TP.launches_verify_int8)
+    with pytest.raises(ValueError, match="meta"):
+        TP.paged_verify_attention(q, pages, pages, table, base)
+    assert (TP.launches_verify, TP.launches_verify_int8) == before

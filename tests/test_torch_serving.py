@@ -410,8 +410,7 @@ def test_cancel_queued_and_active(tparams):
 
 @pytest.mark.parametrize("kw,item", [
     ({"prefix_cache": True}, 6), ({"host_tier_bytes": 1 << 20}, 6),
-    ({"faults": object()}, 7), ({"spec_decode": 4}, 8),
-    ({"chunked_prefill": True}, 8), ({"mesh": object()}, "10b")])
+    ({"faults": object()}, 7), ({"mesh": object()}, "10b")])
 def test_unported_options_name_their_roadmap_item(tparams, kw, item):
     with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
         P.ServingEngine(tparams, CFG, device="cpu", **kw)

@@ -11,12 +11,18 @@ steps driven like run_pipelined(). With `--bucketed` the engine is the
 bucketed one (`ragged=False`, chip_smoke's bucket_serve phase): its
 first step admits all 8 prompts in one packed prefill_varlen wave and
 decodes once, so a warm-up engine runs that step first and a fresh one
-is profiled. Prints one JSON line per window: wall time, summed kernel
-time, the device's busy share (summed kernel time over wall time, one
-stream), and the kernels with the most device time, grouped as
-attention (by the port's CUDA source), matmul, and everything else.
+is profiled. With `--spec G` the engine is the bucketed one with
+speculative decoding (`spec_decode=G`, chip_smoke's spec_serve phase
+and its `echo_prompts`): the first window is the
+admission wave and the first verify step, the second 16 verify steps
+driven by step(), each of them synchronous. Prints one JSON line per
+window: wall time, summed kernel time, the device's busy share (summed
+kernel time over wall time, one stream), and the kernels with the most
+device time, grouped as attention (by the port's CUDA source), matmul,
+and everything else.
 
     python3 tools/profile_torch_serving.py [--pool bf16|int8] [--bucketed]
+                                           [--spec G]
 """
 from __future__ import annotations
 
@@ -37,7 +43,7 @@ def _group(name):
     # before the generic fwd_kernel test below: va_fwd_kernel ends in it
     if "va_fwd_kernel" in n or "tile_ranges_kernel" in n:
         return "attention (varlen_attention.cu)"
-    if "decode_kernel" in n:
+    if "decode_kernel" in n or "verify_kernel" in n:
         return "attention (paged_attention.cu)"
     if any(s in n for s in ("fm_fwd_kernel", "fm_dq_kernel",
                             "fm_dkv_kernel")):
@@ -85,7 +91,11 @@ def main(argv=None):
     ap.add_argument("--pool", choices=("bf16", "int8"), default="bf16")
     ap.add_argument("--bucketed", action="store_true",
                     help="profile the bucketed engine (ragged=False)")
+    ap.add_argument("--spec", type=int, default=0, metavar="G",
+                    help="profile the bucketed engine with spec_decode=G")
     args = ap.parse_args(argv)
+    if args.spec == 1 or args.spec < 0:
+        ap.error("--spec takes a chunk width G >= 2")
     import torch
     if not torch.cuda.is_available():
         print("profile_torch_serving: no CUDA device", file=sys.stderr)
@@ -99,16 +109,22 @@ def main(argv=None):
         check=True, timeout=60).stdout.strip().splitlines()[0]
     cfg, params = chip_smoke.serve_params()
 
+    bucketed = args.bucketed or args.spec > 1
+    spec = {"spec_decode": args.spec,
+            "prompts": chip_smoke.echo_prompts(cfg, params)} \
+        if args.spec > 1 else {}
+
     def engine():
         return chip_smoke.serve_engine(
             cfg, params, None if args.pool == "bf16" else "int8",
-            new_tokens=64 + STEPS, ragged=not args.bucketed)
+            new_tokens=64 + STEPS, ragged=not bucketed, **spec)
     eng, reqs = engine()
     eng.step()                                  # warm-up: first wave
-    if args.bucketed:
+    if bucketed:
         del eng
         eng, reqs = engine()                    # the profiled admission
-        label = "prefill_wave (prefill_varlen over 8 prompts, 1 decode)"
+        label = "prefill_wave (prefill_varlen over 8 prompts, 1 " + \
+            (f"verify step, G={args.spec})" if spec else "decode)")
     else:
         label = "prefill_wave (256 prompt rows)"
 
@@ -122,6 +138,10 @@ def main(argv=None):
         warm += 1
 
     def decode_steps():
+        if spec:            # a spec engine steps synchronously
+            for _ in range(STEPS):
+                eng.step()
+            return STEPS
         # the run_pipelined() pump: launch N+1 before consuming N
         pending = None
         for _ in range(STEPS):
@@ -131,8 +151,13 @@ def main(argv=None):
             pending = ticket
         eng.step_finish(pending)
         return STEPS
-    _window(f"decode ({len(reqs)} rows, after {warm} step() calls)",
+    what = f"verify (G={args.spec}, " if spec else "decode ("
+    _window(f"{what}{len(reqs)} slots, after {warm} step() calls)",
             decode_steps, card)
+    if spec:
+        print(json.dumps({"spec_drafted": eng.spec_drafted,
+                          "spec_accepted": eng.spec_accepted,
+                          "device_steps": eng.device_steps}), flush=True)
     eng.run()
     print(card, flush=True)
     return 0
