@@ -131,9 +131,43 @@ non-zero):
                the launches of every kernel, beside bucket_serve's plain
                decode numbers.
 
-The line before the last lists every kernel with its launches on the
-main path, its error against the plain version and its times; the last
-line is {"ok": true, "device": {...}}.
+ 18. varlen_kernel — the varlen dQ and dK/dV kernels against their plain
+               versions: (a) at the packed row of train_packed (eight
+               documents of 192-3000 tokens in 8192; QH=32 over KVH=8,
+               D=128, causal, same offsets), bf16 and fp32, with times
+               and the tiles each computed per head, which must equal the
+               skip rule's count; `bound_ms` counts the kept pairs
+               exactly (6 flops per pair and head dim for dQ, 8 for
+               dK/dV) against each operand byte once; `library_ms` is
+               F.scaled_dot_product_attention (is_causal) per document,
+               forward + backward minus forward, summed; the ported
+               FlashMask dQ and dK/dV on the same row (the same mask from
+               doc_end_indices) are timed beside them as a yardstick; (b)
+               correctness on ragged token axes of 700-1000: unequal q/k
+               offsets (no diagonal skip), causal and not, trailing pads
+               on both sides, a query segment that sees nothing (dQ = 0)
+               and a key segment nobody sees (dK = dV = 0), GQA groups 1
+               and 4, D=64 and 128, bf16 and fp32; (c) flash_attn_unpadded
+               on (a)'s row with autograd, bf16, against the plain
+               versions on the card: exactly one va_fwd, one va_bwd_dq
+               and one va_bwd_dkv (the launches the kernels line reports
+               for the two);
+ 19. fused_parity — packed_parity's setup with a vocabulary of 12,000
+               (two 8192-column chunks, the second short): two steps card
+               against CPU with fused_ce=True, and again with
+               remat="dots"; the card's fused losses against its losses
+               through the full logits;
+ 20. train_fused — train_packed's model and row with fused_ce=True and
+               remat="dots": the same measurements, and the first loss
+               against the full-logits loss of the same seed weights and
+               batch (train_packed's first loss), within a bf16
+               tolerance.
+
+After the phases, one line gives each phase's wall seconds
+(`phase_seconds`; the serve phases' shared 8B parameters are built
+outside them). The line before the last lists every kernel with its
+launches on the main path, its error against the plain version and its
+times; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -150,7 +184,8 @@ import time
 PHASES = ("device", "build", "kernel", "parity", "serve", "train_kernel",
           "train_parity", "train", "mask_kernel", "packed_parity",
           "train_packed", "bucket_kernel", "bucket_parity", "bucket_serve",
-          "spec_kernel", "spec_parity", "spec_serve")
+          "spec_kernel", "spec_parity", "spec_serve", "varlen_kernel",
+          "fused_parity", "train_fused")
 SOURCES = ("ragged_paged_attention", "flash_attention", "flashmask_attention",
            "varlen_attention", "paged_attention")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
@@ -181,6 +216,9 @@ SPEC_KERNELS = {
                      "bucketed_g4_bf16"),
     "paged_verify_int8": ("paddle_tpu/ops/paged_attention.py:339", "int8",
                           "bucketed_g4_int8")}
+VARLEN_BWD_TPU_KERNELS = {
+    "varlen_bwd_dq": "paddle_tpu/ops/varlen_attention.py:213",
+    "varlen_bwd_dkv": "paddle_tpu/ops/varlen_attention.py:259"}
 
 
 def emit(obj):
@@ -811,11 +849,13 @@ def _train_batch(vocab, b, s, seed):
 PARITY_GRAD_RTOL, PARITY_GRAD_SCALE = 1e-3, 1e-4
 
 
-def _step_parity(name, cfg, batch_np, steps, lr, family):
-    """`steps` steps of make_train_step from the same fp32 weights on the
-    card and on the CPU, held to the limits above; the kernels of
-    `family` must launch on the card (none of the other family) and
-    nothing on the CPU. Returns the phase's measurements."""
+def _step_parity(name, cfg, batch_np, steps, lr, family, remat=True,
+                 fused_ce=False):
+    """`steps` steps of make_train_step (with `remat` and `fused_ce`)
+    from the same fp32 weights on the card and on the CPU, held to the
+    limits above; the kernels of `family` must launch on the card (none
+    of the other family) and nothing on the CPU. Returns the phase's
+    measurements."""
     import torch
     from paddle_tpu_torch.models import llama_spmd as T
     cpu_params = T.init_params(cfg, seed=0, dtype=torch.float32,
@@ -825,9 +865,11 @@ def _step_parity(name, cfg, batch_np, steps, lr, family):
         params = _tree_to(cpu_params, dev)
         opt = T.init_opt_state(params)
         batch = tuple(torch.from_numpy(a).to(dev) for a in batch_np)
-        _, grads = T.loss_and_grads(params, batch, cfg, remat=True)
+        _, grads = T.loss_and_grads(params, batch, cfg, remat=remat,
+                                    fused_ce=fused_ce)
         grads = [g.cpu() for g in T._leaves(grads)]
-        step = T.make_train_step(cfg, remat=True, lr=lr, device=dev)
+        step = T.make_train_step(cfg, remat=remat, fused_ce=fused_ce, lr=lr,
+                                 device=dev)
         _reset_train_counts()
         t0 = time.perf_counter()
         losses = [float(step(params, opt, i, batch)[2]) for i in range(steps)]
@@ -927,17 +969,17 @@ TRAIN_PACKED_CONFIG = ("llama3_8b widths, 4 layers, bf16 params, fp32 AdamW "
                        f"8192 packed: documents {list(PACKED_DOCS)}")
 
 
-def _train_model():
+def _train_model(remat=True, fused_ce=False):
     """Llama-3-8B widths cut to 4 layers, bf16 random weights from seed 0
-    on the card, fp32 AdamW state, the step with remat on (lr 3e-4,
-    clip 1.0). Returns (config, params, opt_state, step)."""
+    on the card, fp32 AdamW state, the step with `remat` and `fused_ce`
+    (lr 3e-4, clip 1.0). Returns (config, params, opt_state, step)."""
     import torch
     from paddle_tpu_torch.models import llama_spmd as T
     from paddle_tpu_torch.models.llama import LlamaConfig
     cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_hidden_layers=4)
     params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
     return cfg, params, T.init_opt_state(params), T.make_train_step(
-        cfg, remat=True, device="cuda")
+        cfg, remat=remat, fused_ce=fused_ce, device="cuda")
 
 
 def train_setup():
@@ -951,12 +993,12 @@ def train_setup():
     return cfg, params, opt, batch, step
 
 
-def train_packed_setup():
+def train_packed_setup(remat=True, fused_ce=False):
     """The train_packed phase's run: `_train_model` and one fixed row of
     8192 tokens (numpy seed 5) packing the eight documents of
     PACKED_DOCS. Returns (config, params, opt_state, batch, step)."""
     import torch
-    cfg, params, opt, step = _train_model()
+    cfg, params, opt, step = _train_model(remat, fused_ce)
     batch = _packed_batch(cfg.vocab_size, [PACKED_DOCS], seed=5)
     return cfg, params, opt, tuple(torch.from_numpy(a).cuda()
                                    for a in batch), step
@@ -1371,6 +1413,13 @@ def _varlen_case(name, dname, h, kvh, d, seed):
         seg_q = _segments([200, 150, 300], 700)
         seg_k = _segments([260, 150, 420], 1000)
         causal, same = name == "causal_unequal", False
+    elif name == "unseen_keys":      # q segment 1 has no keys, and no
+        seg_q = _segments([100, 200, 300], 1000)    # query has segment 3
+        seg_k = np.concatenate([np.zeros(150, np.int32),
+                                np.full(400, 2, np.int32),
+                                np.full(100, 3, np.int32),
+                                np.full(350, -1, np.int32)])
+        causal, same = True, False
     else:                            # masked_rows: q segment 1 has no keys
         seg_q = _segments([100, 200, 300], 1000)
         seg_k = np.concatenate([np.zeros(150, np.int32),
@@ -2136,6 +2185,301 @@ def phase_spec_serve(card, cfg, params, init_s, bserve):
     return runs
 
 
+# ------------------------------------------------------- varlen training
+VARLEN_BWD_KERNELS = tuple(VARLEN_BWD_TPU_KERNELS)
+# the packed row of train_packed in the varlen layout: q (T, H, D), k and
+# v (T, KVH, D), as Llama-3-8B's projections give them
+VARLEN_TRAIN_ATTN = {"T": 8192, "H": 32, "KVH": 8, "D": 128}
+# the correctness cases of the backward: the forward's, and a key
+# segment that no query has
+VARLEN_BWD_CASES = VARLEN_CASES + ("unseen_keys",)
+
+
+def _varlen_counts():
+    """Launches of the three varlen kernels, by kernel name."""
+    import paddle_tpu_torch.ops.varlen_attention as va
+    return {"varlen_fwd": va.launches_fwd, "varlen_bwd_dq": va.launches_dq,
+            "varlen_bwd_dkv": va.launches_dkv}
+
+
+def _reset_varlen_counts():
+    import paddle_tpu_torch.ops.varlen_attention as va
+    va.launches_fwd = va.launches_dq = va.launches_dkv = 0
+
+
+def _varlen_bwd_bound(kname, dname, lens, t, h, kvh, d):
+    """Least time for one backward kernel on a packed row: 6 (dQ) or 8
+    (dK/dV) flops per kept pair and head dim over the peak for the dtype,
+    or each operand byte once over the memory rate: q and dO (T, H, D),
+    k and v (T, KVH, D), lse and delta (H, T) fp32 and the segment ids
+    and distances (4 x T int32) read; dQ (T, H, D), or dK and dV (T, KVH,
+    D), written."""
+    elem = 4 if dname == "float32" else 2
+    big_q, big_k = t * h * d * elem, t * kvh * d * elem
+    out = big_q if kname == "varlen_bwd_dq" else 2 * big_k
+    nbytes = 2 * big_q + 2 * big_k + 2 * h * t * 4 + 4 * t * 4 + out
+    pairs = h * sum(n * (n + 1) // 2 for n in lens)
+    flops = (6 if kname == "varlen_bwd_dq" else 8) * d * pairs
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dname]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def _varlen_operands(dname, t, h, kvh, d, seed, device="cuda"):
+    """q, dO (t, h, d) and k, v (t, kvh, d) from a seeded generator."""
+    import torch
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    dt = getattr(torch, dname)
+    q, do = (torch.randn((t, h, d), generator=g, device=device).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn((t, kvh, d), generator=g, device=device).to(dt)
+            for _ in range(2))
+    return q, k, v, do
+
+
+def _varlen_bwd_plain(q, k, v, do, seg_q, seg_k, causal, scale):
+    """(o, lse, delta, dq, dk, dv) of the plain versions."""
+    import paddle_tpu_torch.ops.varlen_attention as va
+    o, lse = va.varlen_fwd_reference(q, k, v, seg_q, seg_k, causal, scale)
+    delta = (do.float() * o.float()).sum(-1).T.contiguous()
+    sq, sk = va._sentinels(seg_q, seg_k)
+    args = (q, k, v, do, lse, delta, sq, sk, causal, scale)
+    return (o, lse, delta, va.varlen_bwd_dq_reference(*args),
+            *va.varlen_bwd_dkv_reference(*args))
+
+
+def _varlen_bwd_flavors():
+    """Correctness only: every case of VARLEN_BWD_CASES, GQA groups 1 and
+    4, D = 64 and 128, bf16 and fp32; rows that see nothing get dQ = 0,
+    keys nobody sees dK = dV = 0. Returns the max |error| of each."""
+    import torch
+    import paddle_tpu_torch.ops.varlen_attention as va
+    errs = {}
+    for name in VARLEN_BWD_CASES:
+        for h, kvh in ((8, 8), (8, 2)):
+            for d in (64, 128):
+                for dname in ("bfloat16", "float32"):
+                    q, k, v, sq, sk, causal, same = _varlen_case(
+                        name, dname, h, kvh, d, seed=d + kvh)
+                    do = torch.randn_like(q)
+                    scale = 1.0 / math.sqrt(d)
+                    _, lse, delta, *want = _varlen_bwd_plain(
+                        q, k, v, do, sq, sk, causal, scale)
+                    sqs, sks = va._sentinels(sq, sk)
+                    args = (q, k, v, do, lse, delta, sqs, sks, causal, scale,
+                            same)
+                    dq = va._launch_bwd_dq(*args)
+                    dk, dv = va._launch_bwd_dkv(*args)
+                    torch.cuda.synchronize()
+                    key = f"{name}/g{h // kvh}/d{d}/{dname}"
+                    errs[key] = _check_kernels(
+                        f"varlen_kernel {key}", dname,
+                        {"varlen_bwd_dq": [dq], "varlen_bwd_dkv": [dk, dv]},
+                        {"varlen_bwd_dq": want[:1],
+                         "varlen_bwd_dkv": want[1:]}, lse, lse)
+                    dead_q, dead_k = sqs < 0, sks < 0
+                    if name in ("masked_rows", "unseen_keys"):
+                        dead_q = dead_q | (sqs == 1)
+                    if name == "unseen_keys":
+                        dead_k = dead_k | (sks == 3)
+                    if not (bool((dq[dead_q] == 0).all())
+                            and bool((dk[dead_k] == 0).all())
+                            and bool((dv[dead_k] == 0).all())):
+                        fail(f"varlen_kernel {key}: a row or key that sees "
+                             "nothing has a gradient")
+                    del errs[key]["lse"]
+    return errs
+
+
+def phase_varlen_kernel(card):
+    import numpy as np
+    import torch
+    import paddle_tpu_torch.ops.flashmask_attention as fm
+    import paddle_tpu_torch.ops.varlen_attention as va
+    from paddle_tpu_torch.models.llama_spmd import doc_end_indices
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t, h, kvh, d = (VARLEN_TRAIN_ATTN[x] for x in ("T", "H", "KVH", "D"))
+    lens = PACKED_DOCS
+    seg_np = _segments(lens, t)
+    want_tiles, causal_tiles = _varlen_tiles(seg_np, seg_np, True)
+    seg = torch.from_numpy(seg_np).cuda()
+    sq, sk = va._sentinels(seg, seg)
+    sri = doc_end_indices(torch.from_numpy(seg_np[None]).cuda())
+    scale = 1.0 / math.sqrt(d)
+    m = fm._Mask(True, None, scale, 0.0, None)
+    grp = h // kvh
+    out = {}
+    for dname in ("bfloat16", "float32"):
+        q, k, v, do = _varlen_operands(dname, t, h, kvh, d, seed=0)
+        o_ref, lse, delta, *want = _varlen_bwd_plain(q, k, v, do, seg, seg,
+                                                     True, scale)
+        args = (q, k, v, do, lse, delta, sq, sk, True, scale, True)
+        dq, n_dq = va._launch_bwd_dq(*args, count_tiles=True)
+        dk, dv, n_dkv = va._launch_bwd_dkv(*args, count_tiles=True)
+        torch.cuda.synchronize()
+        # no lse here: the kernels read the plain forward's
+        errs = _check_kernels(
+            "varlen_kernel", dname,
+            {"varlen_bwd_dq": [dq], "varlen_bwd_dkv": [dk, dv]},
+            {"varlen_bwd_dq": want[:1], "varlen_bwd_dkv": want[1:]},
+            lse, lse)
+        for kname, n in (("varlen_bwd_dq", n_dq), ("varlen_bwd_dkv", n_dkv)):
+            if n != want_tiles * h:
+                fail(f"{kname} ({dname}): computed {n} tiles, the skip rule "
+                     f"gives {want_tiles} x {h} heads")
+        del dq, dk, dv, want
+        kernel_ms = {
+            "varlen_bwd_dq": cuda_ms(lambda: va._launch_bwd_dq(*args),
+                                     reps=10),
+            "varlen_bwd_dkv": cuda_ms(lambda: va._launch_bwd_dkv(*args),
+                                      reps=10)}
+        plain_ms = {
+            "varlen_bwd_dq": cuda_ms(lambda: va.varlen_bwd_dq_reference(
+                *args[:-1]), reps=3, warmup=1),
+            "varlen_bwd_dkv": cuda_ms(lambda: va.varlen_bwd_dkv_reference(
+                *args[:-1]), reps=3, warmup=1)}
+        # (1, H, T, D) copies, K/V repeated to the query heads, for SDPA
+        # and the FlashMask yardstick; made beforehand and not timed
+        qb, dob = (x.transpose(0, 1)[None].contiguous() for x in (q, do))
+        kb, vb = (x.repeat_interleave(grp, dim=1).transpose(0, 1)[None]
+                  .contiguous() for x in (k, v))
+        lib_fwd, lib_fwd_bwd = _doc_sdpa(qb, kb, vb, dob, lens)
+        library_ms = cuda_ms(lib_fwd_bwd, reps=10) - cuda_ms(lib_fwd, reps=10)
+        fm_args = (qb, kb, vb, sri, dob, lse[None], delta[None], m)
+        flashmask_ms = {
+            "varlen_bwd_dq": cuda_ms(lambda: fm._launch_dq(*fm_args),
+                                     reps=10),
+            "varlen_bwd_dkv": cuda_ms(lambda: fm._launch_dkv(*fm_args),
+                                      reps=10)}
+        for kname in VARLEN_BWD_KERNELS:
+            bound_ms, bound_by, nbytes, flops = _varlen_bwd_bound(
+                kname, dname, lens, t, h, kvh, d)
+            row = {"phase": "varlen_kernel", "card": card, "kernel": kname,
+                   "dtype": dname, "T": t, "H": h, "KVH": kvh, "D": d,
+                   "documents": list(lens), "causal": True,
+                   "same_offsets": True,
+                   "tiles_computed_per_head": want_tiles,
+                   "tiles_causal_per_head": causal_tiles,
+                   "kept_pairs_per_head": sum(n * (n + 1) // 2 for n in lens),
+                   "atol": TOL[dname][0], "rtol": TOL[dname][1],
+                   "max_abs_err": errs[kname], "kernel_ms": kernel_ms[kname],
+                   "plain_ms": plain_ms[kname], "library_ms": library_ms,
+                   "library_call": "sdpa backward per document (dQ, dK, dV),"
+                                   " summed",
+                   "flashmask_ms": flashmask_ms[kname],
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bound_bytes": nbytes, "bound_flops": flops,
+                   "tflops": flops / kernel_ms[kname] / 1e9, "tf32": False}
+            emit(row)
+            out[(kname, dname)] = row
+        del q, k, v, do, qb, kb, vb, dob, args, fm_args, lib_fwd, lib_fwd_bwd
+        del o_ref, lse, delta
+        torch.cuda.empty_cache()
+    emit({"phase": "varlen_kernel", "part": "flavors", "card": card,
+          "cases": list(VARLEN_BWD_CASES), "groups": [1, 4],
+          "head_dims": [64, 128], "tol": TOL,
+          "max_abs_err": _varlen_bwd_flavors()})
+    # (c) the main path: autograd through flash_attn_unpadded, bf16
+    q, k, v, do = _varlen_operands("bfloat16", t, h, kvh, d, seed=1)
+    cu = torch.tensor([0, *np.cumsum(lens)], dtype=torch.int32,
+                      device="cuda")
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    _reset_varlen_counts()
+    o, _ = va.flash_attn_unpadded(*leaves, cu, cu, causal=True)
+    grads = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    launches = _varlen_counts()
+    want_launches = dict.fromkeys(launches, 1)
+    if launches != want_launches:
+        fail(f"varlen_kernel autograd: launches {launches}, want "
+             f"{want_launches}")
+    o_ref, lse, _, *want = _varlen_bwd_plain(q, k, v, do, seg, seg, True,
+                                             scale)
+    errs = _check_kernels(
+        "varlen_kernel autograd", "bfloat16",
+        {"varlen_fwd": [o.detach()], "varlen_bwd_dq": grads[:1],
+         "varlen_bwd_dkv": list(grads[1:])},
+        {"varlen_fwd": [o_ref], "varlen_bwd_dq": want[:1],
+         "varlen_bwd_dkv": want[1:]}, lse, lse)
+    del errs["lse"]
+    emit({"phase": "varlen_kernel", "part": "autograd", "card": card,
+          "call": "flash_attn_unpadded(causal=True), torch.autograd.grad",
+          "dtype": "bfloat16", "documents": list(lens), "launches": launches,
+          "max_abs_err": errs})
+    out["launches"] = launches
+    del q, k, v, do, leaves, o, grads, o_ref, want
+    torch.cuda.empty_cache()
+    return out
+
+
+# a vocabulary of two 8192-column chunks of the fused head, the second
+# short
+FUSED_PARITY_VOCAB = 12000
+
+
+def phase_fused_parity(card):
+    cfg = dataclasses.replace(_parity_config(),
+                              vocab_size=FUSED_PARITY_VOCAB)
+    batch = _packed_batch(cfg.vocab_size, PACKED_PARITY_ROWS, seed=3)
+    runs = {}
+    for name, kw in (("fused_ce", {"fused_ce": True}),
+                     ("dots", {"remat": "dots"})):
+        runs[name] = _step_parity(f"fused_parity ({name})", cfg, batch, 2,
+                                  3e-4, "flashmask", **kw)
+    # the card's losses through the fused head against those through the
+    # full logits (the dots run), the same limits as card against CPU
+    fused, full = runs["fused_ce"]["losses_cuda"], runs["dots"]["losses_cuda"]
+    if any(abs(a - c) > 1e-5 * abs(c) + 1e-5 for a, c in zip(fused, full)):
+        fail(f"fused_parity: fused losses {fused} vs full logits {full}")
+    emit({"phase": "fused_parity", "card": card,
+          "config": f"llama3_8b widths, 1 layer, vocab {cfg.vocab_size}, "
+                    "fp32, TF32 off, batch 2 x 512 packed: documents "
+                    f"{list(map(list, PACKED_PARITY_ROWS))}",
+          "runs": {"fused_ce=True, remat=True": runs["fused_ce"],
+                   "fused_ce=False, remat='dots'": runs["dots"]},
+          "fused_vs_full_logits_loss_abs_err":
+              [abs(a - c) for a, c in zip(fused, full)]})
+
+
+TRAIN_FUSED_CONFIG = TRAIN_PACKED_CONFIG.replace(
+    "remat,", "remat='dots', fused_ce=True,")
+# bf16: the fused head's logits are fp32 sums of exact bf16 products,
+# the full head's are rounded to bf16 (about 2^-9 of each logit); the
+# mean NLL of 8184 tokens near 12.6 moves by far less than 2e-3 of it
+FIRST_LOSS_RTOL = 2e-3
+
+
+def phase_train_fused(card, packed):
+    import torch
+    from paddle_tpu_torch.models import llama_spmd as T
+    # the full-logits first loss of the same seed weights and batch
+    # (train_packed's first loss), built again: train_packed updates its
+    # weights in place
+    cfg, params, _, batch, _ = train_packed_setup()
+    with torch.no_grad():
+        ref = float(T.loss_fn(params, batch, cfg, remat=False))
+    del params, batch
+    torch.cuda.empty_cache()
+    row = _train_run(card, "train_fused", TRAIN_FUSED_CONFIG,
+                     lambda: train_packed_setup("dots", True), "flashmask")
+    first = row["losses"][0]
+    if not abs(first - ref) <= FIRST_LOSS_RTOL * abs(ref):
+        fail(f"train_fused: first loss {first}, full logits {ref}")
+    emit({"phase": "train_fused", "card": card, "part": "against train_packed",
+          "first_loss": first, "first_loss_full_logits": ref,
+          "rtol": FIRST_LOSS_RTOL,
+          "train_packed_first_loss": packed["losses"][0] if packed else None,
+          "median_step_ms": row["median_step_ms"],
+          "train_packed_median_step_ms":
+              packed["median_step_ms"] if packed else None,
+          "max_memory_allocated_gb": row["max_memory_allocated_gb"],
+          "train_packed_max_memory_allocated_gb":
+              packed["max_memory_allocated_gb"] if packed else None})
+    return row
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2150,12 +2494,20 @@ def main(argv=None):
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import paddle_tpu_torch  # noqa: F401  (fails outside a checkout)
 
-    smi, name = phase_device()
+    secs = {}                # wall seconds of each phase run
+
+    def timed(phase, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        secs[phase] = time.perf_counter() - t0
+        return out
+
+    smi, name = timed("device", phase_device)
     if "build" in phases:
-        phase_build(smi)
-    kern = phase_kernel(smi) if "kernel" in phases else {}
+        timed("build", phase_build, smi)
+    kern = timed("kernel", phase_kernel, smi) if "kernel" in phases else {}
     if "parity" in phases:
-        phase_parity(smi)
+        timed("parity", phase_parity, smi)
     serve, bserve, sserve = {}, {}, {}
     if {"serve", "bucket_serve", "spec_serve"} & set(phases):
         # the 8B parameters, built once for the three serve phases
@@ -2164,27 +2516,41 @@ def main(argv=None):
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         if "serve" in phases:
-            serve = phase_serve(smi, cfg, params, init_s)
+            serve = timed("serve", phase_serve, smi, cfg, params, init_s)
         if "bucket_serve" in phases:
-            bserve = phase_bucket_serve(smi, cfg, params, init_s)
+            bserve = timed("bucket_serve", phase_bucket_serve, smi, cfg,
+                           params, init_s)
         if "spec_serve" in phases:
-            sserve = phase_spec_serve(smi, cfg, params, init_s, bserve)
+            sserve = timed("spec_serve", phase_spec_serve, smi, cfg, params,
+                           init_s, bserve)
         del params
         torch.cuda.empty_cache()
-    tk = phase_train_kernel(smi) if "train_kernel" in phases else {}
+    tk = timed("train_kernel", phase_train_kernel, smi) \
+        if "train_kernel" in phases else {}
     if "train_parity" in phases:
-        phase_train_parity(smi)
-    train = phase_train(smi) if "train" in phases else {}
-    mk = phase_mask_kernel(smi) if "mask_kernel" in phases else {}
+        timed("train_parity", phase_train_parity, smi)
+    train = timed("train", phase_train, smi) if "train" in phases else {}
+    mk = timed("mask_kernel", phase_mask_kernel, smi) \
+        if "mask_kernel" in phases else {}
     if "packed_parity" in phases:
-        phase_packed_parity(smi)
-    packed = phase_train_packed(smi) if "train_packed" in phases else {}
-    bk = phase_bucket_kernel(smi) if "bucket_kernel" in phases else {}
+        timed("packed_parity", phase_packed_parity, smi)
+    packed = timed("train_packed", phase_train_packed, smi) \
+        if "train_packed" in phases else {}
+    bk = timed("bucket_kernel", phase_bucket_kernel, smi) \
+        if "bucket_kernel" in phases else {}
     if "bucket_parity" in phases:
-        phase_bucket_parity(smi)
-    sk = phase_spec_kernel(smi) if "spec_kernel" in phases else {}
+        timed("bucket_parity", phase_bucket_parity, smi)
+    sk = timed("spec_kernel", phase_spec_kernel, smi) \
+        if "spec_kernel" in phases else {}
     if "spec_parity" in phases:
-        phase_spec_parity(smi)
+        timed("spec_parity", phase_spec_parity, smi)
+    vk = timed("varlen_kernel", phase_varlen_kernel, smi) \
+        if "varlen_kernel" in phases else {}
+    if "fused_parity" in phases:
+        timed("fused_parity", phase_fused_parity, smi)
+    if "train_fused" in phases:
+        timed("train_fused", phase_train_fused, smi, packed)
+    emit({"phase_seconds": secs})
     kernels = []
     for kname, pools, run in (("ragged_paged_attention", "bfloat16", "bf16"),
                               ("ragged_paged_attention_int8", "int8",
@@ -2246,6 +2612,18 @@ def main(argv=None):
             "replaces": tpu,
             "launches": sserve[run]["launches"][kname] if run in sserve
             else None,
+            "max_abs_err": k["max_abs_err"], "ms": k["kernel_ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+    for kname in VARLEN_BWD_KERNELS:
+        k = vk.get((kname, "bfloat16"))
+        if k is None:
+            continue
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/varlen_attention.cu",
+            "replaces": VARLEN_BWD_TPU_KERNELS[kname],
+            "launches": vk["launches"][kname],
             "max_abs_err": k["max_abs_err"], "ms": k["kernel_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"]})

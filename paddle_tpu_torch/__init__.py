@@ -16,10 +16,12 @@ kernels of `ops.varlen_attention` and `ops.paged_attention`; on the CPU
 `ServingEngine(params, config, ragged=False, device="cpu")`) and the
 single-device pretrain step (`models.llama_spmd.make_train_step`, on the
 flash-attention kernels of `ops.flash_attention`, or with packed
-documents on the FlashMask kernels of `ops.flashmask_attention`). Each
-kernel module counts its launches (`launches`, `launches_fwd`,
-`launches_decode`, `launches_decode_int8`, ...). `python3 chip_smoke.py`
-drives every path on the card; `--phases
+documents on the FlashMask kernels of `ops.flashmask_attention`; with
+`fused_ce` and `remat="dots"`) and varlen training (the differentiable
+`ops.varlen_attention.flash_attention_varlen` and `flash_attn_unpadded`).
+Each kernel module counts its launches (`launches`, `launches_fwd`,
+`launches_dq`, `launches_decode`, ...). `python3 chip_smoke.py` drives
+every path on the card; `--phases
 device,build,bucket_kernel,bucket_parity,bucket_serve` the bucketed one.
 """
 from ._device import DEFAULT_DEVICE, resolve_device

@@ -1,53 +1,72 @@
-// Varlen (packed) attention forward for Hopper (sm_90a), plain C interface
-// for ctypes.
+// Varlen (packed) attention for Hopper (sm_90a): forward, dQ and dK/dV,
+// plain C interface for ctypes.
 //
-// Replaces the TPU kernel `_vfwd_kernel` of paddle_tpu/ops/varlen_attention.py
-// (:92, launched by `_vfwd_pallas`). What it computes: sequences packed back
-// to back along one token axis, told apart by segment ids. A (query row,
-// key column) pair counts where seg_q == seg_k and, under causal masking,
-// where pos_k >= pos_q (pos = distance to the segment's end: bottom-right
-// alignment). Padding carries -1 on the query side and -2 on the key side,
-// so it never matches. Per query head: o = softmax(S) V and lse =
-// logsumexp(S) over the counted pairs, S = Q K^T * scale; a row with no
-// counted pair gets o = 0 and lse = -1e30.
+// Replaces the three TPU kernels of paddle_tpu/ops/varlen_attention.py:
+//   va_fwd     -> `_vfwd_kernel`     (:92, launched by `_vfwd_pallas`)
+//   va_bwd_dq  -> `_vbwd_dq_kernel`  (:213, launched by `_vbwd_pallas`)
+//   va_bwd_dkv -> `_vbwd_dkv_kernel` (:259, launched by `_vbwd_pallas`)
+// What they compute: sequences packed back to back along one token axis,
+// told apart by segment ids. A (query row, key column) pair counts where
+// seg_q == seg_k and, under causal masking, where pos_k >= pos_q (pos =
+// distance to the segment's end: bottom-right alignment). Padding carries
+// -1 on the query side and -2 on the key side, so it never matches. Per
+// query head, S = Q K^T * scale over the counted pairs; forward: o =
+// softmax(S) V and lse = logsumexp(S), a row with no counted pair getting
+// o = 0 and lse = -1e30; backward, from lse and delta = rowsum(dO * O):
+// P = exp(S - lse), dS = P (dO V^T - delta) scale, both 0 on pairs that do
+// not count, dQ = dS K, dK = dS^T Q, dV = P^T dO.
 //
-// Design. The TPU kernel runs grid (head, q block, k block) with the k
-// block sequential, carrying m, l and the accumulator in VMEM scratch;
-// blocks here run in parallel and in no order, so the k axis is a loop
-// inside a block that owns one (64-row q tile, query head), with m, l and
-// the accumulator in fp32 registers (the tile loop of flash_attention.cu:
-// 256 threads as 16 x 16, 4 rows and every 16th column a thread, row
-// statistics by warp shuffles; tiles staged as fp32, d-major at a stride
-// of 65 floats). Three points differ from the TPU kernel:
+// Design. The TPU kernels run a grid whose last axis is sequential and
+// carry their sums in VMEM scratch across it; blocks here run in parallel
+// and in no order, so that axis is a loop inside a block, with every sum
+// in fp32 registers, and nothing is reduced across blocks (no atomics):
+//   * va_fwd and va_bwd_dq: one block per (64-row q tile, query head),
+//     looping over the k tiles; fwd keeps an online softmax (m, l and the
+//     accumulator), dQ its accumulator.
+//   * va_bwd_dkv: one block per (64-row k tile, KV head), looping over the
+//     query heads of the KV head's group and, for each, over the q tiles;
+//     dK and dV of the group are summed in registers, so K/V are never
+//     repeated to the query heads and no (H, T, D) scratch exists.
+// The tile loops are those of flash_attention.cu: 256 threads as 16 x 16,
+// 4 rows and every 16th column a thread, row statistics by warp shuffles;
+// tiles staged as fp32, d-major at a stride of 65 floats. Where they differ
+// from the TPU kernels:
 //   * GQA: query head h reads KV head h / (H / KVH) in place, by stride,
-//     from the (T, KVH, D) projections, and q is read from (T, H, D) by
+//     from the (T, KVH, D) projections; q and dO are read from (T, H, D) by
 //     stride: no repeat of K/V, no (H, T, D) transposed copies.
 //   * Skipping. A first small kernel reduces every 64-token tile of seg_q
-//     and seg_k to the [min, max] of its non-negative ids. A block whose
-//     q tile holds no real row writes o = 0, lse = -1e30 and returns; the
-//     others stage every k tile's range in shared memory once and skip,
-//     before any Q/K/V load, each k tile whose range is empty or disjoint
-//     from the q tile's. With non-decreasing ids (packed prompts) the
-//     ranges are exact, so a block computes only the k tiles its
-//     segments touch; for any ids the test is sound, since disjoint
+//     and seg_k to the [min, max] of its non-negative ids. A block whose own
+//     tile holds no real row writes its answer (zeros; lse = -1e30) and
+//     returns; the others stage every tile range of the other axis in
+//     shared memory once and skip, before any load, each tile whose range is
+//     empty or disjoint from their own. With non-decreasing ids (packed
+//     sequences) the ranges are exact, so a block computes only the tiles
+//     its segments touch; for any ids the test is sound, since disjoint
 //     ranges hold no equal pair. With `same_offsets` (q and k token i at
 //     the same place) tiles above the diagonal are skipped too. The TPU
-//     kernel has only the diagonal skip, so a packed bucket pays for
-//     every causal tile of it: at the serving prefill shape (five
-//     thousand tokens of eight prompts in an 8192 bucket) 666 of the
-//     8,256 causal tiles touch a segment.
+//     kernels have only the diagonal skip, so a packed row pays for every
+//     causal tile of it: of the 8,256 causal tiles of eight documents in
+//     8192 tokens (the packed training row) some 1,900 touch a segment.
 //   * The ragged edge: rows and columns past Tq and Tk are zero-filled on
 //     load and masked, so no padding to a block multiple is needed.
-// fp32 and bf16 operands, widened to fp32 on load; the PV product takes P
-// in fp32 (the TPU kernel casts P to V's dtype for the MXU). Head dims up
-// to 128 through instantiations for 32, 64 and 128, padded with zeros.
+//   * Masking: P itself is set to 0 on the pairs that do not count, not
+//     only S, so that a row that sees nothing (lse = -1e30) gives no
+//     overflow, and a padding row's dO, whatever the caller passed, reaches
+//     neither dK nor dV.
+// fp32 and bf16 operands, widened to fp32 on load; the products take P and
+// dS in fp32 (the TPU forward casts P to V's dtype for the MXU). Outputs
+// in the operands' dtype; dK and dV of a group are summed in fp32 and cast
+// once. Head dims up to 128 through instantiations for 32, 64 and 128,
+// padded with zeros.
 //
-// What bounds it: at the serving prefill shape (H = 32, D = 128, bf16)
-// the kept pairs need some 0.4 GFLOP per layer against 4 MB of operands:
-// operations, at the bf16 tensor-core rate. This simple design runs on
-// fp32 CUDA cores, one block per SM (117 KB of staged tiles at D = 128),
-// with no tensor cores and no cp.async/TMA pipelining; those belong to the
-// PR that redesigns it.
+// What bounds them: at the packed training row (8192 tokens, H = 32, D =
+// 128, bf16, eight documents, 7.14 M kept pairs a head) dQ needs 6 and
+// dK/dV 8 flops per kept pair and head dim, 176 and 234 GFLOP against
+// about 0.2 GB of operands: operations, at the bf16 tensor-core rate
+// (0.18 and 0.24 ms). This simple design runs on fp32 CUDA cores, one
+// block per SM (117-169 KB of staged tiles at D = 128), with no tensor
+// cores and no cp.async/TMA pipelining; those belong to the PR that
+// redesigns them.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -305,14 +324,389 @@ __global__ void __launch_bounds__(kThreads, 1)
     atomicAdd(tile_count, computed);
 }
 
-// Shared memory of the forward kernel, in bytes, for padded head dim DP
-// and n_kt key tiles.
-size_t fwd_bytes(int dp, int n_kt) {
+// The backward kernels' operands: q and dout (tq, heads, D), k and v (tk,
+// kv_heads, D), each read by its row and head strides with the head dim
+// contiguous; lse and delta (heads, tq) fp32; seg and pos int32; ranges
+// from tile_ranges_kernel; dq contiguous (tq, heads, D); dk, dv contiguous
+// (tk, kv_heads, D).
+struct BwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse;
+  const float* delta;
+  const int* seg_q;
+  const int* seg_k;
+  const int* pos_q;
+  const int* pos_k;
+  const int* ranges;
+  void* dq;
+  void* dk;
+  void* dv;
+  int tq, tk, heads, kv_heads, D;
+  long long q_rs, q_hs, k_rs, k_hs, v_rs, v_hs, do_rs, do_hs;
+  float scale;
+  int causal, same_offsets;
+  int* tile_count;
+};
+
+// ------------------------------------------------------------------ dQ
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, 1) va_dq_kernel(const BwdArgs a) {
+  constexpr int NC = DP / 16;  // output dims per thread
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* dos = qs + DP * kPad;
+  float* ks = dos + DP * kPad;
+  float* vs = ks + DP * kPad;
+  float* dss = vs + DP * kPad;                               // kTile x kPS
+  int* sk_s = reinterpret_cast<int*>(dss + kTile * kPS);     // kTile
+  int* pk_s = sk_s + kTile;                                  // kTile
+  int* kr_s = pk_s + kTile;                                  // 2 x n_kt
+
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int tq = a.tq, tk = a.tk, D = a.D;
+  const int n_qt = (tq + kTile - 1) / kTile;
+  const int n_kt = (tk + kTile - 1) / kTile;
+  const int qt = n_qt - 1 - blockIdx.x;  // longest causal rows first
+  const int q0 = qt * kTile;
+  const int h = blockIdx.y;
+  const long long o_rs = static_cast<long long>(a.heads) * D;
+  T* dq = static_cast<T*>(a.dq);
+  const int q_lo = a.ranges[2 * qt];
+  const int q_hi = a.ranges[2 * qt + 1];
+
+  if (q_hi < 0) {  // no real row: dQ = 0 without loading anything
+    for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
+      const int row = q0 + i / D;
+      if (row < tq) dq[row * o_rs + h * D + i % D] = from_float<T>(0.f);
+    }
+    return;
+  }
+
+  for (int i = threadIdx.x; i < 2 * n_kt; i += kThreads)
+    kr_s[i] = a.ranges[2 * n_qt + i];
+  const int hk = h / (a.heads / a.kv_heads);
+  const T* kb = static_cast<const T*>(a.k) + hk * a.k_hs;
+  const T* vb = static_cast<const T*>(a.v) + hk * a.v_hs;
+  stage<DP>(qs, static_cast<const T*>(a.q) + h * a.q_hs, a.q_rs, q0, tq, D);
+  stage<DP>(dos, static_cast<const T*>(a.dout) + h * a.do_hs, a.do_rs, q0,
+            tq, D);
+
+  int sq[4], pq[4];
+  float lr[4], dr[4], acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    const bool in = row < tq;
+    sq[i] = in ? a.seg_q[row] : -1;
+    pq[i] = in ? a.pos_q[row] : 0;
+    lr[i] = in ? a.lse[static_cast<long long>(h) * tq + row] : 0.f;
+    dr[i] = in ? a.delta[static_cast<long long>(h) * tq + row] : 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  }
+  int kt_end = n_kt;
+  if (a.causal && a.same_offsets)  // no column past the tile's last row
+    kt_end = min(n_kt, (min(q0 + kTile, tq) - 1) / kTile + 1);
+  int computed = 0;
+  __syncthreads();  // kr_s is staged
+
+  for (int kt = 0; kt < kt_end; ++kt) {
+    const int k_lo = kr_s[2 * kt];
+    const int k_hi = kr_s[2 * kt + 1];
+    // uniform across the block: every thread skips or none does
+    if (k_hi < 0 || k_lo > q_hi || k_hi < q_lo) continue;
+    ++computed;
+    const int k0 = kt * kTile;
+    __syncthreads();  // the previous tile's reads of ks, vs, dss are done
+    stage<DP>(ks, kb, a.k_rs, k0, tk, D);
+    stage<DP>(vs, vb, a.v_rs, k0, tk, D);
+    if (threadIdx.x < kTile) {
+      const int c = k0 + threadIdx.x;
+      sk_s[threadIdx.x] = c < tk ? a.seg_k[c] : -2;
+      pk_s[threadIdx.x] = c < tk ? a.pos_k[c] : 0;
+    }
+    __syncthreads();
+
+    float s[4][4] = {}, dp[4][4] = {};
+#pragma unroll 4
+    for (int d = 0; d < DP; ++d) {
+      float x[4], g[4], b[4], w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        x[i] = qs[d * kPad + ty * 4 + i];
+        g[i] = dos[d * kPad + ty * 4 + i];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        b[j] = ks[d * kPad + tx + 16 * j];
+        w[j] = vs[d * kPad + tx + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(x[i], b[j], s[i][j]);
+          dp[i][j] = fmaf(g[i], w[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        // a pad row (-1) never equals a key id (>= 0 or -2)
+        const bool ok = sq[i] == sk_s[c] && (!a.causal || pk_s[c] >= pq[i]);
+        // P is masked itself: lse is -1e30 on a row that sees nothing
+        const float p = ok ? expf(s[i][j] * a.scale - lr[i]) : 0.f;
+        dss[(ty * 4 + i) * kPS + c] = ok ? p * (dp[i][j] - dr[i]) * a.scale
+                                         : 0.f;
+      }
+    __syncthreads();
+
+#pragma unroll 8
+    for (int j = 0; j < kTile; ++j) {
+      float ds[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ds[i] = dss[(ty * 4 + i) * kPS + j];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const float kk = ks[(tx + 16 * c) * kPad + j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(ds[i], kk, acc[i][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    if (row >= tq) continue;
+    T* drow = dq + row * o_rs + h * D;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int d = tx + 16 * c;
+      if (d < D) drow[d] = from_float<T>(acc[i][c]);
+    }
+  }
+  if (a.tile_count != nullptr && threadIdx.x == 0)
+    atomicAdd(a.tile_count, computed);
+}
+
+// --------------------------------------------------------------- dK/dV
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+    va_dkv_kernel(const BwdArgs a) {
+  constexpr int NC = DP / 16;
+  extern __shared__ float smem[];
+  float* ks = smem;
+  float* vs = ks + DP * kPad;
+  float* qs = vs + DP * kPad;
+  float* dos = qs + DP * kPad;
+  float* pts = dos + DP * kPad;    // kTile x kPS: P^T of the tile
+  float* dst = pts + kTile * kPS;  // kTile x kPS: dS^T of the tile
+  float* ls = dst + kTile * kPS;   // lse of the tile's q rows
+  float* dl = ls + kTile;          // delta of the tile's q rows
+  int* sq_s = reinterpret_cast<int*>(dl + kTile);  // kTile
+  int* pq_s = sq_s + kTile;                        // kTile
+  int* qr_s = pq_s + kTile;                        // 2 x n_qt
+
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int tq = a.tq, tk = a.tk, D = a.D;
+  const int n_qt = (tq + kTile - 1) / kTile;
+  const int kt = blockIdx.x;
+  const int k0 = kt * kTile;
+  const int hk = blockIdx.y;
+  const int group = a.heads / a.kv_heads;
+  const long long kv_rs = static_cast<long long>(a.kv_heads) * D;
+  T* dk = static_cast<T*>(a.dk);
+  T* dv = static_cast<T*>(a.dv);
+  const int k_lo = a.ranges[2 * (n_qt + kt)];
+  const int k_hi = a.ranges[2 * (n_qt + kt) + 1];
+
+  if (k_hi < 0) {  // no real key: dK = dV = 0 without loading anything
+    for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
+      const int row = k0 + i / D;
+      if (row < tk) {
+        const long long at = row * kv_rs + hk * D + i % D;
+        dk[at] = from_float<T>(0.f);
+        dv[at] = from_float<T>(0.f);
+      }
+    }
+    return;
+  }
+
+  for (int i = threadIdx.x; i < 2 * n_qt; i += kThreads)
+    qr_s[i] = a.ranges[i];
+  stage<DP>(ks, static_cast<const T*>(a.k) + hk * a.k_hs, a.k_rs, k0, tk, D);
+  stage<DP>(vs, static_cast<const T*>(a.v) + hk * a.v_hs, a.v_rs, k0, tk, D);
+  int sk[4], pk[4];
+  float dka[4][NC], dva[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int col = k0 + ty * 4 + i;
+    sk[i] = col < tk ? a.seg_k[col] : -2;
+    pk[i] = col < tk ? a.pos_k[col] : 0;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) dka[i][c] = dva[i][c] = 0.f;
+  }
+  // with same offsets, q tiles before this k tile hold no row >= k0
+  const int qt0 = a.causal && a.same_offsets ? kt : 0;
+  int computed = 0;
+  __syncthreads();  // qr_s is staged
+
+  for (int g = 0; g < group; ++g) {
+    const int h = hk * group + g;
+    const T* qb = static_cast<const T*>(a.q) + h * a.q_hs;
+    const T* ob = static_cast<const T*>(a.dout) + h * a.do_hs;
+    for (int qt = qt0; qt < n_qt; ++qt) {
+      const int q_lo = qr_s[2 * qt];
+      const int q_hi = qr_s[2 * qt + 1];
+      if (q_hi < 0 || q_lo > k_hi || q_hi < k_lo) continue;  // uniform
+      ++computed;
+      const int q0 = qt * kTile;
+      __syncthreads();  // the previous tile's reads are done
+      stage<DP>(qs, qb, a.q_rs, q0, tq, D);
+      stage<DP>(dos, ob, a.do_rs, q0, tq, D);
+      if (threadIdx.x < kTile) {
+        const int r = threadIdx.x;
+        const bool in = q0 + r < tq;
+        const long long at = static_cast<long long>(h) * tq + q0 + r;
+        ls[r] = in ? a.lse[at] : 0.f;
+        dl[r] = in ? a.delta[at] : 0.f;
+        sq_s[r] = in ? a.seg_q[q0 + r] : -1;
+        pq_s[r] = in ? a.pos_q[q0 + r] : 0;
+      }
+      __syncthreads();
+
+      // thread (ty, tx): key rows ty*4+i, q rows tx+16j
+      float s[4][4] = {}, dp[4][4] = {};
+#pragma unroll 4
+      for (int d = 0; d < DP; ++d) {
+        float x[4], w[4], b[4], gg[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          x[i] = ks[d * kPad + ty * 4 + i];
+          w[i] = vs[d * kPad + ty * 4 + i];
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          b[j] = qs[d * kPad + tx + 16 * j];
+          gg[j] = dos[d * kPad + tx + 16 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(x[i], b[j], s[i][j]);
+            dp[i][j] = fmaf(w[i], gg[j], dp[i][j]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = tx + 16 * j;
+          // a pad row (-1) never equals a key id (>= 0 or -2), so a pad
+          // row's dO reaches neither dK nor dV
+          const bool ok =
+              sq_s[r] == sk[i] && (!a.causal || pk[i] >= pq_s[r]);
+          const float p = ok ? expf(s[i][j] * a.scale - ls[r]) : 0.f;
+          pts[(ty * 4 + i) * kPS + r] = p;
+          dst[(ty * 4 + i) * kPS + r] =
+              ok ? p * (dp[i][j] - dl[r]) * a.scale : 0.f;
+        }
+      __syncthreads();
+
+#pragma unroll 4
+      for (int r = 0; r < kTile; ++r) {
+        float p[4], ds[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          p[i] = pts[(ty * 4 + i) * kPS + r];
+          ds[i] = dst[(ty * 4 + i) * kPS + r];
+        }
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const float go = dos[(tx + 16 * c) * kPad + r];
+          const float qq = qs[(tx + 16 * c) * kPad + r];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            dva[i][c] = fmaf(p[i], go, dva[i][c]);
+            dka[i][c] = fmaf(ds[i], qq, dka[i][c]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = k0 + ty * 4 + i;
+    if (row >= tk) continue;
+    T* krow = dk + row * kv_rs + hk * D;
+    T* vrow = dv + row * kv_rs + hk * D;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int d = tx + 16 * c;
+      if (d < D) {
+        krow[d] = from_float<T>(dka[i][c]);
+        vrow[d] = from_float<T>(dva[i][c]);
+      }
+    }
+  }
+  if (a.tile_count != nullptr && threadIdx.x == 0)
+    atomicAdd(a.tile_count, computed);
+}
+
+// Shared memory of each kernel, in bytes, for padded head dim DP and
+// n_other tiles of the other axis (k tiles for fwd and dQ, q tiles for
+// dK/dV), whose ranges are staged.
+size_t fwd_bytes(int dp, int n_other) {
   return (3 * static_cast<size_t>(dp) * kPad + kTile * kPS) * sizeof(float) +
-         (2 * kTile + 2 * static_cast<size_t>(n_kt)) * sizeof(int);
+         (2 * kTile + 2 * static_cast<size_t>(n_other)) * sizeof(int);
+}
+size_t dq_bytes(int dp, int n_other) {
+  return (4 * static_cast<size_t>(dp) * kPad + kTile * kPS) * sizeof(float) +
+         (2 * kTile + 2 * static_cast<size_t>(n_other)) * sizeof(int);
+}
+size_t dkv_bytes(int dp, int n_other) {
+  return (4 * static_cast<size_t>(dp) * kPad + 2 * kTile * kPS + 2 * kTile) *
+             sizeof(float) +
+         (2 * kTile + 2 * static_cast<size_t>(n_other)) * sizeof(int);
 }
 
 int padded_dim(int d) { return d <= 32 ? 32 : d <= 64 ? 64 : 128; }
+
+bool args_ok(int tq, int tk, int heads, int kv_heads, int d, int dtype) {
+  return tq >= 1 && tk >= 1 && heads >= 1 && heads <= 65535 &&
+         kv_heads >= 1 && heads % kv_heads == 0 && d >= 1 && d <= 128 &&
+         (dtype == kF32 || dtype == kBF16);
+}
+
+// The tile ranges of seg_q and seg_k into `ranges`, on `stream`.
+cudaError_t launch_ranges(const void* seg_q, const void* seg_k, int tq,
+                          int tk, void* ranges, cudaStream_t stream) {
+  const int n_qt = (tq + kTile - 1) / kTile;
+  const int n_kt = (tk + kTile - 1) / kTile;
+  constexpr int kRangeWarps = 8;
+  tile_ranges_kernel<<<(n_qt + n_kt + kRangeWarps - 1) / kRangeWarps,
+                       32 * kRangeWarps, 0, stream>>>(
+      static_cast<const int*>(seg_q), static_cast<const int*>(seg_k), tq, tk,
+      n_qt, n_kt, static_cast<int*>(ranges));
+  return cudaGetLastError();
+}
+
+template <typename K>
+cudaError_t prepare(K kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
 
 template <typename T, int DP>
 cudaError_t fwd_typed(const void* q, const void* k, const void* v,
@@ -327,9 +721,7 @@ cudaError_t fwd_typed(const void* q, const void* k, const void* v,
   const int n_kt = (tk + kTile - 1) / kTile;
   auto kernel = va_fwd_kernel<T, DP>;
   const size_t smem = fwd_bytes(DP, n_kt);
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
   dim3 grid(n_qt, heads);
   kernel<<<grid, kThreads, smem, stream>>>(
@@ -343,7 +735,93 @@ cudaError_t fwd_typed(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <typename T, int DP>
+cudaError_t dq_typed(const BwdArgs& a, cudaStream_t stream) {
+  const int n_qt = (a.tq + kTile - 1) / kTile;
+  const int n_kt = (a.tk + kTile - 1) / kTile;
+  auto kernel = va_dq_kernel<T, DP>;
+  const size_t smem = dq_bytes(DP, n_kt);
+  cudaError_t e = prepare(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(n_qt, a.heads), kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, int DP>
+cudaError_t dkv_typed(const BwdArgs& a, cudaStream_t stream) {
+  const int n_qt = (a.tq + kTile - 1) / kTile;
+  const int n_kt = (a.tk + kTile - 1) / kTile;
+  auto kernel = va_dkv_kernel<T, DP>;
+  const size_t smem = dkv_bytes(DP, n_qt);
+  cudaError_t e = prepare(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(n_kt, a.kv_heads), kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The BwdArgs of a backward call, and the tile ranges launched for it.
+cudaError_t bwd_prepare(BwdArgs& a, const void* q, const void* k,
+                        const void* v, const void* dout, const void* lse,
+                        const void* delta, const void* seg_q,
+                        const void* seg_k, const void* pos_q,
+                        const void* pos_k, void* ranges, int tq, int tk,
+                        int heads, int kv_heads, int d, long long q_rs,
+                        long long q_hs, long long k_rs, long long k_hs,
+                        long long v_rs, long long v_hs, long long do_rs,
+                        long long do_hs, float scale, int causal,
+                        int same_offsets, void* tile_count,
+                        cudaStream_t s) {
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.dout = dout;
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.seg_q = static_cast<const int*>(seg_q);
+  a.seg_k = static_cast<const int*>(seg_k);
+  a.pos_q = static_cast<const int*>(pos_q);
+  a.pos_k = static_cast<const int*>(pos_k);
+  a.ranges = static_cast<const int*>(ranges);
+  a.dq = a.dk = a.dv = nullptr;
+  a.tq = tq;
+  a.tk = tk;
+  a.heads = heads;
+  a.kv_heads = kv_heads;
+  a.D = d;
+  a.q_rs = q_rs;
+  a.q_hs = q_hs;
+  a.k_rs = k_rs;
+  a.k_hs = k_hs;
+  a.v_rs = v_rs;
+  a.v_hs = v_hs;
+  a.do_rs = do_rs;
+  a.do_hs = do_hs;
+  a.scale = scale;
+  a.causal = causal;
+  a.same_offsets = same_offsets;
+  a.tile_count = static_cast<int*>(tile_count);
+  return launch_ranges(seg_q, seg_k, tq, tk, ranges, s);
+}
+
 }  // namespace
+
+// Pick the instantiation for (dtype, padded head dim) and return F's
+// result with it.
+#define VA_DISPATCH(F, ...)                              \
+  const int dp = padded_dim(d);                          \
+  if (dtype == kF32) {                                   \
+    if (dp == 32) return F<float, 32>(__VA_ARGS__);      \
+    if (dp == 64) return F<float, 64>(__VA_ARGS__);      \
+    return F<float, 128>(__VA_ARGS__);                   \
+  }                                                      \
+  if (dp == 32) return F<__nv_bfloat16, 32>(__VA_ARGS__); \
+  if (dp == 64) return F<__nv_bfloat16, 64>(__VA_ARGS__); \
+  return F<__nv_bfloat16, 128>(__VA_ARGS__)
+
+#define VA_BWD_ARGS                                                         \
+  q, k, v, dout, lse, delta, seg_q, seg_k, pos_q, pos_k, ranges, tq, tk,    \
+      heads, kv_heads, d, q_rs, q_hs, k_rs, k_hs, v_rs, v_hs, do_rs, do_hs, \
+      scale, causal, same_offsets, tile_count, s
 
 extern "C" {
 
@@ -351,9 +829,15 @@ const char* va_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Bytes of dynamic shared memory the forward kernel needs for n_kt key
-// tiles at head_dim d.
-size_t va_smem_bytes(int n_kt, int d) { return fwd_bytes(padded_dim(d), n_kt); }
+// Bytes of dynamic shared memory a kernel needs at head_dim d: kernel 0
+// the forward and 1 dQ, for n_other k tiles; 2 dK/dV, for n_other q
+// tiles.
+size_t va_smem_bytes(int kernel, int n_other, int d) {
+  const int dp = padded_dim(d);
+  return kernel == 0   ? fwd_bytes(dp, n_other)
+         : kernel == 1 ? dq_bytes(dp, n_other)
+                       : dkv_bytes(dp, n_other);
+}
 
 // q: (tq, heads, d) read at q[t * q_rs + h * q_hs + i]; k, v: (tk, kv_heads,
 // d) read likewise with their own strides (head_dim contiguous); seg_q,
@@ -370,35 +854,60 @@ int va_fwd(const void* q, const void* k, const void* v, const void* seg_q,
            long long k_rs, long long k_hs, long long v_rs, long long v_hs,
            float scale, int causal, int same_offsets, int dtype,
            void* tile_count, void* stream) {
-  if (tq < 1 || tk < 1 || heads < 1 || heads > 65535 || kv_heads < 1 ||
-      heads % kv_heads != 0 || d < 1 || d > 128 ||
-      (dtype != kF32 && dtype != kBF16))
+  if (!args_ok(tq, tk, heads, kv_heads, d, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_qt = (tq + kTile - 1) / kTile;
-  const int n_kt = (tk + kTile - 1) / kTile;
-  constexpr int kRangeWarps = 8;
-  tile_ranges_kernel<<<(n_qt + n_kt + kRangeWarps - 1) / kRangeWarps,
-                       32 * kRangeWarps, 0, s>>>(
-      static_cast<const int*>(seg_q), static_cast<const int*>(seg_k), tq, tk,
-      n_qt, n_kt, static_cast<int*>(ranges));
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = launch_ranges(seg_q, seg_k, tq, tk, ranges, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int group = heads / kv_heads;
-  const int dp = padded_dim(d);
-#define VA_ARGS                                                              \
-  q, k, v, seg_q, seg_k, pos_q, pos_k, ranges, o, lse, tq, tk, heads, group, \
-      d, q_rs, q_hs, k_rs, k_hs, v_rs, v_hs, scale, causal, same_offsets,    \
-      tile_count, s
-  if (dtype == kF32) {
-    if (dp == 32) return fwd_typed<float, 32>(VA_ARGS);
-    if (dp == 64) return fwd_typed<float, 64>(VA_ARGS);
-    return fwd_typed<float, 128>(VA_ARGS);
-  }
-  if (dp == 32) return fwd_typed<__nv_bfloat16, 32>(VA_ARGS);
-  if (dp == 64) return fwd_typed<__nv_bfloat16, 64>(VA_ARGS);
-  return fwd_typed<__nv_bfloat16, 128>(VA_ARGS);
-#undef VA_ARGS
+  VA_DISPATCH(fwd_typed, q, k, v, seg_q, seg_k, pos_q, pos_k, ranges, o, lse,
+              tq, tk, heads, heads / kv_heads, d, q_rs, q_hs, k_rs, k_hs,
+              v_rs, v_hs, scale, causal, same_offsets, tile_count, s);
+}
+
+// The backward: q, k, v, seg and pos as for va_fwd; dout (tq, heads, d) in
+// `dtype`, read at dout[t * do_rs + h * do_hs + i]; lse and delta (heads,
+// tq) fp32 contiguous; va_bwd_dq writes dq, contiguous (tq, heads, d), and
+// va_bwd_dkv dk and dv, contiguous (tk, kv_heads, d), all in `dtype`;
+// tile_count: null, or one int32 to which the number of computed (q tile,
+// k tile, query head) triples is added. Each launches two kernels on
+// `stream`, allocates nothing, and returns cudaGetLastError().
+int va_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, const void* seg_q,
+              const void* seg_k, const void* pos_q, const void* pos_k,
+              void* ranges, void* dq, int tq, int tk, int heads,
+              int kv_heads, int d, long long q_rs, long long q_hs,
+              long long k_rs, long long k_hs, long long v_rs,
+              long long v_hs, long long do_rs, long long do_hs, float scale,
+              int causal, int same_offsets, int dtype, void* tile_count,
+              void* stream) {
+  if (!args_ok(tq, tk, heads, kv_heads, d, dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  BwdArgs a;
+  cudaError_t e = bwd_prepare(a, VA_BWD_ARGS);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  a.dq = dq;
+  VA_DISPATCH(dq_typed, a, s);
+}
+
+int va_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, const void* seg_q,
+               const void* seg_k, const void* pos_q, const void* pos_k,
+               void* ranges, void* dk, void* dv, int tq, int tk, int heads,
+               int kv_heads, int d, long long q_rs, long long q_hs,
+               long long k_rs, long long k_hs, long long v_rs,
+               long long v_hs, long long do_rs, long long do_hs, float scale,
+               int causal, int same_offsets, int dtype, void* tile_count,
+               void* stream) {
+  if (!args_ok(tq, tk, heads, kv_heads, d, dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  BwdArgs a;
+  cudaError_t e = bwd_prepare(a, VA_BWD_ARGS);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  a.dk = dk;
+  a.dv = dv;
+  VA_DISPATCH(dkv_typed, a, s);
 }
 
 }  // extern "C"

@@ -9,22 +9,27 @@ the same nesting with {"m", "v", "master"} (fp32) at every leaf.
 The train step runs on one device: causal flash attention on the
 Hopper kernels of `ops/flash_attention.py` or, for packed documents (a
 third batch element, doc_ids), the FlashMask kernels of
-`ops/flashmask_attention.py`; optional activation checkpointing around
-each layer, gradient accumulation weighted by valid-token counts,
+`ops/flashmask_attention.py`; activation checkpointing around each
+layer (full, or `remat="dots"`: the matmul outputs saved), the loss
+through the full logits or the fused linear+CE head (`fused_ce`,
+`ops/fused.py`), gradient accumulation weighted by valid-token counts,
 global-norm clipping and AdamW with fp32 master weights. Meshes of more
-than one device, sequence parallelism, pipeline schedules, the fused
-linear+CE head and `remat="dots"` raise NotImplementedError naming their
-ROADMAP item."""
+than one device, sequence parallelism and pipeline schedules raise
+NotImplementedError naming their ROADMAP item."""
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .._device import DEFAULT_DEVICE, resolve_device
 from ..ops.flash_attention import flash_attention_bhsd
 from ..ops.flashmask_attention import flashmask_attention_bhsd
+from ..ops.fused import fused_linear_cross_entropy
 from ..ops.fused import rms_norm as _rms
 from ..ops.fused import swiglu
 from ..ops.rope import apply_rotary_emb, rope_cos_sin
@@ -156,25 +161,42 @@ def decoder_layer(lp, h, rope, config: LlamaConfig):
     return h + swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"])
 
 
-def _check_remat(remat):
-    if remat == "dots":
-        raise _not_ported('remat="dots" (save the matmul outputs)', "9c")
+# the plain 2-D matmuls a layer runs (its projections, and the 3-D by
+# 2-D products torch folds into them)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """`remat="dots"`: keep the outputs of the plain 2-D matmuls and
+    recompute everything else, as `dots_with_no_batch_dims_saveable`
+    does in JAX. The attention kernels' outputs are not the
+    dispatcher's to see, so their forward runs again, as under full
+    remat (JAX's policy saves no Pallas output either)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_save_dots)
 
 
 def forward(params, input_ids, config: LlamaConfig, remat=True,
-            doc_ids=None):
+            doc_ids=None, return_hidden=False):
     """-> logits (B, S, V) in the params' dtype. A Python loop over the
     stacked layers takes the place of `lax.scan`; with `remat`, each
     layer runs under `torch.utils.checkpoint` (non-reentrant), as
     `jax.checkpoint` wraps it: its activations are recomputed in the
-    backward pass.
+    backward pass. `remat="dots"` saves the outputs of the layer's
+    matmuls and recomputes the rest (selective checkpointing).
 
     doc_ids: optional (B, S) contiguous document ids of packed
     sequences: attention stays causal within a document and is blocked
     across documents by the FlashMask kernels (no dense mask); the mask
-    indices are computed once and handed to every layer."""
+    indices are computed once and handed to every layer.
+
+    return_hidden: return the final-normed hidden states (B, S, H)
+    without the lm_head product, for the fused linear+CE loss."""
     c = config
-    _check_remat(remat)
     s = input_ids.shape[1]
     cos, sin = rope_cos_sin(s, c.hidden_size // c.num_attention_heads,
                             c.rope_theta, torch.float32,
@@ -188,13 +210,16 @@ def forward(params, input_ids, config: LlamaConfig, remat=True,
     stacks = [torch.unbind(params["layers"][n]) for n in names]
     for slices in zip(*stacks):
         lp = dict(zip(names, slices))
-        if remat:
+        if remat == "dots":
+            h = checkpoint(decoder_layer, lp, h, rope, c,
+                           use_reentrant=False, context_fn=_dots_contexts)
+        elif remat:
             h = checkpoint(decoder_layer, lp, h, rope, c,
                            use_reentrant=False)
         else:
             h = decoder_layer(lp, h, rope, c)
     h = _rms(h, params["final_norm"], c.rms_norm_eps)
-    return h @ params["lm_head"]
+    return h if return_hidden else h @ params["lm_head"]
 
 
 def _masked_nll(logits, labels):
@@ -206,21 +231,53 @@ def _masked_nll(logits, labels):
     return -(picked[..., 0] * valid).sum(), valid.sum()
 
 
-def loss_sum_fn(params, batch, config, remat=True):
+# vocabulary columns a chunk of the fused linear+CE head takes: the live
+# (N, chunk) fp32 logits of an 8192-token row are 268 MB, against 4.2 GB
+# for all 128,256 columns
+FUSED_CE_CHUNK = 8192
+
+
+def _fused_masked_nll(h, lm_head, labels, chunk=FUSED_CE_CHUNK):
+    """(nll_sum, valid_count) through `fused_linear_cross_entropy`: the
+    (B, S, V) logits are never held. The same numbers as
+    `_masked_nll(h @ lm_head, labels)`, with fp32 logits."""
+    b, s, hidden = h.shape
+    lab = labels.reshape(b * s).long()
+    valid = lab >= 0
+    per_tok = fused_linear_cross_entropy(
+        h.reshape(b * s, hidden), lm_head, torch.where(valid, lab, 0),
+        chunk_size=chunk, reduction="none")
+    return torch.where(valid, per_tok, 0.0).sum(), valid.float().sum()
+
+
+def _resolve_fused_ce(fused_ce):
+    """None: the PT_FUSED_CE environment variable ("1" turns it on), as
+    in the JAX package."""
+    if fused_ce is None:
+        return os.environ.get("PT_FUSED_CE", "0") == "1"
+    return bool(fused_ce)
+
+
+def loss_sum_fn(params, batch, config, remat=True, fused_ce=False):
     """(nll_sum, valid_count) of batch = (input_ids, labels) or
     (input_ids, labels, doc_ids) for packed documents: the
     gradient-accumulation path sums these, so microbatches are weighted
-    by their valid-token counts."""
+    by their valid-token counts. fused_ce=True takes the loss through
+    the fused linear+CE head: the logits are never held."""
     input_ids, labels = batch[0], batch[1]
     doc_ids = batch[2] if len(batch) > 2 else None
+    if fused_ce:
+        h = forward(params, input_ids, config, remat, doc_ids,
+                    return_hidden=True)
+        return _fused_masked_nll(h, params["lm_head"], labels)
     return _masked_nll(forward(params, input_ids, config, remat, doc_ids),
                        labels)
 
 
-def loss_fn(params, batch, config, remat=True):
+def loss_fn(params, batch, config, remat=True, fused_ce=False):
     """Mean NLL over the labels >= 0 of batch = (input_ids, labels[,
     doc_ids])."""
-    s, n = loss_sum_fn(params, batch, config, remat)
+    s, n = loss_sum_fn(params, batch, config, remat, fused_ce)
     return s / n.clamp_min(1.0)
 
 
@@ -248,7 +305,8 @@ def _leaf_states(params, state):
     return [state]
 
 
-def loss_and_grads(params, batch, config, n_micro=None, remat=True):
+def loss_and_grads(params, batch, config, n_micro=None, remat=True,
+                   fused_ce=False):
     """(loss, grads) of the mean NLL, as the train step computes them
     before clipping: grads is a tree like `params`, in the params' dtype
     for the one-shot step and in fp32 with `n_micro` > 1, where the
@@ -271,7 +329,7 @@ def loss_and_grads(params, batch, config, n_micro=None, remat=True):
             grads = [torch.zeros_like(p, dtype=torch.float32) for p in flat]
             tot_s = tot_n = 0.0
             for micro in zip(*(x.chunk(n_micro) for x in batch)):
-                s, n = loss_sum_fn(tree, micro, config, remat)
+                s, n = loss_sum_fn(tree, micro, config, remat, fused_ce)
                 for acc, g in zip(grads, torch.autograd.grad(s, leaves)):
                     acc.add_(g)
                 tot_s = tot_s + s.detach()
@@ -281,7 +339,7 @@ def loss_and_grads(params, batch, config, n_micro=None, remat=True):
             for g in grads:
                 g.div_(denom)
         else:
-            loss = loss_fn(tree, batch, config, remat)
+            loss = loss_fn(tree, batch, config, remat, fused_ce)
             grads = list(torch.autograd.grad(loss, leaves))
     return loss.detach(), _rebuild(params, iter(grads))
 
@@ -327,7 +385,7 @@ def adamw_update(params, grads, state, lr, step, b1=0.9, b2=0.95, eps=1e-8,
 
 def make_train_step(config, mesh=None, n_micro=None, remat=True,
                     clip_norm=1.0, lr=3e-4, sp_axis=None, schedule=None,
-                    fused_ce=False, device=DEFAULT_DEVICE):
+                    fused_ce=None, device=DEFAULT_DEVICE):
     """Build the single-device train step
 
         step(params, opt_state, step, batch) -> (params, opt_state, loss)
@@ -339,27 +397,28 @@ def make_train_step(config, mesh=None, n_micro=None, remat=True,
     updated IN PLACE: the JAX step donates both buffers, and the tensors
     returned are the ones passed in.
 
-    remat: checkpoint each layer (True) or not (False). n_micro > 1:
-    gradient accumulation over that many microbatches. clip_norm: global
+    remat: checkpoint each layer (True), save only its matmul outputs
+    ("dots") or not (False). fused_ce: the loss through the fused
+    linear+CE head (True), through the full logits (False), or as the
+    PT_FUSED_CE environment variable says (None). n_micro > 1: gradient
+    accumulation over that many microbatches. clip_norm: global
     gradient-norm clip (None: off); the clip scale is fp32, so clipped
     bf16 gradients become fp32 as in the JAX step. AdamW as in
     `adamw_update`, at `lr`.
 
     `mesh` is accepted when it holds one device (a JAX `Mesh`, or any
     object whose `devices` is an array of devices). A larger mesh (with
-    or without doc_ids), `sp_axis`, `schedule`, `fused_ce=True` and
-    `remat="dots"` raise NotImplementedError."""
+    or without doc_ids), `sp_axis` and `schedule` raise
+    NotImplementedError."""
     dev = resolve_device(device)
     for on, what, item in (
             (mesh is not None and np.size(mesh.devices) > 1,
              "a mesh of more than one device (doc_ids or not)", 12),
             (sp_axis is not None, "sequence parallelism (sp_axis=)", 12),
-            (schedule is not None, "pipeline schedules (schedule=)", 12),
-            (bool(fused_ce), "the fused linear+CE head (fused_ce=True)",
-             "9c")):
+            (schedule is not None, "pipeline schedules (schedule=)", 12)):
         if on:
             raise _not_ported(what, item)
-    _check_remat(remat)
+    fused_ce = _resolve_fused_ce(fused_ce)
 
     def step_fn(params, opt_state, step, batch):
         for t in _leaves(params) + _leaves(opt_state):
@@ -371,7 +430,8 @@ def make_train_step(config, mesh=None, n_micro=None, remat=True,
         batch = tuple(torch.as_tensor(
             x if torch.is_tensor(x) else np.asarray(x), device=dev)
             for x in batch)
-        loss, grads = loss_and_grads(params, batch, config, n_micro, remat)
+        loss, grads = loss_and_grads(params, batch, config, n_micro, remat,
+                                     fused_ce)
         if clip_norm is not None:
             flat = _leaves(grads)
             gn = torch.sqrt(sum((g.float() ** 2).sum() for g in flat))

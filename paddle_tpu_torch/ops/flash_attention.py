@@ -22,9 +22,10 @@ for a CUDA tensor, an error for anything else; there is no fallback. The
 launch counters `launches_fwd`, `launches_dq` and `launches_dkv` count
 kernel launches (only those).
 
-The TPU tile knobs (`block_q`/`block_k`, `LANES`, `_fit_lanes`) do not
-carry over, and the Paddle-shaped `flash_attention` (B, S, H, D) surface
-with dropout is not ported yet (ROADMAP.md, Queue 1 item 9c).
+`flash_attention` is the Paddle-shaped (B, S, H, D) surface over them,
+GQA heads repeated; its dropout branch waits for the key stream of the
+API surface (ROADMAP.md, Queue 1 item 13). The TPU tile knobs
+(`block_q`/`block_k`, `LANES`, `_fit_lanes`) do not carry over.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ import torch
 
 __all__ = ["mha_reference", "flash_fwd_reference", "flash_bwd_dq_reference",
            "flash_bwd_dkv_reference", "flash_attention_bhsd",
-           "launches_fwd", "launches_dq", "launches_dkv"]
+           "flash_attention", "launches_fwd", "launches_dq", "launches_dkv"]
 
 NEG_INF = -1e30
 
@@ -308,3 +309,35 @@ def flash_attention_bhsd(q, k, v, causal=False, sm_scale=None):
                   else 1.0 / math.sqrt(q.shape[-1]))
     return _FlashAttention.apply(q.contiguous(), k.contiguous(),
                                  v.contiguous(), bool(causal), scale)
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, sm_scale=None, training=True,
+                    **kwargs):
+    """Paddle's surface (python/paddle/nn/functional/flash_attention.py),
+    as the JAX package's `flash_attention`: query (B, S, H, D), key and
+    value (B, S_k, KVH, D) with H a multiple of KVH (KV head j serves
+    query heads j*rep .. j*rep+rep-1). Returns (out (B, S, H, D), None),
+    or (out, None, None) with `return_softmax`: the kernels never hold
+    the softmax. Paddle's other arguments (fixed_seed_offset, rng_name,
+    name) are accepted and ignored. Causal needs S == S_k
+    (`flash_attention_bhsd`).
+
+    Dropout while training (dropout > 0 and training) raises
+    NotImplementedError: it draws from the API surface's key stream
+    (ROADMAP.md, Queue 1 item 13). dropout > 0 with training=False runs
+    the kernels, as in the JAX package."""
+    if dropout > 0.0 and training:
+        raise NotImplementedError(
+            "paddle_tpu_torch: attention dropout in flash_attention "
+            "(training=True) draws from the API surface's key stream, "
+            "which is not ported yet (ROADMAP.md, Queue 1 item 13); pass "
+            "dropout=0.0 or training=False")
+    q, k, v = (t.transpose(1, 2) for t in (query, key, value))
+    rep = q.shape[1] // k.shape[1]
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    out = flash_attention_bhsd(q, k, v, causal=causal,
+                               sm_scale=sm_scale).transpose(1, 2)
+    return (out, None, None) if return_softmax else (out, None)

@@ -1,5 +1,5 @@
-"""Varlen (packed) attention forward (counterpart of
-`paddle_tpu/ops/varlen_attention.py`, forward only).
+"""Varlen (packed) attention (counterpart of
+`paddle_tpu/ops/varlen_attention.py`).
 
 Sequences are packed back to back along one token axis and told apart
 by segment ids: a (query, key) pair counts where `seg_q == seg_k`, and
@@ -8,25 +8,33 @@ under causal masking also where `rev_pos(seg_k) >= rev_pos(seg_q)`
 segment with more keys than queries is aligned at its end). Padding
 carries negative ids, remapped to -1 on the query side and -2 on the
 key side so that pads never match pads. A row that sees nothing gets
-o = 0 and lse = -1e30.
+o = 0 and lse = -1e30, and gradients of 0.
 
-Two implementations of one function:
+Two implementations of each of the three kernels, in the packed GQA
+layout (q and dO (Tq, H, D); k and v (Tk, KVH, D); lse and delta
+(H, Tq)):
 
-  * `varlen_fwd_reference` — plain PyTorch, dense and in fp32, one KV
-    head's query group at a time: what the TPU kernel `_vfwd_kernel`
-    computes, (o, lse) in the packed GQA layout. The CPU tests hold it
-    to the JAX package, and `chip_smoke.py` holds the kernel to it on
-    the card;
-  * the Hopper kernel of `csrc/varlen_attention.cu` (`va_fwd`), for
-    CUDA tensors.
+  * the plain PyTorch versions `varlen_fwd_reference`,
+    `varlen_bwd_dq_reference` and `varlen_bwd_dkv_reference`: dense and
+    in fp32, one KV head's query group at a time, computing what the TPU
+    kernels `_vfwd_kernel`, `_vbwd_dq_kernel` and `_vbwd_dkv_kernel`
+    compute (P = exp(S*scale - lse), dS = P (dP - delta) scale, ...),
+    not autograd of a reference. The CPU tests hold them to the JAX
+    package, and `chip_smoke.py` holds the kernels to them on the card;
+  * the Hopper kernels of `csrc/varlen_attention.cu` (`va_fwd`,
+    `va_bwd_dq`, `va_bwd_dkv`), for CUDA tensors. dK and dV are the sums
+    over each KV head's query group (JAX computes them per repeated head
+    and sums them through `jnp.repeat`'s transpose).
 
-`flash_attention_varlen` dispatches on q's device: the plain version
-for a CPU tensor, the kernel for a CUDA tensor, an error for anything
-else; there is no fallback. `launches_fwd` counts kernel launches (only
-those). The port serves only: the varlen backward kernels (Queue 2 rows
-10-11) are not ported, so a CUDA call that autograd would have to
-differentiate raises NotImplementedError rather than detach. The
-Paddle-shaped `flash_attn_unpadded` waits with them.
+`flash_attention_varlen` runs them under a `torch.autograd.Function`
+whose forward saves (q, k, v, o, lse) and the segment ids and whose
+backward computes delta = rowsum(dO * O) in plain torch and then dQ and
+dK/dV. Each dispatches on q's device: the plain version for a CPU
+tensor, the kernel for a CUDA tensor, an error for anything else; there
+is no fallback. `launches_fwd`, `launches_dq` and `launches_dkv` count
+kernel launches (only those). `flash_attn_unpadded` is the Paddle-shaped
+entry over cu_seqlens; its dropout branch waits for the key stream of
+the API surface (ROADMAP.md, Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -36,13 +44,17 @@ import math
 import torch
 
 __all__ = ["rev_pos", "seg_ids_from_cu_seqlens", "varlen_reference",
-           "varlen_fwd_reference", "flash_attention_varlen",
-           "launches_fwd"]
+           "varlen_fwd_reference", "varlen_bwd_dq_reference",
+           "varlen_bwd_dkv_reference", "flash_attention_varlen",
+           "flash_attn_unpadded", "launches_fwd", "launches_dq",
+           "launches_dkv"]
 
 NEG_INF = -1e30
 
 #: kernel launches since import (reset by callers that count a run)
 launches_fwd = 0
+launches_dq = 0
+launches_dkv = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
@@ -127,6 +139,57 @@ def varlen_fwd_reference(q, k, v, seg_q, seg_k, causal, scale):
     return o, lse
 
 
+def _group_dp_ds(q, k, v, do, lse, delta, valid, h, group, scale):
+    """(P, dS, q and dO of the group) for KV head h: P = exp(S*scale -
+    lse) and dS = P (dO V^T - delta) scale, each (group, Tq, Tk) fp32,
+    0 wherever `valid` is not (P is masked itself: lse is -1e30 on a
+    row that sees nothing)."""
+    heads = slice(h * group, (h + 1) * group)
+    qh = q[:, heads].transpose(0, 1).float()               # (group, Tq, D)
+    doh = do[:, heads].transpose(0, 1).float()
+    s = (qh @ k[:, h].float().T) * scale
+    p = torch.where(valid, torch.exp(s - lse[heads, :, None]), 0.0)
+    dp = doh @ v[:, h].float().T
+    ds = torch.where(valid, p * (dp - delta[heads, :, None]) * scale, 0.0)
+    return p, ds, qh, doh
+
+
+def varlen_bwd_dq_reference(q, k, v, do, lse, delta, seg_q, seg_k, causal,
+                            scale):
+    """Plain version of the dQ kernel: q, dO (Tq, H, D); k, v (Tk, KVH,
+    D); lse, delta (H, Tq) fp32; seg ids (Tq,)/(Tk,). Returns dQ = dS K
+    (Tq, H, D) in q's dtype."""
+    hq, hk = q.shape[1], k.shape[1]
+    group = hq // hk
+    valid = _visible(*_sentinels(seg_q, seg_k), causal)
+    dq = torch.empty_like(q)
+    for h in range(hk):
+        _, ds, _, _ = _group_dp_ds(q, k, v, do, lse, delta, valid, h, group,
+                                   scale)
+        dq[:, h * group:(h + 1) * group] = (
+            ds @ k[:, h].float()).transpose(0, 1).to(q.dtype)
+    return dq
+
+
+def varlen_bwd_dkv_reference(q, k, v, do, lse, delta, seg_q, seg_k, causal,
+                             scale):
+    """Plain version of the dK/dV kernel, operands as for
+    `varlen_bwd_dq_reference`. Returns (dK = dS^T Q, dV = P^T dO), each
+    (Tk, KVH, D), summed over the KV head's query group in fp32 and cast
+    once to k's and v's dtypes."""
+    hq, hk = q.shape[1], k.shape[1]
+    group = hq // hk
+    valid = _visible(*_sentinels(seg_q, seg_k), causal)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
+    for h in range(hk):
+        p, ds, qh, doh = _group_dp_ds(q, k, v, do, lse, delta, valid, h,
+                                      group, scale)
+        dk[:, h] = (ds.transpose(-1, -2) @ qh).sum(0)
+        dv[:, h] = (p.transpose(-1, -2) @ doh).sum(0)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
 # ---------------------------------------------------------------- kernel
 def _check(cond, msg):
     if not cond:
@@ -141,27 +204,28 @@ def _lib():
     if not _LIB:
         from ..kernels import _build
         lib = _build.load("varlen_attention")
-        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        vp, ci, cl, cf = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.c_float)
         lib.va_error_string.argtypes = [ci]
         lib.va_error_string.restype = ctypes.c_char_p
-        lib.va_smem_bytes.argtypes = [ci, ci]
+        lib.va_smem_bytes.argtypes = [ci, ci, ci]
         lib.va_smem_bytes.restype = ctypes.c_size_t
         # pointers, strides and the stream as 64-bit types: a bare Python
         # int would be passed as a 32-bit int and cut
         lib.va_fwd.argtypes = ([vp] * 10 + [ci] * 5 + [cl] * 6
-                               + [ctypes.c_float, ci, ci, ci, vp, vp])
-        lib.va_fwd.restype = ci
+                               + [cf, ci, ci, ci, vp, vp])
+        bwd_tail = [ci] * 5 + [cl] * 8 + [cf, ci, ci, ci, vp, vp]
+        lib.va_bwd_dq.argtypes = [vp] * 12 + bwd_tail
+        lib.va_bwd_dkv.argtypes = [vp] * 13 + bwd_tail
+        for fn in (lib.va_fwd, lib.va_bwd_dq, lib.va_bwd_dkv):
+            fn.restype = ci
         _LIB.append(lib)
     return _LIB[0]
 
 
-def _launch_fwd(q, k, v, seg_q, seg_k, causal, scale, same_offsets,
-                count_tiles=False):
-    """Launch `va_fwd` on CUDA operands (sentinels already applied).
-    Returns (o (Tq, H, D), lse (H, Tq)), and with `count_tiles` also the
-    number of (64-row q tile, 64-column k tile, head) triples the kernel
-    computed rather than skipped."""
-    global launches_fwd
+def _check_operands(q, k, v, seg_q, seg_k, do=None, lse=None, delta=None):
+    """Raise on anything the kernels do not take; returns (Tq, Tk, H,
+    KVH, D)."""
     _check(q.dim() == 3 and k.dim() == 3,
            f"q {tuple(q.shape)} must be (Tq, H, D) and k {tuple(k.shape)} "
            "(Tk, KVH, D)")
@@ -178,78 +242,226 @@ def _launch_fwd(q, k, v, seg_q, seg_k, causal, scale, same_offsets,
     _check(q.dtype in _DTYPE_CODE, f"dtype {q.dtype} not float32/bfloat16")
     _check(k.dtype == q.dtype and v.dtype == q.dtype,
            f"q, k, v dtypes differ ({q.dtype}, {k.dtype}, {v.dtype})")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    operands = [("q", q), ("k", k), ("v", v)]
+    if do is not None:
+        _check(do.shape == q.shape and do.dtype == q.dtype,
+               f"dO ({tuple(do.shape)}, {do.dtype}) must match q's shape "
+               f"and dtype ({tuple(q.shape)}, {q.dtype})")
+        operands.append(("dO", do))
+        for name, t in (("lse", lse), ("delta", delta)):
+            _check(t.dtype == torch.float32 and tuple(t.shape) == (hq, tq)
+                   and t.is_contiguous(),
+                   f"{name} must be contiguous float32 {(hq, tq)}")
+    for name, t in operands:
         _check(t.stride(2) == 1, f"{name}'s head_dim must be contiguous")
     for name, s, n in (("seg_q", seg_q, tq), ("seg_k", seg_k, tk)):
         _check(s.dtype == torch.int32 and tuple(s.shape) == (n,),
                f"{name} must be int32 ({n},)")
-    for t in (k, v, seg_q, seg_k):
-        _check(t.device == q.device, f"operand on {t.device}, q on {q.device}")
+    for t in (k, v, seg_q, seg_k, do, lse, delta):
+        if t is not None:
+            _check(t.device == q.device,
+                   f"operand on {t.device}, q on {q.device}")
+    return tq, tk, hq, hk, d
+
+
+def _launch(name, kernel, dims, seg_q, seg_k, ins, outs, strides, causal,
+            scale, same_offsets, count_tiles):
+    """Launch va_<name> on operands `_check_operands` passed (sentinels
+    already applied to the segment ids): `kernel` is its shared-memory
+    code (0 fwd, 1 dq, 2 dkv), `dims` what the check returned, `ins` the
+    operand tensors before the ids (q first), `outs` the tensors it
+    writes after the scratch, `strides` the operands' (row, head)
+    strides. Returns the tile count when asked, else None."""
+    tq, tk, hq, hk, d = dims
+    q = ins[0]
     lib = _lib()
     n_qt, n_kt = -(-tq // 64), -(-tk // 64)
-    smem = lib.va_smem_bytes(n_kt, d)
+    n_other = n_qt if kernel == 2 else n_kt
+    smem = lib.va_smem_bytes(kernel, n_other, d)
     _check(smem <= _MAX_SMEM,
-           f"{tk} keys need {smem} bytes of shared memory, more than a "
-           f"block has ({_MAX_SMEM})")
+           f"va_{name}: the ranges of {n_other} "
+           f"{'query' if kernel == 2 else 'key'} tiles need {smem} bytes of "
+           f"shared memory, more than a block has ({_MAX_SMEM})")
     seg_q, seg_k = seg_q.contiguous(), seg_k.contiguous()
     pos_q, pos_k = rev_pos(seg_q), rev_pos(seg_k)
-    o = torch.empty((tq, hq, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((hq, tq), dtype=torch.float32, device=q.device)
     ranges = torch.empty((n_qt + n_kt, 2), dtype=torch.int32, device=q.device)
     tiles = torch.zeros((1,), dtype=torch.int32, device=q.device) \
         if count_tiles else None
+    ptrs = [t.data_ptr() for t in (*ins, seg_q, seg_k, pos_q, pos_k, ranges,
+                                   *outs)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.va_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q.data_ptr(),
-            seg_k.data_ptr(), pos_q.data_ptr(), pos_k.data_ptr(),
-            ranges.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            tq, tk, hq, hk, d, q.stride(0), q.stride(1), k.stride(0),
-            k.stride(1), v.stride(0), v.stride(1), scale, int(causal),
-            int(same_offsets), _DTYPE_CODE[q.dtype],
+        rc = getattr(lib, f"va_{name}")(
+            *ptrs, tq, tk, hq, hk, d, *strides, scale,
+            int(causal), int(same_offsets), _DTYPE_CODE[q.dtype],
             None if tiles is None else tiles.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(
-            "flash_attention_varlen: kernel launch failed: "
+            f"flash_attention_varlen: va_{name} kernel launch failed: "
             f"{lib.va_error_string(rc).decode()} (cuda error {rc})")
+    return int(tiles.item()) if count_tiles else None
+
+
+def _qkv_strides(q, k, v):
+    return [q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+            v.stride(1)]
+
+
+def _launch_fwd(q, k, v, seg_q, seg_k, causal, scale, same_offsets,
+                count_tiles=False):
+    """Launch `va_fwd` on CUDA operands (sentinels already applied).
+    Returns (o (Tq, H, D), lse (H, Tq)), and with `count_tiles` also the
+    number of (64-row q tile, 64-column k tile, head) triples the kernel
+    computed rather than skipped."""
+    global launches_fwd
+    dims = tq, _, hq, _, d = _check_operands(q, k, v, seg_q, seg_k)
+    o = torch.empty((tq, hq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((hq, tq), dtype=torch.float32, device=q.device)
+    tiles = _launch("fwd", 0, dims, seg_q, seg_k, (q, k, v), (o, lse),
+                    _qkv_strides(q, k, v), causal, scale, same_offsets,
+                    count_tiles)
     launches_fwd += 1
-    if count_tiles:
-        return o, lse, int(tiles.item())
-    return o, lse
+    return (o, lse, tiles) if count_tiles else (o, lse)
+
+
+def _launch_bwd_dq(q, k, v, do, lse, delta, seg_q, seg_k, causal, scale,
+                   same_offsets, count_tiles=False):
+    """Launch `va_bwd_dq` on CUDA operands (sentinels already applied):
+    dO like q, lse and delta (H, Tq) fp32. Returns dQ (Tq, H, D) in q's
+    dtype, and with `count_tiles` also the (q tile, k tile, query head)
+    triples computed."""
+    global launches_dq
+    dims = _check_operands(q, k, v, seg_q, seg_k, do, lse, delta)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    tiles = _launch("bwd_dq", 1, dims, seg_q, seg_k,
+                    (q, k, v, do, lse, delta), (dq,),
+                    _qkv_strides(q, k, v) + [do.stride(0), do.stride(1)],
+                    causal, scale, same_offsets, count_tiles)
+    launches_dq += 1
+    return (dq, tiles) if count_tiles else dq
+
+
+def _launch_bwd_dkv(q, k, v, do, lse, delta, seg_q, seg_k, causal, scale,
+                    same_offsets, count_tiles=False):
+    """Launch `va_bwd_dkv` on CUDA operands, as `_launch_bwd_dq`.
+    Returns (dK, dV), each (Tk, KVH, D) in k's dtype and summed over the
+    KV head's query group, and with `count_tiles` also the (q tile, k
+    tile, query head) triples computed."""
+    global launches_dkv
+    dims = _check_operands(q, k, v, seg_q, seg_k, do, lse, delta)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    tiles = _launch("bwd_dkv", 2, dims, seg_q, seg_k,
+                    (q, k, v, do, lse, delta), (dk, dv),
+                    _qkv_strides(q, k, v) + [do.stride(0), do.stride(1)],
+                    causal, scale, same_offsets, count_tiles)
+    launches_dkv += 1
+    return (dk, dv, tiles) if count_tiles else (dk, dv)
+
+
+def _on_cpu(t):
+    """True for a CPU tensor, False for a CUDA one, ValueError else."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(
+            f"flash_attention_varlen: no implementation for device "
+            f"{t.device}; use a CUDA or a CPU tensor")
+    return False
+
+
+class _VarlenAttention(torch.autograd.Function):
+    """`_varlen_mha` with its custom VJP, over sentinel segment ids.
+    Everything the backward needs travels in `ctx`, so a forward run
+    again under activation checkpointing stands on its own."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg_q, seg_k, causal, scale, same_offsets):
+        if _on_cpu(q):
+            o, lse = varlen_fwd_reference(q, k, v, seg_q, seg_k, causal,
+                                          scale)
+        else:
+            o, lse = _launch_fwd(q, k, v, seg_q, seg_k, causal, scale,
+                                 same_offsets)
+        ctx.save_for_backward(q, k, v, o, lse, seg_q, seg_k)
+        ctx.args = (causal, scale, same_offsets)
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse, seg_q, seg_k = ctx.saved_tensors
+        causal, scale, same_offsets = ctx.args
+        do = do.contiguous()
+        delta = (do.float() * o.float()).sum(-1).T.contiguous()   # (H, Tq)
+        args = (q, k, v, do, lse, delta, seg_q, seg_k, causal, scale)
+        if _on_cpu(q):
+            dq = varlen_bwd_dq_reference(*args)
+            dk, dv = varlen_bwd_dkv_reference(*args)
+        else:
+            dq = _launch_bwd_dq(*args, same_offsets)
+            dk, dv = _launch_bwd_dkv(*args, same_offsets)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention_varlen(q, k, v, seg_q, seg_k, causal=False,
                            sm_scale=None, same_offsets=None):
-    """Packed-layout attention with segment-id masking.
+    """Packed-layout attention with segment-id masking, differentiable
+    in q, k and v.
 
     q: (Tq, H, D); k/v: (Tk, KVH, D), H a multiple of KVH; seg ids
     (Tq,)/(Tk,) integers, tokens of one sequence sharing an id, real ids
     non-decreasing and padding (any negative id) trailing. Causal
     masking is bottom-right aligned per segment. `same_offsets=True`
     (by default when seg_q is seg_k) says that query and key token i
-    sit at the same place, which lets the kernel skip tiles above the
+    sit at the same place, which lets the kernels skip tiles above the
     diagonal. Returns (Tq, H, D) in q's dtype.
 
-    A CPU q runs the plain version. A CUDA q launches the Hopper kernel,
-    which takes float32 or bfloat16 with head_dim up to 128, the head
-    dim contiguous (other strides are read as they are), and raises on
-    anything else, and on operands that need a gradient."""
+    A CPU q runs the plain versions. A CUDA q launches the Hopper
+    kernels, which take float32 or bfloat16 with head_dim up to 128 and
+    the head dim contiguous (other strides are read as they are), and
+    raise on anything else."""
     d = q.shape[-1]
     scale = float(sm_scale if sm_scale is not None else 1.0 / math.sqrt(d))
     if same_offsets is None:
         same_offsets = seg_q is seg_k
     seg_q, seg_k = _sentinels(seg_q, seg_k)
-    if q.device.type == "cpu":
-        return varlen_fwd_reference(q, k, v, seg_q, seg_k, causal, scale)[0]
-    if q.device.type != "cuda":
-        raise ValueError(
-            f"flash_attention_varlen: no implementation for device "
-            f"{q.device}; use a CUDA or a CPU tensor")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    return _VarlenAttention.apply(q, k, v, seg_q, seg_k, bool(causal), scale,
+                                  bool(same_offsets))
+
+
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q=None, max_seqlen_k=None, scale=None,
+                        dropout=0.0, causal=False, return_softmax=False,
+                        training=True, name=None):
+    """Paddle's varlen attention
+    (python/paddle/nn/functional/flash_attention.py:756), as the JAX
+    package's `flash_attn_unpadded`.
+
+    query: (total_q, H, D) packed across the batch; key/value:
+    (total_k, KVH, D); cu_seqlens_q/k: (B+1,) token-offset prefix sums
+    (tensors, arrays or lists). Returns (out, None): the kernels never
+    hold the softmax. `max_seqlen_*`, `return_softmax` and `name` are
+    accepted and ignored. Equal cu_seqlens (the same object, or equal
+    values) let the kernels skip tiles above the diagonal.
+
+    Dropout while training (dropout > 0 and training) raises
+    NotImplementedError: it draws from the API surface's key stream
+    (ROADMAP.md, Queue 1 item 13). dropout > 0 with training=False runs
+    the kernels, as in the JAX package."""
+    if dropout > 0.0 and training:
         raise NotImplementedError(
-            "paddle_tpu_torch: the backward of flash_attention_varlen (the "
-            "varlen dQ and dK/dV kernels) is not ported yet (ROADMAP.md, "
-            "Queue 1 item 9c); call it under torch.no_grad() or on "
-            "tensors that need no gradient")
-    return _launch_fwd(q, k, v, seg_q, seg_k, causal, scale,
-                       bool(same_offsets))[0]
+            "paddle_tpu_torch: attention dropout in flash_attn_unpadded "
+            "(training=True) draws from the API surface's key stream, "
+            "which is not ported yet (ROADMAP.md, Queue 1 item 13); pass "
+            "dropout=0.0 or training=False")
+    cu_q = torch.as_tensor(cu_seqlens_q, device=query.device).long()
+    cu_k = torch.as_tensor(cu_seqlens_k, device=query.device).long()
+    same = cu_seqlens_k is cu_seqlens_q or (
+        cu_q.shape == cu_k.shape and bool(torch.equal(cu_q, cu_k)))
+    seg_q = seg_ids_from_cu_seqlens(cu_q, query.shape[0])
+    seg_k = seg_ids_from_cu_seqlens(cu_k, key.shape[0])
+    out = flash_attention_varlen(query, key, value, seg_q, seg_k,
+                                 causal=causal, sm_scale=scale,
+                                 same_offsets=same)
+    return out, None

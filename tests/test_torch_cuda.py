@@ -1,10 +1,11 @@
 """paddle_tpu_torch on the card: the Hopper ragged paged-attention kernel,
 the three flash-attention kernels, the three FlashMask kernels, the
-varlen forward, the paged decode and the paged verify kernels against
-their plain PyTorch versions over the shapes and masks they cover, the
-card engines (ragged, bucketed, and bucketed with speculative decoding
-and chunked prefill) against the CPU engines, and tiny-width train
-steps (plain and packed documents) on the card against the CPU.
+varlen forward, dQ and dK/dV, the paged decode and the paged verify
+kernels against their plain PyTorch versions over the shapes and masks
+they cover, the card engines (ragged, bucketed, and bucketed with
+speculative decoding and chunked prefill) against the CPU engines, and
+tiny-width train steps (plain and packed documents, the fused
+linear+CE head and remat="dots") on the card against the CPU.
 
 Every test here needs a CUDA device and skips without one. This file
 imports neither jax nor paddle_tpu, so on a machine without jax it runs
@@ -27,6 +28,7 @@ from paddle_tpu_torch.models import llama_spmd as T
 from paddle_tpu_torch.models.llama import LlamaConfig
 from paddle_tpu_torch.models.llama_spmd import init_params
 from paddle_tpu_torch.models.llama_serving import Request, ServingEngine
+from paddle_tpu_torch.ops.fused import fused_linear_cross_entropy
 from paddle_tpu_torch.ops.paged_attention import quantize_kv
 
 pytestmark = pytest.mark.cuda
@@ -533,10 +535,225 @@ def test_varlen_kernel_refuses_what_it_does_not_take(card):
                                   seg, seg)
     with pytest.raises(ValueError, match="operand on"):
         va.flash_attention_varlen(q, kv, kv, seg, seg.cpu())
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        va.flash_attention_varlen(q.requires_grad_(), kv, kv, seg, seg)
-    with torch.no_grad():
-        va.flash_attention_varlen(q, kv, kv, seg, seg)
+    # an operand that needs a gradient runs both backward kernels, which
+    # agree with their plain versions
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, kv, kv))
+    before = _va_counts()
+    o = va.flash_attention_varlen(qg, kg, vg, seg, seg, causal=True)
+    do = torch.randn_like(o)
+    grads = torch.autograd.grad(o, (qg, kg, vg), do)
+    torch.cuda.synchronize()
+    assert _va_counts() == tuple(c + 1 for c in before)
+    sq, sk = va._sentinels(seg, seg)
+    o_ref, lse = va.varlen_fwd_reference(q, kv, kv, seg, seg, True,
+                                         32 ** -0.5)
+    delta = (do * o_ref).sum(-1).T.contiguous()
+    args = (q, kv, kv, do, lse, delta, sq, sk, True, 32 ** -0.5)
+    want = [va.varlen_bwd_dq_reference(*args),
+            *va.varlen_bwd_dkv_reference(*args)]
+    for name, a, b in zip(("dq", "dk", "dv"), grads, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4, msg=name)
+
+
+def _va_counts():
+    return va.launches_fwd, va.launches_dq, va.launches_dkv
+
+
+def _varlen_bwd_operands(card, dt, lq, tq, lk, tk, h, kvh, d, causal,
+                         seed):
+    """(q, k, v, dO, seg_q, seg_k, lse, delta) of one layout, lse from the
+    plain forward and delta = rowsum(dO * O) over its output."""
+    seg_q = torch.from_numpy(_segments(lq, tq)).to(card)
+    seg_k = seg_q if lk is None else torch.from_numpy(
+        _segments(lk, tk)).to(card)
+    g = torch.Generator(device=card)
+    g.manual_seed(seed)
+    q, do = (torch.randn((tq, h, d), generator=g, device=card).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn((len(seg_k), kvh, d), generator=g,
+                        device=card).to(dt) for _ in range(2))
+    o, lse = va.varlen_fwd_reference(q, k, v, seg_q, seg_k, causal,
+                                     d ** -0.5)
+    delta = (do.float() * o.float()).sum(-1).T.contiguous()
+    return q, k, v, do, seg_q, seg_k, lse, delta
+
+
+def _host_tiles(seg_q, seg_k, diag):
+    """64 x 64 tiles a head computes under the kernels' skip rule."""
+    def ranges(seg):
+        out = []
+        for a in range(0, len(seg), 64):
+            x = seg[a:a + 64]
+            x = x[x >= 0]
+            out.append((x.min(), x.max()) if len(x) else None)
+        return out
+    n = 0
+    for qt, a in enumerate(ranges(seg_q)):
+        for kt, b in enumerate(ranges(seg_k)):
+            if a and b and not (diag and kt > qt):
+                n += int(b[0] <= a[1] and b[1] >= a[0])
+    return n
+
+
+@pytest.mark.parametrize("layout", sorted(VARLEN_LAYOUTS))
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("h,kvh,d", [(4, 4, 64), (8, 2, 128), (4, 1, 40)])
+@pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
+def test_varlen_backward_kernels_match_plain(card, dtype, h, kvh, d, causal,
+                                             layout):
+    """va_bwd_dq and va_bwd_dkv (dK/dV summed over each KV head's query
+    group) against their plain versions, and the tiles each computed
+    against the skip rule; dtypes as the operands'."""
+    lq, tq, lk, tk = VARLEN_LAYOUTS[layout]
+    dt = FLASH_DTYPES[dtype]
+    q, k, v, do, seg_q, seg_k, lse, delta = _varlen_bwd_operands(
+        card, dt, lq, tq, lk, tk, h, kvh, d, causal, seed=d + h)
+    same = lk is None
+    sq, sk = va._sentinels(seg_q, seg_k)
+    args = (q, k, v, do, lse, delta, sq, sk, causal, d ** -0.5)
+    before = _va_counts()
+    dq, n_dq = va._launch_bwd_dq(*args, same, count_tiles=True)
+    dk, dv, n_dkv = va._launch_bwd_dkv(*args, same, count_tiles=True)
+    torch.cuda.synchronize()
+    assert _va_counts() == (before[0], before[1] + 1, before[2] + 1)
+    want = [va.varlen_bwd_dq_reference(*args),
+            *va.varlen_bwd_dkv_reference(*args)]
+    atol, rtol = FLASH_TOL[dt]
+    for name, a, r in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert a.dtype == dt and a.shape == r.shape, name
+        torch.testing.assert_close(a.float(), r.float(), atol=atol,
+                                   rtol=rtol, msg=name)
+    tiles = _host_tiles(sq.cpu().numpy(), sk.cpu().numpy(), causal and same)
+    assert n_dq == n_dkv == tiles * h
+    assert bool((dq[sq < 0] == 0).all())
+    assert bool((dk[sk < 0] == 0).all()) and bool((dv[sk < 0] == 0).all())
+
+
+@pytest.mark.parametrize("rep", [1, 4])
+@pytest.mark.parametrize("causal", [False, True])
+def test_varlen_autograd_on_card_matches_cpu(card, rep, causal):
+    """fp32 through flash_attn_unpadded and its autograd Function, GQA
+    group `rep`, unequal cu_seqlens with trailing pads: the card's
+    kernels against the CPU's plain versions; one launch of each kernel
+    on the card, none on the CPU."""
+    rng = np.random.default_rng(rep)
+    q, w = (rng.standard_normal((300, 4, 64)).astype(np.float32)
+            for _ in range(2))
+    k, v = (rng.standard_normal((330, 4 // rep, 64)).astype(np.float32)
+            for _ in range(2))
+    cu_q, cu_k = [0, 70, 200, 260], [0, 90, 200, 300]
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        ts = [torch.from_numpy(a).to(dev).requires_grad_() for a in (q, k, v)]
+        before = _va_counts()
+        o, _ = va.flash_attn_unpadded(*ts, cu_q, cu_k, causal=causal)
+        (o * torch.from_numpy(w).to(dev)).sum().backward()
+        launched = tuple(a - b for a, b in zip(_va_counts(), before))
+        assert launched == ((1, 1, 1) if dev.type == "cuda" else (0, 0, 0))
+        out[dev.type] = [o.detach().cpu()] + [t.grad.cpu() for t in ts]
+    for name, a, b in zip(("o", "dq", "dk", "dv"), out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4, msg=name)
+
+
+def test_varlen_backward_kernels_refuse_what_they_do_not_take(card):
+    seg = torch.zeros((64,), dtype=torch.int32, device=card)
+    q = torch.randn((64, 4, 32), device=card)
+    kv = torch.randn((64, 2, 32), device=card)
+    lse = torch.zeros((4, 64), device=card)
+    ok = (q, kv, kv, q, lse, lse, seg, seg, True, 0.2, True)
+    before = _va_counts()
+    with pytest.raises(ValueError, match="dO"):
+        va._launch_bwd_dq(q, kv, kv, q.bfloat16(), *ok[4:])
+    with pytest.raises(ValueError, match="dO"):
+        va._launch_bwd_dkv(q, kv, kv, q[:32], *ok[4:])
+    with pytest.raises(ValueError, match="lse"):
+        va._launch_bwd_dq(*ok[:4], lse.T, *ok[5:])
+    with pytest.raises(ValueError, match="delta"):
+        va._launch_bwd_dkv(*ok[:5], lse.double(), *ok[6:])
+    with pytest.raises(ValueError, match="head_dim must be contiguous"):
+        va._launch_bwd_dq(*ok[:3], q.transpose(1, 2).contiguous()
+                          .transpose(1, 2), *ok[4:])
+    # dK/dV stages the ranges of every q tile: 8,125 of them do not fit
+    long_q = torch.zeros((520000, 1, 128), device=card)
+    long_kv = torch.zeros((64, 1, 128), device=card)
+    long_lse = torch.zeros((1, 520000), device=card)
+    with pytest.raises(ValueError, match="va_bwd_dkv: the ranges of 8125 "
+                       "query tiles need"):
+        va._launch_bwd_dkv(long_q, long_kv, long_kv, long_q, long_lse,
+                           long_lse, torch.zeros((520000,), dtype=torch.int32,
+                                                 device=card),
+                           seg, True, 0.2, False)
+    assert _va_counts() == before
+    va._launch_bwd_dq(*ok)
+    va._launch_bwd_dkv(*ok)
+    assert _va_counts() == (before[0], before[1] + 1, before[2] + 1)
+
+
+@pytest.mark.parametrize("remat,fused_ce", [(True, True), ("dots", False),
+                                            ("dots", True)])
+def test_fused_ce_and_dots_train_step_on_card_matches_cpu(card, remat,
+                                                          fused_ce):
+    """fp32, TF32 off: two steps with the fused linear+CE head and/or
+    remat="dots" on packed documents, card against CPU, a vocabulary of
+    3 chunks of 64 and a short one. Under dots the FlashMask forward
+    still runs twice per layer and step (forward and recompute)."""
+    cfg = LlamaConfig.tiny(vocab=200, hidden=128, layers=2, heads=4,
+                           kv_heads=2, ffn=256)
+    lr, steps = 3e-4, 2
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 200, (2, 64))
+    y = rng.integers(0, 200, (2, 64))
+    doc = np.stack([np.repeat(np.arange(3), [20, 30, 14]),
+                    np.zeros(64, np.int64)])
+    y[0, [19, 49, 63]] = -1
+    cpu = init_params(cfg, seed=0, device="cpu")
+    res = {}
+    for dev in (card, torch.device("cpu")):
+        params = T.params_from_jax(
+            {k: ({kk: vv.numpy() for kk, vv in v.items()}
+                 if isinstance(v, dict) else v.numpy())
+             for k, v in cpu.items()}, dev)
+        opt = T.init_opt_state(params)
+        batch = tuple(torch.from_numpy(a).to(dev) for a in (x, y, doc))
+        _, grads = T.loss_and_grads(params, batch, cfg, remat=remat,
+                                    fused_ce=fused_ce)
+        step = T.make_train_step(cfg, lr=lr, remat=remat, fused_ce=fused_ce,
+                                 device=dev)
+        fm.launches_fwd = fm.launches_dq = fm.launches_dkv = 0
+        losses = [float(step(params, opt, i, batch)[2]) for i in range(steps)]
+        res[dev.type] = (losses, T._leaves(grads), T._leaves(params),
+                         _fm_counts())
+    L = cfg.num_hidden_layers
+    assert res["cuda"][3] == (2 * L * steps, L * steps, L * steps)
+    assert res["cpu"][3] == (0, 0, 0)
+    np.testing.assert_allclose(res["cuda"][0], res["cpu"][0], rtol=1e-5)
+    for a, b in zip(res["cuda"][1], res["cpu"][1]):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=1e-4)
+    for a, b in zip(res["cuda"][2], res["cpu"][2]):
+        torch.testing.assert_close(a.cpu(), b, atol=2.5 * lr * steps, rtol=0)
+
+
+def test_fused_ce_bf16_on_card_matches_fp32_products(card):
+    """bf16 weights on the card: the head's products run on the tensor
+    cores with fp32 output, and the loss and gradients agree with the
+    same op on fp32 upcasts of the same bf16 values (chunks of 64 over a
+    vocabulary of 200)."""
+    g = torch.Generator(device=card)
+    g.manual_seed(0)
+    x = torch.randn((256, 128), generator=g, device=card).bfloat16()
+    w = (torch.randn((128, 200), generator=g, device=card) * 0.1).bfloat16()
+    lab = torch.randint(0, 200, (256,), generator=g, device=card)
+    lab[:7] = -100
+    res = []
+    for xx, ww in ((x, w), (x.float(), w.float())):
+        xx, ww = xx.clone().requires_grad_(), ww.clone().requires_grad_()
+        loss = fused_linear_cross_entropy(xx, ww, lab, chunk_size=64)
+        res.append([loss] + list(torch.autograd.grad(loss, (xx, ww))))
+    torch.testing.assert_close(res[0][0], res[1][0], atol=1e-5, rtol=1e-5)
+    # the backward's products take d_logits in bf16: one bf16 rounding
+    for a, b in zip(res[0][1:], res[1][1:]):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), b, atol=2e-4, rtol=2e-2)
 
 
 @pytest.mark.parametrize("dtype", list(VARIANTS))

@@ -307,8 +307,6 @@ def test_step_updates_in_place():
 @pytest.mark.parametrize("kw,match", [
     ({"sp_axis": "sp"}, "sequence parallelism"),
     ({"schedule": "1f1b"}, "pipeline schedules"),
-    ({"fused_ce": True}, "fused linear"),
-    ({"remat": "dots"}, "dots"),
 ])
 def test_later_slices_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
