@@ -40,7 +40,11 @@ non-zero):
                byte once; `library_ms` is F.scaled_dot_product_attention
                (is_causal) for the forward and its backward (forward +
                backward, minus forward) for dQ and dK/dV together, a
-               yardstick only;
+               yardstick only. Each row gives its `design`,
+               `library_factor` (kernel over library time, same run) and
+               `bound_share` (bound over kernel time); a bf16 forward
+               whose factor exceeds 6 fails the phase (the CUDA-core
+               design of the bf16 forward ran at 28x);
   7. train_parity — Llama-3-8B widths at depth 1 with the vocabulary cut
                to 4096, fp32, TF32 off, remat on, batch 1 x 512: two
                steps of make_train_step on the card and on the CPU from
@@ -63,8 +67,13 @@ non-zero):
                document, summed (forward; forward + backward minus forward
                for dQ and dK/dV), a yardstick only; `causal_only_ms` is
                the same kernel with no mask, and each kernel must take
-               less than half of it (the block skip); (b) correctness
-               over every mask flavor at B=2, H=4, S=1000, D=64 and 128;
+               less than half of it (the block skip); the forward counts
+               the (q tile, k tile) pairs it computed, which must equal
+               the skip rule's (`_tile_counts`), and its rows carry
+               `design`, `library_factor` and `bound_share` as
+               train_kernel's, with the same limit on the bf16 factor;
+               (b) correctness over every mask flavor at B=2, H=4,
+               S=1000, D=64 and 128;
  10. packed_parity — train_parity with packed documents: batch 2 x 512,
                row 0 four documents, row 1 one, card against CPU;
  11. train_packed — the train phase's model on one 1 x 8192 row of the
@@ -685,10 +694,38 @@ def phase_serve(card, cfg, params, init_s):
 # ------------------------------------------------------------- training
 TRAIN_ATTN = {"B": 2, "H": 32, "S": 2048, "D": 128}
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-# Kernel vs plain, by dtype, as TOL above: both compute in fp32 from the
-# same operands and sum in another order; bf16 outputs round the same
-# fp32 value, one ulp apart at most. lse is fp32 on both sides.
+# Kernel vs plain, by dtype, as TOL above. fp32, and the bf16 backward:
+# both compute in fp32 from the same operands and sum in another order.
+# The bf16 forward multiplies on the tensor cores with P split into two
+# bf16 terms (16 bits of P; one term, the TPU kernel's cast of P to V's
+# dtype, moved rows that see few keys by up to two ulps), so it too
+# differs from the fp32 plain version by sums in another order before
+# the output rounds to bf16: one ulp apart at most. lse is fp32 on both
+# sides.
 LSE_TOL = (1e-5, 1e-5)
+# The design of each kernel row (`design`), and the most a bf16 forward
+# may take over its library call (`library_factor`): the CUDA-core design
+# ran at 28x, the tensor-core one must show it ran.
+FWD_DESIGN = {"bfloat16": "tensor cores: mma.sync m16n8k16, cp.async K/V "
+                          "ring of 2, P as bf16 hi + lo",
+              "float32": "cuda-core fp32"}
+MAX_FWD_LIBRARY_FACTOR = 6.0
+
+
+def _design_row(row, kname, dname):
+    """Add `design`, `library_factor` and `bound_share` to a kernel row;
+    fail a bf16 forward slower than MAX_FWD_LIBRARY_FACTOR x its library
+    call."""
+    fwd = kname.endswith("_fwd")
+    row["design"] = FWD_DESIGN[dname] if fwd else FWD_DESIGN["float32"]
+    row["library_factor"] = row["kernel_ms"] / row["library_ms"]
+    row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+    if fwd and dname == "bfloat16" and \
+            row["library_factor"] > MAX_FWD_LIBRARY_FACTOR:
+        fail(f"{kname} (bf16): {row['kernel_ms']} ms, "
+             f"{row['library_factor']:.2f}x its library call: the "
+             "tensor-core forward did not run at its speed")
+    return row
 
 
 def _train_counts():
@@ -811,7 +848,7 @@ def phase_train_kernel(card):
                    "tflops": flops / kernel_ms[kname] / 1e9, "tf32": False}
             if kname == "flash_fwd":
                 row["lse_max_abs_err"] = lse_err
-            emit(row)
+            emit(_design_row(row, kname, dname))
             out[(kname, dname)] = row
         del q, k, v, do, qg, kg, vg, args, o_ref, lse_ref, delta
         torch.cuda.empty_cache()
@@ -1223,7 +1260,8 @@ MASK_CASES = ("causal_n2_band", "noncausal_n2", "noncausal_n4",
 
 def _mask_flavors(card):
     """Correctness only: every mask flavor at B=2, H=4, S=1000 (a ragged
-    final tile), D=64 and 128, bf16 and fp32."""
+    final tile), D=64 and 128, bf16 and fp32, and the forward's computed
+    tiles against `tile_plan`'s count."""
     import numpy as np
     import torch
     import paddle_tpu_torch.ops.flashmask_attention as fm
@@ -1243,7 +1281,14 @@ def _mask_flavors(card):
                 sri = None if sri is None else torch.from_numpy(
                     sri.astype(np.int32)).cuda()
                 m = fm._Mask(causal, window, 1.0 / math.sqrt(d), rate, seed)
-                o, lse = fm._launch_fwd(q, k, v, sri, m)
+                o, lse, computed = fm._launch_fwd(q, k, v, sri, m,
+                                                  count_tiles=True)
+                plan = fm.tile_plan(sri, s, s, causal, window)
+                want = int((plan != fm.SKIP).sum()) * (
+                    b * h // (plan.shape[0] * plan.shape[1]))
+                if computed != want:
+                    fail(f"{name} d{d} ({dname}): the forward computed "
+                         f"{computed} tiles, tile_plan keeps {want}")
                 o_ref, lse_ref = fm.flashmask_fwd_reference(q, k, v, sri, *m)
                 delta = (do.float() * o_ref.float()).sum(-1)
                 args = (q, k, v, sri, do, lse_ref, delta)
@@ -1284,7 +1329,10 @@ def phase_mask_kernel(card):
         g.manual_seed(0)
         q, k, v, do = (torch.randn((b, h, s, d), generator=g,
                                    device="cuda").to(dt) for _ in range(4))
-        o, lse = fm._launch_fwd(q, k, v, sri, m)
+        o, lse, computed = fm._launch_fwd(q, k, v, sri, m, count_tiles=True)
+        if computed != (tiles - skipped) * h:
+            fail(f"flashmask_fwd ({dname}) computed {computed} tiles, the "
+                 f"skip rule keeps {(tiles - skipped) * h}")
         o_ref, lse_ref = _by_heads(fm.flashmask_fwd_reference, q, k, v, sri,
                                    *m)
         delta = (do.float() * o_ref.float()).sum(-1)
@@ -1347,7 +1395,8 @@ def phase_mask_kernel(card):
                    "tflops": flops / kernel_ms / 1e9, "tf32": False}
             if kname == "flashmask_fwd":
                 row["lse_max_abs_err"] = errs["lse"]
-            emit(row)
+                row["tiles_computed"] = computed
+            emit(_design_row(row, kname, dname))
             out[(kname, dname)] = row
         del q, k, v, do, args, o_ref, lse_ref, delta, lib_fwd, lib_fwd_bwd
         torch.cuda.empty_cache()

@@ -12,10 +12,20 @@
 //   rowsum(dO * O): P = exp(S - lse), dP = dO V^T, dS = P (dP - delta)
 //   scale, dQ = dS K, dK = dS^T Q, dV = P^T dO.
 //
-// Design. The TPU kernels carry fp32 accumulators in VMEM scratch across
-// a sequential grid axis. Blocks here run in parallel and in no order, so
-// that axis becomes a loop inside the block, and nothing is reduced
-// across blocks: no atomics, results repeat from run to run.
+// Two designs, picked by dtype:
+//   * bf16 forward: the tensor-core tile loop of attn_fwd_sm90.cuh
+//     (mma.sync, cp.async K/V ring, softmax and P in registers, P entering
+//     PV as two bf16 terms), with `FlashPolicy` below as its mask policy.
+//     It needs D % 8 == 0 and 16-byte aligned operands; the wrapper pads
+//     or realigns to meet that.
+//   * fp32 forward and both backward kernels in either dtype: the CUDA-core
+//     design below. Their fp32 results hold the plain versions to 1e-5,
+//     which TF32 tensor cores would not.
+//
+// The CUDA-core design. The TPU kernels carry fp32 accumulators in VMEM
+// scratch across a sequential grid axis. Blocks here run in parallel and
+// in no order, so that axis becomes a loop inside the block, and nothing
+// is reduced across blocks: no atomics, results repeat from run to run.
 //   * fwd and dQ: one block per (q tile of 64 rows, batch*head), looping
 //     over k tiles; fwd keeps an online softmax (m, l, acc in fp32
 //     registers), dQ accumulates dQ in fp32 registers.
@@ -29,33 +39,31 @@
 // (ty*4 .. ty*4+3) and every 16th column starting at tx, so row
 // statistics reduce over 16 lanes of one warp with shuffles. Head dims
 // up to 128 run through instantiations for 32, 64 and 128, padded with
-// zeros; ragged final tiles are zero-filled on load and masked.
-//
-// The TPU forward casts P to V's dtype to feed the MXU; the products run
-// here on CUDA cores in fp32, so P stays fp32 (the plain PyTorch version
-// does the same). bf16 operands are widened to fp32 on load; outputs are
-// written in the operands' dtype, lse in fp32.
+// zeros; ragged final tiles are zero-filled on load and masked. P stays
+// fp32 in the products (the plain PyTorch version does the same); bf16
+// operands are widened to fp32 on load; outputs are written in the
+// operands' dtype, lse in fp32.
 //
 // What bounds it: at the training shapes (S = 2048, D = 128, causal) each
 // kernel does 4-8 flops per S-pair per head dim, hundreds of flops per
 // byte of its operands, so it is bound by operations: the bf16 tensor
-// core rate, where this simple design runs on fp32 CUDA cores instead.
-// At B = 2, H = 32 (Llama-3-8B training), bf16, counting the causal half:
+// core rate. At B = 2, H = 32 (Llama-3-8B training), bf16, counting the
+// causal half:
 //   fwd   QK^T, PV          68.7 GFLOP -> 0.0695 ms at 989 TFLOP/s
 //   dQ    S, dP, dQ         103  GFLOP -> 0.104 ms
 //   dK/dV S, dP, dV, dK     137  GFLOP -> 0.139 ms
 // (134-202 MB of operands, 0.04-0.06 ms at 3.35 TB/s); in fp32, against
-// the 67 TFLOP/s of the CUDA cores, 1.03, 1.54 and 2.05 ms.
-// What it leaves on the table: tensor cores (mma.sync / wgmma), TMA or
-// cp.async pipelining of the next tile behind the current one, and
-// occupancy: the staged tiles take 117-168 KB of shared memory at
-// D = 128, so one block of 256 threads runs per SM (hence the launch
-// bound of one block, which lets each thread keep its accumulators in
-// up to 255 registers). Those belong to the PR that redesigns it.
+// the 67 TFLOP/s of the CUDA cores, 1.03, 1.54 and 2.05 ms. The CUDA-core
+// kernels stage 117-168 KB of fp32 tiles at D = 128, so one block of 256
+// threads runs per SM (hence their launch bound of one block, which lets
+// each thread keep its accumulators in up to 255 registers).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stddef.h>
+
+#include "attn_fwd_sm90.cuh"
 
 namespace {
 
@@ -535,6 +543,40 @@ bool args_ok(int bh, int sq, int sk, int d, int dtype) {
          d <= 128 && (dtype == kF32 || dtype == kBF16);
 }
 
+// The mask of the tensor-core forward (attn_fwd_sm90.cuh): the ragged
+// bounds and the top-left causal triangle of `visible`, as the rows each
+// column keeps.
+struct FlashPolicy {
+  static constexpr size_t kExtraBytes = 0;
+  int causal;
+  int q0, sq, sk;
+
+  __device__ __forceinline__ void begin(int, int q0_, int sq_, int sk_) {
+    q0 = q0_;
+    sq = sq_;
+    sk = sk_;
+  }
+  // no column past the tile's last row under causal masking
+  __device__ __forceinline__ int end() const {
+    const int n_kt = (sk + kTile - 1) / kTile;
+    return causal ? min(n_kt, q0 / kTile + 1) : n_kt;
+  }
+  __device__ __forceinline__ bool needed(int) const { return true; }
+  __device__ __forceinline__ bool full(int kt) const {
+    const int k0 = kt * kTile;
+    return q0 + kTile <= sq && k0 + kTile <= sk &&
+           (!causal || q0 >= k0 + kTile - 1);
+  }
+  __device__ __forceinline__ void stage(int, void*) const {}
+  __device__ __forceinline__ attn_fwd_sm90::Span span(int col, int,
+                                                      const void*) const {
+    return {causal ? col : INT_MIN, col < sk ? sq : INT_MIN, INT_MAX,
+            INT_MIN, INT_MAX, INT_MIN};
+  }
+  __device__ __forceinline__ bool drops() const { return false; }
+  __device__ __forceinline__ float drop(float p, int, int) const { return p; }
+};
+
 }  // namespace
 
 // Pick the instantiation for (dtype, padded head dim) and call F with it.
@@ -558,7 +600,8 @@ const char* fa_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Bytes of dynamic shared memory each kernel needs at head_dim d.
+// Bytes of dynamic shared memory each CUDA-core kernel needs at head_dim
+// d: 0 the fp32 forward, 1 dQ, 2 dK/dV.
 size_t fa_smem_bytes(int kernel, int d) {
   const int dp = padded_dim(d);
   const size_t f = kernel == 0 ? fwd_floats(dp)
@@ -570,10 +613,29 @@ size_t fa_smem_bytes(int kernel, int d) {
 // Operands are contiguous (bh, sq|sk, d) slices in `dtype` (0 fp32, 1
 // bf16); lse and delta are (bh, sq) fp32. Each call launches one kernel
 // on `stream`, allocates nothing, and returns cudaGetLastError().
+// bf16 runs the tensor-core kernel, which also needs d % 8 == 0 and
+// 16-byte aligned q, k, v and o.
 int fa_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
            int bh, int sq, int sk, int d, float scale, int causal, int dtype,
            void* stream) {
-  FA_DISPATCH(fwd_typed, q, k, v, o, lse, bh, sq, sk, d, scale, causal);
+  if (!args_ok(bh, sq, sk, d, dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16) {
+    FlashPolicy pol{};
+    pol.causal = causal;
+    return static_cast<int>(attn_fwd_sm90::run(
+        q, k, v, o, lse, bh, sq, sk, d, scale, pol, nullptr, s));
+  }
+  const int dp = padded_dim(d);
+  if (dp == 32)
+    return fwd_typed<float, 32>(q, k, v, o, lse, bh, sq, sk, d, scale, causal,
+                                s);
+  if (dp == 64)
+    return fwd_typed<float, 64>(q, k, v, o, lse, bh, sq, sk, d, scale, causal,
+                                s);
+  return fwd_typed<float, 128>(q, k, v, o, lse, bh, sq, sk, d, scale, causal,
+                               s);
 }
 
 int fa_bwd_dq(const void* q, const void* k, const void* v, const void* dout,

@@ -22,10 +22,29 @@
 // regenerate one mask: lse takes the undropped P, O and dV the dropped
 // P, and dP is dropped before dS.
 //
-// Design. The structure of csrc/flash_attention.cu (64-row tiles, 256
-// threads as 16 x 16, fp32 tiles d-major at a stride of 65 floats, row
-// statistics by xor butterflies, dK/dV as its own kernel with one block
-// per k tile and no atomics), plus what FlashMask adds:
+// Two designs, picked by dtype:
+//   * bf16 forward: the tensor-core tile loop of attn_fwd_sm90.cuh
+//     (mma.sync, cp.async K/V ring, softmax and P in registers, P entering
+//     PV as two bf16 terms) with `FmPolicy` below as its mask. Every skip
+//     decision is known before a tile's copies are issued: a first small
+//     kernel (`tile_agg_kernel`) reduces each sri index over each
+//     64-column k tile (columns < S_k only) to its max and its min. The
+//     max of the starts and the min of the ends give the all-masked skip
+//     (`_sri_all_masked`, :109); the min of the starts and the max of the
+//     ends show a tile that no interval touches. A tile that is also
+//     wholly under the diagonal, inside the window and inside the ragged
+//     bounds is wholly kept and skips the per-pair mask; only the other
+//     (partial) tiles copy their sri columns, beside K and V, and mask
+//     their pairs in fragment coordinates. Dropout applies to the fp32 P
+//     before its split into bf16 terms, never to l.
+//   * fp32 forward and both backward kernels in either dtype: the CUDA-core
+//     design below. Their fp32 results hold the plain versions to 1e-5,
+//     which TF32 tensor cores would not.
+//
+// The CUDA-core design: the structure of csrc/flash_attention.cu (64-row
+// tiles, 256 threads as 16 x 16, fp32 tiles d-major at a stride of 65
+// floats, row statistics by xor butterflies, dK/dV as its own kernel with
+// one block per k tile and no atomics), plus what FlashMask adds:
 //   * sri is read in place, indexed by head stride: the (B, 1, S, n)
 //     mask of packed documents serves all H heads without a copy.
 //   * Block skip. For each (q tile, k tile) the causal and window tile
@@ -40,21 +59,24 @@
 //   * The per-pair mask compares row ids with the staged columns; after
 //     exp every masked entry is zeroed (a row with every pair masked
 //     has m = lse = -1e30, where exp(s - lse) would be 1).
+// Both forwards count the (q tile, k tile) pairs they compute into an
+// optional counter.
 //
 // What bounds it: on packed documents the work is the kept pairs, not
 // S^2: at B=1, H=32, S=8192, D=128 with eight documents of 192-3000
 // tokens, 7.14 M of the 33.6 M causal pairs per head, so 117 / 176 /
 // 234 GFLOP for fwd / dQ / dK-dV, 0.118 / 0.177 / 0.237 ms at the bf16
 // tensor-core rate of 989 TFLOP/s, against 0.01-0.02 ms for the bytes:
-// bound by operations. This simple design computes on fp32 CUDA cores
-// (67 TFLOP/s) and loads tiles synchronously, like flash_attention.cu;
-// tensor cores (wgmma), TMA and pipelining are left to a later change.
-// Tiles that straddle a document edge are computed whole.
+// bound by operations. The CUDA-core kernels compute on fp32 CUDA cores
+// (67 TFLOP/s) and load tiles synchronously. Tiles that straddle a
+// document edge are computed whole.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stddef.h>
+
+#include "attn_fwd_sm90.cuh"
 
 namespace {
 
@@ -164,19 +186,26 @@ __device__ __forceinline__ int agg(const int* half, int i) {
                       : min(half[2 * i], half[2 * i + 1]);
 }
 
-// True when the indices mask every pair of rows [r0, r1] and the staged
-// columns (`_sri_all_masked`).
+// True when the indices mask every pair of rows [r0, r1] and a tile's
+// columns (`_sri_all_masked`); at(i) is index i reduced over those
+// columns: the max of a start (i even), the min of an end (i odd).
+template <class At>
+__device__ __forceinline__ bool all_masked(int r0, int r1, At at,
+                                           const Mask& m) {
+  if (m.n == 1) return r0 >= at(0);
+  if (m.n == 2) {
+    const bool below = r0 >= at(0);
+    const bool above = r1 < at(1);
+    return m.causal ? (below && above) : (below || above);
+  }
+  return (r0 >= at(0) && r1 < at(1)) || (r0 >= at(2) && r1 < at(3));
+}
+
+// all_masked over the columns staged by stage_sri.
 __device__ __forceinline__ bool sri_all_masked(int r0, int r1,
                                                const int* half,
                                                const Mask& m) {
-  if (m.n == 1) return r0 >= agg(half, 0);
-  if (m.n == 2) {
-    const bool below = r0 >= agg(half, 0);
-    const bool above = r1 < agg(half, 1);
-    return m.causal ? (below && above) : (below || above);
-  }
-  return (r0 >= agg(half, 0) && r1 < agg(half, 1)) ||
-         (r0 >= agg(half, 2) && r1 < agg(half, 3));
+  return all_masked(r0, r1, [half](int i) { return agg(half, i); }, m);
 }
 
 // The tile tests of `_block_keep` (:129) that need no load: false when
@@ -236,7 +265,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     fm_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, T* __restrict__ o,
                float* __restrict__ lse, int sq, int sk, int D, float scale,
-               Mask m) {
+               Mask m, int* __restrict__ tile_count) {
   constexpr int NC = DP / 16;  // output dims per thread
   extern __shared__ float smem[];
   float* qs = smem;
@@ -265,6 +294,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   }
   bool q_staged = false;
+  int computed = 0;
   int n_kt = (sk + kTile - 1) / kTile;
   if (m.causal) n_kt = min(n_kt, r1 / kTile + 1);
 
@@ -277,6 +307,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       __syncthreads();
       if (sri_all_masked(q0, r1, half, m)) continue;
     }
+    ++computed;
     if (!q_staged) {
       stage<DP>(qs, q + static_cast<size_t>(bh) * sq * D, q0, sq, D);
       q_staged = true;
@@ -358,6 +389,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     if (tx == 0) lse[static_cast<size_t>(bh) * sq + row] = mr[i] + logf(ls);
   }
+  if (tile_count != nullptr && threadIdx.x == 0)
+    atomicAdd(tile_count, computed);
 }
 
 // ------------------------------------------------------------------ dQ
@@ -646,19 +679,19 @@ cudaError_t prepare(K kernel, size_t smem) {
 
 int padded_dim(int d) { return d <= 32 ? 32 : d <= 64 ? 64 : 128; }
 
-template <typename T, int DP>
-cudaError_t fwd_typed(const void* q, const void* k, const void* v, void* o,
-                      void* lse, int bh, int sq, int sk, int d, float scale,
-                      Mask m, cudaStream_t stream) {
-  auto kernel = fm_fwd_kernel<T, DP>;
+template <int DP>
+cudaError_t fwd_f32(const void* q, const void* k, const void* v, void* o,
+                    void* lse, int bh, int sq, int sk, int d, float scale,
+                    Mask m, int* tile_count, cudaStream_t stream) {
+  auto kernel = fm_fwd_kernel<float, DP>;
   const size_t smem = fwd_words(DP) * 4;
   cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((sq + kTile - 1) / kTile, bh);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      sq, sk, d, scale, m);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), sq, sk, d, scale, m, tile_count);
   return cudaGetLastError();
 }
 
@@ -707,6 +740,159 @@ bool args_ok(const void* sri, int b, int h, int sq, int sk, int d,
          (n == 0 || (sri != nullptr && (sri_heads == 1 || sri_heads == h)));
 }
 
+// ------------------------------------------------- tensor-core forward
+// Tile aggregates for FmPolicy: for every (b, sri head) slice, 64-column
+// k tile and sri index i, the max (agg[2 i]) and the min (agg[2 i + 1])
+// of the index over the tile's columns < sk, at agg[((slice * n_kt) + kt)
+// * 2 n + ...]. One warp a tile.
+constexpr int kAggWarps = 8;
+
+__global__ void tile_agg_kernel(const int* __restrict__ sri, int slices,
+                                int sk, int n, int* __restrict__ agg) {
+  const int n_kt = (sk + kTile - 1) / kTile;
+  const int w = blockIdx.x * kAggWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (w >= slices * n_kt) return;  // whole warps
+  const int kt = w % n_kt;
+  const int* base = sri + static_cast<size_t>(w / n_kt) * sk * n;
+  for (int i = 0; i < n; ++i) {
+    int mx = INT_MIN, mn = INT_MAX;
+    for (int c = kt * kTile + lane; c < min(kt * kTile + kTile, sk); c += 32) {
+      const int x = base[static_cast<size_t>(c) * n + i];
+      mx = max(mx, x);
+      mn = min(mn, x);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+    }
+    if (lane == 0) {
+      agg[static_cast<size_t>(w) * 2 * n + 2 * i] = mx;
+      agg[static_cast<size_t>(w) * 2 * n + 2 * i + 1] = mn;
+    }
+  }
+}
+
+// The mask of the tensor-core forward (attn_fwd_sm90.cuh): keep_pair's
+// test and drop_keep's dropout, with the skip and wholly-kept tests read
+// from the tile aggregates. A partial tile copies its sri columns as
+// cols[c * n + i], the layout of sri itself; `kMaxN` ints a column leave
+// room for span's reads of four.
+struct FmPolicy {
+  static constexpr size_t kExtraBytes = kMaxN * kTile * sizeof(int);
+  Mask m;
+  const int* agg;  // tile_agg_kernel's output
+  // span's flags, from m (`set_span`): a lower bound from the causal
+  // triangle (lo_sub 0) or the right window (lo_sub wr), an upper one from
+  // the left window; sri start 0 as an upper bound (n=1, ~causal n=2),
+  // end 0 as a lower bound (~causal n=2), holes [s0, e0) (causal n=2,
+  // n=4) and [s1, e1) (n=4)
+  bool lo_on, hi_on, hi_x0, lo_x1, hole1, hole2;
+  int lo_sub;
+  const int* sri;  // this block's head
+  const int* ta;   // this block's head's aggregates
+  int bh, q0, r1, sq, sk;
+
+  void set_span() {
+    lo_on = m.causal || m.has_window;
+    lo_sub = m.causal ? 0 : m.wr;
+    hi_on = m.has_window;
+    hi_x0 = m.n == 1 || (m.n == 2 && !m.causal);
+    lo_x1 = m.n == 2 && !m.causal;
+    hole1 = (m.n == 2 && m.causal) || m.n == 4;
+    hole2 = m.n == 4;
+  }
+
+  __device__ __forceinline__ void begin(int bh_, int q0_, int sq_, int sk_) {
+    bh = bh_;
+    q0 = q0_;
+    sq = sq_;
+    sk = sk_;
+    r1 = min(q0 + kTile, sq) - 1;
+    if (m.n) {
+      const int b = bh / m.heads;
+      const int h = m.sri_heads == 1 ? 0 : bh % m.heads;
+      const size_t slice = static_cast<size_t>(b) * m.sri_heads + h;
+      sri = m.sri + slice * sk * m.n;
+      ta = agg + slice * ((sk + kTile - 1) / kTile) * 2 * m.n;
+    }
+  }
+  __device__ __forceinline__ int end() const {
+    const int n_kt = (sk + kTile - 1) / kTile;
+    return m.causal ? min(n_kt, r1 / kTile + 1) : n_kt;
+  }
+  // `_block_keep`: the causal and window tests, then all_masked on the
+  // max of each start (a[2 i], i even) and the min of each end
+  // (a[2 i + 1], i odd)
+  __device__ __forceinline__ bool needed(int kt) const {
+    const int k0 = kt * kTile;
+    if (!tile_may_keep(q0, r1, k0, min(k0 + kTile, sk) - 1, m)) return false;
+    if (m.n == 0) return true;
+    const int* a = ta + kt * 2 * m.n;
+    return !all_masked(q0, r1, [a](int i) { return a[2 * i + i % 2]; }, m);
+  }
+  // every pair kept: inside the ragged bounds, under the diagonal, inside
+  // the window, and no interval reaching a row of the tile, by the min of
+  // each start (a[2 i + 1], i even) and the max of each end (a[2 i], i
+  // odd)
+  __device__ __forceinline__ bool full(int kt) const {
+    const int k0 = kt * kTile;
+    const int rl = q0 + kTile - 1;
+    const int cl = k0 + kTile - 1;
+    if (rl >= sq || cl >= sk) return false;
+    if (m.causal && q0 < cl) return false;
+    if (m.has_window) {
+      if (static_cast<long long>(k0) < static_cast<long long>(rl) - m.wl)
+        return false;
+      if (!m.causal &&
+          static_cast<long long>(cl) > static_cast<long long>(q0) + m.wr)
+        return false;
+    }
+    if (m.n == 0) return true;
+    const int* a = ta + kt * 2 * m.n;
+    if (m.n == 1) return rl < a[1];
+    if (m.n == 2)
+      return m.causal ? (rl < a[1] || q0 >= a[2]) : (rl < a[1] && q0 >= a[2]);
+    return (rl < a[1] || q0 >= a[2]) && (rl < a[5] || q0 >= a[6]);
+  }
+  __device__ __forceinline__ void stage(int kt, void* extra) const {
+    if (m.n == 0) return;
+    int* cols = static_cast<int*>(extra);
+    const int k0 = kt * kTile;
+    for (int i = threadIdx.x; i < kTile * m.n; i += attn_fwd_sm90::kThreads) {
+      const bool in = k0 + i / m.n < sk;
+      attn_fwd_sm90::cp_async4(
+          cols + i, in ? sri + static_cast<size_t>(k0) * m.n + i : sri,
+          in ? 4 : 0);
+    }
+  }
+  // keep_pair as the rows column col keeps: the causal triangle and the
+  // window bound the span, sri cuts it (n=1, ~causal n=2) or holes it
+  // (causal n=2, n=4); every choice is a select on flags set per call
+  __device__ __forceinline__ attn_fwd_sm90::Span span(int col, int c,
+                                                      const void* extra) const {
+    attn_fwd_sm90::Span sp;
+    sp.lo = lo_on ? col - lo_sub : INT_MIN;
+    sp.hi = col < sk ? min(sq, hi_on ? col + m.wl + 1 : INT_MAX) : INT_MIN;
+    // n <= 4 ints a column; with fewer, the reads past them stay inside
+    // the staged tile and are not used
+    const int* x = static_cast<const int*>(extra) + c * m.n;
+    const int x0 = x[0], x1 = x[1], x2 = x[2], x3 = x[3];
+    sp.hi = min(sp.hi, hi_x0 ? x0 : INT_MAX);
+    sp.lo = max(sp.lo, lo_x1 ? x1 : INT_MIN);
+    sp.a1 = hole1 ? x0 : INT_MAX;
+    sp.b1 = hole1 ? x1 : INT_MIN;
+    sp.a2 = hole2 ? x2 : INT_MAX;
+    sp.b2 = hole2 ? x3 : INT_MIN;
+    return sp;
+  }
+  __device__ __forceinline__ bool drops() const { return m.dropout != 0; }
+  __device__ __forceinline__ float drop(float p, int row, int col) const {
+    return drop_keep(row, col, bh, m) ? p * m.inv : 0.f;
+  }
+};
+
 }  // namespace
 
 // Check the arguments, build the Mask, pick the instantiation for
@@ -740,7 +926,8 @@ const char* fm_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Bytes of dynamic shared memory each kernel needs at head_dim d.
+// Bytes of dynamic shared memory each CUDA-core kernel needs at head_dim
+// d: 0 the fp32 forward, 1 dQ, 2 dK/dV.
 size_t fm_smem_bytes(int kernel, int d) {
   const int dp = padded_dim(d);
   const size_t w = kernel == 0 ? fwd_words(dp)
@@ -755,9 +942,43 @@ size_t fm_smem_bytes(int kernel, int d) {
 // keeps a pair when its hash under `seed` is >= thresh and scales it by
 // inv. Each call launches one kernel on `stream`, allocates nothing, and
 // returns cudaGetLastError().
+// fm_fwd also takes tile_agg, scratch of b * sri_heads * ceil(sk / 64) *
+// 2n int32 for the bf16 tensor-core kernel's tile aggregates (null for
+// fp32 or n == 0), and tile_count, null or one int32 to which the number
+// of computed (q tile, k tile, batch*head) triples is added. bf16 needs d
+// % 8 == 0 and 16-byte aligned q, k, v and o, and launches two kernels
+// when n > 0.
 int fm_fwd(const void* q, const void* k, const void* v, const void* sri,
-           void* o, void* lse, FM_ARGS) {
-  FM_DISPATCH(fwd_typed, q, k, v, o, lse, bh, sq, sk, d, scale);
+           void* tile_agg, void* tile_count, void* o, void* lse, FM_ARGS) {
+  if (!args_ok(sri, b, h, sq, sk, d, sri_heads, n, causal, dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Mask m{static_cast<const int*>(sri), h, sri_heads, n, causal,
+               has_window, wl, wr, dropout, seed, thresh, inv};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* count = static_cast<int*>(tile_count);
+  if (dtype == kF32) {
+    const int dp = padded_dim(d);
+    if (dp == 32)
+      return fwd_f32<32>(q, k, v, o, lse, b * h, sq, sk, d, scale, m, count, s);
+    if (dp == 64)
+      return fwd_f32<64>(q, k, v, o, lse, b * h, sq, sk, d, scale, m, count, s);
+    return fwd_f32<128>(q, k, v, o, lse, b * h, sq, sk, d, scale, m, count, s);
+  }
+  if (n) {
+    if (tile_agg == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const int tiles = b * sri_heads * ((sk + kTile - 1) / kTile);
+    tile_agg_kernel<<<(tiles + kAggWarps - 1) / kAggWarps, 32 * kAggWarps, 0,
+                      s>>>(static_cast<const int*>(sri), b * sri_heads, sk, n,
+                           static_cast<int*>(tile_agg));
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  FmPolicy pol{};
+  pol.m = m;
+  pol.agg = static_cast<const int*>(tile_agg);
+  pol.set_span();
+  return static_cast<int>(attn_fwd_sm90::run(q, k, v, o, lse, b * h, sq, sk,
+                                             d, scale, pol, count, s));
 }
 
 int fm_bwd_dq(const void* q, const void* k, const void* v, const void* sri,

@@ -8,8 +8,9 @@ with ctypes:
          -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
 
 The library lands in `paddle_tpu_torch/_build/`, named by a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one
-is reused. Nothing here runs at import time; a missing nvcc or a failed
+source, every header of `csrc/` (`*.cuh`, which a source may include)
+and the flags, so an edited source or header rebuilds and an unchanged
+one is reused. Nothing here runs at import time; a missing nvcc or a failed
 compile raises."""
 from __future__ import annotations
 
@@ -53,6 +54,9 @@ def _source(name):
 
 def lib_path(name) -> Path:
     h = hashlib.sha256(_source(name).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

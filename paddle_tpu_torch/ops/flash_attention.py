@@ -12,7 +12,11 @@ Two implementations of each of the three kernels:
     dS = P (dP - delta) scale, ...), not autograd of a reference. The CPU
     tests hold them to the JAX package, and `chip_smoke.py` holds the
     kernels to them on the card;
-  * the Hopper kernels of `csrc/flash_attention.cu`, for CUDA tensors.
+  * the Hopper kernels of `csrc/flash_attention.cu`, for CUDA tensors:
+    the bf16 forward on the tensor cores (`csrc/attn_fwd_sm90.cuh`,
+    which takes a head dim that is a multiple of 8 and 16-byte aligned
+    operands: `tensor_core_operands` pads or realigns, and the output is
+    sliced back), everything else on fp32 CUDA cores.
 
 `flash_attention_bhsd` runs them under a `torch.autograd.Function` whose
 forward saves (q, k, v, o, lse) and whose backward computes
@@ -36,7 +40,8 @@ import torch
 
 __all__ = ["mha_reference", "flash_fwd_reference", "flash_bwd_dq_reference",
            "flash_bwd_dkv_reference", "flash_attention_bhsd",
-           "flash_attention", "launches_fwd", "launches_dq", "launches_dkv"]
+           "flash_attention", "tensor_core_operands", "launches_fwd",
+           "launches_dq", "launches_dkv"]
 
 NEG_INF = -1e30
 
@@ -200,15 +205,36 @@ def _run(fn, name, ptrs, q, sq, sk, scale, causal):
             f"{lib.fa_error_string(rc).decode()} (cuda error {rc})")
 
 
+def tensor_core_operands(*ts):
+    """The (..., D) operands as the bf16 tensor-core forward takes them:
+    the head dim zero-padded to a multiple of 8 (its 16-byte copies move
+    8 values), and each base 16-byte aligned (a contiguous view at
+    another storage offset is cloned). Zero dims add nothing to Q K^T
+    and give zero output columns, which the caller slices off; the scale
+    is passed explicitly, so it does not change. Tensors already so are
+    returned as they are."""
+    pad = -ts[0].shape[-1] % 8
+    out = []
+    for t in ts:
+        if pad:
+            t = torch.nn.functional.pad(t, (0, pad))
+        elif t.data_ptr() % 16:
+            t = t.clone()
+        out.append(t)
+    return tuple(out)
+
+
 def _launch_fwd(q, k, v, causal, scale):
     global launches_fwd
-    b, h, sq, sk, _ = _check_operands(q, k, v)
+    b, h, sq, sk, d = _check_operands(q, k, v)
+    if q.dtype == torch.bfloat16:
+        q, k, v = tensor_core_operands(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     _run(_lib().fa_fwd, "fwd", [x.data_ptr() for x in (q, k, v, o, lse)],
          q, sq, sk, scale, causal)
     launches_fwd += 1
-    return o, lse
+    return (o if o.shape[-1] == d else o[..., :d].contiguous()), lse
 
 
 def _launch_dq(q, k, v, do, lse, delta, causal, scale):

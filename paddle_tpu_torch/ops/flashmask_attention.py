@@ -30,7 +30,11 @@ Two implementations of each of the three kernels:
     and `chip_smoke.py` holds the kernels to them on the card;
   * the Hopper kernels of `csrc/flashmask_attention.cu`, for CUDA
     tensors. They read sri in place and skip every (q tile, k tile)
-    whose pairs are all masked before loading Q, K or V.
+    whose pairs are all masked before loading Q, K or V. The bf16
+    forward runs on the tensor cores (`csrc/attn_fwd_sm90.cuh`), after a
+    small kernel has reduced sri per 64-column tile (`tile_plan` is its
+    plain twin); its operands go through `tensor_core_operands` as in
+    `ops/flash_attention.py`. Everything else runs on fp32 CUDA cores.
 
 `flashmask_attention_bhsd` runs them under a `torch.autograd.Function`
 whose forward saves (q, k, v, sri, o, lse) and whose backward computes
@@ -50,10 +54,12 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .flash_attention import tensor_core_operands
+
 __all__ = ["dropout_keep_mask", "flashmask_reference",
            "flashmask_fwd_reference", "flashmask_bwd_dq_reference",
            "flashmask_bwd_dkv_reference", "flashmask_attention_bhsd",
-           "launches_fwd", "launches_dq", "launches_dkv"]
+           "tile_plan", "launches_fwd", "launches_dq", "launches_dkv"]
 
 NEG_INF = -1e30
 
@@ -66,6 +72,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
 _VALID_N = {True: (1, 2), False: (2, 4)}   # causal -> allowed sri widths
 _M32 = 0xFFFFFFFF
+TILE = 64                     # rows of a q tile and columns of a k tile
+SKIP, PARTIAL, FULL = 0, 1, 2  # what `tile_plan` decides for a tile
 
 
 # ------------------------------------------------------------ dropout mask
@@ -169,6 +177,73 @@ def _keep(sq, sk, sri, causal, window, device):
     if sri is not None:
         keep = keep & ~_sri_masked(rows, sri, causal)
     return keep
+
+
+def tile_plan(sri, sq, sk, causal, window=None):
+    """The bf16 forward kernel's tile rule, in plain torch: for every
+    (b, sri head, 64-row q tile, 64-column k tile) whether the kernel
+    skips it unloaded (SKIP), masks it pair by pair (PARTIAL) or keeps
+    every pair (FULL). Shape (B, Hs, n_qt, n_kt), or (1, 1, n_qt, n_kt)
+    without sri; every head of a shared (B, 1, S, n) mask has its plan.
+
+    A tile is skipped when the causal triangle or the window hides it, or
+    when the max of each start and the min of each end over its columns
+    < sk show every pair masked (`_sri_all_masked`). It is full when it
+    lies inside the ragged bounds, wholly under the diagonal and inside
+    the window, and the min of each start and the max of each end show
+    that no interval reaches its rows."""
+    window = _norm_window(window)
+    dev = sri.device if sri is not None else torch.device("cpu")
+    n_qt, n_kt = -(-sq // TILE), -(-sk // TILE)
+    q0 = torch.arange(n_qt, device=dev)[:, None] * TILE
+    k0 = torch.arange(n_kt, device=dev)[None, :] * TILE
+    r1, c1 = (q0 + TILE).clamp(max=sq) - 1, (k0 + TILE).clamp(max=sk) - 1
+    rl, cl = q0 + TILE - 1, k0 + TILE - 1
+    need = torch.ones((n_qt, n_kt), dtype=torch.bool, device=dev)
+    full = (rl < sq) & (cl < sk)
+    if causal:
+        need = need & (r1 >= k0)
+        full = full & (q0 >= cl)
+    if window is not None:
+        need = need & (c1 >= q0 - window[0])
+        full = full & (k0 >= rl - window[0])
+        if not causal:
+            need = need & (k0 <= r1 + window[1])
+            full = full & (cl <= q0 + window[1])
+    if sri is None:
+        return torch.where(need, torch.where(full, FULL, PARTIAL),
+                           SKIP)[None, None]
+    _check_n(causal, sri.shape[-1])
+    b, hs, _, n = sri.shape
+    x = sri[:, :, :sk].long()
+    pad = n_kt * TILE - sk
+
+    def reduce(fill, op):     # (B, Hs, n_kt, n) over each tile's columns
+        t = torch.cat([x, x.new_full((b, hs, pad, n), fill)], 2)
+        return op(t.reshape(b, hs, n_kt, TILE, n), 3)[:, :, None]
+    mx = reduce(-(1 << 31), torch.amax)                # (B, Hs, 1, n_kt, n)
+    mn = reduce((1 << 31) - 1, torch.amin)
+
+    def below(i):   # every row at or past each start i
+        return q0 >= mx[..., i]
+
+    def above(i):   # every row before each end i
+        return r1 < mn[..., i]
+
+    def clear(i):   # no interval [start i, end i + 1) reaches a row
+        return (rl < mn[..., i]) | (q0 >= mx[..., i + 1])
+    if n == 1:
+        masked, kept = below(0), rl < mn[..., 0]
+    elif n == 2 and causal:
+        masked, kept = below(0) & above(1), clear(0)
+    elif n == 2:
+        masked = below(0) | above(1)
+        kept = (rl < mn[..., 0]) & (q0 >= mx[..., 1])
+    else:
+        masked = (below(0) & above(1)) | (below(2) & above(3))
+        kept = clear(0) & clear(2)
+    need = need & ~masked
+    return torch.where(need, torch.where(full & kept, FULL, PARTIAL), SKIP)
 
 
 # ------------------------------------------------------------ references
@@ -290,7 +365,7 @@ def _lib():
         # pointers and the stream as c_void_p: a bare Python int would
         # be passed as a 32-bit int and cut
         tail = [ci] * 5 + [cf] + [ci] * 7 + [cu, cu, cf, ci, vp]
-        lib.fm_fwd.argtypes = [vp] * 6 + tail
+        lib.fm_fwd.argtypes = [vp] * 8 + tail
         lib.fm_bwd_dq.argtypes = [vp] * 8 + tail
         lib.fm_bwd_dkv.argtypes = [vp] * 9 + tail
         for fn in (lib.fm_fwd, lib.fm_bwd_dq, lib.fm_bwd_dkv):
@@ -366,15 +441,28 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch_fwd(q, k, v, sri, m):
+def _launch_fwd(q, k, v, sri, m, count_tiles=False):
+    """(o, lse), and with `count_tiles` also the number of (q tile, k
+    tile, batch*head) triples the kernel computed."""
     global launches_fwd
-    b, h, sq, sk, _ = _check_operands(q, k, v, sri, m)
+    b, h, sq, sk, d = _check_operands(q, k, v, sri, m)
+    agg = None
+    if q.dtype == torch.bfloat16:
+        q, k, v = tensor_core_operands(q, k, v)
+        if sri is not None:   # the tile aggregates of every sri slice
+            agg = torch.empty((b * sri.shape[1] * -(-sk // TILE) * 2
+                               * sri.shape[3],), dtype=torch.int32,
+                              device=q.device)
+    tiles = (torch.zeros((1,), dtype=torch.int32, device=q.device)
+             if count_tiles else None)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    _run(_lib().fm_fwd, "fwd", [_ptr(x) for x in (q, k, v, sri, o, lse)],
-         q, sk, sri, m)
+    _run(_lib().fm_fwd, "fwd",
+         [_ptr(x) for x in (q, k, v, sri, agg, tiles, o, lse)], q, sk, sri,
+         m)
     launches_fwd += 1
-    return o, lse
+    o = o if o.shape[-1] == d else o[..., :d].contiguous()
+    return (o, lse, int(tiles.item())) if count_tiles else (o, lse)
 
 
 def _launch_dq(q, k, v, sri, do, lse, delta, m):

@@ -153,9 +153,13 @@ def test_card_engine_matches_cpu_engine(card, cache_dtype):
 
 # ------------------------------------------------------------ flash attention
 FLASH_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
-# by dtype, as TOL above: the kernels and the plain versions compute in
-# fp32 from the same operands and sum in another order; bf16 outputs
-# round the same fp32 value, one ulp apart at most. lse is fp32 in both.
+# by dtype, as TOL above. fp32, and the bf16 backward: the kernels and the
+# plain versions compute in fp32 from the same operands and sum in
+# another order. The bf16 forward multiplies on the tensor cores with P
+# split into two bf16 terms (16 bits of P; one term, the TPU kernel's
+# cast of P to V's dtype, moved rows that see few keys by up to two
+# ulps), so it too differs by sums in another order before the output
+# rounds to bf16: one ulp apart at most. lse is fp32 in both.
 FLASH_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-3, 8e-3)}
 LSE_TOL = (1e-5, 1e-5)
 
@@ -164,23 +168,52 @@ def _counts():
     return fa.launches_fwd, fa.launches_dq, fa.launches_dkv
 
 
-@pytest.mark.parametrize("rep", [1, 4])
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("s", [64, 200, 1024])
+def _offset_view(t):
+    """t's values in a contiguous view one element into its storage, so
+    its base is not 16-byte aligned (the bf16 forward's copies need it:
+    the wrapper realigns)."""
+    store = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = store[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# (s, d, causal, rep, layout): the training grid with GQA repeats; the
+# bf16 forward's edges (S of one row, one short of and one past a 64-row
+# tile, a long one; head dims of each instantiation and D = 72 and 100,
+# padded by the wrapper to 72 and 104); S_k longer than S_q without
+# causal; operands at an unaligned storage offset
+FLASH_CASES = (
+    [(s, d, c, rep, "contiguous") for s in (64, 200, 1024) for d in (64, 128)
+     for c in (False, True) for rep in (1, 4)]
+    + [(s, d, c, 1, "contiguous") for s in (1, 63, 65, 2048)
+       for d in (32, 64, 72, 100, 128) for c in (False, True)]
+    + [(s, d, False, 1, "sk_longer") for s in (63, 200)
+       for d in (72, 100, 128)]
+    + [(s, d, c, 1, "offset") for s in (65, 200) for d in (64, 100, 128)
+       for c in (False, True)])
+
+
+@pytest.mark.parametrize("s,d,causal,rep,layout", FLASH_CASES)
 @pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
-def test_flash_kernels_match_plain(card, dtype, s, d, causal, rep):
+def test_flash_kernels_match_plain(card, dtype, s, d, causal, rep, layout):
     """K and V repeated from 4 / rep heads, as the train step repeats
     GQA heads before the kernels."""
     dt = FLASH_DTYPES[dtype]
     g = torch.Generator(device=card)
     g.manual_seed(s + d)
     b, h = 2, 4
+    sk = s + 77 if layout == "sk_longer" else s
 
-    def rnd(heads):
-        return torch.randn((b, heads, s, d), generator=g, device=card).to(dt)
+    def rnd(heads, rows=s):
+        return torch.randn((b, heads, rows, d), generator=g,
+                           device=card).to(dt)
     q, do = rnd(h), rnd(h)
-    k, v = (rnd(h // rep).repeat_interleave(rep, dim=1) for _ in range(2))
+    k, v = (rnd(h // rep, sk).repeat_interleave(rep, dim=1)
+            for _ in range(2))
+    if layout == "offset":
+        q, k, v, do = (_offset_view(t) for t in (q, k, v, do))
+        assert q.data_ptr() % 16 != 0
     scale = 1.0 / math.sqrt(d)
     before = _counts()
     o, lse = fa._launch_fwd(q, k, v, causal, scale)
@@ -321,19 +354,28 @@ FM_FLAVORS = ("causal_n1_docs", "causal_n2_band", "noncausal_n2",
               "noncausal_window_no_sri", "masked_rows")
 
 
-def _fm_check(card, dt, s, d, flavor, dropout=0.0, seed=None):
+def _fm_check(card, dt, s, d, flavor, dropout=0.0, seed=None,
+              layout="contiguous"):
+    """S_q = s; S_k = s, or s + 77 with layout "sk_longer" (the mask
+    over S_k columns, causal aligned top-left)."""
     b, h = 2, 4
+    sk = s + 77 if layout == "sk_longer" else s
     rng = np.random.default_rng(s + d)
-    sri, causal, window = _fm_mask(flavor, b, h, s, rng)
+    sri, causal, window = _fm_mask(flavor, b, h, sk, rng)
     g = torch.Generator(device=card)
     g.manual_seed(s + d)
-    q, k, v, do = (torch.randn((b, h, s, d), generator=g, device=card).to(dt)
-                   for _ in range(4))
+    q, k, v, do = (torch.randn((b, h, n, d), generator=g,
+                               device=card).to(dt) for n in (s, sk, sk, s))
+    if layout == "offset":
+        q, k, v, do = (_offset_view(t) for t in (q, k, v, do))
     sri = None if sri is None else torch.from_numpy(
         sri.astype(np.int32)).to(card)
     m = fm._Mask(causal, window, 1.0 / math.sqrt(d), dropout, seed)
     before = _fm_counts()
-    o, lse = fm._launch_fwd(q, k, v, sri, m)
+    o, lse, computed = fm._launch_fwd(q, k, v, sri, m, count_tiles=True)
+    plan = fm.tile_plan(sri, s, sk, causal, window)
+    assert computed == int((plan != fm.SKIP).sum()) * (
+        b * h // (plan.shape[0] * plan.shape[1]))
     o_ref, lse_ref = fm.flashmask_fwd_reference(q, k, v, sri, *m)
     delta = (do.float() * o_ref.float()).sum(-1)
     args = (q, k, v, sri, do, lse_ref, delta)
@@ -353,19 +395,33 @@ def _fm_check(card, dt, s, d, flavor, dropout=0.0, seed=None):
                                rtol=LSE_TOL[1])
 
 
+# (s, d, layout): the first grid, then the bf16 forward's edges (one
+# short of and one past a 64-row tile, a long row; D = 32, 72 and 100,
+# the last padded by the wrapper), operands at an unaligned offset, and
+# S_k longer than S_q
+FM_CASES = ([(s, d, "contiguous") for s in (64, 200, 1024) for d in (64, 128)]
+            + [(s, d, "contiguous") for s in (63, 65, 2048)
+               for d in (32, 72, 100, 128)]
+            + [(s, d, "offset") for s, d in ((65, 64), (200, 100))]
+            + [(s, d, "sk_longer") for s, d in ((63, 64), (200, 100))])
+
+
 @pytest.mark.parametrize("flavor", FM_FLAVORS)
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("s", [64, 200, 1024])
+@pytest.mark.parametrize("s,d,layout", FM_CASES)
 @pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
-def test_flashmask_kernels_match_plain(card, dtype, s, d, flavor):
-    _fm_check(card, FLASH_DTYPES[dtype], s, d, flavor)
+def test_flashmask_kernels_match_plain(card, dtype, s, d, layout, flavor):
+    """Every mask flavor (per-head (B, H, S, n) and shared (B, 1, S, n)
+    sri, rows that keep nothing in masked_rows); the forward's computed
+    tiles are tile_plan's."""
+    _fm_check(card, FLASH_DTYPES[dtype], s, d, flavor, layout=layout)
 
 
+@pytest.mark.parametrize("s,d", [(200, 64), (1024, 100), (65, 128)])
 @pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
-def test_flashmask_dropout_kernels_match_plain(card, dtype):
+def test_flashmask_dropout_kernels_match_plain(card, dtype, s, d):
     """The hash regenerated in all three kernels is the plain version's
     mask: rate 0.1, seed 1234567."""
-    _fm_check(card, FLASH_DTYPES[dtype], 200, 64, "causal_n1_docs",
+    _fm_check(card, FLASH_DTYPES[dtype], s, d, "causal_n1_docs",
               dropout=0.1, seed=1234567)
 
 

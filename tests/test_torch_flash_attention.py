@@ -136,6 +136,54 @@ def test_bf16_returns_bf16():
                                atol=3e-2, rtol=1.6e-2)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [20, 100])
+def test_tensor_core_operands_pad_and_slice(d, causal):
+    """The bf16 forward kernel takes head dims that are multiples of 8:
+    the wrapper zero-pads D and slices the output. The plain forward on
+    the padded operands, sliced, is the plain forward on the originals
+    (fp32 sums over D in another blocking only), which holds JAX's
+    mha_reference."""
+    q, k, v, _ = _inputs((2, 2, 96, d), seed=d)
+    tq, tk, tv = _t(q, k, v)
+    pq, pk, pv = fa.tensor_core_operands(tq, tk, tv)
+    dp = -(-d // 8) * 8
+    for p, t in zip((pq, pk, pv), (tq, tk, tv)):
+        assert p.shape == t.shape[:-1] + (dp,) and p.is_contiguous()
+        assert torch.equal(p[..., :d], t) and not p[..., d:].any()
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fa.flash_fwd_reference(tq, tk, tv, causal, scale)
+    po, plse = fa.flash_fwd_reference(pq, pk, pv, causal, scale)
+    assert not po[..., d:].any()
+    torch.testing.assert_close(po[..., :d], o, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(plse, lse, atol=1e-6, rtol=1e-6)
+    jo, jlse = mha_reference(*_j(q, k, v), causal=causal)
+    np.testing.assert_allclose(po[..., :d].numpy(), np.asarray(jo),
+                               atol=ATOL_DENSE)
+    np.testing.assert_allclose(plse.numpy(), np.asarray(jlse),
+                               atol=ATOL_DENSE)
+
+
+def test_tensor_core_operands_realign():
+    """A contiguous bf16 view at a storage offset that is not 16-byte
+    aligned is cloned to an aligned base with the same values; aligned
+    operands with D % 8 == 0 pass through untouched."""
+    q, _, _, _ = _inputs((1, 2, 40, 16), seed=5)
+    flat = torch.from_numpy(q).bfloat16().reshape(-1)
+    store = torch.cat([flat.new_zeros(1), flat])
+    view = store[1:].view(1, 2, 40, 16)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    (moved,) = fa.tensor_core_operands(view)
+    assert moved.data_ptr() % 16 == 0 and torch.equal(moved, view)
+    aligned = flat.view(1, 2, 40, 16).clone()
+    (same,) = fa.tensor_core_operands(aligned)
+    assert same is aligned
+    want = fa.flash_fwd_reference(view, view, view, True, 0.25)
+    got = fa.flash_fwd_reference(moved, moved, moved, True, 0.25)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 def test_causal_needs_equal_lengths():
     q = torch.zeros((1, 1, 8, 16))
     k = torch.zeros((1, 1, 12, 16))

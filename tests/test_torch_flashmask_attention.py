@@ -295,6 +295,94 @@ def test_shared_mask_equals_per_head_mask():
         torch.testing.assert_close(a, b, atol=0, rtol=0)
 
 
+def test_padded_head_dim_gives_the_same_forward():
+    """The bf16 forward kernel's operands go through
+    `tensor_core_operands` (D zero-padded to a multiple of 8): the plain
+    forward on them, sliced, is the plain forward on the originals, on a
+    per-head mask with dropout."""
+    s, d = 200, 20
+    rng = np.random.default_rng(9)
+    sri = _sri(_band(B, H, s, rng))
+    tq, tk, tv = (torch.from_numpy(rng.standard_normal((B, H, s, d))
+                                   .astype(np.float32)) for _ in range(3))
+    m = fm._Mask(True, (96, 0), 1.0 / math.sqrt(d), 0.25, 77)
+    o, lse = fm.flashmask_fwd_reference(tq, tk, tv, sri, *m)
+    pq, pk, pv = fm.tensor_core_operands(tq, tk, tv)
+    assert pq.shape[-1] == 24
+    po, plse = fm.flashmask_fwd_reference(pq, pk, pv, sri, *m)
+    assert not po[..., d:].any()
+    torch.testing.assert_close(po[..., :d], o, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(plse, lse, atol=1e-6, rtol=1e-6)
+    want = _jax_ref(tq.numpy(), tk.numpy(), tv.numpy(), tq.numpy(),
+                    sri.numpy(), True, (96, 0), dropout=0.25, seed=77)
+    np.testing.assert_allclose(po[..., :d].numpy(), want[0], **TOL)
+
+
+def _tile_counts_rule(sri, tile=64):
+    """The skip rule of `chip_smoke.py`'s `_tile_counts` for an n=1
+    causal mask, per (q tile, k tile): causal and not wholly masked,
+    i.e. the tile's first row before the largest start of its
+    columns."""
+    start = sri[0, 0, :, 0].long()
+    nt = -(-start.numel() // tile)
+    pad = torch.full((nt * tile - start.numel(),), -(1 << 31))
+    mx = torch.cat([start, pad]).reshape(nt, tile).amax(1)
+    qt = torch.arange(nt)[:, None]
+    return (torch.arange(nt)[None, :] <= qt) & ~(qt * tile >= mx[None])
+
+
+@pytest.mark.parametrize("docs,s", [
+    ((3000, 1500, 1200, 900, 700, 400, 300, 192), 8192),
+    ((100, 37, 300, 63), 500)])
+def test_tile_plan_on_packed_documents(docs, s):
+    """The kernel's tile rule on packed documents keeps exactly the
+    tiles of `_tile_counts`' rule (the packed training row: 1,904 of
+    8,256 causal tiles a head), and those it keeps whole lie inside one
+    document under the diagonal."""
+    ends = np.cumsum(docs)[np.repeat(np.arange(len(docs)), docs)]
+    sri = torch.from_numpy(ends.astype(np.int32))[None, None, :, None]
+    plan = fm.tile_plan(sri, s, s, True)[0, 0]
+    assert torch.equal(plan != fm.SKIP, _tile_counts_rule(sri))
+    if s == 8192:
+        assert int((plan != fm.SKIP).sum()) == 1904
+    keep = fm._keep(s, s, sri, True, None, "cpu")[0, 0]
+    for qt, kt in (plan == fm.FULL).nonzero().tolist():
+        assert keep[qt * 64:(qt + 1) * 64, kt * 64:(kt + 1) * 64].all()
+
+
+# (flavor, sq, sk): every flavor at two square shapes (one ragged), the
+# non-causal ones also with sq != sk
+_PLAN_CASES = [(f, sq, sk) for f in list(FLAVORS) + ["noncausal_window"]
+               for sq, sk in ((256, 256), (300, 300), (200, 330))
+               if sq == sk or f.startswith("noncausal")]
+
+
+@pytest.mark.parametrize("flavor,sq,sk", _PLAN_CASES)
+def test_tile_plan_is_sound(flavor, sq, sk):
+    """Against the dense mask (held to JAX's by the tests above): no
+    pair of a skipped tile is kept, and every pair of a full tile is."""
+    rng = np.random.default_rng(sq + sk)
+    if flavor == "noncausal_window":
+        sri, causal, window = None, False, (40, 70)
+    else:
+        sri, causal, window = FLAVORS[flavor](sk, rng)
+    t = _sri(sri)
+    plan = fm.tile_plan(t, sq, sk, causal, window)
+    keep = fm._keep(sq, sk, t, causal, fm._norm_window(window), "cpu")
+    keep = keep[None, None] if keep.dim() == 2 else keep
+    n_qt, n_kt = plan.shape[-2:]
+    assert (n_qt, n_kt) == (-(-sq // 64), -(-sk // 64))
+    for qt in range(n_qt):
+        for kt in range(n_kt):
+            blk = keep[..., qt * 64:(qt + 1) * 64, kt * 64:(kt + 1) * 64]
+            p = plan[..., qt, kt]
+            assert not ((p == fm.SKIP) & blk.flatten(2).any(-1)).any()
+            assert ((p != fm.FULL) | blk.flatten(2).all(-1)).all()
+            if blk.shape[-2:] != (64, 64):
+                assert not (p == fm.FULL).any()
+    assert (plan != fm.SKIP).any()
+
+
 @pytest.mark.parametrize("causal,n", [(True, 4), (False, 1)])
 def test_invalid_width_raises_as_jax(causal, n):
     q = torch.zeros((1, 1, 8, 16))

@@ -105,6 +105,27 @@ def test_build_is_lazy_and_names_the_sources():
     assert lib.name.startswith(name + "-") and lib.suffix == ".so"
 
 
+def test_lib_path_follows_the_shared_headers(tmp_path, monkeypatch):
+    """A source that includes a header of csrc/ (the tensor-core forward
+    of attn_fwd_sm90.cuh) rebuilds when that header changes: the header
+    is part of the library's hash, and an unchanged tree keeps it."""
+    import shutil
+    from paddle_tpu_torch.kernels import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    names = ("flash_attention", "flashmask_attention")
+    before = [_build.lib_path(n) for n in names]
+    assert [_build.lib_path(n) for n in names] == before
+    header = csrc / "attn_fwd_sm90.cuh"
+    assert '#include "attn_fwd_sm90.cuh"' in (csrc / f"{names[0]}.cu"
+                                              ).read_text()
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = [_build.lib_path(n) for n in names]
+    assert all(a != b for a, b in zip(after, before))
+    assert all(a.parent == _build.BUILD_DIR for a in after)
+
+
 def test_make_train_step_without_device_raises_on_a_box_without_cuda(
         no_card):
     from paddle_tpu_torch.models.llama_spmd import make_train_step

@@ -45,10 +45,13 @@ def _group(name):
         return "attention (varlen_attention.cu)"
     if "decode_kernel" in n or "verify_kernel" in n:
         return "attention (paged_attention.cu)"
+    # the bf16 forwards are attn_fwd_sm90.cuh's fwd_tc_kernel, told apart
+    # by their mask policy
     if any(s in n for s in ("fm_fwd_kernel", "fm_dq_kernel",
-                            "fm_dkv_kernel")):
+                            "fm_dkv_kernel", "fmpolicy", "tile_agg_kernel")):
         return "attention (flashmask_attention.cu)"
-    if any(s in n for s in ("fwd_kernel", "dq_kernel", "dkv_kernel")):
+    if any(s in n for s in ("fwd_kernel", "dq_kernel", "dkv_kernel",
+                            "flashpolicy")):
         return "attention (flash_attention.cu)"
     if any(s in n for s in ("gemm", "xmma", "cutlass", "nvjet", "matmul")):
         return "matmul"
