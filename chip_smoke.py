@@ -42,9 +42,11 @@ non-zero):
                backward, minus forward) for dQ and dK/dV together, a
                yardstick only. Each row gives its `design`,
                `library_factor` (kernel over library time, same run) and
-               `bound_share` (bound over kernel time); a bf16 forward
-               whose factor exceeds 6 fails the phase (the CUDA-core
-               design of the bf16 forward ran at 28x);
+               `bound_share` (bound over kernel time), and the dK/dV row
+               `pair_library_factor` (dQ + dK/dV over the SDPA
+               backward); a bf16 forward whose factor exceeds 6, or a
+               bf16 dQ or dK/dV whose factor exceeds 4, fails the phase
+               (the CUDA-core designs ran at 28x, 8.4x and 9.6x);
   7. train_parity — Llama-3-8B widths at depth 1 with the vocabulary cut
                to 4096, fp32, TF32 off, remat on, batch 1 x 512: two
                steps of make_train_step on the card and on the CPU from
@@ -694,37 +696,50 @@ def phase_serve(card, cfg, params, init_s):
 # ------------------------------------------------------------- training
 TRAIN_ATTN = {"B": 2, "H": 32, "S": 2048, "D": 128}
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-# Kernel vs plain, by dtype, as TOL above. fp32, and the bf16 backward:
-# both compute in fp32 from the same operands and sum in another order.
-# The bf16 forward multiplies on the tensor cores with P split into two
-# bf16 terms (16 bits of P; one term, the TPU kernel's cast of P to V's
-# dtype, moved rows that see few keys by up to two ulps), so it too
-# differs from the fp32 plain version by sums in another order before
-# the output rounds to bf16: one ulp apart at most. lse is fp32 on both
-# sides.
+# Kernel vs plain, by dtype, as TOL above. fp32: the CUDA-core kernels and
+# the plain versions compute in fp32 from the same operands and sum in
+# another order. bf16: the flash kernels multiply on the tensor cores, S
+# and dP from the bf16 operands exactly, and P (forward, dV) and dS (dQ,
+# dK) split into two bf16 terms, 16 bits of each (one term, the TPU
+# kernel's cast of P to V's dtype, moved forward rows that see few keys
+# by up to two ulps); so they differ from the fp32 plain versions by sums
+# in another order and 2^-17 of P and dS before the outputs round to bf16:
+# one ulp apart at most. The FlashMask and varlen backwards compute in
+# fp32 on CUDA cores. lse is fp32 on both sides.
 LSE_TOL = (1e-5, 1e-5)
-# The design of each kernel row (`design`), and the most a bf16 forward
-# may take over its library call (`library_factor`): the CUDA-core design
-# ran at 28x, the tensor-core one must show it ran.
+# The design of each kernel row (`design`), and the most a bf16 kernel on
+# the tensor cores may take over its library call (`library_factor`): the
+# CUDA-core designs ran the forward at 28x and the flash backward at 8.4x
+# (dQ) and 9.6x (dK/dV) the SDPA backward; the tensor-core ones must show
+# they ran.
 FWD_DESIGN = {"bfloat16": "tensor cores: mma.sync m16n8k16, cp.async K/V "
                           "ring of 2, P as bf16 hi + lo",
               "float32": "cuda-core fp32"}
+BWD_DESIGN = ("tensor cores: mma.sync m16n8k16, cp.async ring of 2 (K/V for "
+              "dQ; Q, dO, lse, delta for dK/dV), P and dS as bf16 hi + lo")
+TC_BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
 MAX_FWD_LIBRARY_FACTOR = 6.0
+MAX_BWD_LIBRARY_FACTOR = 4.0
 
 
 def _design_row(row, kname, dname):
     """Add `design`, `library_factor` and `bound_share` to a kernel row;
-    fail a bf16 forward slower than MAX_FWD_LIBRARY_FACTOR x its library
+    fail a bf16 tensor-core kernel slower than its limit
+    (MAX_FWD_LIBRARY_FACTOR, MAX_BWD_LIBRARY_FACTOR) x its library
     call."""
-    fwd = kname.endswith("_fwd")
-    row["design"] = FWD_DESIGN[dname] if fwd else FWD_DESIGN["float32"]
+    bf16 = dname == "bfloat16"
+    limit = None
+    row["design"] = FWD_DESIGN["float32"]
+    if bf16 and kname.endswith("_fwd"):
+        row["design"], limit = FWD_DESIGN[dname], MAX_FWD_LIBRARY_FACTOR
+    elif bf16 and kname in TC_BWD_KERNELS:
+        row["design"], limit = BWD_DESIGN, MAX_BWD_LIBRARY_FACTOR
     row["library_factor"] = row["kernel_ms"] / row["library_ms"]
     row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
-    if fwd and dname == "bfloat16" and \
-            row["library_factor"] > MAX_FWD_LIBRARY_FACTOR:
+    if limit is not None and row["library_factor"] > limit:
         fail(f"{kname} (bf16): {row['kernel_ms']} ms, "
              f"{row['library_factor']:.2f}x its library call: the "
-             "tensor-core forward did not run at its speed")
+             "tensor-core kernel did not run at its speed")
     return row
 
 
@@ -848,6 +863,10 @@ def phase_train_kernel(card):
                    "tflops": flops / kernel_ms[kname] / 1e9, "tf32": False}
             if kname == "flash_fwd":
                 row["lse_max_abs_err"] = lse_err
+            if kname == "flash_bwd_dkv":   # the pair against one SDPA bwd
+                row["pair_library_factor"] = (
+                    kernel_ms["flash_bwd_dq"] + kernel_ms["flash_bwd_dkv"]) \
+                    / lib_bwd
             emit(_design_row(row, kname, dname))
             out[(kname, dname)] = row
         del q, k, v, do, qg, kg, vg, args, o_ref, lse_ref, delta

@@ -1,7 +1,8 @@
 // The bf16 attention forward tile loop on Hopper's tensor cores, shared by
 // csrc/flash_attention.cu (`fa_fwd`) and csrc/flashmask_attention.cu
 // (`fm_fwd`). The mask is a policy type; see `fwd_tc_kernel` for what a
-// policy provides.
+// policy provides. Its PTX helpers, tile loader, tile scan and hi + lo
+// product are shared with the backward loops of attn_bwd_sm90.cuh.
 //
 // What it computes, per (batch*head) slice of contiguous (BH, S, D) bf16
 // operands: S = Q K^T * scale over the pairs the policy keeps, O =
@@ -54,6 +55,8 @@
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 namespace attn_fwd_sm90 {
 
@@ -183,6 +186,78 @@ constexpr size_t smem_bytes() {
          static_cast<size_t>(kStages) * P::kExtraBytes;
 }
 
+// The first index in [i, end) that `needed` keeps, or end. The lanes of
+// each warp test 32 indices at once and keep the ballot, so a block past
+// a long run of skipped tiles does not walk it one load at a time. Calls
+// must come with non-decreasing i.
+struct TileScan {
+  int base = -32;
+  unsigned bits = 0;  // kept indices among [base, base + 32)
+
+  template <class F>
+  __device__ __forceinline__ int next(int i, int end, F needed) {
+    const int lane = threadIdx.x % 32;
+    while (i < end) {
+      if (i >= base + 32) {
+        base = i;
+        const int t = i + lane;
+        bits = __ballot_sync(0xffffffffu, t < end && needed(t));
+      }
+      const unsigned rest = bits >> (i - base);
+      if (rest != 0u) return i + __ffs(rest) - 1;
+      i = base + 32;
+    }
+    return end;
+  }
+};
+
+// The A fragment of m16n8k16 over 16 columns, from the C fragments of
+// m16n8 of the two 8-column blocks x0 and x1, as two bf16 terms: hi =
+// bf16(x) and lo = bf16(x - hi).
+__device__ __forceinline__ void split_a(const float (&x0)[4],
+                                        const float (&x1)[4],
+                                        unsigned (&hi)[4], unsigned (&lo)[4]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float* x = h == 0 ? x0 : x1;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const __nv_bfloat162 xh = __floats2bfloat162_rn(x[2 * r], x[2 * r + 1]);
+      const float2 back = __bfloat1622float2(xh);
+      hi[2 * h + r] = *reinterpret_cast<const unsigned*>(&xh);
+      lo[2 * h + r] = pack_bf16(x[2 * r] - back.x, x[2 * r + 1] - back.y);
+    }
+  }
+}
+
+// acc[2j], acc[2j + 1] += (hi + lo) B over 16 rows of a swizzled [64][DP]
+// tile (rows row0 .. row0 + 15 are the k dimension, DP the n dimension),
+// B by ldmatrix.trans, two 8-dim blocks a load.
+template <int DP>
+__device__ __forceinline__ void mma_rows(float (*acc)[4],
+                                         const unsigned (&hi)[4],
+                                         const unsigned (&lo)[4],
+                                         const __nv_bfloat16* tile, int row0) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int dp = 0; dp < DP / 16; ++dp) {
+    unsigned b[4];
+    ldsm_x4_trans(b, tile + swz<DP>(row0 + (lane % 8) + (lane / 8) % 2 * 8,
+                                    2 * dp + lane / 16));
+    mma_bf16(acc[2 * dp], hi, b[0], b[1]);
+    mma_bf16(acc[2 * dp + 1], hi, b[2], b[3]);
+    mma_bf16(acc[2 * dp], lo, b[0], b[1]);
+    mma_bf16(acc[2 * dp + 1], lo, b[2], b[3]);
+  }
+}
+
+// Blocks over (bh, n tiles), tiles along y continued along z past y's
+// limit of 65535.
+inline dim3 tile_grid(int bh, int n) {
+  const int ny = n < 65535 ? n : 65535;
+  return dim3(bh, ny, (n + ny - 1) / ny);
+}
+
 // ---------------------------------------------------------------- kernel
 // The rows a key column keeps: [lo, hi) less the holes [a1, b1) and
 // [a2, b2) (an empty hole is [INT_MAX, INT_MIN)). A policy computes it
@@ -257,25 +332,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int j = 0; j < NB; ++j)
     acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
-  // The first needed tile at or after kt. The lanes of each warp test 32
-  // tiles at once and keep the ballot, so a block that starts past a
-  // long run of skipped tiles does not walk them one load at a time.
   const int kt_end = pol.end();
-  int bits_base = -32;
-  unsigned bits = 0;  // needed tiles among [bits_base, bits_base + 32)
-  auto next_kept = [&](int kt) {
-    while (kt < kt_end) {
-      if (kt >= bits_base + 32) {
-        bits_base = kt;
-        const int t = kt + lane;
-        bits = __ballot_sync(0xffffffffu, t < kt_end && pol.needed(t));
-      }
-      const unsigned rest = bits >> (kt - bits_base);
-      if (rest != 0u) return kt + __ffs(rest) - 1;
-      kt = bits_base + 32;
-    }
-    return kt_end;
-  };
+  TileScan scan;
+  auto needed = [&](int t) { return pol.needed(t); };
   auto issue = [&](int kt, int st, bool whole) {
     __nv_bfloat16* ks = kv0 + 2 * st * kTileElems;
     load_tile<DP>(ks, kb, kt * kTileK, sk, D);
@@ -283,7 +342,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (!whole) pol.stage(kt, extra0 + st * P::kExtraBytes);
   };
 
-  int kt = next_kept(0);
+  int kt = scan.next(0, kt_end, needed);
   int computed = 0;
   bool full = kt < kt_end && pol.full(kt);
   if (kt < kt_end) {
@@ -299,7 +358,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     // every warp is done with the previous tile, whose stage the next
     // tile's copies refill while this one computes
     __syncthreads();
-    const int nxt = next_kept(kt + 1);
+    const int nxt = scan.next(kt + 1, kt_end, needed);
     const bool full_nxt = nxt < kt_end && pol.full(nxt);
     if (nxt < kt_end) {
       issue(nxt, st ^ 1, full_nxt);
@@ -397,34 +456,12 @@ __global__ void __launch_bounds__(kThreads, 2)
     // O += P V, 16 keys at a time. P enters as two bf16 terms, hi =
     // bf16(P) and lo = bf16(P - hi), so it carries 16 bits: one term
     // alone (the TPU kernel's cast) moves the output of a row that sees
-    // few keys by up to two bf16 ulps. V by ldmatrix.trans, two 8-dim
-    // blocks a load.
+    // few keys by up to two bf16 ulps.
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
       unsigned hi[4], lo[4];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {   // key blocks 2t and 2t + 1
-        const float* p = s[2 * t + h];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const __nv_bfloat162 ph =
-              __floats2bfloat162_rn(p[2 * r], p[2 * r + 1]);
-          const float2 back = __bfloat1622float2(ph);
-          hi[2 * h + r] = *reinterpret_cast<const unsigned*>(&ph);
-          lo[2 * h + r] =
-              pack_bf16(p[2 * r] - back.x, p[2 * r + 1] - back.y);
-        }
-      }
-#pragma unroll
-      for (int dp = 0; dp < KS; ++dp) {
-        unsigned b[4];
-        ldsm_x4_trans(b, vs + swz<DP>(16 * t + (lane % 8) + (lane / 8) % 2 * 8,
-                                      2 * dp + lane / 16));
-        mma_bf16(acc[2 * dp], hi, b[0], b[1]);
-        mma_bf16(acc[2 * dp + 1], hi, b[2], b[3]);
-        mma_bf16(acc[2 * dp], lo, b[0], b[1]);
-        mma_bf16(acc[2 * dp + 1], lo, b[2], b[3]);
-      }
+      split_a(s[2 * t], s[2 * t + 1], hi, lo);
+      mma_rows<DP>(acc, hi, lo, vs, 16 * t);
     }
     kt = nxt;
     full = full_nxt;
@@ -469,11 +506,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  // q tiles along y, continued along z past y's limit of 65535
-  const int n_qt = (sq + kTileQ - 1) / kTileQ;
-  const int ny = n_qt < 65535 ? n_qt : 65535;
-  dim3 grid(bh, ny, (n_qt + ny - 1) / ny);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  kernel<<<tile_grid(bh, (sq + kTileQ - 1) / kTileQ), kThreads, smem,
+           stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
@@ -481,15 +515,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-// What the kernel needs of its operands: D a multiple of 8 up to 128 and
-// every base 16-byte aligned (the wrappers pad or realign to meet it).
-inline bool operands_ok(int d, const void* q, const void* k, const void* v,
-                        const void* o) {
-  const auto misaligned = [](const void* p) {
-    return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
-  };
-  return d % 8 == 0 && d <= 128 && !misaligned(q) && !misaligned(k) &&
-         !misaligned(v) && !misaligned(o);
+// What the kernels (this forward and the backward of attn_bwd_sm90.cuh)
+// need of their operands: D a multiple of 8 up to 128 and every bf16
+// base 16-byte aligned (the wrappers pad or realign to meet it).
+inline bool operands_ok(int d, std::initializer_list<const void*> ptrs) {
+  if (d % 8 != 0 || d > 128) return false;
+  for (const void* p : ptrs)
+    if ((reinterpret_cast<uintptr_t>(p) & 15) != 0) return false;
+  return true;
 }
 
 // Dispatch on the padded head dim (32, 64 or 128).
@@ -497,7 +530,7 @@ template <class P>
 cudaError_t run(const void* q, const void* k, const void* v, void* o,
                 void* lse, int bh, int sq, int sk, int d, float scale,
                 const P& pol, int* tile_count, cudaStream_t stream) {
-  if (!operands_ok(d, q, k, v, o)) return cudaErrorInvalidValue;
+  if (!operands_ok(d, {q, k, v, o})) return cudaErrorInvalidValue;
   if (d <= 32)
     return launch<32>(q, k, v, o, lse, bh, sq, sk, d, scale, pol, tile_count,
                       stream);

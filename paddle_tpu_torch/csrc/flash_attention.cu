@@ -13,14 +13,15 @@
 //   scale, dQ = dS K, dK = dS^T Q, dV = P^T dO.
 //
 // Two designs, picked by dtype:
-//   * bf16 forward: the tensor-core tile loop of attn_fwd_sm90.cuh
-//     (mma.sync, cp.async K/V ring, softmax and P in registers, P entering
-//     PV as two bf16 terms), with `FlashPolicy` below as its mask policy.
-//     It needs D % 8 == 0 and 16-byte aligned operands; the wrapper pads
-//     or realigns to meet that.
-//   * fp32 forward and both backward kernels in either dtype: the CUDA-core
-//     design below. Their fp32 results hold the plain versions to 1e-5,
-//     which TF32 tensor cores would not.
+//   * bf16: the tensor-core tile loops of attn_fwd_sm90.cuh (forward:
+//     mma.sync, cp.async K/V ring, softmax and P in registers, P entering
+//     PV as two bf16 terms) and attn_bwd_sm90.cuh (dQ and dK/dV: the same
+//     ring over K/V or over Q, dO, lse and delta; P and dS made in
+//     registers and entering their products as two bf16 terms), with
+//     `FlashPolicy` below as their mask policy. They need D % 8 == 0 and
+//     16-byte aligned operands; the wrappers pad or realign to meet that.
+//   * fp32: the CUDA-core design below. Its results hold the plain
+//     versions to 1e-5, which TF32 tensor cores would not.
 //
 // The CUDA-core design. The TPU kernels carry fp32 accumulators in VMEM
 // scratch across a sequential grid axis. Blocks here run in parallel and
@@ -40,15 +41,14 @@
 // statistics reduce over 16 lanes of one warp with shuffles. Head dims
 // up to 128 run through instantiations for 32, 64 and 128, padded with
 // zeros; ragged final tiles are zero-filled on load and masked. P stays
-// fp32 in the products (the plain PyTorch version does the same); bf16
-// operands are widened to fp32 on load; outputs are written in the
-// operands' dtype, lse in fp32.
+// fp32 in the products (the plain PyTorch version does the same).
 //
 // What bounds it: at the training shapes (S = 2048, D = 128, causal) each
 // kernel does 4-8 flops per S-pair per head dim, hundreds of flops per
 // byte of its operands, so it is bound by operations: the bf16 tensor
 // core rate. At B = 2, H = 32 (Llama-3-8B training), bf16, counting the
-// causal half:
+// causal half (the tensor cores execute 103, 137 and 206 GFLOP, P and dS
+// entering their products as two terms):
 //   fwd   QK^T, PV          68.7 GFLOP -> 0.0695 ms at 989 TFLOP/s
 //   dQ    S, dP, dQ         103  GFLOP -> 0.104 ms
 //   dK/dV S, dP, dV, dK     137  GFLOP -> 0.139 ms
@@ -63,6 +63,7 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "attn_bwd_sm90.cuh"
 #include "attn_fwd_sm90.cuh"
 
 namespace {
@@ -74,22 +75,6 @@ constexpr int kPS = kTile + 4;   // stride of a row of a score tile
 constexpr float kNegInf = -1e30f;
 
 enum DType { kF32 = 0, kBF16 = 1 };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Sum / max over the 16 lanes that share a row (tx = lane % 16). The
 // butterfly leaves the identical value in every one of them.
@@ -108,15 +93,16 @@ __device__ __forceinline__ float row_max(float x) {
 // Stage rows [row0, row0 + kTile) of one (rows, D) slice into shared
 // memory, d-major: dst[d * kPad + r]. Rows past `rows` and dims past D
 // (up to DP) are zero. Consecutive threads read consecutive elements.
-template <int DP, typename T>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
-                                      int row0, int rows, int D) {
+template <int DP>
+__device__ __forceinline__ void stage(float* dst,
+                                      const float* __restrict__ src, int row0,
+                                      int rows, int D) {
   for (int i = threadIdx.x; i < kTile * DP; i += kThreads) {
     const int r = i / DP;
     const int d = i % DP;
     float x = 0.f;
     if (row0 + r < rows && d < D)
-      x = to_float(src[static_cast<size_t>(row0 + r) * D + d]);
+      x = src[static_cast<size_t>(row0 + r) * D + d];
     dst[d * kPad + r] = x;
   }
 }
@@ -127,10 +113,10 @@ __device__ __forceinline__ bool visible(int row, int col, int sq, int sk,
 }
 
 // ------------------------------------------------------------- forward
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads, 1)
-    fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, T* __restrict__ o,
+    fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ o,
                float* __restrict__ lse, int sq, int sk, int D, float scale,
                int causal) {
   constexpr int NC = DP / 16;  // output dims per thread
@@ -145,9 +131,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int n_qt = (sq + kTile - 1) / kTile;
   const int q0 = (n_qt - 1 - blockIdx.x) * kTile;  // longest causal rows first
   const size_t bh = blockIdx.y;
-  const T* qb = q + bh * sq * D;
-  const T* kb = k + bh * sk * D;
-  const T* vb = v + bh * sk * D;
+  const float* qb = q + bh * sq * D;
+  const float* kb = k + bh * sk * D;
+  const float* vb = v + bh * sk * D;
 
   stage<DP>(qs, qb, q0, sq, D);
   float m[4], l[4], acc[4][NC];
@@ -230,23 +216,23 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int row = q0 + ty * 4 + i;
     if (row >= sq) continue;
     const float ls = l[i] == 0.f ? 1.f : l[i];
-    T* orow = o + (bh * sq + row) * D;
+    float* orow = o + (bh * sq + row) * D;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = tx + 16 * c;
-      if (d < D) orow[d] = from_float<T>(acc[i][c] / ls);
+      if (d < D) orow[d] = acc[i][c] / ls;
     }
     if (tx == 0) lse[bh * sq + row] = m[i] + logf(ls);
   }
 }
 
 // ------------------------------------------------------------------ dQ
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads, 1)
-    dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ dout,
+    dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              T* __restrict__ dq, int sq, int sk, int D, float scale,
+              float* __restrict__ dq, int sq, int sk, int D, float scale,
               int causal) {
   constexpr int NC = DP / 16;
   extern __shared__ float smem[];
@@ -261,8 +247,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int n_qt = (sq + kTile - 1) / kTile;
   const int q0 = (n_qt - 1 - blockIdx.x) * kTile;
   const size_t bh = blockIdx.y;
-  const T* kb = k + bh * sk * D;
-  const T* vb = v + bh * sk * D;
+  const float* kb = k + bh * sk * D;
+  const float* vb = v + bh * sk * D;
 
   stage<DP>(qs, q + bh * sq * D, q0, sq, D);
   stage<DP>(dos, dout + bh * sq * D, q0, sq, D);
@@ -337,23 +323,23 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= sq) continue;
-    T* drow = dq + (bh * sq + row) * D;
+    float* drow = dq + (bh * sq + row) * D;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = tx + 16 * c;
-      if (d < D) drow[d] = from_float<T>(acc[i][c]);
+      if (d < D) drow[d] = acc[i][c];
     }
   }
 }
 
 // --------------------------------------------------------------- dK/dV
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads, 1)
-    dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const T* __restrict__ dout,
+    dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
                const float* __restrict__ lse,
-               const float* __restrict__ delta, T* __restrict__ dk,
-               T* __restrict__ dv, int sq, int sk, int D, float scale,
+               const float* __restrict__ delta, float* __restrict__ dk,
+               float* __restrict__ dv, int sq, int sk, int D, float scale,
                int causal) {
   constexpr int NC = DP / 16;
   extern __shared__ float smem[];
@@ -370,8 +356,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int ty = threadIdx.x / 16;
   const int k0 = blockIdx.x * kTile;
   const size_t bh = blockIdx.y;
-  const T* qb = q + bh * sq * D;
-  const T* ob = dout + bh * sq * D;
+  const float* qb = q + bh * sq * D;
+  const float* ob = dout + bh * sq * D;
 
   stage<DP>(ks, k + bh * sk * D, k0, sk, D);
   stage<DP>(vs, v + bh * sk * D, k0, sk, D);
@@ -457,14 +443,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = 0; i < 4; ++i) {
     const int row = k0 + ty * 4 + i;
     if (row >= sk) continue;
-    T* krow = dk + (bh * sk + row) * D;
-    T* vrow = dv + (bh * sk + row) * D;
+    float* krow = dk + (bh * sk + row) * D;
+    float* vrow = dv + (bh * sk + row) * D;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = tx + 16 * c;
       if (d < D) {
-        krow[d] = from_float<T>(dka[i][c]);
-        vrow[d] = from_float<T>(dva[i][c]);
+        krow[d] = dka[i][c];
+        vrow[d] = dva[i][c];
       }
     }
   }
@@ -486,55 +472,56 @@ cudaError_t prepare(K kernel, size_t smem) {
 
 int padded_dim(int d) { return d <= 32 ? 32 : d <= 64 ? 64 : 128; }
 
-template <typename T, int DP>
-cudaError_t fwd_typed(const void* q, const void* k, const void* v, void* o,
-                      void* lse, int bh, int sq, int sk, int d, float scale,
-                      int causal, cudaStream_t stream) {
-  auto kernel = fwd_kernel<T, DP>;
+template <int DP>
+cudaError_t fwd_f32(const void* q, const void* k, const void* v, void* o,
+                    void* lse, int bh, int sq, int sk, int d, float scale,
+                    int causal, cudaStream_t stream) {
+  auto kernel = fwd_kernel<DP>;
   const size_t smem = fwd_floats(DP) * sizeof(float);
   cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((sq + kTile - 1) / kTile, bh);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      sq, sk, d, scale, causal);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), sq, sk, d, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T, int DP>
-cudaError_t dq_typed(const void* q, const void* k, const void* v,
-                     const void* dout, const void* lse, const void* delta,
-                     void* dq, int bh, int sq, int sk, int d, float scale,
-                     int causal, cudaStream_t stream) {
-  auto kernel = dq_kernel<T, DP>;
+template <int DP>
+cudaError_t dq_f32(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dq, int bh, int sq, int sk, int d, float scale,
+                   int causal, cudaStream_t stream) {
+  auto kernel = dq_kernel<DP>;
   const size_t smem = dq_floats(DP) * sizeof(float);
   cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((sq + kTile - 1) / kTile, bh);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), sq, sk, d, scale, causal);
+      static_cast<float*>(dq), sq, sk, d, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T, int DP>
-cudaError_t dkv_typed(const void* q, const void* k, const void* v,
-                      const void* dout, const void* lse, const void* delta,
-                      void* dk, void* dv, int bh, int sq, int sk, int d,
-                      float scale, int causal, cudaStream_t stream) {
-  auto kernel = dkv_kernel<T, DP>;
+template <int DP>
+cudaError_t dkv_f32(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    void* dk, void* dv, int bh, int sq, int sk, int d,
+                    float scale, int causal, cudaStream_t stream) {
+  auto kernel = dkv_kernel<DP>;
   const size_t smem = dkv_floats(DP) * sizeof(float);
   cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((sk + kTile - 1) / kTile, bh);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, d, scale, causal);
+      static_cast<float*>(dk), static_cast<float*>(dv), sq, sk, d, scale,
+      causal);
   return cudaGetLastError();
 }
 
@@ -543,14 +530,15 @@ bool args_ok(int bh, int sq, int sk, int d, int dtype) {
          d <= 128 && (dtype == kF32 || dtype == kBF16);
 }
 
-// The mask of the tensor-core forward (attn_fwd_sm90.cuh): the ragged
-// bounds and the top-left causal triangle of `visible`, as the rows each
-// column keeps.
+// The mask of the tensor-core loops (attn_fwd_sm90.cuh, attn_bwd_sm90.cuh):
+// the ragged bounds and the top-left causal triangle of `visible`, as the
+// rows each column keeps.
 struct FlashPolicy {
   static constexpr size_t kExtraBytes = 0;
   int causal;
-  int q0, sq, sk;
+  int q0, k0, sq, sk;
 
+  // the q-major loops (forward, dQ): this block's q tile
   __device__ __forceinline__ void begin(int, int q0_, int sq_, int sk_) {
     q0 = q0_;
     sq = sq_;
@@ -563,9 +551,7 @@ struct FlashPolicy {
   }
   __device__ __forceinline__ bool needed(int) const { return true; }
   __device__ __forceinline__ bool full(int kt) const {
-    const int k0 = kt * kTile;
-    return q0 + kTile <= sq && k0 + kTile <= sk &&
-           (!causal || q0 >= k0 + kTile - 1);
+    return pair_full(q0, kt * kTile);
   }
   __device__ __forceinline__ void stage(int, void*) const {}
   __device__ __forceinline__ attn_fwd_sm90::Span span(int col, int,
@@ -575,24 +561,43 @@ struct FlashPolicy {
   }
   __device__ __forceinline__ bool drops() const { return false; }
   __device__ __forceinline__ float drop(float p, int, int) const { return p; }
+
+  // the k-major loop (dK/dV): this block's k tile; under causal masking
+  // no q tile before the one holding row k0 sees it
+  __device__ __forceinline__ void begin_k(int, int k0_, int sq_, int sk_) {
+    k0 = k0_;
+    sq = sq_;
+    sk = sk_;
+  }
+  __device__ __forceinline__ int q_begin() const {
+    return causal ? k0 / kTile : 0;
+  }
+  __device__ __forceinline__ int q_end() const {
+    return (sq + kTile - 1) / kTile;
+  }
+  __device__ __forceinline__ bool needed_q(int) const { return true; }
+  __device__ __forceinline__ bool full_q(int qt) const {
+    return pair_full(qt * kTile, k0);
+  }
+  __device__ __forceinline__ attn_fwd_sm90::Span key_span(int col) const {
+    return span(col, 0, nullptr);
+  }
+
+  // every pair of the tiles at rows q0_ and columns k0_ is kept
+  __device__ __forceinline__ bool pair_full(int q0_, int k0_) const {
+    return q0_ + kTile <= sq && k0_ + kTile <= sk &&
+           (!causal || q0_ >= k0_ + kTile - 1);
+  }
 };
 
 }  // namespace
 
-// Pick the instantiation for (dtype, padded head dim) and call F with it.
-#define FA_DISPATCH(F, ...)                                              \
-  if (!args_ok(bh, sq, sk, d, dtype))                                    \
-    return static_cast<int>(cudaErrorInvalidValue);                      \
-  cudaStream_t s = static_cast<cudaStream_t>(stream);                    \
+// The fp32 (CUDA-core) instantiation of F for the padded head dim.
+#define FA_F32(F, ...)                                                   \
   const int dp = padded_dim(d);                                          \
-  if (dtype == kF32) {                                                   \
-    if (dp == 32) return F<float, 32>(__VA_ARGS__, s);                   \
-    if (dp == 64) return F<float, 64>(__VA_ARGS__, s);                   \
-    return F<float, 128>(__VA_ARGS__, s);                                \
-  }                                                                      \
-  if (dp == 32) return F<__nv_bfloat16, 32>(__VA_ARGS__, s);             \
-  if (dp == 64) return F<__nv_bfloat16, 64>(__VA_ARGS__, s);             \
-  return F<__nv_bfloat16, 128>(__VA_ARGS__, s)
+  if (dp == 32) return F<32>(__VA_ARGS__, s);                            \
+  if (dp == 64) return F<64>(__VA_ARGS__, s);                            \
+  return F<128>(__VA_ARGS__, s)
 
 extern "C" {
 
@@ -613,8 +618,8 @@ size_t fa_smem_bytes(int kernel, int d) {
 // Operands are contiguous (bh, sq|sk, d) slices in `dtype` (0 fp32, 1
 // bf16); lse and delta are (bh, sq) fp32. Each call launches one kernel
 // on `stream`, allocates nothing, and returns cudaGetLastError().
-// bf16 runs the tensor-core kernel, which also needs d % 8 == 0 and
-// 16-byte aligned q, k, v and o.
+// bf16 runs the tensor-core kernels, which also need d % 8 == 0 and
+// 16-byte aligned bf16 operands and outputs.
 int fa_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
            int bh, int sq, int sk, int d, float scale, int causal, int dtype,
            void* stream) {
@@ -627,31 +632,41 @@ int fa_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
     return static_cast<int>(attn_fwd_sm90::run(
         q, k, v, o, lse, bh, sq, sk, d, scale, pol, nullptr, s));
   }
-  const int dp = padded_dim(d);
-  if (dp == 32)
-    return fwd_typed<float, 32>(q, k, v, o, lse, bh, sq, sk, d, scale, causal,
-                                s);
-  if (dp == 64)
-    return fwd_typed<float, 64>(q, k, v, o, lse, bh, sq, sk, d, scale, causal,
-                                s);
-  return fwd_typed<float, 128>(q, k, v, o, lse, bh, sq, sk, d, scale, causal,
-                               s);
+  FA_F32(fwd_f32, q, k, v, o, lse, bh, sq, sk, d, scale, causal);
 }
 
 int fa_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int bh, int sq,
               int sk, int d, float scale, int causal, int dtype,
               void* stream) {
-  FA_DISPATCH(dq_typed, q, k, v, dout, lse, delta, dq, bh, sq, sk, d, scale,
-              causal);
+  if (!args_ok(bh, sq, sk, d, dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16) {
+    FlashPolicy pol{};
+    pol.causal = causal;
+    return static_cast<int>(attn_bwd_sm90::run_dq(
+        q, k, v, dout, lse, delta, dq, bh, sq, sk, d, scale, pol, s));
+  }
+  FA_F32(dq_f32, q, k, v, dout, lse, delta, dq, bh, sq, sk, d, scale,
+         causal);
 }
 
 int fa_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
                int bh, int sq, int sk, int d, float scale, int causal,
                int dtype, void* stream) {
-  FA_DISPATCH(dkv_typed, q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d,
-              scale, causal);
+  if (!args_ok(bh, sq, sk, d, dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16) {
+    FlashPolicy pol{};
+    pol.causal = causal;
+    return static_cast<int>(attn_bwd_sm90::run_dkv(
+        q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d, scale, pol, s));
+  }
+  FA_F32(dkv_f32, q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d, scale,
+         causal);
 }
 
 }  // extern "C"

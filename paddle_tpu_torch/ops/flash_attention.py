@@ -13,10 +13,11 @@ Two implementations of each of the three kernels:
     tests hold them to the JAX package, and `chip_smoke.py` holds the
     kernels to them on the card;
   * the Hopper kernels of `csrc/flash_attention.cu`, for CUDA tensors:
-    the bf16 forward on the tensor cores (`csrc/attn_fwd_sm90.cuh`,
-    which takes a head dim that is a multiple of 8 and 16-byte aligned
-    operands: `tensor_core_operands` pads or realigns, and the output is
-    sliced back), everything else on fp32 CUDA cores.
+    bf16 on the tensor cores (the forward through `csrc/attn_fwd_sm90.cuh`,
+    dQ and dK/dV through `csrc/attn_bwd_sm90.cuh`, which take a head dim
+    that is a multiple of 8 and 16-byte aligned operands:
+    `tensor_core_operands` pads or realigns, and the outputs are sliced
+    back), fp32 on CUDA cores.
 
 `flash_attention_bhsd` runs them under a `torch.autograd.Function` whose
 forward saves (q, k, v, o, lse) and whose backward computes
@@ -206,13 +207,14 @@ def _run(fn, name, ptrs, q, sq, sk, scale, causal):
 
 
 def tensor_core_operands(*ts):
-    """The (..., D) operands as the bf16 tensor-core forward takes them:
-    the head dim zero-padded to a multiple of 8 (its 16-byte copies move
-    8 values), and each base 16-byte aligned (a contiguous view at
-    another storage offset is cloned). Zero dims add nothing to Q K^T
-    and give zero output columns, which the caller slices off; the scale
-    is passed explicitly, so it does not change. Tensors already so are
-    returned as they are."""
+    """The (..., D) operands as the bf16 tensor-core kernels take them:
+    the head dim zero-padded to a multiple of 8 (their 16-byte copies
+    move 8 values), and each base 16-byte aligned (a contiguous view at
+    another storage offset is cloned). Zero dims add nothing to Q K^T or
+    dO V^T, so P and dS do not change, and they give zero output columns
+    (O, dQ, dK, dV), which the caller slices off; the scale is passed
+    explicitly, so it does not change. Tensors already so are returned
+    as they are."""
     pad = -ts[0].shape[-1] % 8
     out = []
     for t in ts:
@@ -239,24 +241,30 @@ def _launch_fwd(q, k, v, causal, scale):
 
 def _launch_dq(q, k, v, do, lse, delta, causal, scale):
     global launches_dq
-    _, _, sq, sk, _ = _check_operands(q, k, v, do, lse, delta)
+    _, _, sq, sk, d = _check_operands(q, k, v, do, lse, delta)
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = tensor_core_operands(q, k, v, do)
     dq = torch.empty_like(q)
     _run(_lib().fa_bwd_dq, "dq",
          [x.data_ptr() for x in (q, k, v, do, lse, delta, dq)],
          q, sq, sk, scale, causal)
     launches_dq += 1
-    return dq
+    return dq if dq.shape[-1] == d else dq[..., :d].contiguous()
 
 
 def _launch_dkv(q, k, v, do, lse, delta, causal, scale):
     global launches_dkv
-    _, _, sq, sk, _ = _check_operands(q, k, v, do, lse, delta)
+    _, _, sq, sk, d = _check_operands(q, k, v, do, lse, delta)
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = tensor_core_operands(q, k, v, do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _run(_lib().fa_bwd_dkv, "dkv",
          [x.data_ptr() for x in (q, k, v, do, lse, delta, dk, dv)],
          q, sq, sk, scale, causal)
     launches_dkv += 1
+    if dk.shape[-1] != d:
+        dk, dv = dk[..., :d].contiguous(), dv[..., :d].contiguous()
     return dk, dv
 
 

@@ -153,13 +153,15 @@ def test_card_engine_matches_cpu_engine(card, cache_dtype):
 
 # ------------------------------------------------------------ flash attention
 FLASH_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
-# by dtype, as TOL above. fp32, and the bf16 backward: the kernels and the
-# plain versions compute in fp32 from the same operands and sum in
-# another order. The bf16 forward multiplies on the tensor cores with P
-# split into two bf16 terms (16 bits of P; one term, the TPU kernel's
-# cast of P to V's dtype, moved rows that see few keys by up to two
-# ulps), so it too differs by sums in another order before the output
-# rounds to bf16: one ulp apart at most. lse is fp32 in both.
+# by dtype, as TOL above. fp32: the CUDA-core kernels and the plain
+# versions compute in fp32 from the same operands and sum in another
+# order. bf16: the kernels multiply on the tensor cores, S and dP from the
+# bf16 operands exactly, and P (forward, dV) and dS (dQ, dK) split into
+# two bf16 terms, 16 bits of each (one term, the TPU kernel's cast of P
+# to V's dtype, moved forward rows that see few keys by up to two ulps);
+# so they differ from the fp32 plain versions by sums in another order
+# and 2^-17 of P and dS before the outputs round to bf16: one ulp apart at
+# most. lse is fp32 in both.
 FLASH_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-3, 8e-3)}
 LSE_TOL = (1e-5, 1e-5)
 
@@ -182,7 +184,8 @@ def _offset_view(t):
 # bf16 forward's edges (S of one row, one short of and one past a 64-row
 # tile, a long one; head dims of each instantiation and D = 72 and 100,
 # padded by the wrapper to 72 and 104); S_k longer than S_q without
-# causal; operands at an unaligned storage offset
+# causal, short and at the training length; operands at an unaligned
+# storage offset
 FLASH_CASES = (
     [(s, d, c, rep, "contiguous") for s in (64, 200, 1024) for d in (64, 128)
      for c in (False, True) for rep in (1, 4)]
@@ -190,6 +193,7 @@ FLASH_CASES = (
        for d in (32, 64, 72, 100, 128) for c in (False, True)]
     + [(s, d, False, 1, "sk_longer") for s in (63, 200)
        for d in (72, 100, 128)]
+    + [(2048, d, False, 1, "sk_longer") for d in (72, 128)]
     + [(s, d, c, 1, "offset") for s in (65, 200) for d in (64, 100, 128)
        for c in (False, True)])
 
@@ -237,10 +241,18 @@ def test_flash_kernels_match_plain(card, dtype, s, d, causal, rep, layout):
                                rtol=LSE_TOL[1])
 
 
-@pytest.mark.parametrize("rep", [1, 4])
-def test_flash_autograd_on_card_matches_cpu(card, rep):
-    """Through the autograd Function and the GQA repeat, fp32: the
-    card's kernels against the CPU's plain versions."""
+# bf16 without the GQA repeat: its backward sums the `rep` heads' dK and dV
+# after each was rounded to bf16, so one-ulp differences of single heads
+# (the kernels' O differs from the plain O by an ulp in places, and delta
+# with it) add up to several ulps of the sum, past FLASH_TOL by
+# construction; each head's dK and dV are held at FLASH_TOL under GQA
+# repeats in test_flash_kernels_match_plain.
+@pytest.mark.parametrize("rep,dtype", [(1, "fp32"), (4, "fp32"),
+                                       (1, "bf16")])
+def test_flash_autograd_on_card_matches_cpu(card, rep, dtype):
+    """Through the autograd Function and the GQA repeat: the card's
+    kernels against the CPU's plain versions, at FLASH_TOL."""
+    dt = FLASH_DTYPES[dtype]
     rng = np.random.default_rng(rep)
     q, w = (rng.standard_normal((1, 4, 200, 64)).astype(np.float32)
             for _ in range(2))
@@ -248,13 +260,35 @@ def test_flash_autograd_on_card_matches_cpu(card, rep):
             for _ in range(2))
     out = {}
     for dev in (card, torch.device("cpu")):
-        ts = [torch.from_numpy(a).to(dev).requires_grad_() for a in (q, k, v)]
+        ts = [torch.from_numpy(a).to(dev, dt).requires_grad_()
+              for a in (q, k, v)]
         kk, vv = (t.repeat_interleave(rep, dim=1) for t in ts[1:])
         o = fa.flash_attention_bhsd(ts[0], kk, vv, causal=True)
-        (o * torch.from_numpy(w).to(dev)).sum().backward()
+        (o * torch.from_numpy(w).to(dev, dt)).sum().backward()
         out[dev.type] = [o.detach().cpu()] + [t.grad.cpu() for t in ts]
+    atol, rtol = FLASH_TOL[dt]
     for name, a, b in zip(("o", "dq", "dk", "dv"), out["cuda"], out["cpu"]):
-        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4, msg=name)
+        assert a.dtype == dt, name
+        torch.testing.assert_close(a.float(), b.float(), atol=atol,
+                                   rtol=rtol, msg=name)
+
+
+@pytest.mark.parametrize("s,d,causal", [(2048, 128, True), (200, 100, False)])
+def test_flash_bf16_backward_repeats_bit_for_bit(card, s, d, causal):
+    """No atomics and a fixed order of sums: two launches of each bf16
+    backward kernel on the same operands give the same bits."""
+    g = torch.Generator(device=card)
+    g.manual_seed(s + d)
+    q, k, v, do = (torch.randn((2, 4, s, d), generator=g,
+                               device=card).bfloat16() for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fa._launch_fwd(q, k, v, causal, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, causal, scale)
+    runs = [[fa._launch_dq(*args), *fa._launch_dkv(*args)] for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), *runs):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16)), name
 
 
 def test_flash_kernels_refuse_what_they_do_not_take(card):

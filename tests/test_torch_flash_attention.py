@@ -164,6 +164,33 @@ def test_tensor_core_operands_pad_and_slice(d, causal):
                                atol=ATOL_DENSE)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [20, 100])
+def test_tensor_core_operands_backward_pad_and_slice(d, causal):
+    """The bf16 dQ and dK/dV kernels take q, k, v and dO padded as the
+    forward's operands, and lse and delta as they are: zero dims add
+    nothing to S or dP, so P and dS do not change, and dQ, dK and dV come
+    back with zero padding columns, which the wrapper slices off. The
+    plain backward on the padded operands, sliced, is the plain backward
+    on the originals."""
+    q, k, v, do = _inputs((2, 2, 96, d), seed=d + 1)
+    tq, tk, tv, tdo = _t(q, k, v, do)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fa.flash_fwd_reference(tq, tk, tv, causal, scale)
+    delta = (tdo * o).sum(-1)
+    padded = fa.tensor_core_operands(tq, tk, tv, tdo)
+    want = (fa.flash_bwd_dq_reference(tq, tk, tv, tdo, lse, delta, causal,
+                                      scale),
+            *fa.flash_bwd_dkv_reference(tq, tk, tv, tdo, lse, delta, causal,
+                                        scale))
+    got = (fa.flash_bwd_dq_reference(*padded, lse, delta, causal, scale),
+           *fa.flash_bwd_dkv_reference(*padded, lse, delta, causal, scale))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape[-1] == -(-d // 8) * 8 and not g[..., d:].any(), name
+        torch.testing.assert_close(g[..., :d], w, atol=1e-6, rtol=1e-6,
+                                   msg=name)
+
+
 def test_tensor_core_operands_realign():
     """A contiguous bf16 view at a storage offset that is not 16-byte
     aligned is cloned to an aligned base with the same values; aligned
