@@ -11,7 +11,10 @@ non-zero):
   1. device  — the card's name and power limit (nvidia-smi), refusing
                to run without CUDA;
   2. build   — nvcc builds every kernel source of csrc/, one nvcc per
-               source, all started together;
+               source, all started together; each source's line lists
+               every kernel with its registers and spill bytes (ptxas),
+               and `tc_spill_bytes` sums the spills of the tensor-core
+               kernels (`*_tc_kernel`);
   3. kernel  — the ragged paged-attention kernel against its plain
                version on one mixed wave at Llama-3-8B attention widths
                (QH=32, KVH=8, D=128, page 16): a 256-token prefill chunk
@@ -93,6 +96,9 @@ non-zero):
                prompt, summed; (b) va_fwd correctness on ragged token
                axes of 700-1000 (causal and not, unequal q/k offsets,
                rows that see nothing), GQA groups 1 and 4, D=64 and 128;
+               the va_fwd rows carry `design`, `library_factor` and
+               `bound_share` as train_kernel's (bf16 runs the tensor-core
+               loop with the varlen policy, and fails over 6x SDPA);
                (c) pa_decode at 8B widths on 8 slots of 100-2000 cached
                tokens and a free slot (exactly zero), fp32, bf16 and
                int8 pools (int8 with bf16 and with fp32 q), with times;
@@ -153,7 +159,13 @@ non-zero):
                F.scaled_dot_product_attention (is_causal) per document,
                forward + backward minus forward, summed; the ported
                FlashMask dQ and dK/dV on the same row (the same mask from
-               doc_end_indices) are timed beside them as a yardstick; (b)
+               doc_end_indices) are timed beside them as a yardstick;
+               the forward va_fwd on the same row, against its plain
+               version, with its tiles held to the skip rule, timed
+               against F.scaled_dot_product_attention's forward per
+               document and the ported FlashMask forward (`fm_fwd`) on
+               the same row, with `design`, `library_factor` and
+               `bound_share` (a bf16 factor over 6 fails); (b)
                correctness on ragged token axes of 700-1000: unequal q/k
                offsets (no diagonal skip), causal and not, trailing pads
                on both sides, a query segment that sees nothing (dQ = 0)
@@ -272,6 +284,39 @@ def phase_device():
     return smi, name
 
 
+def _ptxas_kernels(report):
+    """Each kernel of an nvcc -Xptxas -v report: its name, shortened from
+    the mangled one to the kernel, element type, head dim and mask
+    policy (`fwd_tc_kernel<128, VarlenPolicy>`), its registers and spill
+    bytes (stores + loads)."""
+    import re
+    out, name, spill = [], None, 0
+    for ln in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            name, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and name:
+            spill = int(m.group(1)) + int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            kern = re.search(r"\d+([A-Za-z_]+_kernel)", name)
+            elem = re.search(r"_kernelI(13__nv_bfloat16|f)", name)
+            args = [elem and ("bf16" if elem.group(1) != "f" else "f32"),
+                    *re.findall(r"Li(\d+)E", name),
+                    *re.findall(r"\d+([A-Za-z]+Policy)", name)]
+            label = kern.group(1) if kern else name
+            if any(args):
+                label += "<" + ", ".join(a for a in args if a) + ">"
+            out.append({"kernel": label, "registers": int(m.group(1)),
+                        "spill_bytes": spill})
+            name = None
+    return out
+
+
 def phase_build(card):
     from concurrent.futures import ThreadPoolExecutor
     from paddle_tpu_torch.kernels import _build
@@ -280,11 +325,12 @@ def phase_build(card):
         secs = dict(zip(SOURCES, ex.map(_build.build, SOURCES)))
     wall = time.perf_counter() - t0
     for name in SOURCES:
-        ptxas = [ln.strip() for ln in _build.ptxas_report(name).splitlines()
-                 if "registers" in ln or "spill" in ln]
+        kernels = _ptxas_kernels(_build.ptxas_report(name))
         emit({"phase": "build", "card": card, "seconds": secs[name],
               "wall_seconds_all_sources": wall,
-              "source": str(_build.lib_path(name).name), "ptxas": ptxas})
+              "source": str(_build.lib_path(name).name), "ptxas": kernels,
+              "tc_spill_bytes": sum(k["spill_bytes"] for k in kernels
+                                    if "_tc_kernel" in k["kernel"])})
 
 
 # kernel-phase variants: name -> (pool dtype, q dtype)
@@ -1630,7 +1676,7 @@ def phase_bucket_kernel(card):
                "bound_ms": bound_ms, "bound_by": bound_by,
                "bound_bytes": nbytes, "bound_flops": flops,
                "tflops": flops / ms / 1e9, "tf32": False}
-        emit(row)
+        emit(_design_row(row, "varlen_fwd", dname))
         out[("varlen_fwd", dname)] = row
         del q, k, v
         torch.cuda.empty_cache()
@@ -2393,17 +2439,28 @@ def phase_varlen_kernel(card):
             {"varlen_bwd_dq": [dq], "varlen_bwd_dkv": [dk, dv]},
             {"varlen_bwd_dq": want[:1], "varlen_bwd_dkv": want[1:]},
             lse, lse)
-        for kname, n in (("varlen_bwd_dq", n_dq), ("varlen_bwd_dkv", n_dkv)):
+        o, lse_k, n_fwd = va._launch_fwd(q, k, v, sq, sk, True, scale, True,
+                                         count_tiles=True)
+        torch.cuda.synchronize()
+        errs.update(_check_kernels(
+            "varlen_kernel", dname, {"varlen_fwd": [o]},
+            {"varlen_fwd": [o_ref]}, lse_k, lse))
+        for kname, n in (("varlen_fwd", n_fwd), ("varlen_bwd_dq", n_dq),
+                         ("varlen_bwd_dkv", n_dkv)):
             if n != want_tiles * h:
                 fail(f"{kname} ({dname}): computed {n} tiles, the skip rule "
                      f"gives {want_tiles} x {h} heads")
-        del dq, dk, dv, want
+        del dq, dk, dv, want, o, lse_k
         kernel_ms = {
+            "varlen_fwd": cuda_ms(lambda: va._launch_fwd(
+                q, k, v, sq, sk, True, scale, True), reps=10),
             "varlen_bwd_dq": cuda_ms(lambda: va._launch_bwd_dq(*args),
                                      reps=10),
             "varlen_bwd_dkv": cuda_ms(lambda: va._launch_bwd_dkv(*args),
                                       reps=10)}
         plain_ms = {
+            "varlen_fwd": cuda_ms(lambda: va.varlen_fwd_reference(
+                q, k, v, seg, seg, True, scale), reps=3, warmup=1),
             "varlen_bwd_dq": cuda_ms(lambda: va.varlen_bwd_dq_reference(
                 *args[:-1]), reps=3, warmup=1),
             "varlen_bwd_dkv": cuda_ms(lambda: va.varlen_bwd_dkv_reference(
@@ -2414,16 +2471,23 @@ def phase_varlen_kernel(card):
         kb, vb = (x.repeat_interleave(grp, dim=1).transpose(0, 1)[None]
                   .contiguous() for x in (k, v))
         lib_fwd, lib_fwd_bwd = _doc_sdpa(qb, kb, vb, dob, lens)
-        library_ms = cuda_ms(lib_fwd_bwd, reps=10) - cuda_ms(lib_fwd, reps=10)
+        lib_fwd_ms = cuda_ms(lib_fwd, reps=10)
+        library_ms = {"varlen_fwd": lib_fwd_ms}
+        library_ms["varlen_bwd_dq"] = library_ms["varlen_bwd_dkv"] = \
+            cuda_ms(lib_fwd_bwd, reps=10) - lib_fwd_ms
         fm_args = (qb, kb, vb, sri, dob, lse[None], delta[None], m)
         flashmask_ms = {
+            "varlen_fwd": cuda_ms(lambda: fm._launch_fwd(qb, kb, vb, sri, m),
+                                  reps=10),
             "varlen_bwd_dq": cuda_ms(lambda: fm._launch_dq(*fm_args),
                                      reps=10),
             "varlen_bwd_dkv": cuda_ms(lambda: fm._launch_dkv(*fm_args),
                                       reps=10)}
-        for kname in VARLEN_BWD_KERNELS:
-            bound_ms, bound_by, nbytes, flops = _varlen_bwd_bound(
-                kname, dname, lens, t, h, kvh, d)
+        for kname in ("varlen_fwd",) + VARLEN_BWD_KERNELS:
+            bound_ms, bound_by, nbytes, flops = (
+                _varlen_bound(dname, lens, t, h, kvh, d)
+                if kname == "varlen_fwd" else
+                _varlen_bwd_bound(kname, dname, lens, t, h, kvh, d))
             row = {"phase": "varlen_kernel", "card": card, "kernel": kname,
                    "dtype": dname, "T": t, "H": h, "KVH": kvh, "D": d,
                    "documents": list(lens), "causal": True,
@@ -2433,14 +2497,20 @@ def phase_varlen_kernel(card):
                    "kept_pairs_per_head": sum(n * (n + 1) // 2 for n in lens),
                    "atol": TOL[dname][0], "rtol": TOL[dname][1],
                    "max_abs_err": errs[kname], "kernel_ms": kernel_ms[kname],
-                   "plain_ms": plain_ms[kname], "library_ms": library_ms,
-                   "library_call": "sdpa backward per document (dQ, dK, dV),"
-                                   " summed",
+                   "plain_ms": plain_ms[kname],
+                   "library_ms": library_ms[kname],
+                   "library_call": "sdpa forward per document, summed"
+                   if kname == "varlen_fwd" else
+                   "sdpa backward per document (dQ, dK, dV), summed",
                    "flashmask_ms": flashmask_ms[kname],
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "bound_bytes": nbytes, "bound_flops": flops,
                    "tflops": flops / kernel_ms[kname] / 1e9, "tf32": False}
-            emit(row)
+            if kname == "varlen_fwd":
+                row["lse_max_abs_err"] = errs["lse"]
+                emit(_design_row(row, kname, dname))
+            else:
+                emit(row)
             out[(kname, dname)] = row
         del q, k, v, do, qb, kb, vb, dob, args, fm_args, lib_fwd, lib_fwd_bwd
         del o_ref, lse, delta

@@ -165,16 +165,16 @@ __global__ void __launch_bounds__(kThreads, 2)
   auto needed = [&](int t) { return pol.needed(t); };
   auto issue = [&](int kt, int st, bool whole) {
     __nv_bfloat16* ks = kv0 + 2 * st * kTileElems;
-    load_tile<DP>(ks, kb, kt * kTileK, sk, D);
-    load_tile<DP>(ks + kTileElems, vb, kt * kTileK, sk, D);
+    load_tile<DP>(ks, kb, kt * kTileK, sk, D, D);
+    load_tile<DP>(ks + kTileElems, vb, kt * kTileK, sk, D, D);
     if (!whole) pol.stage(kt, extra0 + st * P::kExtraBytes);
   };
 
   int kt = scan.next(0, kt_end, needed);
   bool full = kt < kt_end && pol.full(kt);
   if (kt < kt_end) {
-    load_tile<DP>(qs, q + qoff * D, q0, sq, D);
-    load_tile<DP>(dos, dout + qoff * D, q0, sq, D);
+    load_tile<DP>(qs, q + qoff * D, q0, sq, D, D);
+    load_tile<DP>(dos, dout + qoff * D, q0, sq, D, D);
     issue(kt, 0, full);
     cp_async_commit();
   }
@@ -336,8 +336,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   auto issue = [&](int qt, int st) {
     const int q0 = qt * kTileQ;
     __nv_bfloat16* qs = qd0 + 2 * st * kTileElems;
-    load_tile<DP>(qs, qb, q0, sq, D);
-    load_tile<DP>(qs + kTileElems, ob, q0, sq, D);
+    load_tile<DP>(qs, qb, q0, sq, D, D);
+    load_tile<DP>(qs + kTileElems, ob, q0, sq, D, D);
     // thread i copies lse (i < 64) or delta (i >= 64) of row q0 + i % 64
     const int r = threadIdx.x % kTileQ;
     const float* src = (threadIdx.x < kTileQ ? lse : delta) + qoff;
@@ -349,8 +349,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   int qt = scan.next(pol.q_begin(), qt_end, needed);
   bool full = qt < qt_end && pol.full_q(qt);
   if (qt < qt_end) {
-    load_tile<DP>(ks, k + koff * D, k0, sk, D);
-    load_tile<DP>(vs, v + koff * D, k0, sk, D);
+    load_tile<DP>(ks, k + koff * D, k0, sk, D, D);
+    load_tile<DP>(vs, v + koff * D, k0, sk, D, D);
     issue(qt, 0);
     cp_async_commit();
   }

@@ -1,22 +1,27 @@
 // The bf16 attention forward tile loop on Hopper's tensor cores, shared by
-// csrc/flash_attention.cu (`fa_fwd`) and csrc/flashmask_attention.cu
-// (`fm_fwd`). The mask is a policy type; see `fwd_tc_kernel` for what a
-// policy provides. Its PTX helpers, tile loader, tile scan and hi + lo
-// product are shared with the backward loops of attn_bwd_sm90.cuh.
+// csrc/flash_attention.cu (`fa_fwd`), csrc/flashmask_attention.cu
+// (`fm_fwd`) and csrc/varlen_attention.cu (`va_fwd`). The mask is a policy
+// type; see `fwd_tc_kernel` for what a policy provides. Its PTX helpers,
+// tile loader, tile scan and hi + lo product are shared with the backward
+// loops of attn_bwd_sm90.cuh.
 //
-// What it computes, per (batch*head) slice of contiguous (BH, S, D) bf16
-// operands: S = Q K^T * scale over the pairs the policy keeps, O =
-// softmax(S) V in bf16 and lse = logsumexp(S) per row in fp32. A row that
-// keeps no pair gets O = 0 and lse = -1e30; rows past sq are not written.
-// This is the TPU forward (`_fwd_kernel` of paddle_tpu/ops/
-// flash_attention.py and flashmask_attention.py) with the sequential k
-// axis of its grid turned into a loop inside the block.
+// What it computes, per query slice bh (a batch*head of (BH, S, D)
+// operands, or a query head of packed (T, H, D) ones; `Layout` says where
+// the rows lie): S = Q K^T * scale over the pairs the policy keeps, O =
+// softmax(S) V in bf16 and lse = logsumexp(S) per row in fp32, lse at
+// bh * sq + row. A row that keeps no pair gets O = 0 and lse = -1e30; rows
+// past sq are not written. This is the TPU forward (`_fwd_kernel` of
+// paddle_tpu/ops/flash_attention.py and flashmask_attention.py,
+// `_vfwd_kernel` of varlen_attention.py) with the sequential k axis of its
+// grid turned into a loop inside the block.
 //
 // Design (mma.sync, not wgmma: 4 warps of 16 query rows each keep the
 // whole softmax in registers, and P never leaves them):
-//   * One block of 128 threads per (batch*head, 64-row q tile), batch*head
+//   * One block of 128 threads per (query slice, 64-row q tile), slices
 //     fastest and the longest causal rows first, so every head's longest
-//     blocks start in the first wave; warp w owns rows 16w .. 16w+15.
+//     blocks start in the first wave and the query heads of one KV head
+//     (GQA) run side by side, sharing its K/V tiles through L2; warp w owns
+//     rows 16w .. 16w+15.
 //   * Q, K and V tiles live in shared memory as 64 rows of DP bf16 (DP =
 //     32, 64 or 128, the head dim padded), in 16-byte chunks XOR-swizzled
 //     by row, so that every ldmatrix phase reads eight distinct bank
@@ -153,28 +158,28 @@ __device__ __forceinline__ int swz(int r, int c) {
   return r * DP + ((c ^ x) << 3);
 }
 
-// Issue the copies of rows [row0, row0 + 64) of a (rows, D) slice into a
-// swizzled tile; rows past `rows` and chunks past D (D % 8 == 0) are
-// zero-filled. The source of a zero-fill is the slice's base, never read.
-// A thread copies one chunk column c of every (kThreads / chunks)-th row,
-// so c and the row's swizzle bits stay fixed and each further copy is
-// one step of a pointer.
+// Issue the copies of rows [row0, row0 + 64) of a (rows, D) slice whose
+// rows lie rs elements apart (rs % 8 == 0) into a swizzled tile; rows past
+// `rows` and chunks past D (D % 8 == 0) are zero-filled. The source of a
+// zero-fill is the slice's base, never read. A thread copies one chunk
+// column c of every (kThreads / chunks)-th row, so c and the row's swizzle
+// bits stay fixed and each further copy is one step of a pointer.
 template <int DP>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src, int row0,
-                                          int rows, int D) {
+                                          int rows, int D, long long rs) {
   constexpr int kChunks = DP / 8;
   constexpr int kStep = kThreads / kChunks;  // rows between two copies
   const int r0 = threadIdx.x / kChunks;
   const int c = threadIdx.x % kChunks;
   const bool col_in = c * 8 < D;
-  const __nv_bfloat16* g = src + static_cast<size_t>(row0 + r0) * D + c * 8;
+  const __nv_bfloat16* g = src + (row0 + r0) * rs + c * 8;
   __nv_bfloat16* d = dst + swz<DP>(r0, c);
 #pragma unroll
   for (int i = 0; i < kTileQ / kStep; ++i) {
     const bool in = col_in && row0 + r0 + i * kStep < rows;
     cp_async16(d + i * kStep * DP, in ? g : src, in ? 16 : 0);
-    g += static_cast<size_t>(kStep) * D;
+    g += kStep * rs;
   }
 }
 
@@ -258,6 +263,45 @@ inline dim3 tile_grid(int bh, int n) {
   return dim3(bh, ny, (n + ny - 1) / ny);
 }
 
+// Where the operands' rows lie, in elements: query slice bh starts at q +
+// bh * q_hs and its row r at + r * q_rs; its K and V are slice bh / group
+// of k and v (the KV head of a GQA query head), and its output slice is o
+// + bh * o_hs. Every stride is a multiple of 8 (16-byte copies). The
+// kernel takes one of two layout types: `Layout`, any strides (packed
+// (T, H, D) operands), or `ContiguousLayout`, (BH, S, D) slices, whose row
+// strides are the head dim and whose group is 1 at compile time.
+struct Layout {
+  long long q_rs, q_hs, k_rs, k_hs, v_rs, v_hs, o_rs, o_hs;
+  int group;
+};
+
+struct ContiguousLayout {
+  static constexpr int group = 1;
+  int q_rs;
+  long long q_hs;
+  int k_rs;
+  long long k_hs;
+  int v_rs;
+  long long v_hs;
+  int o_rs;
+  long long o_hs;
+};
+
+inline ContiguousLayout contiguous_layout(int sq, int sk, int d) {
+  const long long D = d;
+  return {d, sq * D, d, sk * D, d, sk * D, d, sq * D};
+}
+
+// Whether every stride suits the 16-byte copies (a contiguous layout's
+// follow from d, which operands_ok checks).
+inline bool strides_ok(const Layout& l) {
+  for (long long st : {l.q_rs, l.q_hs, l.k_rs, l.k_hs, l.v_rs, l.v_hs,
+                       l.o_rs, l.o_hs})
+    if (st % 8 != 0) return false;
+  return l.group >= 1;
+}
+inline bool strides_ok(const ContiguousLayout&) { return true; }
+
 // ---------------------------------------------------------------- kernel
 // The rows a key column keeps: [lo, hi) less the holes [a1, b1) and
 // [a2, b2) (an empty hole is [INT_MAX, INT_MIN)). A policy computes it
@@ -274,28 +318,37 @@ __device__ __forceinline__ bool in_span(const Span& sp, int row) {
          !((row >= sp.a2) & (row < sp.b2));
 }
 
-// A policy P provides, all uniform across the block except `span` and
-// `drop`:
+// A policy P provides, all uniform across the block except `span`,
+// `rows`, `keep` and `drop`:
 //   static constexpr size_t kExtraBytes;  shared bytes per stage for mask
 //                                         data of a tile (0 if none)
+//   static constexpr bool kRowTest;  how a partial tile is masked, decided
+//                                  at compile time: false, by `span`, one
+//                                  row range a column; true, by `keep`,
+//                                  a test of each of the thread's rows
 //   void begin(int bh, int q0, int sq, int sk);  this block's tile
 //   int end() const;               k tiles [0, end) may be visited
 //   bool needed(int kt) const;     false: the tile is skipped unloaded
 //   bool full(int kt) const;       true: every pair of the tile is kept
-//   void stage(int kt, void* extra) const;  issue cp.async copies of the
-//                                  tile's mask data (partial tiles only)
-//   Span span(int col, int c, const void* extra) const;  the rows that
-//                                  column col (c: its place in the tile)
-//                                  keeps on a partial tile
+//   void stage(int kt, void* extra) const;  copy the tile's mask data into
+//                                  `extra` (cp.async, or plain stores),
+//                                  partial tiles only
+//   Span span(int col, int c, const void* extra) const;  (kRowTest false)
+//                                  the rows that column col (c: its place
+//                                  in the tile) keeps on a partial tile
+//   void rows(int row_a, int row_b);  (kRowTest true) this thread's rows
+//   void keep(int c, const void* extra, bool& a, bool& b) const;
+//                                  (kRowTest true) whether rows a and b
+//                                  keep column c of a partial tile
 //   bool drops() const;            whether P is dropped before PV
 //   float drop(float p, int row, int col) const;  what feeds PV then
-template <int DP, class P>
+template <int DP, class P, class L>
 __global__ void __launch_bounds__(kThreads, 2)
     fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                  int sq, int sk, int D, float scale, P pol,
+                  const L lay, int sq, int sk, int D, float scale, P pol,
                   int* __restrict__ tile_count) {
   constexpr int KS = DP / 16;  // k-steps of Q K^T, and pairs of 8-dim blocks
   constexpr int NB = DP / 8;   // 8-dim blocks of the output
@@ -314,14 +367,16 @@ __global__ void __launch_bounds__(kThreads, 2)
   if (qt >= n_qt) return;  // the last z slice's tail: the whole block
   const int q0 = (n_qt - 1 - qt) * kTileQ;
   const int bh = blockIdx.x;
-  const __nv_bfloat16* qb = q + static_cast<size_t>(bh) * sq * D;
-  const __nv_bfloat16* kb = k + static_cast<size_t>(bh) * sk * D;
-  const __nv_bfloat16* vb = v + static_cast<size_t>(bh) * sk * D;
+  const int bkv = bh / lay.group;
+  const __nv_bfloat16* qb = q + bh * lay.q_hs;
+  const __nv_bfloat16* kb = k + bkv * lay.k_hs;
+  const __nv_bfloat16* vb = v + bkv * lay.v_hs;
   pol.begin(bh, q0, sq, sk);
 
   // this thread's two rows: fragment rows lane/4 and lane/4 + 8
   const int row_a = q0 + warp * 16 + lane / 4;
   const int row_b = row_a + 8;
+  if constexpr (P::kRowTest) pol.rows(row_a, row_b);
   const int col_in = 2 * (lane % 4);  // first of its two columns per 8
   const float sl2 = scale * kLog2e;
 
@@ -337,8 +392,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   auto needed = [&](int t) { return pol.needed(t); };
   auto issue = [&](int kt, int st, bool whole) {
     __nv_bfloat16* ks = kv0 + 2 * st * kTileElems;
-    load_tile<DP>(ks, kb, kt * kTileK, sk, D);
-    load_tile<DP>(ks + kTileElems, vb, kt * kTileK, sk, D);
+    load_tile<DP>(ks, kb, kt * kTileK, sk, D, lay.k_rs);
+    load_tile<DP>(ks + kTileElems, vb, kt * kTileK, sk, D, lay.v_rs);
     if (!whole) pol.stage(kt, extra0 + st * P::kExtraBytes);
   };
 
@@ -346,7 +401,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   int computed = 0;
   bool full = kt < kt_end && pol.full(kt);
   if (kt < kt_end) {
-    load_tile<DP>(qs, qb, q0, sq, D);
+    load_tile<DP>(qs, qb, q0, sq, D, lay.q_rs);
     issue(kt, 0, full);
     cp_async_commit();
   }
@@ -403,9 +458,16 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int c = 8 * j + col_in + e;
-          const Span sp = pol.span(k0 + c, c, extra);
-          if (!in_span(sp, row_a)) s[j][e] = -INFINITY;
-          if (!in_span(sp, row_b)) s[j][2 + e] = -INFINITY;
+          bool keep_a, keep_b;
+          if constexpr (P::kRowTest) {
+            pol.keep(c, extra, keep_a, keep_b);
+          } else {
+            const Span sp = pol.span(k0 + c, c, extra);
+            keep_a = in_span(sp, row_a);
+            keep_b = in_span(sp, row_b);
+          }
+          if (!keep_a) s[j][e] = -INFINITY;
+          if (!keep_b) s[j][2 + e] = -INFINITY;
         }
       }
     }
@@ -479,7 +541,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int row = r == 0 ? row_a : row_b;
     if (row >= sq) continue;
     const float inv = l[r] == 0.f ? 0.f : 1.f / l[r];
-    __nv_bfloat16* orow = o + (static_cast<size_t>(bh) * sq + row) * D;
+    __nv_bfloat16* orow =
+        o + bh * lay.o_hs + static_cast<long long>(row) * lay.o_rs;
 #pragma unroll
     for (int j = 0; j < NB; ++j) {
       const int d = 8 * j + col_in;
@@ -495,12 +558,14 @@ __global__ void __launch_bounds__(kThreads, 2)
     atomicAdd(tile_count, computed);
 }
 
-// Launch the kernel on `stream` for bh slices; returns cudaGetLastError().
-template <int DP, class P>
+// Launch the kernel on `stream` for bh query slices; returns
+// cudaGetLastError().
+template <int DP, class P, class L>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int bh, int sq, int sk, int d, float scale,
-                   const P& pol, int* tile_count, cudaStream_t stream) {
-  auto kernel = fwd_tc_kernel<DP, P>;
+                   void* lse, const L& lay, int bh, int sq, int sk, int d,
+                   float scale, const P& pol, int* tile_count,
+                   cudaStream_t stream) {
+  auto kernel = fwd_tc_kernel<DP, P, L>;
   constexpr size_t smem = smem_bytes<DP, P>();
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -511,7 +576,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), sq, sk, d, scale, pol, tile_count);
+      static_cast<float*>(lse), lay, sq, sk, d, scale, pol, tile_count);
   return cudaGetLastError();
 }
 
@@ -525,20 +590,32 @@ inline bool operands_ok(int d, std::initializer_list<const void*> ptrs) {
   return true;
 }
 
-// Dispatch on the padded head dim (32, 64 or 128).
+// Dispatch on the padded head dim (32, 64 or 128), for operands where
+// `lay` says.
+template <class P, class L>
+cudaError_t run(const void* q, const void* k, const void* v, void* o,
+                void* lse, const L& lay, int bh, int sq, int sk, int d,
+                float scale, const P& pol, int* tile_count,
+                cudaStream_t stream) {
+  if (!operands_ok(d, {q, k, v, o}) || !strides_ok(lay))
+    return cudaErrorInvalidValue;
+  if (d <= 32)
+    return launch<32>(q, k, v, o, lse, lay, bh, sq, sk, d, scale, pol,
+                      tile_count, stream);
+  if (d <= 64)
+    return launch<64>(q, k, v, o, lse, lay, bh, sq, sk, d, scale, pol,
+                      tile_count, stream);
+  return launch<128>(q, k, v, o, lse, lay, bh, sq, sk, d, scale, pol,
+                     tile_count, stream);
+}
+
+// The same, on contiguous (bh, sq|sk, d) slices.
 template <class P>
 cudaError_t run(const void* q, const void* k, const void* v, void* o,
                 void* lse, int bh, int sq, int sk, int d, float scale,
                 const P& pol, int* tile_count, cudaStream_t stream) {
-  if (!operands_ok(d, {q, k, v, o})) return cudaErrorInvalidValue;
-  if (d <= 32)
-    return launch<32>(q, k, v, o, lse, bh, sq, sk, d, scale, pol, tile_count,
-                      stream);
-  if (d <= 64)
-    return launch<64>(q, k, v, o, lse, bh, sq, sk, d, scale, pol, tile_count,
-                      stream);
-  return launch<128>(q, k, v, o, lse, bh, sq, sk, d, scale, pol, tile_count,
-                     stream);
+  return run(q, k, v, o, lse, contiguous_layout(sq, sk, d), bh, sq, sk, d,
+             scale, pol, tile_count, stream);
 }
 
 }  // namespace attn_fwd_sm90

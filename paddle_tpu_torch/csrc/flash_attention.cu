@@ -535,6 +535,7 @@ bool args_ok(int bh, int sq, int sk, int d, int dtype) {
 // rows each column keeps.
 struct FlashPolicy {
   static constexpr size_t kExtraBytes = 0;
+  static constexpr bool kRowTest = false;  // partial tiles by span
   int causal;
   int q0, k0, sq, sk;
 

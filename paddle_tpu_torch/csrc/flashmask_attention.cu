@@ -781,6 +781,7 @@ __global__ void tile_agg_kernel(const int* __restrict__ sri, int slices,
 // room for span's reads of four.
 struct FmPolicy {
   static constexpr size_t kExtraBytes = kMaxN * kTile * sizeof(int);
+  static constexpr bool kRowTest = false;  // partial tiles by span
   Mask m;
   const int* agg;  // tile_agg_kernel's output
   // span's flags, from m (`set_span`): a lower bound from the causal

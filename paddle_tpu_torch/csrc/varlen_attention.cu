@@ -16,6 +16,19 @@
 // P = exp(S - lse), dS = P (dO V^T - delta) scale, both 0 on pairs that do
 // not count, dQ = dS K, dK = dS^T Q, dV = P^T dO.
 //
+// Two designs, by dtype. bf16 va_fwd runs the tensor-core tile loop of
+// attn_fwd_sm90.cuh (mma.sync m16n8k16, a cp.async K/V ring, P as bf16 hi
+// + lo; see that header) with `VarlenPolicy` below: q read from (T, H, D)
+// and K/V from (T, KVH, D) by row and head stride, query head h reading KV
+// head h / group in place; the tile skips of the CUDA-core design below
+// (tile ranges, the diagonal, the early answer of a q tile with no real
+// row); a partial tile masked by a branchless test of each of the thread's
+// two rows, (seg_q == seg_k) & (pos_k >= pos_q), against the k tile's 64
+// ids and distances staged beside K/V; a tile wholly inside one segment
+// (and, under causal masking, wholly below the diagonal with same offsets)
+// kept without a test. Everything else (fp32, and both backward kernels)
+// runs the CUDA-core design:
+//
 // Design. The TPU kernels run a grid whose last axis is sequential and
 // carry their sums in VMEM scratch across it; blocks here run in parallel
 // and in no order, so that axis is a loop inside a block, with every sum
@@ -63,15 +76,18 @@
 // 128, bf16, eight documents, 7.14 M kept pairs a head) dQ needs 6 and
 // dK/dV 8 flops per kept pair and head dim, 176 and 234 GFLOP against
 // about 0.2 GB of operands: operations, at the bf16 tensor-core rate
-// (0.18 and 0.24 ms). This simple design runs on fp32 CUDA cores, one
+// (0.18 and 0.24 ms). The CUDA-core design runs on fp32 CUDA cores, one
 // block per SM (117-169 KB of staged tiles at D = 128), with no tensor
-// cores and no cp.async/TMA pipelining; those belong to the PR that
-// redesigns them.
+// cores and no cp.async/TMA pipelining. The forward at the serve prefill
+// wave (8 prompts in 8192 tokens, 1.14 M kept pairs a head) is bound by
+// its bytes: 0.13 GB, 0.04 ms.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stddef.h>
+
+#include "attn_fwd_sm90.cuh"
 
 namespace {
 
@@ -112,8 +128,11 @@ __device__ __forceinline__ float row_max(float x) {
 }
 
 // [min, max] of the non-negative ids of each 64-token tile, one warp a
-// tile: tiles [0, n_qt) of seg_q, then [n_qt, n_qt + n_kt) of seg_k. A
-// tile with no non-negative id gets (INT_MAX, -1), an empty range.
+// tile: tiles [0, n_qt) of seg_q, then [n_qt, n_qt + n_kt) of seg_k, at
+// ranges[2 * tile] and ranges[2 * tile + 1]. A tile with no non-negative
+// id gets (INT_MAX, -1), an empty range. Past them, ranges[2 * (n_qt +
+// n_kt) + tile] is the tile's one id where all 64 tokens lie inside the
+// axis and share one non-negative id, else -1.
 __global__ void tile_ranges_kernel(const int* __restrict__ seg_q,
                                    const int* __restrict__ seg_k, int tq,
                                    int tk, int n_qt, int n_kt,
@@ -127,14 +146,15 @@ __global__ void tile_ranges_kernel(const int* __restrict__ seg_q,
   const int n = is_q ? tq : tk;
   const int t0 = (is_q ? tile : tile - n_qt) * kTile;
   int lo = INT_MAX, hi = -1;
+  bool real = true;  // every token of the tile is inside with an id >= 0
   for (int r = lane; r < kTile; r += 32) {
     const int i = t0 + r;
-    if (i < n) {
-      const int s = seg[i];
-      if (s >= 0) {
-        lo = min(lo, s);
-        hi = max(hi, s);
-      }
+    const int s = i < n ? seg[i] : -1;
+    if (s >= 0) {
+      lo = min(lo, s);
+      hi = max(hi, s);
+    } else {
+      real = false;
     }
   }
 #pragma unroll
@@ -142,10 +162,43 @@ __global__ void tile_ranges_kernel(const int* __restrict__ seg_q,
     lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
     hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
   }
+  real = __all_sync(0xffffffffu, real);
   if (lane == 0) {
     ranges[2 * tile] = lo;
     ranges[2 * tile + 1] = hi;
+    ranges[2 * (n_qt + n_kt) + tile] = real && lo == hi ? lo : -1;
   }
+}
+
+// pos = rev_pos of ops/varlen_attention.py for seg_q and then seg_k, one
+// thread a token: the upper bound of token i's key in the keys (key = the
+// id, or INT_MAX for a negative one), minus i, by the same binary search
+// as torch.searchsorted(right=True). One launch in place of the dozen
+// small torch ops of two rev_pos calls.
+__global__ void positions_kernel(const int* __restrict__ seg_q,
+                                 const int* __restrict__ seg_k, int tq,
+                                 int tk, int* __restrict__ pos_q,
+                                 int* __restrict__ pos_k) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= tq + tk) return;
+  const bool is_q = t < tq;
+  const int* seg = is_q ? seg_q : seg_k;
+  const int n = is_q ? tq : tk;
+  const int i = is_q ? t : t - tq;
+  auto key = [seg](int j) {
+    const int s = seg[j];
+    return s < 0 ? INT_MAX : s;
+  };
+  const int x = key(i);
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo) >> 1);
+    if (key(mid) > x)
+      hi = mid;
+    else
+      lo = mid + 1;
+  }
+  (is_q ? pos_q : pos_k)[i] = lo - i;
 }
 
 // Stage rows [row0, row0 + kTile) of one head of a strided (rows, ., D)
@@ -323,6 +376,86 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (tile_count != nullptr && threadIdx.x == 0)
     atomicAdd(tile_count, computed);
 }
+
+// The mask and skips of the bf16 tensor-core forward (attn_fwd_sm90.cuh):
+// a pair is kept where seg_q == seg_k and, under causal masking, pos_k >=
+// pos_q; tiles are skipped by tile_ranges_kernel's ranges, read through
+// L1 (the 32 lanes of a warp test 32 k tiles at once).
+struct VarlenPolicy {
+  static constexpr bool kRowTest = true;
+  // per stage: the k tile's 64 seg_k, then its 64 pos_k
+  static constexpr size_t kExtraBytes = 2 * kTile * sizeof(int);
+  static_assert(attn_fwd_sm90::kThreads == 2 * kTile,
+                "stage copies one id or distance a thread");
+  const int* seg_q;
+  const int* seg_k;
+  const int* pos_q;
+  const int* pos_k;
+  const int* ranges;  // tile_ranges_kernel's output
+  int tq, tk, n_qt, n_kt, causal, same_offsets;
+  // this block's q tile: its index, id range and one id, the k tiles it
+  // may visit
+  int qt, q_lo, q_hi, q_one, kt_end;
+  // this thread's two rows: ids (-1 past tq) and distances (INT_MIN
+  // without causal masking, so every distance passes)
+  int sa, sb, pa, pb;
+
+  __device__ __forceinline__ void begin(int, int q0, int, int) {
+    qt = q0 / kTile;
+    q_lo = ranges[2 * qt];
+    q_hi = ranges[2 * qt + 1];
+    q_one = ranges[2 * (n_qt + n_kt) + qt];
+    // a tile with no real row visits nothing: the loop then writes o = 0
+    // and lse = -1e30 without a copy; with same offsets no column past
+    // the tile's last row
+    kt_end = q_hi < 0 ? 0
+             : causal && same_offsets
+                 ? min(n_kt, (min(q0 + kTile, tq) - 1) / kTile + 1)
+                 : n_kt;
+  }
+  __device__ __forceinline__ void rows(int row_a, int row_b) {
+    sa = row_a < tq ? seg_q[row_a] : -1;
+    sb = row_b < tq ? seg_q[row_b] : -1;
+    pa = !causal ? INT_MIN : row_a < tq ? pos_q[row_a] : 0;
+    pb = !causal ? INT_MIN : row_b < tq ? pos_q[row_b] : 0;
+  }
+  __device__ __forceinline__ int end() const { return kt_end; }
+  // the ranges meet: disjoint ranges hold no equal pair, whatever the ids
+  __device__ __forceinline__ bool needed(int kt) const {
+    const int k_lo = ranges[2 * (n_qt + kt)];
+    const int k_hi = ranges[2 * (n_qt + kt) + 1];
+    return k_hi >= 0 && k_lo <= q_hi && k_hi >= q_lo;
+  }
+  // both tiles wholly inside one and the same segment, with no pad and no
+  // token past the axes; under causal masking, with same offsets, the k
+  // tile wholly before the q tile (every pos_k > every pos_q)
+  __device__ __forceinline__ bool full(int kt) const {
+    const int k_one = ranges[2 * (n_qt + n_kt) + n_qt + kt];
+    return q_one >= 0 && k_one == q_one &&
+           (!causal || (same_offsets && kt < qt));
+  }
+  // thread i copies seg_k (i < 64) or pos_k of column i % 64; a column
+  // past tk gets id -2, which no row has
+  __device__ __forceinline__ void stage(int kt, void* extra) const {
+    int* dst = static_cast<int*>(extra) + threadIdx.x;
+    const bool is_seg = threadIdx.x < kTile;
+    const int c = kt * kTile + threadIdx.x % kTile;
+    if (c < tk)
+      attn_fwd_sm90::cp_async4(dst, (is_seg ? seg_k : pos_k) + c, 4);
+    else
+      *dst = is_seg ? -2 : 0;
+  }
+  __device__ __forceinline__ void keep(int c, const void* extra, bool& a,
+                                       bool& b) const {
+    const int* x = static_cast<const int*>(extra);
+    const int s = x[c];
+    const int p = x[kTile + c];
+    a = (s == sa) & (p >= pa);
+    b = (s == sb) & (p >= pb);
+  }
+  __device__ __forceinline__ bool drops() const { return false; }
+  __device__ __forceinline__ float drop(float p, int, int) const { return p; }
+};
 
 // The backward kernels' operands: q and dout (tq, heads, D), k and v (tk,
 // kv_heads, D), each read by its row and head strides with the head dim
@@ -682,6 +815,14 @@ size_t dkv_bytes(int dp, int n_other) {
 
 int padded_dim(int d) { return d <= 32 ? 32 : d <= 64 ? 64 : 128; }
 
+// Shared memory of the bf16 tensor-core forward, at padded head dim dp.
+size_t tc_fwd_bytes(int dp) {
+  using attn_fwd_sm90::smem_bytes;
+  return dp == 32   ? smem_bytes<32, VarlenPolicy>()
+         : dp == 64 ? smem_bytes<64, VarlenPolicy>()
+                    : smem_bytes<128, VarlenPolicy>();
+}
+
 bool args_ok(int tq, int tk, int heads, int kv_heads, int d, int dtype) {
   return tq >= 1 && tk >= 1 && heads >= 1 && heads <= 65535 &&
          kv_heads >= 1 && heads % kv_heads == 0 && d >= 1 && d <= 128 &&
@@ -829,24 +970,44 @@ const char* va_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// seg_q (tq,) and seg_k (tk,) int32 -> pos_q (tq,) and pos_k (tk,) int32,
+// each token's distance to its segment's end (ids non-decreasing, any
+// negative id trailing), as the kernels below take them. Launches one
+// kernel on `stream` and returns cudaGetLastError().
+int va_positions(const void* seg_q, const void* seg_k, int tq, int tk,
+                 void* pos_q, void* pos_k, void* stream) {
+  if (tq < 1 || tk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kPosThreads = 256;
+  const long long n = static_cast<long long>(tq) + tk;
+  positions_kernel<<<static_cast<unsigned>((n + kPosThreads - 1) /
+                                           kPosThreads),
+                     kPosThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(seg_q), static_cast<const int*>(seg_k), tq, tk,
+      static_cast<int*>(pos_q), static_cast<int*>(pos_k));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Bytes of dynamic shared memory a kernel needs at head_dim d: kernel 0
-// the forward and 1 dQ, for n_other k tiles; 2 dK/dV, for n_other q
-// tiles.
+// the fp32 forward and 1 dQ, for n_other k tiles; 2 dK/dV, for n_other q
+// tiles; 3 the bf16 forward (tensor cores), whatever n_other.
 size_t va_smem_bytes(int kernel, int n_other, int d) {
   const int dp = padded_dim(d);
   return kernel == 0   ? fwd_bytes(dp, n_other)
          : kernel == 1 ? dq_bytes(dp, n_other)
-                       : dkv_bytes(dp, n_other);
+         : kernel == 2 ? dkv_bytes(dp, n_other)
+                       : tc_fwd_bytes(dp);
 }
 
 // q: (tq, heads, d) read at q[t * q_rs + h * q_hs + i]; k, v: (tk, kv_heads,
 // d) read likewise with their own strides (head_dim contiguous); seg_q,
 // pos_q: (tq,) int32; seg_k, pos_k: (tk,) int32 (pos = distance to the
-// segment's end); ranges: scratch of 2 * (ceil(tq/64) + ceil(tk/64)) int32;
+// segment's end); ranges: scratch of 3 * (ceil(tq/64) + ceil(tk/64)) int32;
 // o: contiguous (tq, heads, d) in `dtype` (0 fp32, 1 bf16); lse: (heads, tq)
 // fp32; tile_count: null, or one int32 to which the number of computed
 // (q tile, k tile, head) triples is added. Launches two kernels on
-// `stream`, allocates nothing, and returns cudaGetLastError().
+// `stream`, allocates nothing, and returns cudaGetLastError(). bf16 runs
+// the tensor-core kernel, which also needs d % 8 == 0, 16-byte aligned q,
+// k, v and o, and every row and head stride a multiple of 8.
 int va_fwd(const void* q, const void* k, const void* v, const void* seg_q,
            const void* seg_k, const void* pos_q, const void* pos_k,
            void* ranges, void* o, void* lse, int tq, int tk, int heads,
@@ -859,9 +1020,34 @@ int va_fwd(const void* q, const void* k, const void* v, const void* seg_q,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = launch_ranges(seg_q, seg_k, tq, tk, ranges, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  VA_DISPATCH(fwd_typed, q, k, v, seg_q, seg_k, pos_q, pos_k, ranges, o, lse,
-              tq, tk, heads, heads / kv_heads, d, q_rs, q_hs, k_rs, k_hs,
-              v_rs, v_hs, scale, causal, same_offsets, tile_count, s);
+  if (dtype == kBF16) {
+    VarlenPolicy pol{};
+    pol.seg_q = static_cast<const int*>(seg_q);
+    pol.seg_k = static_cast<const int*>(seg_k);
+    pol.pos_q = static_cast<const int*>(pos_q);
+    pol.pos_k = static_cast<const int*>(pos_k);
+    pol.ranges = static_cast<const int*>(ranges);
+    pol.tq = tq;
+    pol.tk = tk;
+    pol.n_qt = (tq + kTile - 1) / kTile;
+    pol.n_kt = (tk + kTile - 1) / kTile;
+    pol.causal = causal;
+    pol.same_offsets = same_offsets;
+    const attn_fwd_sm90::Layout lay{
+        q_rs, q_hs, k_rs, k_hs, v_rs, v_hs,
+        static_cast<long long>(heads) * d, d, heads / kv_heads};
+    return static_cast<int>(attn_fwd_sm90::run(
+        q, k, v, o, lse, lay, heads, tq, tk, d, scale, pol,
+        static_cast<int*>(tile_count), s));
+  }
+  const int dp = padded_dim(d);
+  const auto fwd = dp == 32   ? fwd_typed<float, 32>
+                   : dp == 64 ? fwd_typed<float, 64>
+                              : fwd_typed<float, 128>;
+  return static_cast<int>(fwd(q, k, v, seg_q, seg_k, pos_q, pos_k, ranges, o,
+                              lse, tq, tk, heads, heads / kv_heads, d, q_rs,
+                              q_hs, k_rs, k_hs, v_rs, v_hs, scale, causal,
+                              same_offsets, tile_count, s));
 }
 
 // The backward: q, k, v, seg and pos as for va_fwd; dout (tq, heads, d) in

@@ -207,21 +207,23 @@ def _run(fn, name, ptrs, q, sq, sk, scale, causal):
 
 
 def tensor_core_operands(*ts):
-    """The (..., D) operands as the bf16 tensor-core kernels take them:
-    the head dim zero-padded to a multiple of 8 (their 16-byte copies
-    move 8 values), and each base 16-byte aligned (a contiguous view at
-    another storage offset is cloned). Zero dims add nothing to Q K^T or
-    dO V^T, so P and dS do not change, and they give zero output columns
-    (O, dQ, dK, dV), which the caller slices off; the scale is passed
-    explicitly, so it does not change. Tensors already so are returned
-    as they are."""
+    """The (..., D) operands (head dim contiguous) as the bf16
+    tensor-core kernels take them: the head dim zero-padded to a multiple
+    of 8 (their 16-byte copies move 8 values), each base 16-byte aligned
+    and every other stride a multiple of 8 elements (a view at another
+    storage offset, or a strided view such as a column slice of a fused
+    projection whose rows are not 16-byte aligned, is copied contiguous).
+    Zero dims add nothing to Q K^T or dO V^T, so P and dS do not change,
+    and they give zero output columns (O, dQ, dK, dV), which the caller
+    slices off; the scale is passed explicitly, so it does not change.
+    Tensors already so are returned as they are."""
     pad = -ts[0].shape[-1] % 8
     out = []
     for t in ts:
         if pad:
             t = torch.nn.functional.pad(t, (0, pad))
-        elif t.data_ptr() % 16:
-            t = t.clone()
+        elif t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:-1]):
+            t = t.clone(memory_format=torch.contiguous_format)
         out.append(t)
     return tuple(out)
 

@@ -24,7 +24,14 @@ layout (q and dO (Tq, H, D); k and v (Tk, KVH, D); lse and delta
   * the Hopper kernels of `csrc/varlen_attention.cu` (`va_fwd`,
     `va_bwd_dq`, `va_bwd_dkv`), for CUDA tensors. dK and dV are the sums
     over each KV head's query group (JAX computes them per repeated head
-    and sums them through `jnp.repeat`'s transpose).
+    and sums them through `jnp.repeat`'s transpose). The bf16 forward
+    runs on the tensor cores (`csrc/attn_fwd_sm90.cuh`); its operands are
+    padded to a head dim that is a multiple of 8, or copied where a base
+    or a stride does not suit its 16-byte copies
+    (`flash_attention.tensor_core_operands`). `tile_plan` is the plain
+    twin of its tile rule (skip, mask, or keep whole). Every launch first
+    computes the segment distances (`rev_pos`) on the card
+    (`va_positions`, one kernel).
 
 `flash_attention_varlen` runs them under a `torch.autograd.Function`
 whose forward saves (q, k, v, o, lse) and the segment ids and whose
@@ -43,13 +50,17 @@ import math
 
 import torch
 
+from .flash_attention import tensor_core_operands
+
 __all__ = ["rev_pos", "seg_ids_from_cu_seqlens", "varlen_reference",
            "varlen_fwd_reference", "varlen_bwd_dq_reference",
            "varlen_bwd_dkv_reference", "flash_attention_varlen",
-           "flash_attn_unpadded", "launches_fwd", "launches_dq",
-           "launches_dkv"]
+           "flash_attn_unpadded", "tile_plan", "launches_fwd",
+           "launches_dq", "launches_dkv"]
 
 NEG_INF = -1e30
+TILE = 64                     # tokens of a q tile and of a k tile
+SKIP, PARTIAL, FULL = 0, 1, 2  # what `tile_plan` decides for a tile
 
 #: kernel launches since import (reset by callers that count a run)
 launches_fwd = 0
@@ -95,6 +106,47 @@ def _visible(seg_q, seg_k, causal):
     if causal:
         valid = valid & (rev_pos(seg_k)[None, :] >= rev_pos(seg_q)[:, None])
     return valid
+
+
+def _tile_ids(seg, n_t):
+    """Per 64-token tile of a sentinel id vector: (lo, hi) of its
+    non-negative ids (an empty tile: lo > hi, hi = -1) and its one id
+    where all 64 tokens lie inside and share one non-negative id, else -1
+    (`tile_ranges_kernel`)."""
+    s = torch.cat([seg.long(), seg.new_full((n_t * TILE - seg.numel(),),
+                                            -1).long()]).reshape(n_t, TILE)
+    real = s >= 0
+    lo = torch.where(real, s, 2 ** 31 - 1).amin(1)
+    hi = torch.where(real, s, -1).amax(1)
+    return lo, hi, torch.where(real.all(1) & (lo == hi), lo, -1)
+
+
+def tile_plan(seg_q, seg_k, causal, same_offsets):
+    """The bf16 forward kernel's tile rule, in plain torch: for every
+    (64-row q tile, 64-column k tile) whether the kernel skips it unloaded
+    (SKIP), masks it pair by pair (PARTIAL) or keeps every pair (FULL).
+    Shape (n_qt, n_kt); every query head has this plan. The ids are as
+    `flash_attention_varlen` takes them (any negative id is padding).
+
+    A tile is skipped when the [min, max] of the non-negative ids of its
+    rows and of its columns are empty or disjoint, or, with causal masking
+    and same offsets, when it lies above the diagonal. It is full when
+    both tiles lie wholly inside one and the same segment (no pad, no
+    token past either axis) and, with causal masking, the offsets are the
+    same and the k tile lies wholly before the q tile."""
+    seg_q, seg_k = _sentinels(seg_q, seg_k)
+    n_qt, n_kt = -(-seg_q.numel() // TILE), -(-seg_k.numel() // TILE)
+    q_lo, q_hi, q_one = (x[:, None] for x in _tile_ids(seg_q, n_qt))
+    k_lo, k_hi, k_one = (x[None, :] for x in _tile_ids(seg_k, n_kt))
+    qt = torch.arange(n_qt, device=seg_q.device)[:, None]
+    kt = torch.arange(n_kt, device=seg_q.device)[None, :]
+    need = (q_hi >= 0) & (k_hi >= 0) & (k_lo <= q_hi) & (k_hi >= q_lo)
+    full = (q_one >= 0) & (k_one == q_one)
+    if causal:
+        full = full & (kt < qt) & bool(same_offsets)
+        if same_offsets:
+            need = need & (kt <= qt)
+    return torch.where(need, torch.where(full, FULL, PARTIAL), SKIP)
 
 
 def varlen_reference(q, k, v, seg_q, seg_k, causal, scale):
@@ -210,6 +262,7 @@ def _lib():
         lib.va_error_string.restype = ctypes.c_char_p
         lib.va_smem_bytes.argtypes = [ci, ci, ci]
         lib.va_smem_bytes.restype = ctypes.c_size_t
+        lib.va_positions.argtypes = [vp, vp, ci, ci, vp, vp, vp]
         # pointers, strides and the stream as 64-bit types: a bare Python
         # int would be passed as a 32-bit int and cut
         lib.va_fwd.argtypes = ([vp] * 10 + [ci] * 5 + [cl] * 6
@@ -217,7 +270,8 @@ def _lib():
         bwd_tail = [ci] * 5 + [cl] * 8 + [cf, ci, ci, ci, vp, vp]
         lib.va_bwd_dq.argtypes = [vp] * 12 + bwd_tail
         lib.va_bwd_dkv.argtypes = [vp] * 13 + bwd_tail
-        for fn in (lib.va_fwd, lib.va_bwd_dq, lib.va_bwd_dkv):
+        for fn in (lib.va_positions, lib.va_fwd, lib.va_bwd_dq,
+                   lib.va_bwd_dkv):
             fn.restype = ci
         _LIB.append(lib)
     return _LIB[0]
@@ -268,14 +322,15 @@ def _launch(name, kernel, dims, seg_q, seg_k, ins, outs, strides, causal,
             scale, same_offsets, count_tiles):
     """Launch va_<name> on operands `_check_operands` passed (sentinels
     already applied to the segment ids): `kernel` is its shared-memory
-    code (0 fwd, 1 dq, 2 dkv), `dims` what the check returned, `ins` the
+    code (0 fp32 fwd, 1 dq, 2 dkv, 3 bf16 fwd), `dims` what the check
+    returned (with the head dim the kernel reads), `ins` the
     operand tensors before the ids (q first), `outs` the tensors it
     writes after the scratch, `strides` the operands' (row, head)
     strides. Returns the tile count when asked, else None."""
     tq, tk, hq, hk, d = dims
     q = ins[0]
     lib = _lib()
-    n_qt, n_kt = -(-tq // 64), -(-tk // 64)
+    n_qt, n_kt = -(-tq // TILE), -(-tk // TILE)
     n_other = n_qt if kernel == 2 else n_kt
     smem = lib.va_smem_bytes(kernel, n_other, d)
     _check(smem <= _MAX_SMEM,
@@ -283,18 +338,26 @@ def _launch(name, kernel, dims, seg_q, seg_k, ins, outs, strides, causal,
            f"{'query' if kernel == 2 else 'key'} tiles need {smem} bytes of "
            f"shared memory, more than a block has ({_MAX_SMEM})")
     seg_q, seg_k = seg_q.contiguous(), seg_k.contiguous()
-    pos_q, pos_k = rev_pos(seg_q), rev_pos(seg_k)
-    ranges = torch.empty((n_qt + n_kt, 2), dtype=torch.int32, device=q.device)
+    pos_q, pos_k = torch.empty_like(seg_q), torch.empty_like(seg_k)
+    # each tile's id range, then its one id (`tile_ranges_kernel`)
+    ranges = torch.empty((3 * (n_qt + n_kt),), dtype=torch.int32,
+                         device=q.device)
     tiles = torch.zeros((1,), dtype=torch.int32, device=q.device) \
         if count_tiles else None
     ptrs = [t.data_ptr() for t in (*ins, seg_q, seg_k, pos_q, pos_k, ranges,
                                    *outs)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = getattr(lib, f"va_{name}")(
-            *ptrs, tq, tk, hq, hk, d, *strides, scale,
-            int(causal), int(same_offsets), _DTYPE_CODE[q.dtype],
-            None if tiles is None else tiles.data_ptr(), stream)
+        # pos = rev_pos(seg_q), rev_pos(seg_k), in one launch
+        rc = lib.va_positions(seg_q.data_ptr(), seg_k.data_ptr(), tq, tk,
+                              pos_q.data_ptr(), pos_k.data_ptr(), stream)
+        if rc != 0:
+            name = "positions"
+        else:
+            rc = getattr(lib, f"va_{name}")(
+                *ptrs, tq, tk, hq, hk, d, *strides, scale,
+                int(causal), int(same_offsets), _DTYPE_CODE[q.dtype],
+                None if tiles is None else tiles.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(
             f"flash_attention_varlen: va_{name} kernel launch failed: "
@@ -314,13 +377,20 @@ def _launch_fwd(q, k, v, seg_q, seg_k, causal, scale, same_offsets,
     number of (64-row q tile, 64-column k tile, head) triples the kernel
     computed rather than skipped."""
     global launches_fwd
-    dims = tq, _, hq, _, d = _check_operands(q, k, v, seg_q, seg_k)
-    o = torch.empty((tq, hq, d), dtype=q.dtype, device=q.device)
+    tq, tk, hq, hk, d = _check_operands(q, k, v, seg_q, seg_k)
+    kernel = 0
+    if q.dtype == torch.bfloat16:   # the tensor-core kernel's operands
+        q, k, v = tensor_core_operands(q, k, v)
+        kernel = 3
+    dp = q.shape[-1]
+    o = torch.empty((tq, hq, dp), dtype=q.dtype, device=q.device)
     lse = torch.empty((hq, tq), dtype=torch.float32, device=q.device)
-    tiles = _launch("fwd", 0, dims, seg_q, seg_k, (q, k, v), (o, lse),
-                    _qkv_strides(q, k, v), causal, scale, same_offsets,
-                    count_tiles)
+    tiles = _launch("fwd", kernel, (tq, tk, hq, hk, dp), seg_q, seg_k,
+                    (q, k, v), (o, lse), _qkv_strides(q, k, v), causal,
+                    scale, same_offsets, count_tiles)
     launches_fwd += 1
+    if dp != d:
+        o = o[..., :d].contiguous()
     return (o, lse, tiles) if count_tiles else (o, lse)
 
 
@@ -419,7 +489,9 @@ def flash_attention_varlen(q, k, v, seg_q, seg_k, causal=False,
 
     A CPU q runs the plain versions. A CUDA q launches the Hopper
     kernels, which take float32 or bfloat16 with head_dim up to 128 and
-    the head dim contiguous (other strides are read as they are), and
+    the head dim contiguous (other strides are read as they are; the
+    bf16 forward pads a head dim that is not a multiple of 8 and copies
+    operands whose base or strides do not suit its 16-byte copies), and
     raise on anything else."""
     d = q.shape[-1]
     scale = float(sm_scale if sm_scale is not None else 1.0 / math.sqrt(d))

@@ -28,6 +28,7 @@ from paddle_tpu_torch.models import llama_spmd as T
 from paddle_tpu_torch.models.llama import LlamaConfig
 from paddle_tpu_torch.models.llama_spmd import init_params
 from paddle_tpu_torch.models.llama_serving import Request, ServingEngine
+from paddle_tpu_torch.ops.flash_attention import tensor_core_operands
 from paddle_tpu_torch.ops.fused import fused_linear_cross_entropy
 from paddle_tpu_torch.ops.paged_attention import quantize_kv
 
@@ -549,12 +550,34 @@ VARLEN_LAYOUTS = {"same": ([70, 1, 130, 64], 300, None, None),
                   "one_tile": ([5, 9], 20, None, None)}
 
 
-@pytest.mark.parametrize("layout", sorted(VARLEN_LAYOUTS))
+# The forward's layouts: VARLEN_LAYOUTS, and the bf16 tensor-core
+# kernel's edges: Tq of 1, one short of and one past a 64-row tile, and
+# 2048 (segments ending and pads starting inside a tile, tiles wholly
+# inside one segment); unequal offsets with pad rows inside a tile and a
+# key segment no query has.
+VARLEN_FWD_LAYOUTS = {**VARLEN_LAYOUTS,
+                      "t1": ([1], 1, None, None),
+                      "t63": ([20, 43], 63, None, None),
+                      "t65": ([30, 33], 65, None, None),
+                      "t2048": ([700, 1, 600, 500], 2048, None, None),
+                      "unequal_t65": ([10, 40], 65, [30, 45, 20], 130)}
+# (layout, h, kvh, d): the GQA grid over VARLEN_LAYOUTS; the edges at the
+# head dims of each instantiation and at 40, 72 and 100 (the wrapper pads
+# a bf16 D = 100 to 104)
+VARLEN_FWD_CASES = (
+    [(lay, h, kvh, d) for lay in sorted(VARLEN_LAYOUTS)
+     for h, kvh, d in ((4, 4, 64), (8, 2, 128), (4, 1, 40))]
+    + [(lay, 4, 2, d) for lay in ("t1", "t63", "t65", "t2048", "unequal_t65")
+       for d in (32, 40, 72, 100, 128)])
+
+
+@pytest.mark.parametrize("layout,h,kvh,d", VARLEN_FWD_CASES)
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("h,kvh,d", [(4, 4, 64), (8, 2, 128), (4, 1, 40)])
 @pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
 def test_varlen_kernel_matches_plain(card, dtype, h, kvh, d, causal, layout):
-    lq, tq, lk, tk = VARLEN_LAYOUTS[layout]
+    """o and lse against the plain version, padding rows exactly 0, and
+    the tiles the forward computed against `tile_plan`'s."""
+    lq, tq, lk, tk = VARLEN_FWD_LAYOUTS[layout]
     dt = FLASH_DTYPES[dtype]
     seg_q = torch.from_numpy(_segments(lq, tq)).to(card)
     seg_k = seg_q if lk is None else torch.from_numpy(
@@ -569,32 +592,83 @@ def test_varlen_kernel_matches_plain(card, dtype, h, kvh, d, causal, layout):
     torch.cuda.synchronize()
     assert va.launches_fwd == before + 1 and o.dtype == dt
     sq, sk = va._sentinels(seg_q, seg_k)
-    o2, lse = va._launch_fwd(q, k, v, sq, sk, causal, d ** -0.5,
-                             lk is None)
+    o2, lse, tiles = va._launch_fwd(q, k, v, sq, sk, causal, d ** -0.5,
+                                    lk is None, count_tiles=True)
     o_ref, lse_ref = va.varlen_fwd_reference(q, k, v, seg_q, seg_k, causal,
                                              d ** -0.5)
     atol, rtol = FLASH_TOL[dt]
+    assert o.shape == o_ref.shape
     torch.testing.assert_close(o.float(), o_ref.float(), atol=atol,
                                rtol=rtol)
     torch.testing.assert_close(o2, o)
     torch.testing.assert_close(lse, lse_ref, atol=LSE_TOL[0],
                                rtol=LSE_TOL[1])
     assert bool((o[seg_q < 0] == 0).all())
+    plan = va.tile_plan(seg_q, seg_k, causal, lk is None)
+    assert tiles == int((plan != va.SKIP).sum()) * h
 
 
-def test_varlen_kernel_reads_strided_operands(card):
+@pytest.mark.parametrize("extra", [0, 3], ids=["aligned", "odd_rows"])
+@pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
+def test_varlen_kernel_reads_strided_operands(card, dtype, extra):
     """q, k, v as column slices of one fused projection (row strides
-    larger than heads x D) give the same answer as contiguous copies."""
+    larger than heads x D) give the same answer as contiguous copies.
+    With `extra` columns before q a row holds 259 values: the bf16
+    kernel's 16-byte copies cannot read such rows, so its wrapper copies
+    the operands first; the aligned bf16 slices are read in place."""
     seg = torch.from_numpy(_segments([50, 80], 150)).to(card)
-    x = torch.randn((150, 4 * 32 + 2 * 2 * 32), device=card)
-    q = x[:, :128].view(150, 4, 32)
-    k = x[:, 128:192].view(150, 2, 32)
-    v = x[:, 192:].view(150, 2, 32)
+    x = torch.randn((150, extra + 4 * 32 + 2 * 2 * 32), device=card).to(
+        FLASH_DTYPES[dtype])
+    q = x[:, extra:extra + 128].view(150, 4, 32)
+    k = x[:, extra + 128:extra + 192].view(150, 2, 32)
+    v = x[:, extra + 192:].view(150, 2, 32)
     assert not q.is_contiguous()
+    copied = tensor_core_operands(q, k, v)
+    assert all((a is b) == (extra == 0) for a, b in zip((q, k, v), copied))
     a = va.flash_attention_varlen(q, k, v, seg, seg, causal=True)
     b = va.flash_attention_varlen(q.contiguous(), k.contiguous(),
                                   v.contiguous(), seg, seg, causal=True)
     torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("layout", sorted(VARLEN_FWD_LAYOUTS))
+def test_varlen_positions_equal_rev_pos(card, layout):
+    """The kernels' segment distances, computed on the card by
+    va_positions, equal the plain `rev_pos` of both id vectors."""
+    lq, tq, lk, tk = VARLEN_FWD_LAYOUTS[layout]
+    seg_q = torch.from_numpy(_segments(lq, tq)).to(card)
+    seg_k = seg_q if lk is None else torch.from_numpy(
+        _segments(lk, tk)).to(card)
+    sq, sk = va._sentinels(seg_q, seg_k)
+    pos_q, pos_k = torch.empty_like(sq), torch.empty_like(sk)
+    rc = va._lib().va_positions(sq.data_ptr(), sk.data_ptr(), len(sq),
+                                len(sk), pos_q.data_ptr(), pos_k.data_ptr(),
+                                torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert torch.equal(pos_q, va.rev_pos(sq))
+    assert torch.equal(pos_k, va.rev_pos(sk))
+
+
+@pytest.mark.parametrize("t,d,causal", [(2048, 128, True), (300, 100, False)])
+def test_varlen_bf16_forward_repeats_bit_for_bit(card, t, d, causal):
+    """No atomics and a fixed order of sums: two launches of the bf16
+    forward on the same operands give the same bits, o and lse."""
+    lens = [700, 1, 600, 500] if t == 2048 else [70, 1, 130, 64]
+    seg = torch.from_numpy(_segments(lens, t)).to(card)
+    g = torch.Generator(device=card)
+    g.manual_seed(t + d)
+    q = torch.randn((t, 8, d), generator=g, device=card).bfloat16()
+    k, v = (torch.randn((t, 2, d), generator=g, device=card).bfloat16()
+            for _ in range(2))
+    sq, sk = va._sentinels(seg, seg)
+    runs = [va._launch_fwd(q, k, v, sq, sk, causal, d ** -0.5, True)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0].view(torch.int16),
+                       runs[1][0].view(torch.int16))
+    assert torch.equal(runs[0][1].view(torch.int32),
+                       runs[1][1].view(torch.int32))
 
 
 def test_varlen_kernel_skips_tiles_outside_the_segments(card):

@@ -40,8 +40,11 @@ def _group(name):
     n = name.lower()
     if "ragged_kernel" in n:
         return "attention (ragged_paged_attention.cu)"
-    # before the generic fwd_kernel test below: va_fwd_kernel ends in it
-    if "va_fwd_kernel" in n or "tile_ranges_kernel" in n:
+    # before the generic tests below: va_fwd_kernel ends in fwd_kernel,
+    # and the bf16 va_fwd is attn_fwd_sm90.cuh's fwd_tc_kernel with the
+    # varlen policy
+    if any(s in n for s in ("va_fwd_kernel", "va_dq_kernel", "va_dkv_kernel",
+                            "varlenpolicy", "tile_ranges_kernel")):
         return "attention (varlen_attention.cu)"
     if "decode_kernel" in n or "verify_kernel" in n:
         return "attention (paged_attention.cu)"
