@@ -12,9 +12,11 @@ non-zero):
                to run without CUDA;
   2. build   — nvcc builds every kernel source of csrc/, one nvcc per
                source, all started together; each source's line lists
-               every kernel with its registers and spill bytes (ptxas),
-               and `tc_spill_bytes` sums the spills of the tensor-core
-               kernels (`*_tc_kernel`);
+               every kernel with its registers and spill bytes (ptxas;
+               a tensor-core instantiation with dropout is labelled
+               `dropout`), and `tc_spill_bytes` sums the spills of the
+               tensor-core kernels (`*_tc_kernel`); one without dropout
+               that spills fails the phase;
   3. kernel  — the ragged paged-attention kernel against its plain
                version on one mixed wave at Llama-3-8B attention widths
                (QH=32, KVH=8, D=128, page 16): a 256-token prefill chunk
@@ -72,13 +74,16 @@ non-zero):
                document, summed (forward; forward + backward minus forward
                for dQ and dK/dV), a yardstick only; `causal_only_ms` is
                the same kernel with no mask, and each kernel must take
-               less than half of it (the block skip); the forward counts
+               less than half of it (the block skip); each kernel counts
                the (q tile, k tile) pairs it computed, which must equal
                the skip rule's (`_tile_counts`), and its rows carry
                `design`, `library_factor` and `bound_share` as
-               train_kernel's, with the same limit on the bf16 factor;
+               train_kernel's (the dK/dV row `pair_library_factor`), with
+               the same limits on the bf16 factors (the bf16 dQ and
+               dK/dV run the tensor-core loops of attn_bwd_sm90.cuh);
                (b) correctness over every mask flavor at B=2, H=4,
-               S=1000, D=64 and 128;
+               S=1000, D=64 and 128, each kernel's tiles against
+               `tile_plan`'s;
  10. packed_parity — train_parity with packed documents: batch 2 x 512,
                row 0 four documents, row 1 one, card against CPU;
  11. train_packed — the train phase's model on one 1 x 8192 row of the
@@ -286,8 +291,9 @@ def phase_device():
 
 def _ptxas_kernels(report):
     """Each kernel of an nvcc -Xptxas -v report: its name, shortened from
-    the mangled one to the kernel, element type, head dim and mask
-    policy (`fwd_tc_kernel<128, VarlenPolicy>`), its registers and spill
+    the mangled one to the kernel, element type, head dim, mask policy
+    and `dropout` for a backward loop instantiated with it
+    (`dkv_tc_kernel<128, FmPolicy, dropout>`), its registers and spill
     bytes (stores + loads)."""
     import re
     out, name, spill = [], None, 0
@@ -307,7 +313,8 @@ def _ptxas_kernels(report):
             elem = re.search(r"_kernelI(13__nv_bfloat16|f)", name)
             args = [elem and ("bf16" if elem.group(1) != "f" else "f32"),
                     *re.findall(r"Li(\d+)E", name),
-                    *re.findall(r"\d+([A-Za-z]+Policy)", name)]
+                    *re.findall(r"\d+([A-Za-z]+Policy)", name),
+                    "Lb1E" in name and "dropout"]
             label = kern.group(1) if kern else name
             if any(args):
                 label += "<" + ", ".join(a for a in args if a) + ">"
@@ -331,6 +338,12 @@ def phase_build(card):
               "source": str(_build.lib_path(name).name), "ptxas": kernels,
               "tc_spill_bytes": sum(k["spill_bytes"] for k in kernels
                                     if "_tc_kernel" in k["kernel"])})
+        spills = [k["kernel"] for k in kernels if k["spill_bytes"]
+                  and "_tc_kernel" in k["kernel"]
+                  and "dropout" not in k["kernel"]]
+        if spills:
+            fail(f"{name}: tensor-core kernels without dropout spill: "
+                 f"{spills}")
 
 
 # kernel-phase variants: name -> (pool dtype, q dtype)
@@ -750,8 +763,8 @@ FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # kernel's cast of P to V's dtype, moved forward rows that see few keys
 # by up to two ulps); so they differ from the fp32 plain versions by sums
 # in another order and 2^-17 of P and dS before the outputs round to bf16:
-# one ulp apart at most. The FlashMask and varlen backwards compute in
-# fp32 on CUDA cores. lse is fp32 on both sides.
+# one ulp apart at most; so do the FlashMask kernels. The varlen backward
+# computes in fp32 on CUDA cores. lse is fp32 on both sides.
 LSE_TOL = (1e-5, 1e-5)
 # The design of each kernel row (`design`), and the most a bf16 kernel on
 # the tensor cores may take over its library call (`library_factor`): the
@@ -763,7 +776,8 @@ FWD_DESIGN = {"bfloat16": "tensor cores: mma.sync m16n8k16, cp.async K/V "
               "float32": "cuda-core fp32"}
 BWD_DESIGN = ("tensor cores: mma.sync m16n8k16, cp.async ring of 2 (K/V for "
               "dQ; Q, dO, lse, delta for dK/dV), P and dS as bf16 hi + lo")
-TC_BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
+TC_BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv", "flashmask_bwd_dq",
+                  "flashmask_bwd_dkv")
 MAX_FWD_LIBRARY_FACTOR = 6.0
 MAX_BWD_LIBRARY_FACTOR = 4.0
 
@@ -1325,7 +1339,7 @@ MASK_CASES = ("causal_n2_band", "noncausal_n2", "noncausal_n4",
 
 def _mask_flavors(card):
     """Correctness only: every mask flavor at B=2, H=4, S=1000 (a ragged
-    final tile), D=64 and 128, bf16 and fp32, and the forward's computed
+    final tile), D=64 and 128, bf16 and fp32, and each kernel's computed
     tiles against `tile_plan`'s count."""
     import numpy as np
     import torch
@@ -1351,15 +1365,17 @@ def _mask_flavors(card):
                 plan = fm.tile_plan(sri, s, s, causal, window)
                 want = int((plan != fm.SKIP).sum()) * (
                     b * h // (plan.shape[0] * plan.shape[1]))
-                if computed != want:
-                    fail(f"{name} d{d} ({dname}): the forward computed "
-                         f"{computed} tiles, tile_plan keeps {want}")
                 o_ref, lse_ref = fm.flashmask_fwd_reference(q, k, v, sri, *m)
                 delta = (do.float() * o_ref.float()).sum(-1)
                 args = (q, k, v, sri, do, lse_ref, delta)
-                dq = fm._launch_dq(*args, m)
-                dk, dv = fm._launch_dkv(*args, m)
+                dq, computed_dq = fm._launch_dq(*args, m, count_tiles=True)
+                dk, dv, computed_dkv = fm._launch_dkv(*args, m,
+                                                      count_tiles=True)
                 torch.cuda.synchronize()
+                if (computed, computed_dq, computed_dkv) != (want,) * 3:
+                    fail(f"{name} d{d} ({dname}): the forward, dQ and dK/dV "
+                         f"computed {computed}, {computed_dq} and "
+                         f"{computed_dkv} tiles, tile_plan keeps {want}")
                 dk_ref, dv_ref = fm.flashmask_bwd_dkv_reference(*args, *m)
                 got = {"flashmask_fwd": [o], "flashmask_bwd_dq": [dq],
                        "flashmask_bwd_dkv": [dk, dv]}
@@ -1394,17 +1410,22 @@ def phase_mask_kernel(card):
         g.manual_seed(0)
         q, k, v, do = (torch.randn((b, h, s, d), generator=g,
                                    device="cuda").to(dt) for _ in range(4))
-        o, lse, computed = fm._launch_fwd(q, k, v, sri, m, count_tiles=True)
-        if computed != (tiles - skipped) * h:
-            fail(f"flashmask_fwd ({dname}) computed {computed} tiles, the "
-                 f"skip rule keeps {(tiles - skipped) * h}")
+        o, lse, computed_fwd = fm._launch_fwd(q, k, v, sri, m,
+                                              count_tiles=True)
         o_ref, lse_ref = _by_heads(fm.flashmask_fwd_reference, q, k, v, sri,
                                    *m)
         delta = (do.float() * o_ref.float()).sum(-1)
         args = (q, k, v, sri, do, lse_ref, delta)
-        dq = fm._launch_dq(*args, m)
-        dk, dv = fm._launch_dkv(*args, m)
+        dq, computed_dq = fm._launch_dq(*args, m, count_tiles=True)
+        dk, dv, computed_dkv = fm._launch_dkv(*args, m, count_tiles=True)
         torch.cuda.synchronize()
+        computed = {"flashmask_fwd": computed_fwd,
+                    "flashmask_bwd_dq": computed_dq,
+                    "flashmask_bwd_dkv": computed_dkv}
+        for kname, n in computed.items():
+            if n != (tiles - skipped) * h:
+                fail(f"{kname} ({dname}) computed {n} tiles, the skip rule "
+                     f"keeps {(tiles - skipped) * h}")
         dk_ref, dv_ref = _by_heads(fm.flashmask_bwd_dkv_reference, *args, *m)
         errs = _check_kernels(
             "mask_kernel", dname,
@@ -1426,14 +1447,16 @@ def phase_mask_kernel(card):
         lib_fwd, lib_fwd_bwd = _doc_sdpa(q, k, v, do, PACKED_DOCS)
         fwd_ms = cuda_ms(lib_fwd, reps=10)
         bwd_ms = cuda_ms(lib_fwd_bwd, reps=10) - fwd_ms
+        kernel_ms = {}
         for kname in FLASHMASK_KERNELS:
-            kernel_ms = cuda_ms(lambda: launch[kname](sri), reps=10)
+            kms = kernel_ms[kname] = cuda_ms(lambda: launch[kname](sri),
+                                             reps=10)
             causal_ms = cuda_ms(lambda: launch[kname](None), reps=5)
             pa = plain_args.get(kname, (*args, *m))
             plain_ms = cuda_ms(lambda: _by_heads(plain[kname], *pa), reps=3,
                                warmup=1)
-            if not kernel_ms < 0.5 * causal_ms:
-                fail(f"{kname} ({dname}): {kernel_ms} ms with the document "
+            if not kms < 0.5 * causal_ms:
+                fail(f"{kname} ({dname}): {kms} ms with the document "
                      f"mask, {causal_ms} ms causal only: the block skip "
                      "does not pay")
             bound_ms, bound_by, nbytes, flops = _attn_bound(
@@ -1447,7 +1470,7 @@ def phase_mask_kernel(card):
                    "atol": TOL[dname][0], "rtol": TOL[dname][1],
                    "max_abs_err": errs[kname],
                    "plain_compared_by_heads": PLAIN_HEADS,
-                   "kernel_ms": kernel_ms, "causal_only_ms": causal_ms,
+                   "kernel_ms": kms, "causal_only_ms": causal_ms,
                    "plain_ms": plain_ms,
                    "library_ms": fwd_ms if kname == "flashmask_fwd"
                    else bwd_ms,
@@ -1457,10 +1480,13 @@ def phase_mask_kernel(card):
                                     "dV), summed"),
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "bound_bytes": nbytes, "bound_flops": flops,
-                   "tflops": flops / kernel_ms / 1e9, "tf32": False}
+                   "tflops": flops / kms / 1e9, "tf32": False,
+                   "tiles_computed": computed[kname]}
             if kname == "flashmask_fwd":
                 row["lse_max_abs_err"] = errs["lse"]
-                row["tiles_computed"] = computed
+            if kname == "flashmask_bwd_dkv":   # the pair against one SDPA bwd
+                row["pair_library_factor"] = (
+                    kernel_ms["flashmask_bwd_dq"] + kms) / bwd_ms
             emit(_design_row(row, kname, dname))
             out[(kname, dname)] = row
         del q, k, v, do, args, o_ref, lse_ref, delta, lib_fwd, lib_fwd_bwd

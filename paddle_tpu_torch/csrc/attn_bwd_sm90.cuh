@@ -1,17 +1,19 @@
 // The bf16 attention backward tile loops on Hopper's tensor cores: dQ
 // (`dq_tc_kernel`) and dK/dV (`dkv_tc_kernel`), used by
-// csrc/flash_attention.cu (`fa_bwd_dq`, `fa_bwd_dkv`). The mask is a
+// csrc/flash_attention.cu (`fa_bwd_dq`, `fa_bwd_dkv`) and
+// csrc/flashmask_attention.cu (`fm_bwd_dq`, `fm_bwd_dkv`). The mask is a
 // policy type, as in the forward of attn_fwd_sm90.cuh; see `dkv_tc_kernel`
 // for what a policy provides.
 //
 // What they compute, per (batch*head) slice of contiguous (BH, S, D) bf16
 // operands, from the forward's lse and delta = rowsum(dO * O) (fp32 (BH,
 // sq) vectors): S = Q K^T, P = exp(S * scale - lse) over the pairs the
-// policy keeps (0 elsewhere), dP = dO V^T, dS = P (dP - delta) scale; dQ =
-// dS K, dK = dS^T Q and dV = P^T dO, written in bf16. This is the TPU
+// policy keeps (0 elsewhere), dP = dropped(dO V^T), dS = P (dP - delta)
+// scale; dQ = dS K, dK = dS^T Q and dV = dropped(P)^T dO, written in bf16
+// (dropped: the policy's dropout, where it has one). This is the TPU
 // backward (`_bwd_dq_kernel`, `_bwd_dkv_kernel` of paddle_tpu/ops/
-// flash_attention.py) with the sequential axis of each grid turned into a
-// loop inside the block. dQ has its own kernel, as there: nothing is
+// flash_attention.py and flashmask_attention.py) with the sequential axis
+// of each grid turned into a loop inside the block. dQ has its own kernel, as there: nothing is
 // reduced across blocks, no atomics, and results repeat from run to run.
 //
 // Design (mma.sync m16n8k16, bf16 in and fp32 accumulators; 4 warps of 16
@@ -40,10 +42,22 @@
 //     unrolled: unrolled, the kernel spilled 40-56 bytes at DP = 128
 //     under the launch bound of two blocks an SM (255 registers; the
 //     unrolled loop's lane-dependent ldmatrix offsets are the likely
-//     cause); as loops it takes 252 and spills nothing.
+//     cause); as loops it takes 250 (FlashPolicy) and 255 (FmPolicy) and
+//     spills nothing. The rows each of a thread's two keys keeps (a Span)
+//     are asked of the policy on each half of a partial tile: held through
+//     the loop, FmPolicy's twelve ints spilled it (46 bytes); read back
+//     from shared memory instead, FlashPolicy's loop spilled (120 bytes).
 //   * Masking selects 0 for every dropped pair after its product, so a
 //     row past sq (lse and delta zero-filled) or a row that keeps nothing
 //     (lse = -1e30) never brings an inf into a sum.
+//   * Dropout is a template flag of each loop (kDrop), set when the
+//     policy may drop (P::kMayDrop) and does for this launch: the
+//     instantiations without it compile to the loops without a hash, so
+//     the dK/dV loop keeps its registers. dQ drops dP before dS; dK/dV
+//     drops dP^T before dS^T and P^T before dV, each pair by the policy's
+//     hash of its absolute (q row, key) coordinates.
+//   * With a tile counter, thread 0 adds one for every tile computed (the
+//     counter is a launch argument, so the loop keeps no count).
 //   * Precision: S and dP multiply bf16 operands exactly. P and dS enter
 //     their products as two bf16 terms, hi = bf16(x) and lo = bf16(x -
 //     hi), 16 bits of each, as P does in the forward: the TPU kernels
@@ -56,6 +70,8 @@
 // terms make the tensor cores execute 8 and 12. mma.sync reaches a part
 // of that rate; wgmma with TMA is the step after this one.
 #pragma once
+
+#include <type_traits>
 
 #include "attn_fwd_sm90.cuh"
 
@@ -109,8 +125,8 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out,
 // ------------------------------------------------------------------ dQ
 // The dQ loop takes of its policy what the forward's loop takes (see
 // attn_fwd_sm90.cuh `fwd_tc_kernel`): begin, end, needed, full, stage,
-// span and kExtraBytes; dropout is not part of it.
-template <int DP, class P>
+// span, kExtraBytes and, with kDrop, drop; and kMayDrop (see run_dq).
+template <int DP, class P, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 2)
     dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
@@ -119,7 +135,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                  const float* __restrict__ lse,
                  const float* __restrict__ delta,
                  __nv_bfloat16* __restrict__ dq, int sq, int sk, int D,
-                 float scale, P pol) {
+                 float scale, P pol, int* __restrict__ tile_count) {
   constexpr int KS = DP / 16;  // k-steps of the score products
   constexpr int NB = DP / 8;   // 8-dim blocks of dQ
   constexpr int kTileElems = kTileQ * DP;
@@ -191,6 +207,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       issue(nxt, st ^ 1, full_nxt);
       cp_async_commit();
     }
+    if (tile_count != nullptr && threadIdx.x == 0) atomicAdd(tile_count, 1);
     const __nv_bfloat16* ks = kv0 + 2 * st * kTileElems;
     const __nv_bfloat16* vs = ks + kTileElems;
     const unsigned char* extra = extra0 + st * P::kExtraBytes;
@@ -222,14 +239,17 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
     }
 
-    // dS = P (dP - delta) scale into s, P = exp2(S sl2 - lse2); the pairs
-    // a partial tile drops select 0
+    // dS = P (dP - delta) scale into s, P = exp2(S sl2 - lse2), dP
+    // dropped first under dropout; the pairs a partial tile drops select 0
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p = fast_exp2(fmaf(s[j][e], sl2, -lse2[e / 2]));
-        s[j][e] = p * (dp[j][e] - dl[e / 2]) * scale;
+        float g = dp[j][e];
+        if constexpr (kDrop)
+          g = pol.drop(g, e < 2 ? row_a : row_b, k0 + 8 * j + col_in + e % 2);
+        s[j][e] = p * (g - dl[e / 2]) * scale;
       }
     if (!full) {
 #pragma unroll
@@ -268,7 +288,10 @@ __global__ void __launch_bounds__(kThreads, 2)
 //                                  unloaded
 //   bool full_q(int qt) const;     true: every pair of it is kept
 //   Span key_span(int col) const;  the rows key column col keeps; each
-//                                  thread asks once for its two keys
+//                                  thread asks for its two keys on each
+//                                  part of a partial tile
+// With kDrop, drop(x, q row, key) gives what feeds dS^T (x = dP^T) and dV
+// (x = P^T).
 constexpr int kSub = 32;  // q rows of one part of a q tile
 
 template <int DP>
@@ -283,7 +306,7 @@ constexpr size_t dkv_smem_bytes() {
          static_cast<size_t>(kStages) * 2 * kTileQ * sizeof(float);
 }
 
-template <int DP, class P>
+template <int DP, class P, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 2)
     dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
@@ -293,7 +316,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                   const float* __restrict__ delta,
                   __nv_bfloat16* __restrict__ dk,
                   __nv_bfloat16* __restrict__ dv, int sq, int sk, int D,
-                  float scale, P pol) {
+                  float scale, P pol, int* __restrict__ tile_count) {
   constexpr int KS = DP / 16;
   constexpr int NB = DP / 8;
   constexpr int kTileElems = kTileQ * DP;
@@ -321,7 +344,6 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   // this thread's two keys: fragment rows lane/4 and lane/4 + 8
   const int key_a = k0 + warp * 16 + lane / 4;
-  const Span sp[2] = {pol.key_span(key_a), pol.key_span(key_a + 8)};
   const int col_in = 2 * (lane % 4);
   const float sl2 = scale * kLog2e;
   float dka[NB][4], dva[NB][4];
@@ -364,6 +386,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       issue(nxt, st ^ 1);
       cp_async_commit();
     }
+    if (tile_count != nullptr && threadIdx.x == 0) atomicAdd(tile_count, 1);
     const __nv_bfloat16* qs = qd0 + 2 * st * kTileElems;
     const __nv_bfloat16* dos = qs + kTileElems;
     const float* ls = vec0 + 2 * st * kTileQ;
@@ -400,8 +423,18 @@ __global__ void __launch_bounds__(kThreads, 2)
         }
       }
 
-      // P^T into s and dS^T into dpt; column c is q row q0 + c, with its
-      // lse and delta from the staged vectors
+      // P^T into s and dS^T into dpt (under dropout, dP^T dropped before
+      // dS^T and P^T after it); column c is q row q0 + c, with its lse and
+      // delta from the staged vectors
+      // the rows this thread's two keys keep, asked of the policy on each
+      // part of a partial tile: held in registers through the loop (or
+      // read back from shared memory), FmPolicy's spans spilled the loop
+      // at DP = 128
+      Span sp[2];
+      if (!full) {
+        sp[0] = pol.key_span(key_a);
+        sp[1] = pol.key_span(key_a + 8);
+      }
 #pragma unroll
       for (int j = 0; j < kSub / 8; ++j) {
 #pragma unroll
@@ -412,7 +445,10 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
             float p = fast_exp2(fmaf(s[j][2 * r + e], sl2, -l2));
-            float ds = p * (dpt[j][2 * r + e] - dlt) * scale;
+            float g = dpt[j][2 * r + e];
+            if constexpr (kDrop) g = pol.drop(g, q0 + c, key_a + 8 * r);
+            float ds = p * (g - dlt) * scale;
+            if constexpr (kDrop) p = pol.drop(p, q0 + c, key_a + 8 * r);
             if (!full && !in_span(sp[r], q0 + c)) p = ds = 0.f;
             s[j][2 * r + e] = p;
             dpt[j][2 * r + e] = ds;
@@ -439,12 +475,12 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // ---------------------------------------------------------------- launch
-template <int DP, class P>
+template <int DP, class P, bool kDrop>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int bh, int sq, int sk, int d, float scale,
-                      const P& pol, cudaStream_t stream) {
-  auto kernel = dq_tc_kernel<DP, P>;
+                      const P& pol, int* tile_count, cudaStream_t stream) {
+  auto kernel = dq_tc_kernel<DP, P, kDrop>;
   constexpr size_t smem = dq_smem_bytes<DP>(P::kExtraBytes);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -457,16 +493,17 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(v),
       static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dq), sq, sk, d, scale, pol);
+      static_cast<__nv_bfloat16*>(dq), sq, sk, d, scale, pol, tile_count);
   return cudaGetLastError();
 }
 
-template <int DP, class P>
+template <int DP, class P, bool kDrop>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int bh, int sq, int sk, int d,
-                       float scale, const P& pol, cudaStream_t stream) {
-  auto kernel = dkv_tc_kernel<DP, P>;
+                       float scale, const P& pol, int* tile_count,
+                       cudaStream_t stream) {
+  auto kernel = dkv_tc_kernel<DP, P, kDrop>;
   constexpr size_t smem = dkv_smem_bytes<DP>();
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -480,41 +517,64 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), sq,
-      sk, d, scale, pol);
+      sk, d, scale, pol, tile_count);
   return cudaGetLastError();
 }
 
-// Dispatch on the padded head dim (32, 64 or 128).
+// f(std::true_type) when the policy drops on this launch, else
+// f(std::false_type); a policy that never drops (P::kMayDrop false)
+// instantiates only the second.
+template <class P, class F>
+cudaError_t by_dropout(const P& pol, F f) {
+  if constexpr (P::kMayDrop) {
+    if (pol.drops()) return f(std::true_type{});
+  }
+  return f(std::false_type{});
+}
+
+// Dispatch on dropout and the padded head dim (32, 64 or 128). tile_count:
+// null, or one int to which the number of computed (q tile, k tile,
+// batch*head) triples is added.
 template <class P>
 cudaError_t run_dq(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dq, int bh, int sq, int sk, int d, float scale,
-                   const P& pol, cudaStream_t stream) {
+                   const P& pol, int* tile_count, cudaStream_t stream) {
   if (!operands_ok(d, {q, k, v, dout, dq})) return cudaErrorInvalidValue;
-  if (d <= 32)
-    return launch_dq<32>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d, scale,
-                         pol, stream);
-  if (d <= 64)
-    return launch_dq<64>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d, scale,
-                         pol, stream);
-  return launch_dq<128>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d, scale,
-                        pol, stream);
+  return by_dropout(pol, [&](auto drop) {
+    constexpr bool kDrop = decltype(drop)::value;
+    if (d <= 32)
+      return launch_dq<32, P, kDrop>(q, k, v, dout, lse, delta, dq, bh, sq,
+                                     sk, d, scale, pol, tile_count, stream);
+    if (d <= 64)
+      return launch_dq<64, P, kDrop>(q, k, v, dout, lse, delta, dq, bh, sq,
+                                     sk, d, scale, pol, tile_count, stream);
+    return launch_dq<128, P, kDrop>(q, k, v, dout, lse, delta, dq, bh, sq,
+                                    sk, d, scale, pol, tile_count, stream);
+  });
 }
 
 template <class P>
 cudaError_t run_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     void* dk, void* dv, int bh, int sq, int sk, int d,
-                    float scale, const P& pol, cudaStream_t stream) {
+                    float scale, const P& pol, int* tile_count,
+                    cudaStream_t stream) {
   if (!operands_ok(d, {q, k, v, dout, dk, dv})) return cudaErrorInvalidValue;
-  if (d <= 32)
-    return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d,
-                          scale, pol, stream);
-  if (d <= 64)
-    return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d,
-                          scale, pol, stream);
-  return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d,
-                         scale, pol, stream);
+  return by_dropout(pol, [&](auto drop) {
+    constexpr bool kDrop = decltype(drop)::value;
+    if (d <= 32)
+      return launch_dkv<32, P, kDrop>(q, k, v, dout, lse, delta, dk, dv, bh,
+                                      sq, sk, d, scale, pol, tile_count,
+                                      stream);
+    if (d <= 64)
+      return launch_dkv<64, P, kDrop>(q, k, v, dout, lse, delta, dk, dv, bh,
+                                      sq, sk, d, scale, pol, tile_count,
+                                      stream);
+    return launch_dkv<128, P, kDrop>(q, k, v, dout, lse, delta, dk, dv, bh,
+                                     sq, sk, d, scale, pol, tile_count,
+                                     stream);
+  });
 }
 
 }  // namespace attn_bwd_sm90

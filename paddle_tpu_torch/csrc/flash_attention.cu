@@ -536,6 +536,7 @@ bool args_ok(int bh, int sq, int sk, int d, int dtype) {
 struct FlashPolicy {
   static constexpr size_t kExtraBytes = 0;
   static constexpr bool kRowTest = false;  // partial tiles by span
+  static constexpr bool kMayDrop = false;  // no dropout in the backward
   int causal;
   int q0, k0, sq, sk;
 
@@ -647,7 +648,8 @@ int fa_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
     FlashPolicy pol{};
     pol.causal = causal;
     return static_cast<int>(attn_bwd_sm90::run_dq(
-        q, k, v, dout, lse, delta, dq, bh, sq, sk, d, scale, pol, s));
+        q, k, v, dout, lse, delta, dq, bh, sq, sk, d, scale, pol, nullptr,
+        s));
   }
   FA_F32(dq_f32, q, k, v, dout, lse, delta, dq, bh, sq, sk, d, scale,
          causal);
@@ -664,7 +666,8 @@ int fa_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
     FlashPolicy pol{};
     pol.causal = causal;
     return static_cast<int>(attn_bwd_sm90::run_dkv(
-        q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d, scale, pol, s));
+        q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d, scale, pol,
+        nullptr, s));
   }
   FA_F32(dkv_f32, q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d, scale,
          causal);

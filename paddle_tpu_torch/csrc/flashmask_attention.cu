@@ -23,23 +23,30 @@
 // P, and dP is dropped before dS.
 //
 // Two designs, picked by dtype:
-//   * bf16 forward: the tensor-core tile loop of attn_fwd_sm90.cuh
-//     (mma.sync, cp.async K/V ring, softmax and P in registers, P entering
-//     PV as two bf16 terms) with `FmPolicy` below as its mask. Every skip
-//     decision is known before a tile's copies are issued: a first small
-//     kernel (`tile_agg_kernel`) reduces each sri index over each
-//     64-column k tile (columns < S_k only) to its max and its min. The
-//     max of the starts and the min of the ends give the all-masked skip
-//     (`_sri_all_masked`, :109); the min of the starts and the max of the
-//     ends show a tile that no interval touches. A tile that is also
-//     wholly under the diagonal, inside the window and inside the ragged
-//     bounds is wholly kept and skips the per-pair mask; only the other
-//     (partial) tiles copy their sri columns, beside K and V, and mask
-//     their pairs in fragment coordinates. Dropout applies to the fp32 P
-//     before its split into bf16 terms, never to l.
-//   * fp32 forward and both backward kernels in either dtype: the CUDA-core
-//     design below. Their fp32 results hold the plain versions to 1e-5,
-//     which TF32 tensor cores would not.
+//   * bf16: the tensor-core tile loops of attn_fwd_sm90.cuh (forward:
+//     mma.sync, cp.async K/V ring, softmax and P in registers, P entering
+//     PV as two bf16 terms) and attn_bwd_sm90.cuh (dQ and dK/dV: the same
+//     ring over K/V or over Q, dO, lse and delta; P and dS in registers,
+//     entering their products as two bf16 terms), with `FmPolicy` below
+//     as their mask. Every skip decision is known before a tile's copies
+//     are issued: a first small kernel (`tile_agg_kernel`, launched by
+//     fm_fwd and, once per backward, by fm_tile_agg) reduces each sri
+//     index over each 64-column k tile (columns < S_k only) to its max and
+//     its min. The max of the starts and the min of the ends give the
+//     all-masked skip (`_sri_all_masked`, :109); the min of the starts and
+//     the max of the ends show a tile that no interval touches. A tile
+//     that is also wholly under the diagonal, inside the window and inside
+//     the ragged bounds is wholly kept and skips the per-pair mask. The
+//     q-major loops (forward, dQ) read a q tile's row of these decisions,
+//     the k-major one (dK/dV) a k tile's column, by one rule
+//     (`pair_needed`, `pair_full`; `tile_plan` of the Python module is its
+//     plain twin). A partial tile of the q-major loops copies its sri
+//     columns beside K and V; the dK/dV loop reads each thread's two key
+//     columns once, from device memory (`key_span`). Dropout applies to
+//     the fp32 P before its split into bf16 terms, never to l, and to dP
+//     before dS.
+//   * fp32: the CUDA-core design below. Its results hold the plain
+//     versions to 1e-5, which TF32 tensor cores would not.
 //
 // The CUDA-core design: the structure of csrc/flash_attention.cu (64-row
 // tiles, 256 threads as 16 x 16, fp32 tiles d-major at a stride of 65
@@ -59,7 +66,7 @@
 //   * The per-pair mask compares row ids with the staged columns; after
 //     exp every masked entry is zeroed (a row with every pair masked
 //     has m = lse = -1e30, where exp(s - lse) would be 1).
-// Both forwards count the (q tile, k tile) pairs they compute into an
+// Every kernel counts the (q tile, k tile) pairs it computes into an
 // optional counter.
 //
 // What bounds it: on packed documents the work is the kept pairs, not
@@ -67,15 +74,16 @@
 // tokens, 7.14 M of the 33.6 M causal pairs per head, so 117 / 176 /
 // 234 GFLOP for fwd / dQ / dK-dV, 0.118 / 0.177 / 0.237 ms at the bf16
 // tensor-core rate of 989 TFLOP/s, against 0.01-0.02 ms for the bytes:
-// bound by operations. The CUDA-core kernels compute on fp32 CUDA cores
-// (67 TFLOP/s) and load tiles synchronously. Tiles that straddle a
-// document edge are computed whole.
+// bound by operations. The fp32 kernels compute on the CUDA cores (67
+// TFLOP/s) and load tiles synchronously. Tiles that straddle a document
+// edge are computed whole.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stddef.h>
 
+#include "attn_bwd_sm90.cuh"
 #include "attn_fwd_sm90.cuh"
 
 namespace {
@@ -88,22 +96,6 @@ constexpr int kMaxN = 4;         // widest sri
 constexpr float kNegInf = -1e30f;
 
 enum DType { kF32 = 0, kBF16 = 1 };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Sum / max over the 16 lanes that share a row (tx = lane % 16).
 __device__ __forceinline__ float row_sum(float x) {
@@ -121,15 +113,16 @@ __device__ __forceinline__ float row_max(float x) {
 // Stage rows [row0, row0 + kTile) of one (rows, D) slice into shared
 // memory, d-major: dst[d * kPad + r]; rows past `rows` and dims past D
 // (up to DP) are zero.
-template <int DP, typename T>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
-                                      int row0, int rows, int D) {
+template <int DP>
+__device__ __forceinline__ void stage(float* dst,
+                                      const float* __restrict__ src, int row0,
+                                      int rows, int D) {
   for (int i = threadIdx.x; i < kTile * DP; i += kThreads) {
     const int r = i / DP;
     const int d = i % DP;
     float x = 0.f;
     if (row0 + r < rows && d < D)
-      x = to_float(src[static_cast<size_t>(row0 + r) * D + d]);
+      x = src[static_cast<size_t>(row0 + r) * D + d];
     dst[d * kPad + r] = x;
   }
 }
@@ -260,12 +253,12 @@ __device__ __forceinline__ bool drop_keep(unsigned row, unsigned col,
 }
 
 // ------------------------------------------------------------- forward
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads, 1)
-    fm_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, T* __restrict__ o,
-               float* __restrict__ lse, int sq, int sk, int D, float scale,
-               Mask m, int* __restrict__ tile_count) {
+    fm_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o,
+                  float* __restrict__ lse, int sq, int sk, int D,
+                  float scale, Mask m, int* __restrict__ tile_count) {
   constexpr int NC = DP / 16;  // output dims per thread
   extern __shared__ float smem[];
   float* qs = smem;
@@ -281,8 +274,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int q0 = (n_qt - 1 - blockIdx.x) * kTile;  // longest causal rows first
   const int r1 = min(q0 + kTile, sq) - 1;
   const int bh = blockIdx.y;
-  const T* kb = k + static_cast<size_t>(bh) * sk * D;
-  const T* vb = v + static_cast<size_t>(bh) * sk * D;
+  const float* kb = k + static_cast<size_t>(bh) * sk * D;
+  const float* vb = v + static_cast<size_t>(bh) * sk * D;
   const int* sri = m.n ? sri_of(m, bh, sk) : nullptr;
 
   float mr[4], l[4], acc[4][NC];
@@ -381,11 +374,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int row = q0 + ty * 4 + i;
     if (row >= sq) continue;
     const float ls = l[i] == 0.f ? 1.f : l[i];
-    T* orow = o + (static_cast<size_t>(bh) * sq + row) * D;
+    float* orow = o + (static_cast<size_t>(bh) * sq + row) * D;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = tx + 16 * c;
-      if (d < D) orow[d] = from_float<T>(acc[i][c] / ls);
+      if (d < D) orow[d] = acc[i][c] / ls;
     }
     if (tx == 0) lse[static_cast<size_t>(bh) * sq + row] = mr[i] + logf(ls);
   }
@@ -394,13 +387,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ------------------------------------------------------------------ dQ
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads, 1)
-    fm_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              T* __restrict__ dq, int sq, int sk, int D, float scale,
-              Mask m) {
+    fm_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dq,
+                 int sq, int sk, int D, float scale, Mask m,
+                 int* __restrict__ tile_count) {
   constexpr int NC = DP / 16;
   extern __shared__ float smem[];
   float* qs = smem;
@@ -418,8 +412,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int r1 = min(q0 + kTile, sq) - 1;
   const int bh = blockIdx.y;
   const size_t qoff = static_cast<size_t>(bh) * sq;
-  const T* kb = k + static_cast<size_t>(bh) * sk * D;
-  const T* vb = v + static_cast<size_t>(bh) * sk * D;
+  const float* kb = k + static_cast<size_t>(bh) * sk * D;
+  const float* vb = v + static_cast<size_t>(bh) * sk * D;
   const int* sri = m.n ? sri_of(m, bh, sk) : nullptr;
 
   float lr[4], dr[4], acc[4][NC];
@@ -432,6 +426,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   }
   bool q_staged = false;
+  int computed = 0;
   int n_kt = (sk + kTile - 1) / kTile;
   if (m.causal) n_kt = min(n_kt, r1 / kTile + 1);
 
@@ -444,6 +439,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       __syncthreads();
       if (sri_all_masked(q0, r1, half, m)) continue;
     }
+    ++computed;
     if (!q_staged) {
       stage<DP>(qs, q + qoff * D, q0, sq, D);
       stage<DP>(dos, dout + qoff * D, q0, sq, D);
@@ -507,24 +503,27 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= sq) continue;
-    T* drow = dq + (qoff + row) * D;
+    float* drow = dq + (qoff + row) * D;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = tx + 16 * c;
-      if (d < D) drow[d] = from_float<T>(acc[i][c]);
+      if (d < D) drow[d] = acc[i][c];
     }
   }
+  if (tile_count != nullptr && threadIdx.x == 0)
+    atomicAdd(tile_count, computed);
 }
 
 // --------------------------------------------------------------- dK/dV
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads, 1)
-    fm_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const T* __restrict__ dout,
-               const float* __restrict__ lse,
-               const float* __restrict__ delta, T* __restrict__ dk,
-               T* __restrict__ dv, int sq, int sk, int D, float scale,
-               Mask m) {
+    fm_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v,
+                  const float* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, float* __restrict__ dk,
+                  float* __restrict__ dv, int sq, int sk, int D, float scale,
+                  Mask m, int* __restrict__ tile_count) {
   constexpr int NC = DP / 16;
   extern __shared__ float smem[];
   float* ks = smem;
@@ -557,6 +556,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int c = 0; c < NC; ++c) dka[i][c] = dva[i][c] = 0.f;
   bool kv_staged = false;
+  int computed = 0;
 
   const int n_qt = (sq + kTile - 1) / kTile;
   // the first q tile holding a row >= k0 (rows below see none of k0..)
@@ -566,6 +566,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int r1 = min(q0 + kTile, sq) - 1;
     if (!tile_may_keep(q0, r1, k0, c1, m)) continue;
     if (m.n && sri_all_masked(q0, r1, half, m)) continue;
+    ++computed;
     __syncthreads();
     if (!kv_staged) {
       stage<DP>(ks, k + koff * D, k0, sk, D);
@@ -649,17 +650,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = 0; i < 4; ++i) {
     const int row = k0 + ty * 4 + i;
     if (row >= sk) continue;
-    T* krow = dk + (koff + row) * D;
-    T* vrow = dv + (koff + row) * D;
+    float* krow = dk + (koff + row) * D;
+    float* vrow = dv + (koff + row) * D;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = tx + 16 * c;
       if (d < D) {
-        krow[d] = from_float<T>(dka[i][c]);
-        vrow[d] = from_float<T>(dva[i][c]);
+        krow[d] = dka[i][c];
+        vrow[d] = dva[i][c];
       }
     }
   }
+  if (tile_count != nullptr && threadIdx.x == 0)
+    atomicAdd(tile_count, computed);
 }
 
 // Shared memory of each kernel, in 4-byte words, for padded head dim DP.
@@ -683,7 +686,7 @@ template <int DP>
 cudaError_t fwd_f32(const void* q, const void* k, const void* v, void* o,
                     void* lse, int bh, int sq, int sk, int d, float scale,
                     Mask m, int* tile_count, cudaStream_t stream) {
-  auto kernel = fm_fwd_kernel<float, DP>;
+  auto kernel = fm_fwd_kernel<DP>;
   const size_t smem = fwd_words(DP) * 4;
   cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
@@ -695,39 +698,41 @@ cudaError_t fwd_f32(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T, int DP>
-cudaError_t dq_typed(const void* q, const void* k, const void* v,
-                     const void* dout, const void* lse, const void* delta,
-                     void* dq, int bh, int sq, int sk, int d, float scale,
-                     Mask m, cudaStream_t stream) {
-  auto kernel = fm_dq_kernel<T, DP>;
+template <int DP>
+cudaError_t dq_f32(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dq, int bh, int sq, int sk, int d, float scale,
+                   Mask m, int* tile_count, cudaStream_t stream) {
+  auto kernel = fm_dq_kernel<DP>;
   const size_t smem = dq_words(DP) * 4;
   cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((sq + kTile - 1) / kTile, bh);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), sq, sk, d, scale, m);
+      static_cast<float*>(dq), sq, sk, d, scale, m, tile_count);
   return cudaGetLastError();
 }
 
-template <typename T, int DP>
-cudaError_t dkv_typed(const void* q, const void* k, const void* v,
-                      const void* dout, const void* lse, const void* delta,
-                      void* dk, void* dv, int bh, int sq, int sk, int d,
-                      float scale, Mask m, cudaStream_t stream) {
-  auto kernel = fm_dkv_kernel<T, DP>;
+template <int DP>
+cudaError_t dkv_f32(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    void* dk, void* dv, int bh, int sq, int sk, int d,
+                    float scale, Mask m, int* tile_count,
+                    cudaStream_t stream) {
+  auto kernel = fm_dkv_kernel<DP>;
   const size_t smem = dkv_words(DP) * 4;
   cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((sk + kTile - 1) / kTile, bh);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, d, scale, m);
+      static_cast<float*>(dk), static_cast<float*>(dv), sq, sk, d, scale, m,
+      tile_count);
   return cudaGetLastError();
 }
 
@@ -740,7 +745,7 @@ bool args_ok(const void* sri, int b, int h, int sq, int sk, int d,
          (n == 0 || (sri != nullptr && (sri_heads == 1 || sri_heads == h)));
 }
 
-// ------------------------------------------------- tensor-core forward
+// ------------------------------------------------- tensor-core loops
 // Tile aggregates for FmPolicy: for every (b, sri head) slice, 64-column
 // k tile and sri index i, the max (agg[2 i]) and the min (agg[2 i + 1])
 // of the index over the tile's columns < sk, at agg[((slice * n_kt) + kt)
@@ -774,14 +779,24 @@ __global__ void tile_agg_kernel(const int* __restrict__ sri, int slices,
   }
 }
 
-// The mask of the tensor-core forward (attn_fwd_sm90.cuh): keep_pair's
-// test and drop_keep's dropout, with the skip and wholly-kept tests read
-// from the tile aggregates. A partial tile copies its sri columns as
-// cols[c * n + i], the layout of sri itself; `kMaxN` ints a column leave
-// room for span's reads of four.
+cudaError_t launch_tile_agg(const void* sri, void* agg, int slices, int sk,
+                            int n, cudaStream_t stream) {
+  const int tiles = slices * ((sk + kTile - 1) / kTile);
+  tile_agg_kernel<<<(tiles + kAggWarps - 1) / kAggWarps, 32 * kAggWarps, 0,
+                    stream>>>(static_cast<const int*>(sri), slices, sk, n,
+                              static_cast<int*>(agg));
+  return cudaGetLastError();
+}
+
+// The mask of the tensor-core loops (attn_fwd_sm90.cuh, attn_bwd_sm90.cuh):
+// keep_pair's test and drop_keep's dropout, with the skip and wholly-kept
+// tests read from the tile aggregates. A partial tile of a q-major loop
+// copies its sri columns as cols[c * n + i], the layout of sri itself;
+// `kMaxN` ints a column leave room for span's reads of four.
 struct FmPolicy {
   static constexpr size_t kExtraBytes = kMaxN * kTile * sizeof(int);
   static constexpr bool kRowTest = false;  // partial tiles by span
+  static constexpr bool kMayDrop = true;   // dropout when m.dropout
   Mask m;
   const int* agg;  // tile_agg_kernel's output
   // span's flags, from m (`set_span`): a lower bound from the causal
@@ -793,7 +808,7 @@ struct FmPolicy {
   int lo_sub;
   const int* sri;  // this block's head
   const int* ta;   // this block's head's aggregates
-  int bh, q0, r1, sq, sk;
+  int bh, q0, r1, kt, sq, sk;
 
   void set_span() {
     lo_on = m.causal || m.has_window;
@@ -805,62 +820,40 @@ struct FmPolicy {
     hole2 = m.n == 4;
   }
 
-  __device__ __forceinline__ void begin(int bh_, int q0_, int sq_, int sk_) {
+  // this block's (batch*head) slice: its sri and aggregates
+  __device__ __forceinline__ void slice(int bh_, int sq_, int sk_) {
     bh = bh_;
-    q0 = q0_;
     sq = sq_;
     sk = sk_;
-    r1 = min(q0 + kTile, sq) - 1;
     if (m.n) {
       const int b = bh / m.heads;
       const int h = m.sri_heads == 1 ? 0 : bh % m.heads;
-      const size_t slice = static_cast<size_t>(b) * m.sri_heads + h;
-      sri = m.sri + slice * sk * m.n;
-      ta = agg + slice * ((sk + kTile - 1) / kTile) * 2 * m.n;
+      const size_t sl = static_cast<size_t>(b) * m.sri_heads + h;
+      sri = m.sri + sl * sk * m.n;
+      ta = agg + sl * ((sk + kTile - 1) / kTile) * 2 * m.n;
     }
+  }
+
+  // the q-major loops (forward, dQ): this block's q tile
+  __device__ __forceinline__ void begin(int bh_, int q0_, int sq_, int sk_) {
+    slice(bh_, sq_, sk_);
+    q0 = q0_;
+    r1 = min(q0 + kTile, sq) - 1;
   }
   __device__ __forceinline__ int end() const {
     const int n_kt = (sk + kTile - 1) / kTile;
     return m.causal ? min(n_kt, r1 / kTile + 1) : n_kt;
   }
-  // `_block_keep`: the causal and window tests, then all_masked on the
-  // max of each start (a[2 i], i even) and the min of each end
-  // (a[2 i + 1], i odd)
-  __device__ __forceinline__ bool needed(int kt) const {
-    const int k0 = kt * kTile;
-    if (!tile_may_keep(q0, r1, k0, min(k0 + kTile, sk) - 1, m)) return false;
-    if (m.n == 0) return true;
-    const int* a = ta + kt * 2 * m.n;
-    return !all_masked(q0, r1, [a](int i) { return a[2 * i + i % 2]; }, m);
+  __device__ __forceinline__ bool needed(int kt_) const {
+    return pair_needed(q0, kt_);
   }
-  // every pair kept: inside the ragged bounds, under the diagonal, inside
-  // the window, and no interval reaching a row of the tile, by the min of
-  // each start (a[2 i + 1], i even) and the max of each end (a[2 i], i
-  // odd)
-  __device__ __forceinline__ bool full(int kt) const {
-    const int k0 = kt * kTile;
-    const int rl = q0 + kTile - 1;
-    const int cl = k0 + kTile - 1;
-    if (rl >= sq || cl >= sk) return false;
-    if (m.causal && q0 < cl) return false;
-    if (m.has_window) {
-      if (static_cast<long long>(k0) < static_cast<long long>(rl) - m.wl)
-        return false;
-      if (!m.causal &&
-          static_cast<long long>(cl) > static_cast<long long>(q0) + m.wr)
-        return false;
-    }
-    if (m.n == 0) return true;
-    const int* a = ta + kt * 2 * m.n;
-    if (m.n == 1) return rl < a[1];
-    if (m.n == 2)
-      return m.causal ? (rl < a[1] || q0 >= a[2]) : (rl < a[1] && q0 >= a[2]);
-    return (rl < a[1] || q0 >= a[2]) && (rl < a[5] || q0 >= a[6]);
+  __device__ __forceinline__ bool full(int kt_) const {
+    return pair_full(q0, kt_);
   }
-  __device__ __forceinline__ void stage(int kt, void* extra) const {
+  __device__ __forceinline__ void stage(int kt_, void* extra) const {
     if (m.n == 0) return;
     int* cols = static_cast<int*>(extra);
-    const int k0 = kt * kTile;
+    const int k0 = kt_ * kTile;
     for (int i = threadIdx.x; i < kTile * m.n; i += attn_fwd_sm90::kThreads) {
       const bool in = k0 + i / m.n < sk;
       attn_fwd_sm90::cp_async4(
@@ -868,18 +861,104 @@ struct FmPolicy {
           in ? 4 : 0);
     }
   }
-  // keep_pair as the rows column col keeps: the causal triangle and the
-  // window bound the span, sri cuts it (n=1, ~causal n=2) or holes it
-  // (causal n=2, n=4); every choice is a select on flags set per call
+  // n <= 4 ints a column; with fewer, the reads past them stay inside the
+  // staged tile and are not used
   __device__ __forceinline__ attn_fwd_sm90::Span span(int col, int c,
                                                       const void* extra) const {
+    const int* x = static_cast<const int*>(extra) + c * m.n;
+    return span_of(col, x[0], x[1], x[2], x[3]);
+  }
+  __host__ __device__ __forceinline__ bool drops() const {
+    return m.dropout != 0;
+  }
+  __device__ __forceinline__ float drop(float p, int row, int col) const {
+    return drop_keep(row, col, bh, m) ? p * m.inv : 0.f;
+  }
+
+  // the k-major loop (dK/dV): this block's k tile, read as a column of the
+  // same decisions; under causal masking no q tile before the one holding
+  // row k0 sees it, and with n=1 none at or past the largest start of its
+  // columns (`_sri_all_masked` for every later q tile)
+  __device__ __forceinline__ void begin_k(int bh_, int k0_, int sq_,
+                                          int sk_) {
+    slice(bh_, sq_, sk_);
+    kt = k0_ / kTile;
+  }
+  __device__ __forceinline__ int q_begin() const { return m.causal ? kt : 0; }
+  __device__ __forceinline__ int q_end() const {
+    const int n_qt = (sq + kTile - 1) / kTile;
+    if (m.n != 1) return n_qt;
+    const int start = max(min(ta[2 * kt], sq), 0);
+    return min(n_qt, (start + kTile - 1) / kTile);
+  }
+  __device__ __forceinline__ bool needed_q(int qt) const {
+    return pair_needed(qt * kTile, kt);
+  }
+  __device__ __forceinline__ bool full_q(int qt) const {
+    return pair_full(qt * kTile, kt);
+  }
+  // the rows key column col keeps, from its n ints read in place; a
+  // column past sk keeps none and reads nothing
+  __device__ __forceinline__ attn_fwd_sm90::Span key_span(int col) const {
+    int x0 = 0, x1 = 0, x2 = 0, x3 = 0;
+    if (m.n && col < sk) {
+      const int* x = sri + static_cast<size_t>(col) * m.n;
+      x0 = x[0];
+      if (m.n > 1) x1 = x[1];
+      if (m.n > 2) {
+        x2 = x[2];
+        x3 = x[3];
+      }
+    }
+    return span_of(col, x0, x1, x2, x3);
+  }
+
+  // `_block_keep` for the tiles at rows q0_ and k tile kt_: the causal
+  // and window tests, then all_masked on the max of each start (a[2 i],
+  // i even) and the min of each end (a[2 i + 1], i odd)
+  __device__ __forceinline__ bool pair_needed(int q0_, int kt_) const {
+    const int k0 = kt_ * kTile;
+    const int r1_ = min(q0_ + kTile, sq) - 1;
+    if (!tile_may_keep(q0_, r1_, k0, min(k0 + kTile, sk) - 1, m))
+      return false;
+    if (m.n == 0) return true;
+    const int* a = ta + kt_ * 2 * m.n;
+    return !all_masked(q0_, r1_, [a](int i) { return a[2 * i + i % 2]; }, m);
+  }
+  // every pair kept: inside the ragged bounds, under the diagonal, inside
+  // the window, and no interval reaching a row of the tile, by the min of
+  // each start (a[2 i + 1], i even) and the max of each end (a[2 i], i
+  // odd)
+  __device__ __forceinline__ bool pair_full(int q0_, int kt_) const {
+    const int k0 = kt_ * kTile;
+    const int rl = q0_ + kTile - 1;
+    const int cl = k0 + kTile - 1;
+    if (rl >= sq || cl >= sk) return false;
+    if (m.causal && q0_ < cl) return false;
+    if (m.has_window) {
+      if (static_cast<long long>(k0) < static_cast<long long>(rl) - m.wl)
+        return false;
+      if (!m.causal &&
+          static_cast<long long>(cl) > static_cast<long long>(q0_) + m.wr)
+        return false;
+    }
+    if (m.n == 0) return true;
+    const int* a = ta + kt_ * 2 * m.n;
+    if (m.n == 1) return rl < a[1];
+    if (m.n == 2)
+      return m.causal ? (rl < a[1] || q0_ >= a[2]) : (rl < a[1] && q0_ >= a[2]);
+    return (rl < a[1] || q0_ >= a[2]) && (rl < a[5] || q0_ >= a[6]);
+  }
+  // keep_pair as the rows column col keeps, given its sri ints x0..x3:
+  // the causal triangle and the window bound the span, sri cuts it (n=1,
+  // ~causal n=2) or holes it (causal n=2, n=4); every choice is a select
+  // on flags set per call
+  __device__ __forceinline__ attn_fwd_sm90::Span span_of(int col, int x0,
+                                                         int x1, int x2,
+                                                         int x3) const {
     attn_fwd_sm90::Span sp;
     sp.lo = lo_on ? col - lo_sub : INT_MIN;
     sp.hi = col < sk ? min(sq, hi_on ? col + m.wl + 1 : INT_MAX) : INT_MIN;
-    // n <= 4 ints a column; with fewer, the reads past them stay inside
-    // the staged tile and are not used
-    const int* x = static_cast<const int*>(extra) + c * m.n;
-    const int x0 = x[0], x1 = x[1], x2 = x[2], x3 = x[3];
     sp.hi = min(sp.hi, hi_x0 ? x0 : INT_MAX);
     sp.lo = max(sp.lo, lo_x1 ? x1 : INT_MIN);
     sp.a1 = hole1 ? x0 : INT_MAX;
@@ -888,32 +967,34 @@ struct FmPolicy {
     sp.b2 = hole2 ? x3 : INT_MIN;
     return sp;
   }
-  __device__ __forceinline__ bool drops() const { return m.dropout != 0; }
-  __device__ __forceinline__ float drop(float p, int row, int col) const {
-    return drop_keep(row, col, bh, m) ? p * m.inv : 0.f;
-  }
 };
+
+FmPolicy fm_policy(const Mask& m, const void* agg) {
+  FmPolicy pol{};
+  pol.m = m;
+  pol.agg = static_cast<const int*>(agg);
+  pol.set_span();
+  return pol;
+}
 
 }  // namespace
 
-// Check the arguments, build the Mask, pick the instantiation for
-// (dtype, padded head dim) and call F with it.
-#define FM_DISPATCH(F, ...)                                                \
+// Check the arguments and build the Mask and stream every entry point
+// uses.
+#define FM_PROLOGUE                                                        \
   if (!args_ok(sri, b, h, sq, sk, d, sri_heads, n, causal, dtype))         \
     return static_cast<int>(cudaErrorInvalidValue);                        \
   const Mask m{static_cast<const int*>(sri), h, sri_heads, n, causal,      \
                has_window, wl, wr, dropout, seed, thresh, inv};            \
-  const int bh = b * h;                                                    \
   cudaStream_t s = static_cast<cudaStream_t>(stream);                      \
+  int* count = static_cast<int*>(tile_count)
+
+// The fp32 (CUDA-core) instantiation of F for the padded head dim.
+#define FM_F32(F, ...)                                                     \
   const int dp = padded_dim(d);                                            \
-  if (dtype == kF32) {                                                     \
-    if (dp == 32) return F<float, 32>(__VA_ARGS__, m, s);                  \
-    if (dp == 64) return F<float, 64>(__VA_ARGS__, m, s);                  \
-    return F<float, 128>(__VA_ARGS__, m, s);                               \
-  }                                                                        \
-  if (dp == 32) return F<__nv_bfloat16, 32>(__VA_ARGS__, m, s);            \
-  if (dp == 64) return F<__nv_bfloat16, 64>(__VA_ARGS__, m, s);            \
-  return F<__nv_bfloat16, 128>(__VA_ARGS__, m, s)
+  if (dp == 32) return F<32>(__VA_ARGS__, m, count, s);                    \
+  if (dp == 64) return F<64>(__VA_ARGS__, m, count, s);                    \
+  return F<128>(__VA_ARGS__, m, count, s)
 
 // The arguments every entry point shares after its pointers.
 #define FM_ARGS                                                            \
@@ -937,62 +1018,73 @@ size_t fm_smem_bytes(int kernel, int d) {
   return w * 4;
 }
 
+// The tile aggregates of a (b, sri_heads, sk, n) int32 sri (n > 0) into
+// tile_agg, b * sri_heads * ceil(sk / 64) * 2n int32: what the bf16
+// backward kernels read, computed once for both.
+int fm_tile_agg(const void* sri, void* tile_agg, int b, int sri_heads,
+                int sk, int n, void* stream) {
+  if (sri == nullptr || tile_agg == nullptr || b < 1 || sri_heads < 1 ||
+      sk < 1 || !(n == 1 || n == 2 || n == 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_tile_agg(sri, tile_agg, b * sri_heads, sk,
+                                          n,
+                                          static_cast<cudaStream_t>(stream)));
+}
+
 // Operands are contiguous (b*h, sq|sk, d) slices in `dtype` (0 fp32, 1
 // bf16); lse and delta are (b*h, sq) fp32; sri is (b, sri_heads, sk, n)
 // int32 (null when n == 0). A window applies when has_window; dropout
 // keeps a pair when its hash under `seed` is >= thresh and scales it by
-// inv. Each call launches one kernel on `stream`, allocates nothing, and
-// returns cudaGetLastError().
-// fm_fwd also takes tile_agg, scratch of b * sri_heads * ceil(sk / 64) *
-// 2n int32 for the bf16 tensor-core kernel's tile aggregates (null for
-// fp32 or n == 0), and tile_count, null or one int32 to which the number
-// of computed (q tile, k tile, batch*head) triples is added. bf16 needs d
-// % 8 == 0 and 16-byte aligned q, k, v and o, and launches two kernels
-// when n > 0.
+// inv. tile_agg is the bf16 kernels' tile aggregates (fm_tile_agg's
+// layout; null for fp32 or n == 0), and tile_count null or one int32 to
+// which the number of computed (q tile, k tile, batch*head) triples is
+// added. bf16 needs d % 8 == 0 and 16-byte aligned bf16 operands and
+// outputs. Each call launches one kernel on `stream` (fm_fwd with n > 0
+// and bf16 two: it computes tile_agg first; the backward entries read
+// it), allocates nothing, and returns cudaGetLastError().
 int fm_fwd(const void* q, const void* k, const void* v, const void* sri,
            void* tile_agg, void* tile_count, void* o, void* lse, FM_ARGS) {
-  if (!args_ok(sri, b, h, sq, sk, d, sri_heads, n, causal, dtype))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Mask m{static_cast<const int*>(sri), h, sri_heads, n, causal,
-               has_window, wl, wr, dropout, seed, thresh, inv};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int* count = static_cast<int*>(tile_count);
+  FM_PROLOGUE;
   if (dtype == kF32) {
-    const int dp = padded_dim(d);
-    if (dp == 32)
-      return fwd_f32<32>(q, k, v, o, lse, b * h, sq, sk, d, scale, m, count, s);
-    if (dp == 64)
-      return fwd_f32<64>(q, k, v, o, lse, b * h, sq, sk, d, scale, m, count, s);
-    return fwd_f32<128>(q, k, v, o, lse, b * h, sq, sk, d, scale, m, count, s);
+    FM_F32(fwd_f32, q, k, v, o, lse, b * h, sq, sk, d, scale);
   }
   if (n) {
     if (tile_agg == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    const int tiles = b * sri_heads * ((sk + kTile - 1) / kTile);
-    tile_agg_kernel<<<(tiles + kAggWarps - 1) / kAggWarps, 32 * kAggWarps, 0,
-                      s>>>(static_cast<const int*>(sri), b * sri_heads, sk, n,
-                           static_cast<int*>(tile_agg));
-    const cudaError_t e = cudaGetLastError();
+    const cudaError_t e = launch_tile_agg(sri, tile_agg, b * sri_heads, sk,
+                                          n, s);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  FmPolicy pol{};
-  pol.m = m;
-  pol.agg = static_cast<const int*>(tile_agg);
-  pol.set_span();
   return static_cast<int>(attn_fwd_sm90::run(q, k, v, o, lse, b * h, sq, sk,
-                                             d, scale, pol, count, s));
+                                             d, scale, fm_policy(m, tile_agg),
+                                             count, s));
 }
 
 int fm_bwd_dq(const void* q, const void* k, const void* v, const void* sri,
-              const void* dout, const void* lse, const void* delta, void* dq,
-              FM_ARGS) {
-  FM_DISPATCH(dq_typed, q, k, v, dout, lse, delta, dq, bh, sq, sk, d, scale);
+              const void* tile_agg, void* tile_count, const void* dout,
+              const void* lse, const void* delta, void* dq, FM_ARGS) {
+  FM_PROLOGUE;
+  if (dtype == kF32) {
+    FM_F32(dq_f32, q, k, v, dout, lse, delta, dq, b * h, sq, sk, d, scale);
+  }
+  if (n && tile_agg == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(attn_bwd_sm90::run_dq(
+      q, k, v, dout, lse, delta, dq, b * h, sq, sk, d, scale,
+      fm_policy(m, tile_agg), count, s));
 }
 
 int fm_bwd_dkv(const void* q, const void* k, const void* v, const void* sri,
-               const void* dout, const void* lse, const void* delta,
-               void* dk, void* dv, FM_ARGS) {
-  FM_DISPATCH(dkv_typed, q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d,
-              scale);
+               const void* tile_agg, void* tile_count, const void* dout,
+               const void* lse, const void* delta, void* dk, void* dv,
+               FM_ARGS) {
+  FM_PROLOGUE;
+  if (dtype == kF32) {
+    FM_F32(dkv_f32, q, k, v, dout, lse, delta, dk, dv, b * h, sq, sk, d,
+           scale);
+  }
+  if (n && tile_agg == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(attn_bwd_sm90::run_dkv(
+      q, k, v, dout, lse, delta, dk, dv, b * h, sq, sk, d, scale,
+      fm_policy(m, tile_agg), count, s));
 }
 
 }  // extern "C"

@@ -30,11 +30,13 @@ Two implementations of each of the three kernels:
     and `chip_smoke.py` holds the kernels to them on the card;
   * the Hopper kernels of `csrc/flashmask_attention.cu`, for CUDA
     tensors. They read sri in place and skip every (q tile, k tile)
-    whose pairs are all masked before loading Q, K or V. The bf16
-    forward runs on the tensor cores (`csrc/attn_fwd_sm90.cuh`), after a
-    small kernel has reduced sri per 64-column tile (`tile_plan` is its
-    plain twin); its operands go through `tensor_core_operands` as in
-    `ops/flash_attention.py`. Everything else runs on fp32 CUDA cores.
+    whose pairs are all masked before loading Q, K or V. In bf16 all
+    three run on the tensor cores (`csrc/attn_fwd_sm90.cuh`,
+    `csrc/attn_bwd_sm90.cuh`) and decide each tile from sri reduced per
+    64-column tile by a small kernel (`tile_plan` is the rule's plain
+    twin): the forward reduces it itself, the backward once for dQ and
+    dK/dV. Their operands go through `tensor_core_operands` as in
+    `ops/flash_attention.py`. fp32 runs on the CUDA cores.
 
 `flashmask_attention_bhsd` runs them under a `torch.autograd.Function`
 whose forward saves (q, k, v, sri, o, lse) and whose backward computes
@@ -59,7 +61,8 @@ from .flash_attention import tensor_core_operands
 __all__ = ["dropout_keep_mask", "flashmask_reference",
            "flashmask_fwd_reference", "flashmask_bwd_dq_reference",
            "flashmask_bwd_dkv_reference", "flashmask_attention_bhsd",
-           "tile_plan", "launches_fwd", "launches_dq", "launches_dkv"]
+           "tile_plan", "q_range", "launches_fwd", "launches_dq",
+           "launches_dkv"]
 
 NEG_INF = -1e30
 
@@ -179,11 +182,42 @@ def _keep(sq, sk, sri, causal, window, device):
     return keep
 
 
+def _tile_reduce(sri, sk, op):
+    """(B, Hs, n_kt, n): each sri index reduced by `op` (torch.amax or
+    torch.amin) over each 64-column tile's columns < sk, as the kernels'
+    tile aggregates."""
+    b, hs, _, n = sri.shape
+    n_kt = -(-sk // TILE)
+    fill = -(1 << 31) if op is torch.amax else (1 << 31) - 1
+    x = sri[:, :, :sk].long()
+    t = torch.cat([x, x.new_full((b, hs, n_kt * TILE - sk, n), fill)], 2)
+    return op(t.reshape(b, hs, n_kt, TILE, n), 3)
+
+
+def q_range(sri, sq, sk, causal):
+    """The q tiles [begin, end) the bf16 dK/dV kernel walks for each k
+    tile, in plain torch: two (B, Hs, n_kt) tensors, (1, 1, n_kt)
+    without sri. Under causal masking no q tile before the one holding
+    the tile's first column sees it; with n = 1 none at or past the
+    largest start over its columns < sk (every pair of such a tile is
+    masked). Every tile `tile_plan` does not skip lies in the range."""
+    n_qt, n_kt = -(-sq // TILE), -(-sk // TILE)
+    dev = sri.device if sri is not None else torch.device("cpu")
+    kt = torch.arange(n_kt, device=dev)
+    begin = kt if causal else torch.zeros_like(kt)
+    end = torch.full_like(kt, n_qt)
+    if sri is not None and sri.shape[-1] == 1:
+        start = _tile_reduce(sri, sk, torch.amax)[..., 0].clamp(0, sq)
+        end = torch.minimum(end, -(-start // TILE))
+    shape = end.shape if end.dim() == 3 else (1, 1, n_kt)
+    return begin.expand(shape), end.expand(shape)
+
+
 def tile_plan(sri, sq, sk, causal, window=None):
-    """The bf16 forward kernel's tile rule, in plain torch: for every
-    (b, sri head, 64-row q tile, 64-column k tile) whether the kernel
-    skips it unloaded (SKIP), masks it pair by pair (PARTIAL) or keeps
-    every pair (FULL). Shape (B, Hs, n_qt, n_kt), or (1, 1, n_qt, n_kt)
+    """The bf16 kernels' tile rule, in plain torch (the forward and dQ
+    read it by rows, dK/dV by columns): for every (b, sri head, 64-row q
+    tile, 64-column k tile) whether the kernels skip it unloaded (SKIP),
+    mask it pair by pair (PARTIAL) or keep every pair (FULL). Shape (B, Hs, n_qt, n_kt), or (1, 1, n_qt, n_kt)
     without sri; every head of a shared (B, 1, S, n) mask has its plan.
 
     A tile is skipped when the causal triangle or the window hides it, or
@@ -214,15 +248,9 @@ def tile_plan(sri, sq, sk, causal, window=None):
         return torch.where(need, torch.where(full, FULL, PARTIAL),
                            SKIP)[None, None]
     _check_n(causal, sri.shape[-1])
-    b, hs, _, n = sri.shape
-    x = sri[:, :, :sk].long()
-    pad = n_kt * TILE - sk
-
-    def reduce(fill, op):     # (B, Hs, n_kt, n) over each tile's columns
-        t = torch.cat([x, x.new_full((b, hs, pad, n), fill)], 2)
-        return op(t.reshape(b, hs, n_kt, TILE, n), 3)[:, :, None]
-    mx = reduce(-(1 << 31), torch.amax)                # (B, Hs, 1, n_kt, n)
-    mn = reduce((1 << 31) - 1, torch.amin)
+    n = sri.shape[-1]
+    mx = _tile_reduce(sri, sk, torch.amax)[:, :, None]  # (B, Hs, 1, n_kt, n)
+    mn = _tile_reduce(sri, sk, torch.amin)[:, :, None]
 
     def below(i):   # every row at or past each start i
         return q0 >= mx[..., i]
@@ -366,9 +394,11 @@ def _lib():
         # be passed as a 32-bit int and cut
         tail = [ci] * 5 + [cf] + [ci] * 7 + [cu, cu, cf, ci, vp]
         lib.fm_fwd.argtypes = [vp] * 8 + tail
-        lib.fm_bwd_dq.argtypes = [vp] * 8 + tail
-        lib.fm_bwd_dkv.argtypes = [vp] * 9 + tail
-        for fn in (lib.fm_fwd, lib.fm_bwd_dq, lib.fm_bwd_dkv):
+        lib.fm_bwd_dq.argtypes = [vp] * 10 + tail
+        lib.fm_bwd_dkv.argtypes = [vp] * 11 + tail
+        lib.fm_tile_agg.argtypes = [vp, vp] + [ci] * 4 + [vp]
+        for fn in (lib.fm_fwd, lib.fm_bwd_dq, lib.fm_bwd_dkv,
+                   lib.fm_tile_agg):
             fn.restype = ci
         _LIB.append(lib)
     return _LIB[0]
@@ -431,6 +461,10 @@ def _run(fn, name, ptrs, q, sk, sri, m):
                 dropout_threshold(m.dropout) if drop else 0,
                 _inv_keep(m.dropout) if drop else 1.0,
                 _DTYPE_CODE[q.dtype], stream)
+    _raise_on(rc, name, lib)
+
+
+def _raise_on(rc, name, lib):
     if rc != 0:
         raise RuntimeError(
             f"flashmask_attention: {name} kernel launch failed: "
@@ -441,20 +475,45 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _agg_scratch(q, sri, sk):
+    """Scratch for the tile aggregates of every sri slice (int32, 2n a
+    64-column tile), or None where the kernels read none: fp32 or no
+    sri."""
+    if q.dtype != torch.bfloat16 or sri is None:
+        return None
+    return torch.empty((sri.shape[0] * sri.shape[1] * -(-sk // TILE) * 2
+                        * sri.shape[3],), dtype=torch.int32, device=q.device)
+
+
+def _tile_agg(q, sri, sk):
+    """The tile aggregates the bf16 backward kernels read, computed by
+    one small launch (None where they read none)."""
+    agg = _agg_scratch(q, sri, sk)
+    if agg is not None:
+        lib = _lib()
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            rc = lib.fm_tile_agg(sri.data_ptr(), agg.data_ptr(),
+                                 sri.shape[0], sri.shape[1], sk,
+                                 sri.shape[3], stream)
+        _raise_on(rc, "tile_agg", lib)
+    return agg
+
+
+def _counter(q, count_tiles):
+    return (torch.zeros((1,), dtype=torch.int32, device=q.device)
+            if count_tiles else None)
+
+
 def _launch_fwd(q, k, v, sri, m, count_tiles=False):
     """(o, lse), and with `count_tiles` also the number of (q tile, k
     tile, batch*head) triples the kernel computed."""
     global launches_fwd
     b, h, sq, sk, d = _check_operands(q, k, v, sri, m)
-    agg = None
+    agg = _agg_scratch(q, sri, sk)    # filled by the launch itself
     if q.dtype == torch.bfloat16:
         q, k, v = tensor_core_operands(q, k, v)
-        if sri is not None:   # the tile aggregates of every sri slice
-            agg = torch.empty((b * sri.shape[1] * -(-sk // TILE) * 2
-                               * sri.shape[3],), dtype=torch.int32,
-                              device=q.device)
-    tiles = (torch.zeros((1,), dtype=torch.int32, device=q.device)
-             if count_tiles else None)
+    tiles = _counter(q, count_tiles)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     _run(_lib().fm_fwd, "fwd",
@@ -465,27 +524,46 @@ def _launch_fwd(q, k, v, sri, m, count_tiles=False):
     return (o, lse, int(tiles.item())) if count_tiles else (o, lse)
 
 
-def _launch_dq(q, k, v, sri, do, lse, delta, m):
+def _launch_dq(q, k, v, sri, do, lse, delta, m, agg=None,
+               count_tiles=False):
+    """dQ, and with `count_tiles` also the number of tiles computed.
+    agg: `_tile_agg`'s aggregates, computed here when not given."""
     global launches_dq
-    _, _, _, sk, _ = _check_operands(q, k, v, sri, m, do, lse, delta)
+    _, _, _, sk, d = _check_operands(q, k, v, sri, m, do, lse, delta)
+    if agg is None:
+        agg = _tile_agg(q, sri, sk)
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = tensor_core_operands(q, k, v, do)
+    tiles = _counter(q, count_tiles)
     dq = torch.empty_like(q)
     _run(_lib().fm_bwd_dq, "dq",
-         [_ptr(x) for x in (q, k, v, sri, do, lse, delta, dq)],
+         [_ptr(x) for x in (q, k, v, sri, agg, tiles, do, lse, delta, dq)],
          q, sk, sri, m)
     launches_dq += 1
-    return dq
+    dq = dq if dq.shape[-1] == d else dq[..., :d].contiguous()
+    return (dq, int(tiles.item())) if count_tiles else dq
 
 
-def _launch_dkv(q, k, v, sri, do, lse, delta, m):
+def _launch_dkv(q, k, v, sri, do, lse, delta, m, agg=None,
+                count_tiles=False):
+    """(dK, dV), and with `count_tiles` also the number of tiles
+    computed. agg as in `_launch_dq`."""
     global launches_dkv
-    _, _, _, sk, _ = _check_operands(q, k, v, sri, m, do, lse, delta)
+    _, _, _, sk, d = _check_operands(q, k, v, sri, m, do, lse, delta)
+    if agg is None:
+        agg = _tile_agg(q, sri, sk)
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = tensor_core_operands(q, k, v, do)
+    tiles = _counter(q, count_tiles)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _run(_lib().fm_bwd_dkv, "dkv",
-         [_ptr(x) for x in (q, k, v, sri, do, lse, delta, dk, dv)],
-         q, sk, sri, m)
+         [_ptr(x) for x in (q, k, v, sri, agg, tiles, do, lse, delta, dk,
+                            dv)], q, sk, sri, m)
     launches_dkv += 1
-    return dk, dv
+    if dk.shape[-1] != d:
+        dk, dv = dk[..., :d].contiguous(), dv[..., :d].contiguous()
+    return (dk, dv, int(tiles.item())) if count_tiles else (dk, dv)
 
 
 def _on_cpu(t):
@@ -505,16 +583,17 @@ def _fwd(q, k, v, sri, m):
     return _launch_fwd(q, k, v, sri, m)
 
 
-def _bwd_dq(q, k, v, sri, do, lse, delta, m):
+def _bwd(q, k, v, sri, do, lse, delta, m):
+    """(dQ, dK, dV): the plain versions on the CPU; on the card dQ and
+    dK/dV, the bf16 ones reading tile aggregates computed once for
+    both."""
     if _on_cpu(q):
-        return flashmask_bwd_dq_reference(q, k, v, sri, do, lse, delta, *m)
-    return _launch_dq(q, k, v, sri, do, lse, delta, m)
-
-
-def _bwd_dkv(q, k, v, sri, do, lse, delta, m):
-    if _on_cpu(q):
-        return flashmask_bwd_dkv_reference(q, k, v, sri, do, lse, delta, *m)
-    return _launch_dkv(q, k, v, sri, do, lse, delta, m)
+        return (flashmask_bwd_dq_reference(q, k, v, sri, do, lse, delta, *m),
+                *flashmask_bwd_dkv_reference(q, k, v, sri, do, lse, delta,
+                                             *m))
+    agg = _tile_agg(q, sri, k.shape[2])
+    return (_launch_dq(q, k, v, sri, do, lse, delta, m, agg),
+            *_launch_dkv(q, k, v, sri, do, lse, delta, m, agg))
 
 
 class _FlashMask(torch.autograd.Function):
@@ -535,8 +614,7 @@ class _FlashMask(torch.autograd.Function):
         q, k, v, sri, o, lse = ctx.saved_tensors
         do = do.contiguous()
         delta = (do.float() * o.float()).sum(dim=-1)
-        dq = _bwd_dq(q, k, v, sri, do, lse, delta, ctx.m)
-        dk, dv = _bwd_dkv(q, k, v, sri, do, lse, delta, ctx.m)
+        dq, dk, dv = _bwd(q, k, v, sri, do, lse, delta, ctx.m)
         return dq, dk, dv, None, None
 
 

@@ -392,7 +392,8 @@ FM_FLAVORS = ("causal_n1_docs", "causal_n2_band", "noncausal_n2",
 def _fm_check(card, dt, s, d, flavor, dropout=0.0, seed=None,
               layout="contiguous"):
     """S_q = s; S_k = s, or s + 77 with layout "sk_longer" (the mask
-    over S_k columns, causal aligned top-left)."""
+    over S_k columns, causal aligned top-left). Each kernel's computed
+    tiles are tile_plan's: dQ reads its rows, dK/dV its columns."""
     b, h = 2, 4
     sk = s + 77 if layout == "sk_longer" else s
     rng = np.random.default_rng(s + d)
@@ -409,14 +410,15 @@ def _fm_check(card, dt, s, d, flavor, dropout=0.0, seed=None,
     before = _fm_counts()
     o, lse, computed = fm._launch_fwd(q, k, v, sri, m, count_tiles=True)
     plan = fm.tile_plan(sri, s, sk, causal, window)
-    assert computed == int((plan != fm.SKIP).sum()) * (
+    want = int((plan != fm.SKIP).sum()) * (
         b * h // (plan.shape[0] * plan.shape[1]))
     o_ref, lse_ref = fm.flashmask_fwd_reference(q, k, v, sri, *m)
     delta = (do.float() * o_ref.float()).sum(-1)
     args = (q, k, v, sri, do, lse_ref, delta)
-    dq = fm._launch_dq(*args, m)
-    dk, dv = fm._launch_dkv(*args, m)
+    dq, computed_dq = fm._launch_dq(*args, m, count_tiles=True)
+    dk, dv, computed_dkv = fm._launch_dkv(*args, m, count_tiles=True)
     torch.cuda.synchronize()
+    assert (computed, computed_dq, computed_dkv) == (want, want, want)
     assert _fm_counts() == tuple(c + 1 for c in before)
     dq_ref = fm.flashmask_bwd_dq_reference(*args, *m)
     dk_ref, dv_ref = fm.flashmask_bwd_dkv_reference(*args, *m)
@@ -460,23 +462,54 @@ def test_flashmask_dropout_kernels_match_plain(card, dtype, s, d):
               dropout=0.1, seed=1234567)
 
 
-def test_flashmask_autograd_on_card_matches_cpu(card):
+@pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
+def test_flashmask_autograd_on_card_matches_cpu(card, dtype):
     """Through the autograd Function with a (B, 1, S, 1) document mask
-    shared by every head, fp32: the card's kernels against the CPU's
-    plain versions."""
+    shared by every head: the card's kernels (in bf16 dQ and dK/dV read
+    tile aggregates computed once for both) against the CPU's plain
+    versions, at FLASH_TOL."""
+    dt = FLASH_DTYPES[dtype]
     rng = np.random.default_rng(0)
     sri = _fm_mask("causal_n1_docs", 1, 1, 300, rng)[0].astype(np.int32)
     q, k, v, w = (rng.standard_normal((1, 4, 300, 64)).astype(np.float32)
                   for _ in range(4))
     out = {}
     for dev in (card, torch.device("cpu")):
-        ts = [torch.from_numpy(a).to(dev).requires_grad_() for a in (q, k, v)]
+        ts = [torch.from_numpy(a).to(dev, dt).requires_grad_()
+              for a in (q, k, v)]
         o = fm.flashmask_attention_bhsd(*ts, torch.from_numpy(sri).to(dev),
                                         causal=True)
-        (o * torch.from_numpy(w).to(dev)).sum().backward()
+        (o * torch.from_numpy(w).to(dev, dt)).sum().backward()
         out[dev.type] = [o.detach().cpu()] + [t.grad.cpu() for t in ts]
+    atol, rtol = FLASH_TOL[dt]
     for name, a, b in zip(("o", "dq", "dk", "dv"), out["cuda"], out["cpu"]):
-        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4, msg=name)
+        assert a.dtype == dt, name
+        torch.testing.assert_close(a.float(), b.float(), atol=atol,
+                                   rtol=rtol, msg=name)
+
+
+@pytest.mark.parametrize("flavor,s,d", [("causal_n1_docs", 2048, 128),
+                                        ("noncausal_n4", 200, 100)])
+def test_flashmask_bf16_backward_repeats_bit_for_bit(card, flavor, s, d):
+    """No atomics and a fixed order of sums: two launches of each bf16
+    FlashMask backward kernel on the same operands give the same
+    bits."""
+    b, h = 2, 4
+    rng = np.random.default_rng(s + d)
+    sri, causal, window = _fm_mask(flavor, b, h, s, rng)
+    sri = torch.from_numpy(sri.astype(np.int32)).to(card)
+    g = torch.Generator(device=card)
+    g.manual_seed(s + d)
+    q, k, v, do = (torch.randn((b, h, s, d), generator=g,
+                               device=card).bfloat16() for _ in range(4))
+    m = fm._Mask(causal, window, 1.0 / math.sqrt(d), 0.0, None)
+    o, lse = fm._launch_fwd(q, k, v, sri, m)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, sri, do, lse, delta, m)
+    runs = [[fm._launch_dq(*args), *fm._launch_dkv(*args)] for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), *runs):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16)), name
 
 
 def test_flashmask_kernels_refuse_what_they_do_not_take(card):

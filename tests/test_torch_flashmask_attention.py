@@ -383,6 +383,33 @@ def test_tile_plan_is_sound(flavor, sq, sk):
     assert (plan != fm.SKIP).any()
 
 
+@pytest.mark.parametrize("flavor,sq,sk", _PLAN_CASES + [
+    ("packed_documents", 8192, 8192)])
+def test_q_range_holds_the_column_plan(flavor, sq, sk):
+    """`tile_plan` read by columns: every tile it does not skip lies in
+    the [q_begin, q_end) range of its k tile that the bf16 dK/dV kernel
+    walks (`q_range`). On the packed training row the range holds
+    nothing else: the 1,904 kept tiles a head."""
+    rng = np.random.default_rng(sq + sk)
+    if flavor == "packed_documents":
+        docs = (3000, 1500, 1200, 900, 700, 400, 300, 192)
+        ends = np.cumsum(docs)[np.repeat(np.arange(len(docs)), docs)]
+        sri, causal, window = ends[None, None, :, None], True, None
+    elif flavor == "noncausal_window":
+        sri, causal, window = None, False, (40, 70)
+    else:
+        sri, causal, window = FLAVORS[flavor](sk, rng)
+    t = _sri(sri)
+    plan = fm.tile_plan(t, sq, sk, causal, window)
+    begin, end = fm.q_range(t, sq, sk, causal)
+    qt = torch.arange(plan.shape[-2])[:, None]
+    inside = (qt >= begin[..., None, :]) & (qt < end[..., None, :])
+    assert not ((plan != fm.SKIP) & ~inside).any()
+    if flavor == "packed_documents":
+        assert int((end - begin).sum()) == int((plan != fm.SKIP).sum()) \
+            == 1904
+
+
 @pytest.mark.parametrize("causal,n", [(True, 4), (False, 1)])
 def test_invalid_width_raises_as_jax(causal, n):
     q = torch.zeros((1, 1, 8, 16))
