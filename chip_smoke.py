@@ -170,7 +170,17 @@ non-zero):
                against F.scaled_dot_product_attention's forward per
                document and the ported FlashMask forward (`fm_fwd`) on
                the same row, with `design`, `library_factor` and
-               `bound_share` (a bf16 factor over 6 fails); (b)
+               `bound_share` (a bf16 factor over 6 fails); the dQ and
+               dK/dV rows carry `design`, `library_factor` and
+               `bound_share` too (bf16 runs the tensor-core loops of
+               attn_bwd_sm90.cuh with the varlen policy, and a factor
+               over 4 fails), and `kernel_only_ms`, the device time of
+               the kernel alone from torch.profiler (the wrapper's time
+               also holds va_positions, the tile ranges and, for bf16
+               with D not a multiple of 8, the pad); the dK/dV row gives
+               the pair's factor over the SDPA backward
+               (`pair_library_factor`) and over the FlashMask pair
+               (`pair_flashmask_factor`); (b)
                correctness on ragged token axes of 700-1000: unequal q/k
                offsets (no diagonal skip), causal and not, trailing pads
                on both sides, a query segment that sees nothing (dQ = 0)
@@ -763,8 +773,8 @@ FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # kernel's cast of P to V's dtype, moved forward rows that see few keys
 # by up to two ulps); so they differ from the fp32 plain versions by sums
 # in another order and 2^-17 of P and dS before the outputs round to bf16:
-# one ulp apart at most; so do the FlashMask kernels. The varlen backward
-# computes in fp32 on CUDA cores. lse is fp32 on both sides.
+# one ulp apart at most; so do the FlashMask and varlen kernels. lse is
+# fp32 on both sides.
 LSE_TOL = (1e-5, 1e-5)
 # The design of each kernel row (`design`), and the most a bf16 kernel on
 # the tensor cores may take over its library call (`library_factor`): the
@@ -777,7 +787,7 @@ FWD_DESIGN = {"bfloat16": "tensor cores: mma.sync m16n8k16, cp.async K/V "
 BWD_DESIGN = ("tensor cores: mma.sync m16n8k16, cp.async ring of 2 (K/V for "
               "dQ; Q, dO, lse, delta for dK/dV), P and dS as bf16 hi + lo")
 TC_BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv", "flashmask_bwd_dq",
-                  "flashmask_bwd_dkv")
+                  "flashmask_bwd_dkv", "varlen_bwd_dq", "varlen_bwd_dkv")
 MAX_FWD_LIBRARY_FACTOR = 6.0
 MAX_BWD_LIBRARY_FACTOR = 4.0
 
@@ -1539,12 +1549,12 @@ def _varlen_tiles(seg_q, seg_k, causal_diag, tile=64):
     return n, len(rq) * (len(rq) + 1) // 2
 
 
-def _varlen_case(name, dname, h, kvh, d, seed):
-    """One correctness case of va_fwd on a ragged token axis: (q, k, v,
-    seg_q, seg_k, causal, same_offsets). Real segment ids are
-    non-decreasing and padding trails."""
+def _varlen_case_segs(name):
+    """The segment ids of one correctness case of the varlen kernels on
+    a ragged token axis: (seg_q, seg_k, causal, same_offsets), numpy
+    int32, seg_k the same array as seg_q with same offsets. Real segment
+    ids are non-decreasing and padding trails."""
     import numpy as np
-    import torch
     if name == "causal_same":        # packed prompts, T = 1000
         seg_q = seg_k = _segments([300, 1, 250, 333], 1000)
         causal, same = True, True
@@ -1566,6 +1576,15 @@ def _varlen_case(name, dname, h, kvh, d, seed):
                                 np.full(400, 2, np.int32),
                                 np.full(450, -1, np.int32)])
         causal, same = False, False
+    return seg_q, seg_k, causal, same
+
+
+def _varlen_case(name, dname, h, kvh, d, seed):
+    """One correctness case of the varlen kernels (`_varlen_case_segs`):
+    (q, k, v, seg_q, seg_k, causal, same_offsets), on the card."""
+    import numpy as np
+    import torch
+    seg_q, seg_k, causal, same = _varlen_case_segs(name)
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     dt = getattr(torch, dname)
@@ -2378,6 +2397,26 @@ def _varlen_operands(dname, t, h, kvh, d, seed, device="cuda"):
     return q, k, v, do
 
 
+def _profiled_ms(fn, names, reps=10):
+    """Device time of one call of fn spent in the kernels whose names
+    hold one of `names`, from torch.profiler over `reps` calls after a
+    warm-up; None when the profiler shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if any(n in e.key for n in names):
+            dev = getattr(e, "self_device_time_total", None)
+            us += dev if dev is not None else e.self_cuda_time_total
+    return us / 1e3 / reps if us else None
+
+
 def _varlen_bwd_plain(q, k, v, do, seg_q, seg_k, causal, scale):
     """(o, lse, delta, dq, dk, dv) of the plain versions."""
     import paddle_tpu_torch.ops.varlen_attention as va
@@ -2484,6 +2523,14 @@ def phase_varlen_kernel(card):
                                      reps=10),
             "varlen_bwd_dkv": cuda_ms(lambda: va._launch_bwd_dkv(*args),
                                       reps=10)}
+        # the kernels alone: the wrappers' times above also hold
+        # va_positions and the tile ranges
+        kernel_only_ms = {
+            "varlen_bwd_dq": _profiled_ms(lambda: va._launch_bwd_dq(*args),
+                                          ("dq_tc_kernel", "va_dq_kernel")),
+            "varlen_bwd_dkv": _profiled_ms(
+                lambda: va._launch_bwd_dkv(*args),
+                ("dkv_tc_kernel", "va_dkv_kernel"))}
         plain_ms = {
             "varlen_fwd": cuda_ms(lambda: va.varlen_fwd_reference(
                 q, k, v, seg, seg, True, scale), reps=3, warmup=1),
@@ -2534,9 +2581,16 @@ def phase_varlen_kernel(card):
                    "tflops": flops / kernel_ms[kname] / 1e9, "tf32": False}
             if kname == "varlen_fwd":
                 row["lse_max_abs_err"] = errs["lse"]
-                emit(_design_row(row, kname, dname))
             else:
-                emit(row)
+                row["kernel_only_ms"] = kernel_only_ms[kname]
+            if kname == "varlen_bwd_dkv":   # the pair against SDPA and FM
+                pair = (kernel_ms["varlen_bwd_dq"]
+                        + kernel_ms["varlen_bwd_dkv"])
+                row["pair_library_factor"] = pair / library_ms[kname]
+                row["pair_flashmask_factor"] = pair / (
+                    flashmask_ms["varlen_bwd_dq"]
+                    + flashmask_ms["varlen_bwd_dkv"])
+            emit(_design_row(row, kname, dname))
             out[(kname, dname)] = row
         del q, k, v, do, qb, kb, vb, dob, args, fm_args, lib_fwd, lib_fwd_bwd
         del o_ref, lse, delta

@@ -1,38 +1,49 @@
 // The bf16 attention backward tile loops on Hopper's tensor cores: dQ
 // (`dq_tc_kernel`) and dK/dV (`dkv_tc_kernel`), used by
-// csrc/flash_attention.cu (`fa_bwd_dq`, `fa_bwd_dkv`) and
-// csrc/flashmask_attention.cu (`fm_bwd_dq`, `fm_bwd_dkv`). The mask is a
+// csrc/flash_attention.cu (`fa_bwd_dq`, `fa_bwd_dkv`),
+// csrc/flashmask_attention.cu (`fm_bwd_dq`, `fm_bwd_dkv`) and
+// csrc/varlen_attention.cu (`va_bwd_dq`, `va_bwd_dkv`). The mask is a
 // policy type, as in the forward of attn_fwd_sm90.cuh; see `dkv_tc_kernel`
-// for what a policy provides.
+// for what a policy provides. Where the operands' rows lie is a layout
+// type (`BwdLayout`, `ContiguousBwdLayout`), as the forward's `Layout`.
 //
-// What they compute, per (batch*head) slice of contiguous (BH, S, D) bf16
-// operands, from the forward's lse and delta = rowsum(dO * O) (fp32 (BH,
-// sq) vectors): S = Q K^T, P = exp(S * scale - lse) over the pairs the
-// policy keeps (0 elsewhere), dP = dropped(dO V^T), dS = P (dP - delta)
-// scale; dQ = dS K, dK = dS^T Q and dV = dropped(P)^T dO, written in bf16
-// (dropped: the policy's dropout, where it has one). This is the TPU
+// What they compute, per query slice (a batch*head of contiguous (BH, S,
+// D) bf16 operands, or a query head of packed (T, H, D) ones), from the
+// forward's lse and delta = rowsum(dO * O) (fp32, at slice * sq + row):
+// S = Q K^T, P = exp(S * scale - lse) over the pairs the policy keeps (0
+// elsewhere), dP = dropped(dO V^T), dS = P (dP - delta) scale; dQ = dS K,
+// dK = dS^T Q and dV = dropped(P)^T dO, written in bf16 (dropped: the
+// policy's dropout, where it has one), dK and dV summed over the query
+// slices of a KV slice (a GQA group) in fp32 registers. This is the TPU
 // backward (`_bwd_dq_kernel`, `_bwd_dkv_kernel` of paddle_tpu/ops/
-// flash_attention.py and flashmask_attention.py) with the sequential axis
-// of each grid turned into a loop inside the block. dQ has its own kernel, as there: nothing is
-// reduced across blocks, no atomics, and results repeat from run to run.
+// flash_attention.py and flashmask_attention.py, `_vbwd_dq_kernel`,
+// `_vbwd_dkv_kernel` of varlen_attention.py) with the sequential axis of
+// each grid turned into a loop inside the block. dQ has its own kernel,
+// as there: nothing is reduced across blocks, no atomics, and results
+// repeat from run to run.
 //
 // Design (mma.sync m16n8k16, bf16 in and fp32 accumulators; 4 warps of 16
 // rows; tiles of 64 rows of DP bf16 in shared memory, swizzled and copied
 // by cp.async as in the forward, whose PTX helpers and tile loader this
 // header uses):
-//   * dQ: one block per (batch*head, 64-row q tile), batch*head fastest,
-//     the longest causal rows first. Q and dO are copied once; K and V go
-//     through a ring of two stages, the next kept tile's copies issued
-//     right after the one barrier of each tile. S = Q K^T and dP = dO V^T
-//     take K and V by ldmatrix; P and dS are made in registers, in the
-//     log2 domain (scale * log2(e) folded into S, lse * log2(e)
-//     subtracted); dQ += dS K takes dS from the C fragments of S as A
-//     fragments (the C layout of m16n8 is the A layout of m16n8k16) and K
-//     by ldmatrix.trans. dS never leaves the registers.
-//   * dK/dV: one block per (batch*head, 64-key tile), batch*head fastest,
-//     the first k tiles first (under causal they visit the most q tiles);
+//   * dQ: one block per (query slice, 64-row q tile), slices fastest (the
+//     query heads of one KV head side by side, sharing its K/V tiles
+//     through L2), the longest causal rows first. Q and dO are copied
+//     once; K and V go through a ring of two stages, the next kept tile's
+//     copies issued right after the one barrier of each tile. S = Q K^T
+//     and dP = dO V^T take K and V by ldmatrix; P and dS are made in
+//     registers, in the log2 domain (scale * log2(e) folded into S, lse *
+//     log2(e) subtracted); dQ += dS K takes dS from the C fragments of S
+//     as A fragments (the C layout of m16n8 is the A layout of m16n8k16)
+//     and K by ldmatrix.trans. dS never leaves the registers.
+//   * dK/dV: one block per (KV slice, 64-key tile), slices fastest, the
+//     first k tiles first (under causal they visit the most q tiles);
 //     warp w owns keys 16w .. 16w+15. K and V are copied once; Q, dO and
-//     the q tile's lse and delta stream through the ring. Each q tile is
+//     the q tile's lse and delta stream through the ring. A block walks
+//     the query slices of its GQA group one after another, each over its
+//     q tiles, into the same accumulators; the next slice's first q tile
+//     enters the ring while the last one of the slice before computes, so
+//     the ring does not drain at a slice boundary. Each q tile is
 //     taken in two halves of 32 rows: S^T = K Q^T and dP^T = V dO^T come
 //     out with keys as rows, so P^T and dS^T are A fragments in registers
 //     for dV += P^T dO and dK += dS^T Q, with dO and Q by ldmatrix.trans.
@@ -47,6 +58,9 @@
 //     are asked of the policy on each half of a partial tile: held through
 //     the loop, FmPolicy's twelve ints spilled it (46 bytes); read back
 //     from shared memory instead, FlashPolicy's loop spilled (120 bytes).
+//     A policy with a per-row test (kRowTest) is asked for its two keys'
+//     test data the same way, and tests them against the q tile's row
+//     data staged beside lse and delta.
 //   * Masking selects 0 for every dropped pair after its product, so a
 //     row past sq (lse and delta zero-filled) or a row that keeps nothing
 //     (lse = -1e30) never brings an inf into a sum.
@@ -99,19 +113,66 @@ using attn_fwd_sm90::swz;
 using attn_fwd_sm90::tile_grid;
 using attn_fwd_sm90::TileScan;
 
+// Where the operands' rows lie, in elements, as the forward's `Layout`:
+// query slice bh's q, dO and dQ start at bh * *_hs and their row r at
+// + r * *_rs; its K and V are those of slice bh / group, and so are the
+// dK and dV its pairs add to. Every stride is a multiple of 8 (16-byte
+// copies). `BwdLayout` takes any strides (packed (T, H, D) operands, GQA
+// in place); `ContiguousBwdLayout` is (BH, S, D) slices, whose group is 1
+// at compile time, so the dK/dV loop's walk over a group's slices
+// compiles away, and whose strides are three values under the twelve
+// names (every row stride is the head dim): as twelve fields they cost
+// FlashPolicy's dK/dV loop at DP = 128 two registers and spilled
+// FmPolicy's.
+struct BwdLayout {
+  long long q_rs, q_hs, k_rs, k_hs, v_rs, v_hs, do_rs, do_hs, dq_rs, dq_hs,
+      dkv_rs, dkv_hs;
+  int group;
+};
+
+struct ContiguousBwdLayout {
+  static constexpr int group = 1;
+  union {
+    int q_rs, k_rs, v_rs, do_rs, dq_rs, dkv_rs;
+  };
+  union {
+    long long q_hs, do_hs, dq_hs;  // sq * D
+  };
+  union {
+    long long k_hs, v_hs, dkv_hs;  // sk * D
+  };
+};
+
+inline ContiguousBwdLayout contiguous_bwd_layout(int sq, int sk, int d) {
+  ContiguousBwdLayout l;
+  l.q_rs = d;
+  l.q_hs = static_cast<long long>(sq) * d;
+  l.k_hs = static_cast<long long>(sk) * d;
+  return l;
+}
+
+inline bool strides_ok(const BwdLayout& l) {
+  for (long long st : {l.q_rs, l.q_hs, l.k_rs, l.k_hs, l.v_rs, l.v_hs,
+                       l.do_rs, l.do_hs, l.dq_rs, l.dq_hs, l.dkv_rs,
+                       l.dkv_hs})
+    if (st % 8 != 0) return false;
+  return l.group >= 1;
+}
+inline bool strides_ok(const ContiguousBwdLayout&) { return true; }
+
 // Write a warp's 16 x DP fp32 accumulator rows (this thread's rows r_a and
-// r_a + 8 of a (rows, D) slice) as bf16 pairs; rows past `rows` and dims
-// past D are not written.
-template <int DP>
+// r_a + 8 of a (rows, D) slice whose rows lie rs apart) as bf16 pairs;
+// rows past `rows` and dims past D are not written.
+template <int DP, class RS>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* out,
                                            const float (*acc)[4], int r_a,
-                                           int rows, int D) {
+                                           int rows, int D, RS rs) {
   const int col_in = 2 * (threadIdx.x % 4);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r_a + 8 * r;
     if (row >= rows) continue;
-    __nv_bfloat16* orow = out + static_cast<size_t>(row) * D;
+    __nv_bfloat16* orow = out + static_cast<long long>(row) * rs;
 #pragma unroll
     for (int j = 0; j < DP / 8; ++j) {
       const int d = 8 * j + col_in;
@@ -125,8 +186,9 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out,
 // ------------------------------------------------------------------ dQ
 // The dQ loop takes of its policy what the forward's loop takes (see
 // attn_fwd_sm90.cuh `fwd_tc_kernel`): begin, end, needed, full, stage,
-// span, kExtraBytes and, with kDrop, drop; and kMayDrop (see run_dq).
-template <int DP, class P, bool kDrop>
+// kExtraBytes, kRowTest and by it span, or rows and keep, and, with kDrop,
+// drop; and kMayDrop (see run_dq).
+template <int DP, class P, class L, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 2)
     dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
@@ -134,8 +196,8 @@ __global__ void __launch_bounds__(kThreads, 2)
                  const __nv_bfloat16* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta,
-                 __nv_bfloat16* __restrict__ dq, int sq, int sk, int D,
-                 float scale, P pol, int* __restrict__ tile_count) {
+                 __nv_bfloat16* __restrict__ dq, const L lay, int sq, int sk,
+                 int D, float scale, P pol, int* __restrict__ tile_count) {
   constexpr int KS = DP / 16;  // k-steps of the score products
   constexpr int NB = DP / 8;   // 8-dim blocks of dQ
   constexpr int kTileElems = kTileQ * DP;
@@ -154,14 +216,16 @@ __global__ void __launch_bounds__(kThreads, 2)
   if (qt >= n_qt) return;  // the last z slice's tail: the whole block
   const int q0 = (n_qt - 1 - qt) * kTileQ;
   const int bh = blockIdx.x;
-  const size_t qoff = static_cast<size_t>(bh) * sq;
-  const __nv_bfloat16* kb = k + static_cast<size_t>(bh) * sk * D;
-  const __nv_bfloat16* vb = v + static_cast<size_t>(bh) * sk * D;
+  const int bkv = bh / lay.group;
+  const size_t qoff = static_cast<size_t>(bh) * sq;  // lse and delta
+  const __nv_bfloat16* kb = k + bkv * lay.k_hs;
+  const __nv_bfloat16* vb = v + bkv * lay.v_hs;
   pol.begin(bh, q0, sq, sk);
 
   // this thread's two rows: fragment rows lane/4 and lane/4 + 8
   const int row_a = q0 + warp * 16 + lane / 4;
   const int row_b = row_a + 8;
+  if constexpr (P::kRowTest) pol.rows(row_a, row_b);
   const int col_in = 2 * (lane % 4);
   const float sl2 = scale * kLog2e;
   float lse2[2], dl[2];  // lse in the log2 domain, and delta, per row
@@ -181,16 +245,16 @@ __global__ void __launch_bounds__(kThreads, 2)
   auto needed = [&](int t) { return pol.needed(t); };
   auto issue = [&](int kt, int st, bool whole) {
     __nv_bfloat16* ks = kv0 + 2 * st * kTileElems;
-    load_tile<DP>(ks, kb, kt * kTileK, sk, D, D);
-    load_tile<DP>(ks + kTileElems, vb, kt * kTileK, sk, D, D);
+    load_tile<DP>(ks, kb, kt * kTileK, sk, D, lay.k_rs);
+    load_tile<DP>(ks + kTileElems, vb, kt * kTileK, sk, D, lay.v_rs);
     if (!whole) pol.stage(kt, extra0 + st * P::kExtraBytes);
   };
 
   int kt = scan.next(0, kt_end, needed);
   bool full = kt < kt_end && pol.full(kt);
   if (kt < kt_end) {
-    load_tile<DP>(qs, q + qoff * D, q0, sq, D, D);
-    load_tile<DP>(dos, dout + qoff * D, q0, sq, D, D);
+    load_tile<DP>(qs, q + bh * lay.q_hs, q0, sq, D, lay.q_rs);
+    load_tile<DP>(dos, dout + bh * lay.do_hs, q0, sq, D, lay.do_rs);
     issue(kt, 0, full);
     cp_async_commit();
   }
@@ -257,9 +321,16 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int c = 8 * j + col_in + e;
-          const Span sp = pol.span(k0 + c, c, extra);
-          if (!in_span(sp, row_a)) s[j][e] = 0.f;
-          if (!in_span(sp, row_b)) s[j][2 + e] = 0.f;
+          bool keep_a, keep_b;
+          if constexpr (P::kRowTest) {
+            pol.keep(c, extra, keep_a, keep_b);
+          } else {
+            const Span sp = pol.span(k0 + c, c, extra);
+            keep_a = in_span(sp, row_a);
+            keep_b = in_span(sp, row_b);
+          }
+          if (!keep_a) s[j][e] = 0.f;
+          if (!keep_b) s[j][2 + e] = 0.f;
         }
       }
     }
@@ -275,21 +346,31 @@ __global__ void __launch_bounds__(kThreads, 2)
     full = full_nxt;
     st ^= 1;
   }
-  store_rows<DP>(dq + qoff * D, acc, row_a, sq, D);
+  store_rows<DP>(dq + bh * lay.dq_hs, acc, row_a, sq, D, lay.dq_rs);
 }
 
 // --------------------------------------------------------------- dK/dV
 // Besides what the dQ loop takes, a policy P provides, all uniform across
-// the block except `key_span`:
-//   void begin_k(int bh, int k0, int sq, int sk);  this block's k tile
+// the block except `key_span`, `keys` and `keep_q`, and the same for every
+// query slice of a KV slice's group:
+//   void begin_k(int bkv, int k0, int sq, int sk);  this block's k tile
+//                                  of KV slice bkv
 //   int q_begin() const;           q tiles [q_begin(), q_end()) may be
 //   int q_end() const;             visited by the k tile
 //   bool needed_q(int qt) const;   false: the (qt, k tile) pair is skipped
 //                                  unloaded
 //   bool full_q(int qt) const;     true: every pair of it is kept
-//   Span key_span(int col) const;  the rows key column col keeps; each
-//                                  thread asks for its two keys on each
-//                                  part of a partial tile
+//   Span key_span(int col) const;  (kRowTest false) the rows key column
+//                                  col keeps; each thread asks for its two
+//                                  keys on each part of a partial tile
+//   void stage_q(int qt, void* extra) const;  (kRowTest true) copy the q
+//                                  tile's row data (kExtraBytes) into
+//                                  `extra`, partial tiles only
+//   void keys(int key_a, int key_b);  (kRowTest true) this thread's keys,
+//                                  asked on each part of a partial tile
+//   void keep_q(int c, const void* extra, bool& a, bool& b) const;
+//                                  (kRowTest true) whether keys a and b
+//                                  keep row c of the staged q tile
 // With kDrop, drop(x, q row, key) gives what feeds dS^T (x = dP^T) and dV
 // (x = P^T).
 constexpr int kSub = 32;  // q rows of one part of a q tile
@@ -300,13 +381,21 @@ constexpr size_t dq_smem_bytes(size_t extra) {
          static_cast<size_t>(kStages) * extra;
 }
 
-template <int DP>
-constexpr size_t dkv_smem_bytes() {
-  return static_cast<size_t>(kTileQ) * DP * 2 * (2 + 2 * kStages) +
-         static_cast<size_t>(kStages) * 2 * kTileQ * sizeof(float);
+// Bytes a stage of the dK/dV ring gives the policy: a kRowTest policy's
+// q-tile row data; a span policy reads its keys in place and takes none.
+template <class P>
+__host__ __device__ constexpr size_t dkv_extra_bytes() {
+  return P::kRowTest ? P::kExtraBytes : 0;
 }
 
-template <int DP, class P, bool kDrop>
+template <int DP, class P>
+constexpr size_t dkv_smem_bytes() {
+  return static_cast<size_t>(kTileQ) * DP * 2 * (2 + 2 * kStages) +
+         static_cast<size_t>(kStages) *
+             (2 * kTileQ * sizeof(float) + dkv_extra_bytes<P>());
+}
+
+template <int DP, class P, class L, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 2)
     dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
@@ -315,19 +404,24 @@ __global__ void __launch_bounds__(kThreads, 2)
                   const float* __restrict__ lse,
                   const float* __restrict__ delta,
                   __nv_bfloat16* __restrict__ dk,
-                  __nv_bfloat16* __restrict__ dv, int sq, int sk, int D,
-                  float scale, P pol, int* __restrict__ tile_count) {
+                  __nv_bfloat16* __restrict__ dv, const L lay, int sq,
+                  int sk, int D, float scale, P pol,
+                  int* __restrict__ tile_count) {
   constexpr int KS = DP / 16;
   constexpr int NB = DP / 8;
   constexpr int kTileElems = kTileQ * DP;
+  constexpr size_t kExtra = dkv_extra_bytes<P>();
   extern __shared__ __align__(128) unsigned char bwd_tc_smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(bwd_tc_smem);
   __nv_bfloat16* vs = ks + kTileElems;
   // stage s: Q at qd0 + 2s tiles, dO one tile after it; its lse and delta
-  // at vec0 + 2s * kTileQ floats, delta kTileQ after lse
+  // at vec0 + 2s * kTileQ floats, delta kTileQ after lse; its policy bytes
+  // at extra0 + s * kExtra
   __nv_bfloat16* qd0 = vs + kTileElems;
   float* vec0 = reinterpret_cast<float*>(
       bwd_tc_smem + static_cast<size_t>(kTileElems) * 2 * (2 + 2 * kStages));
+  unsigned char* extra0 =
+      reinterpret_cast<unsigned char*>(vec0 + 2 * kStages * kTileQ);
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -335,12 +429,18 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int kt = static_cast<int>(blockIdx.z * gridDim.y + blockIdx.y);
   if (kt >= n_kt) return;
   const int k0 = kt * kTileK;
-  const int bh = blockIdx.x;
-  const size_t qoff = static_cast<size_t>(bh) * sq;
-  const size_t koff = static_cast<size_t>(bh) * sk;
-  const __nv_bfloat16* qb = q + qoff * D;
-  const __nv_bfloat16* ob = dout + qoff * D;
-  pol.begin_k(bh, k0, sq, sk);
+  // this block's KV slice, and the first query slice of its group: the
+  // base pointers of q and dO and the lse/delta offset are computed here
+  // once and stepped to the next slice by the walk; dK and dV's offset is
+  // computed here too (computed after the loop, it spilled FmPolicy's
+  // loop at DP = 128: 24 bytes)
+  const int bkv = blockIdx.x;
+  const int bh0 = bkv * lay.group;
+  size_t qoff = static_cast<size_t>(bh0) * sq;
+  const size_t kvoff = static_cast<size_t>(bkv) * lay.dkv_hs;
+  const __nv_bfloat16* qb = q + bh0 * lay.q_hs;
+  const __nv_bfloat16* ob = dout + bh0 * lay.do_hs;
+  pol.begin_k(bkv, k0, sq, sk);
 
   // this thread's two keys: fragment rows lane/4 and lane/4 + 8
   const int key_a = k0 + warp * 16 + lane / 4;
@@ -355,35 +455,48 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int qt_end = pol.q_end();
   TileScan scan;
   auto needed = [&](int t) { return pol.needed_q(t); };
-  auto issue = [&](int qt, int st) {
+  auto issue = [&](int qt, int st, bool whole) {
     const int q0 = qt * kTileQ;
     __nv_bfloat16* qs = qd0 + 2 * st * kTileElems;
-    load_tile<DP>(qs, qb, q0, sq, D, D);
-    load_tile<DP>(qs + kTileElems, ob, q0, sq, D, D);
+    load_tile<DP>(qs, qb, q0, sq, D, lay.q_rs);
+    load_tile<DP>(qs + kTileElems, ob, q0, sq, D, lay.do_rs);
     // thread i copies lse (i < 64) or delta (i >= 64) of row q0 + i % 64
     const int r = threadIdx.x % kTileQ;
     const float* src = (threadIdx.x < kTileQ ? lse : delta) + qoff;
     const bool in = q0 + r < sq;
     cp_async4(vec0 + 2 * st * kTileQ + threadIdx.x, in ? src + q0 + r : src,
               in ? 4 : 0);
+    if constexpr (P::kRowTest) {
+      if (!whole) pol.stage_q(qt, extra0 + st * kExtra);
+    }
   };
 
   int qt = scan.next(pol.q_begin(), qt_end, needed);
   bool full = qt < qt_end && pol.full_q(qt);
   if (qt < qt_end) {
-    load_tile<DP>(ks, k + koff * D, k0, sk, D, D);
-    load_tile<DP>(vs, v + koff * D, k0, sk, D, D);
-    issue(qt, 0);
+    load_tile<DP>(ks, k + bkv * lay.k_hs, k0, sk, D, lay.k_rs);
+    load_tile<DP>(vs, v + bkv * lay.v_hs, k0, sk, D, lay.v_rs);
+    issue(qt, 0, full);
     cp_async_commit();
   }
   int st = 0;
+  int slice = 0;  // the query slice bh0 + slice whose tiles are issued
   while (qt < qt_end) {
     cp_async_wait<0>();
     __syncthreads();  // as in the dQ loop
-    const int nxt = scan.next(qt + 1, qt_end, needed);
+    int nxt = scan.next(qt + 1, qt_end, needed);
+    if (lay.group > 1 && nxt == qt_end && ++slice < lay.group) {
+      // the group's next query slice: every slice visits the same q
+      // tiles, and its first enters the ring while this one computes
+      qb += lay.q_hs;
+      ob += lay.do_hs;
+      qoff += sq;
+      scan = TileScan{};
+      nxt = scan.next(pol.q_begin(), qt_end, needed);
+    }
     const bool full_nxt = nxt < qt_end && pol.full_q(nxt);
     if (nxt < qt_end) {
-      issue(nxt, st ^ 1);
+      issue(nxt, st ^ 1, full_nxt);
       cp_async_commit();
     }
     if (tile_count != nullptr && threadIdx.x == 0) atomicAdd(tile_count, 1);
@@ -391,6 +504,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     const __nv_bfloat16* dos = qs + kTileElems;
     const float* ls = vec0 + 2 * st * kTileQ;
     const float* dl = ls + kTileQ;
+    const unsigned char* extra = extra0 + st * kExtra;
     const int q0 = qt * kTileQ;
 
 #pragma unroll 1
@@ -426,12 +540,14 @@ __global__ void __launch_bounds__(kThreads, 2)
       // P^T into s and dS^T into dpt (under dropout, dP^T dropped before
       // dS^T and P^T after it); column c is q row q0 + c, with its lse and
       // delta from the staged vectors
-      // the rows this thread's two keys keep, asked of the policy on each
-      // part of a partial tile: held in registers through the loop (or
-      // read back from shared memory), FmPolicy's spans spilled the loop
-      // at DP = 128
+      // the rows this thread's two keys keep (or their test data), asked
+      // of the policy on each part of a partial tile: held in registers
+      // through the loop (or read back from shared memory), FmPolicy's
+      // spans spilled the loop at DP = 128
       Span sp[2];
-      if (!full) {
+      if constexpr (P::kRowTest) {
+        if (!full) pol.keys(key_a, key_a + 8);
+      } else if (!full) {
         sp[0] = pol.key_span(key_a);
         sp[1] = pol.key_span(key_a + 8);
       }
@@ -442,6 +558,10 @@ __global__ void __launch_bounds__(kThreads, 2)
           const int c = kSub * h + 8 * j + col_in + e;
           const float l2 = ls[c] * kLog2e;
           const float dlt = dl[c];
+          bool keep[2] = {true, true};
+          if constexpr (P::kRowTest) {
+            if (!full) pol.keep_q(c, extra, keep[0], keep[1]);
+          }
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
             float p = fast_exp2(fmaf(s[j][2 * r + e], sl2, -l2));
@@ -449,7 +569,11 @@ __global__ void __launch_bounds__(kThreads, 2)
             if constexpr (kDrop) g = pol.drop(g, q0 + c, key_a + 8 * r);
             float ds = p * (g - dlt) * scale;
             if constexpr (kDrop) p = pol.drop(p, q0 + c, key_a + 8 * r);
-            if (!full && !in_span(sp[r], q0 + c)) p = ds = 0.f;
+            if constexpr (P::kRowTest) {
+              if (!keep[r]) p = ds = 0.f;
+            } else {
+              if (!full && !in_span(sp[r], q0 + c)) p = ds = 0.f;
+            }
             s[j][2 * r + e] = p;
             dpt[j][2 * r + e] = ds;
           }
@@ -470,17 +594,19 @@ __global__ void __launch_bounds__(kThreads, 2)
     full = full_nxt;
     st ^= 1;
   }
-  store_rows<DP>(dk + koff * D, dka, key_a, sk, D);
-  store_rows<DP>(dv + koff * D, dva, key_a, sk, D);
+  store_rows<DP>(dk + kvoff, dka, key_a, sk, D, lay.dkv_rs);
+  store_rows<DP>(dv + kvoff, dva, key_a, sk, D, lay.dkv_rs);
 }
 
 // ---------------------------------------------------------------- launch
-template <int DP, class P, bool kDrop>
+// bh: the query slices (batch*heads, or query heads of packed operands).
+template <int DP, class P, class L, bool kDrop>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
-                      void* dq, int bh, int sq, int sk, int d, float scale,
-                      const P& pol, int* tile_count, cudaStream_t stream) {
-  auto kernel = dq_tc_kernel<DP, P, kDrop>;
+                      void* dq, const L& lay, int bh, int sq, int sk, int d,
+                      float scale, const P& pol, int* tile_count,
+                      cudaStream_t stream) {
+  auto kernel = dq_tc_kernel<DP, P, L, kDrop>;
   constexpr size_t smem = dq_smem_bytes<DP>(P::kExtraBytes);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -493,31 +619,33 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(v),
       static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dq), sq, sk, d, scale, pol, tile_count);
+      static_cast<__nv_bfloat16*>(dq), lay, sq, sk, d, scale, pol,
+      tile_count);
   return cudaGetLastError();
 }
 
-template <int DP, class P, bool kDrop>
+// One block per (KV slice, k tile): bh / group KV slices.
+template <int DP, class P, class L, bool kDrop>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
-                       void* dk, void* dv, int bh, int sq, int sk, int d,
-                       float scale, const P& pol, int* tile_count,
-                       cudaStream_t stream) {
-  auto kernel = dkv_tc_kernel<DP, P, kDrop>;
-  constexpr size_t smem = dkv_smem_bytes<DP>();
+                       void* dk, void* dv, const L& lay, int bh, int sq,
+                       int sk, int d, float scale, const P& pol,
+                       int* tile_count, cudaStream_t stream) {
+  auto kernel = dkv_tc_kernel<DP, P, L, kDrop>;
+  constexpr size_t smem = dkv_smem_bytes<DP, P>();
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  kernel<<<tile_grid(bh, (sk + kTileK - 1) / kTileK), kThreads, smem,
-           stream>>>(
+  kernel<<<tile_grid(bh / lay.group, (sk + kTileK - 1) / kTileK), kThreads,
+           smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
       static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), sq,
-      sk, d, scale, pol, tile_count);
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), lay,
+      sq, sk, d, scale, pol, tile_count);
   return cudaGetLastError();
 }
 
@@ -532,26 +660,67 @@ cudaError_t by_dropout(const P& pol, F f) {
   return f(std::false_type{});
 }
 
-// Dispatch on dropout and the padded head dim (32, 64 or 128). tile_count:
-// null, or one int to which the number of computed (q tile, k tile,
-// batch*head) triples is added.
+// Dispatch on dropout and the padded head dim (32, 64 or 128), for
+// operands where `lay` says. tile_count: null, or one int to which the
+// number of computed (q tile, k tile, query slice) triples is added.
+template <class P, class L>
+cudaError_t run_dq(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dq, const L& lay, int bh, int sq, int sk, int d,
+                   float scale, const P& pol, int* tile_count,
+                   cudaStream_t stream) {
+  if (!operands_ok(d, {q, k, v, dout, dq}) || !strides_ok(lay))
+    return cudaErrorInvalidValue;
+  return by_dropout(pol, [&](auto drop) {
+    constexpr bool kDrop = decltype(drop)::value;
+    if (d <= 32)
+      return launch_dq<32, P, L, kDrop>(q, k, v, dout, lse, delta, dq, lay,
+                                        bh, sq, sk, d, scale, pol,
+                                        tile_count, stream);
+    if (d <= 64)
+      return launch_dq<64, P, L, kDrop>(q, k, v, dout, lse, delta, dq, lay,
+                                        bh, sq, sk, d, scale, pol,
+                                        tile_count, stream);
+    return launch_dq<128, P, L, kDrop>(q, k, v, dout, lse, delta, dq, lay,
+                                       bh, sq, sk, d, scale, pol, tile_count,
+                                       stream);
+  });
+}
+
+template <class P, class L>
+cudaError_t run_dkv(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    void* dk, void* dv, const L& lay, int bh, int sq, int sk,
+                    int d, float scale, const P& pol, int* tile_count,
+                    cudaStream_t stream) {
+  if (!operands_ok(d, {q, k, v, dout, dk, dv}) || !strides_ok(lay) ||
+      bh % lay.group != 0)
+    return cudaErrorInvalidValue;
+  return by_dropout(pol, [&](auto drop) {
+    constexpr bool kDrop = decltype(drop)::value;
+    if (d <= 32)
+      return launch_dkv<32, P, L, kDrop>(q, k, v, dout, lse, delta, dk, dv,
+                                         lay, bh, sq, sk, d, scale, pol,
+                                         tile_count, stream);
+    if (d <= 64)
+      return launch_dkv<64, P, L, kDrop>(q, k, v, dout, lse, delta, dk, dv,
+                                         lay, bh, sq, sk, d, scale, pol,
+                                         tile_count, stream);
+    return launch_dkv<128, P, L, kDrop>(q, k, v, dout, lse, delta, dk, dv,
+                                        lay, bh, sq, sk, d, scale, pol,
+                                        tile_count, stream);
+  });
+}
+
+// The same, on contiguous (bh, sq|sk, d) slices.
 template <class P>
 cudaError_t run_dq(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dq, int bh, int sq, int sk, int d, float scale,
                    const P& pol, int* tile_count, cudaStream_t stream) {
-  if (!operands_ok(d, {q, k, v, dout, dq})) return cudaErrorInvalidValue;
-  return by_dropout(pol, [&](auto drop) {
-    constexpr bool kDrop = decltype(drop)::value;
-    if (d <= 32)
-      return launch_dq<32, P, kDrop>(q, k, v, dout, lse, delta, dq, bh, sq,
-                                     sk, d, scale, pol, tile_count, stream);
-    if (d <= 64)
-      return launch_dq<64, P, kDrop>(q, k, v, dout, lse, delta, dq, bh, sq,
-                                     sk, d, scale, pol, tile_count, stream);
-    return launch_dq<128, P, kDrop>(q, k, v, dout, lse, delta, dq, bh, sq,
-                                    sk, d, scale, pol, tile_count, stream);
-  });
+  return run_dq(q, k, v, dout, lse, delta, dq,
+                contiguous_bwd_layout(sq, sk, d), bh, sq, sk, d, scale, pol,
+                tile_count, stream);
 }
 
 template <class P>
@@ -560,21 +729,9 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v,
                     void* dk, void* dv, int bh, int sq, int sk, int d,
                     float scale, const P& pol, int* tile_count,
                     cudaStream_t stream) {
-  if (!operands_ok(d, {q, k, v, dout, dk, dv})) return cudaErrorInvalidValue;
-  return by_dropout(pol, [&](auto drop) {
-    constexpr bool kDrop = decltype(drop)::value;
-    if (d <= 32)
-      return launch_dkv<32, P, kDrop>(q, k, v, dout, lse, delta, dk, dv, bh,
-                                      sq, sk, d, scale, pol, tile_count,
-                                      stream);
-    if (d <= 64)
-      return launch_dkv<64, P, kDrop>(q, k, v, dout, lse, delta, dk, dv, bh,
-                                      sq, sk, d, scale, pol, tile_count,
-                                      stream);
-    return launch_dkv<128, P, kDrop>(q, k, v, dout, lse, delta, dk, dv, bh,
-                                     sq, sk, d, scale, pol, tile_count,
-                                     stream);
-  });
+  return run_dkv(q, k, v, dout, lse, delta, dk, dv,
+                 contiguous_bwd_layout(sq, sk, d), bh, sq, sk, d, scale, pol,
+                 tile_count, stream);
 }
 
 }  // namespace attn_bwd_sm90

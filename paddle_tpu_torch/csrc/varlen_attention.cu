@@ -16,18 +16,23 @@
 // P = exp(S - lse), dS = P (dO V^T - delta) scale, both 0 on pairs that do
 // not count, dQ = dS K, dK = dS^T Q, dV = P^T dO.
 //
-// Two designs, by dtype. bf16 va_fwd runs the tensor-core tile loop of
-// attn_fwd_sm90.cuh (mma.sync m16n8k16, a cp.async K/V ring, P as bf16 hi
-// + lo; see that header) with `VarlenPolicy` below: q read from (T, H, D)
-// and K/V from (T, KVH, D) by row and head stride, query head h reading KV
-// head h / group in place; the tile skips of the CUDA-core design below
-// (tile ranges, the diagonal, the early answer of a q tile with no real
-// row); a partial tile masked by a branchless test of each of the thread's
-// two rows, (seg_q == seg_k) & (pos_k >= pos_q), against the k tile's 64
-// ids and distances staged beside K/V; a tile wholly inside one segment
-// (and, under causal masking, wholly below the diagonal with same offsets)
-// kept without a test. Everything else (fp32, and both backward kernels)
-// runs the CUDA-core design:
+// Two designs, by dtype. bf16 runs the tensor-core tile loops, with
+// `VarlenPolicy` below: va_fwd the forward loop of attn_fwd_sm90.cuh
+// (mma.sync m16n8k16, a cp.async K/V ring, P as bf16 hi + lo; see that
+// header), va_bwd_dq and va_bwd_dkv the dQ and dK/dV loops of
+// attn_bwd_sm90.cuh (the same helpers; P and dS as bf16 hi + lo). q and
+// dO are read from (T, H, D) and K/V from (T, KVH, D) by row and head
+// stride, query head h reading KV head h / group in place; the dK/dV loop
+// walks a KV head's query heads in one block and sums their dK/dV in
+// fp32 registers. The tile skips are those of the CUDA-core design below
+// (tile ranges, the diagonal, the early answer of a tile with no real
+// row or key), read by rows (forward, dQ) or by columns (dK/dV); a
+// partial tile is masked by a branchless test of each of the thread's
+// two rows (or keys), (seg_q == seg_k) & (pos_k >= pos_q), against the
+// other tile's 64 ids and distances staged beside it in the ring; a tile
+// wholly inside one segment (and, under causal masking, wholly below the
+// diagonal with same offsets) is kept without a test. fp32 runs the
+// CUDA-core design:
 //
 // Design. The TPU kernels run a grid whose last axis is sequential and
 // carry their sums in VMEM scratch across it; blocks here run in parallel
@@ -66,17 +71,17 @@
 //     only S, so that a row that sees nothing (lse = -1e30) gives no
 //     overflow, and a padding row's dO, whatever the caller passed, reaches
 //     neither dK nor dV.
-// fp32 and bf16 operands, widened to fp32 on load; the products take P and
-// dS in fp32 (the TPU forward casts P to V's dtype for the MXU). Outputs
-// in the operands' dtype; dK and dV of a group are summed in fp32 and cast
-// once. Head dims up to 128 through instantiations for 32, 64 and 128,
-// padded with zeros.
+// fp32 operands; the products take P and dS in fp32 (the TPU forward casts
+// P to V's dtype for the MXU); dK and dV of a group are summed in fp32.
+// Head dims up to 128 through instantiations for 32, 64 and 128, padded
+// with zeros.
 //
 // What bounds them: at the packed training row (8192 tokens, H = 32, D =
 // 128, bf16, eight documents, 7.14 M kept pairs a head) dQ needs 6 and
 // dK/dV 8 flops per kept pair and head dim, 176 and 234 GFLOP against
 // about 0.2 GB of operands: operations, at the bf16 tensor-core rate
-// (0.18 and 0.24 ms). The CUDA-core design runs on fp32 CUDA cores, one
+// (0.18 and 0.24 ms); mma.sync reaches a part of it (see
+// attn_bwd_sm90.cuh). The CUDA-core design runs on fp32 CUDA cores, one
 // block per SM (117-169 KB of staged tiles at D = 128), with no tensor
 // cores and no cp.async/TMA pipelining. The forward at the serve prefill
 // wave (8 prompts in 8192 tokens, 1.14 M kept pairs a head) is bound by
@@ -87,6 +92,7 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "attn_bwd_sm90.cuh"
 #include "attn_fwd_sm90.cuh"
 
 namespace {
@@ -98,22 +104,6 @@ constexpr int kPS = kTile + 4;   // stride of a row of a score tile
 constexpr float kNegInf = -1e30f;
 
 enum DType { kF32 = 0, kBF16 = 1 };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float row_sum(float x) {
 #pragma unroll
@@ -204,8 +194,8 @@ __global__ void positions_kernel(const int* __restrict__ seg_q,
 // Stage rows [row0, row0 + kTile) of one head of a strided (rows, ., D)
 // operand into shared memory, d-major: dst[d * kPad + r]. Rows past `rows`
 // and dims past D (up to DP) are zero.
-template <int DP, typename T>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
+template <int DP>
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
                                       long long row_stride, int row0,
                                       int rows, int D) {
   for (int i = threadIdx.x; i < kTile * DP; i += kThreads) {
@@ -213,19 +203,19 @@ __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
     const int d = i % DP;
     float x = 0.f;
     if (row0 + r < rows && d < D)
-      x = to_float(src[static_cast<long long>(row0 + r) * row_stride + d]);
+      x = src[static_cast<long long>(row0 + r) * row_stride + d];
     dst[d * kPad + r] = x;
   }
 }
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads, 1)
-    va_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const int* __restrict__ seg_q,
+    va_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const int* __restrict__ seg_q,
                   const int* __restrict__ seg_k,
                   const int* __restrict__ pos_q,
                   const int* __restrict__ pos_k,
-                  const int* __restrict__ ranges, T* __restrict__ o,
+                  const int* __restrict__ ranges, float* __restrict__ o,
                   float* __restrict__ lse, int tq, int tk, int group, int D,
                   long long q_rs, long long q_hs, long long k_rs,
                   long long k_hs, long long v_rs, long long v_hs,
@@ -256,7 +246,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (q_hi < 0) {  // no real row: answer without loading anything
     for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
       const int row = q0 + i / D;
-      if (row < tq) o[row * o_rs + h * D + i % D] = from_float<T>(0.f);
+      if (row < tq) o[row * o_rs + h * D + i % D] = 0.f;
     }
     for (int r = threadIdx.x; r < kTile; r += kThreads)
       if (q0 + r < tq) lse[static_cast<long long>(h) * tq + q0 + r] = kNegInf;
@@ -265,8 +255,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   for (int i = threadIdx.x; i < 2 * n_kt; i += kThreads)
     kr_s[i] = ranges[2 * n_qt + i];
-  const T* kb = k + static_cast<long long>(h / group) * k_hs;
-  const T* vb = v + static_cast<long long>(h / group) * v_hs;
+  const float* kb = k + static_cast<long long>(h / group) * k_hs;
+  const float* vb = v + static_cast<long long>(h / group) * v_hs;
   stage<DP>(qs, q + static_cast<long long>(h) * q_hs, q_rs, q0, tq, D);
 
   int sq[4], pq[4];
@@ -365,11 +355,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int row = q0 + ty * 4 + i;
     if (row >= tq) continue;
     const float ls = l[i] == 0.f ? 1.f : l[i];
-    T* orow = o + row * o_rs + h * D;
+    float* orow = o + row * o_rs + h * D;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = tx + 16 * c;
-      if (d < D) orow[d] = from_float<T>(acc[i][c] / ls);
+      if (d < D) orow[d] = acc[i][c] / ls;
     }
     if (tx == 0) lse[static_cast<long long>(h) * tq + row] = m[i] + logf(ls);
   }
@@ -377,13 +367,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     atomicAdd(tile_count, computed);
 }
 
-// The mask and skips of the bf16 tensor-core forward (attn_fwd_sm90.cuh):
-// a pair is kept where seg_q == seg_k and, under causal masking, pos_k >=
-// pos_q; tiles are skipped by tile_ranges_kernel's ranges, read through
-// L1 (the 32 lanes of a warp test 32 k tiles at once).
+// The mask and skips of the bf16 tensor-core loops (attn_fwd_sm90.cuh,
+// attn_bwd_sm90.cuh): a pair is kept where seg_q == seg_k and, under
+// causal masking, pos_k >= pos_q; tiles are skipped by tile_ranges_kernel's
+// ranges, read through L1 (the 32 lanes of a warp test 32 tiles at once).
+// The dK/dV loop reads the same rule by columns.
 struct VarlenPolicy {
   static constexpr bool kRowTest = true;
-  // per stage: the k tile's 64 seg_k, then its 64 pos_k
+  static constexpr bool kMayDrop = false;  // no dropout in the kernels
+  // per stage: the k tile's 64 seg_k, then its 64 pos_k (q-major loops);
+  // the q tile's 64 seg_q, then its 64 pos_q (the dK/dV loop)
   static constexpr size_t kExtraBytes = 2 * kTile * sizeof(int);
   static_assert(attn_fwd_sm90::kThreads == 2 * kTile,
                 "stage copies one id or distance a thread");
@@ -399,6 +392,11 @@ struct VarlenPolicy {
   // this thread's two rows: ids (-1 past tq) and distances (INT_MIN
   // without causal masking, so every distance passes)
   int sa, sb, pa, pb;
+  // the dK/dV loop: this block's k tile, its id range and one id; this
+  // thread's two keys (`keys`): ids (-2 past tk) and distances (INT_MAX
+  // without causal masking)
+  int kt, k_lo, k_hi, k_one;
+  int ska, skb, pka, pkb;
 
   __device__ __forceinline__ void begin(int, int q0, int, int) {
     qt = q0 / kTile;
@@ -455,7 +453,78 @@ struct VarlenPolicy {
   }
   __device__ __forceinline__ bool drops() const { return false; }
   __device__ __forceinline__ float drop(float p, int, int) const { return p; }
+
+  // the k-major loop (dK/dV), the q-major rule read by columns
+  __device__ __forceinline__ void begin_k(int, int k0, int, int) {
+    kt = k0 / kTile;
+    k_lo = ranges[2 * (n_qt + kt)];
+    k_hi = ranges[2 * (n_qt + kt) + 1];
+    k_one = ranges[2 * (n_qt + n_kt) + n_qt + kt];
+  }
+  // with same offsets under causal masking, no q tile before this k tile
+  // holds a row that sees it
+  __device__ __forceinline__ int q_begin() const {
+    return causal && same_offsets ? kt : 0;
+  }
+  // a tile with no real key visits nothing: the loop then writes dK = dV
+  // = 0 without a copy
+  __device__ __forceinline__ int q_end() const { return k_hi < 0 ? 0 : n_qt; }
+  __device__ __forceinline__ bool needed_q(int qt_) const {
+    const int lo = ranges[2 * qt_];
+    const int hi = ranges[2 * qt_ + 1];
+    return hi >= 0 && lo <= k_hi && hi >= k_lo;
+  }
+  __device__ __forceinline__ bool full_q(int qt_) const {
+    const int one = ranges[2 * (n_qt + n_kt) + qt_];
+    return k_one >= 0 && one == k_one &&
+           (!causal || (same_offsets && kt < qt_));
+  }
+  // thread i copies seg_q (i < 64) or pos_q of row i % 64; a row past tq
+  // gets id -1, which no key has
+  __device__ __forceinline__ void stage_q(int qt_, void* extra) const {
+    int* dst = static_cast<int*>(extra) + threadIdx.x;
+    const bool is_seg = threadIdx.x < kTile;
+    const int r = qt_ * kTile + threadIdx.x % kTile;
+    if (r < tq)
+      attn_fwd_sm90::cp_async4(dst, (is_seg ? seg_q : pos_q) + r, 4);
+    else
+      *dst = is_seg ? -1 : 0;
+  }
+  __device__ __forceinline__ void keys(int key_a, int key_b) {
+    ska = key_a < tk ? seg_k[key_a] : -2;
+    skb = key_b < tk ? seg_k[key_b] : -2;
+    pka = !causal ? INT_MAX : key_a < tk ? pos_k[key_a] : 0;
+    pkb = !causal ? INT_MAX : key_b < tk ? pos_k[key_b] : 0;
+  }
+  __device__ __forceinline__ void keep_q(int c, const void* extra, bool& a,
+                                         bool& b) const {
+    const int* x = static_cast<const int*>(extra);
+    const int s = x[c];
+    const int p = x[kTile + c];
+    a = (s == ska) & (pka >= p);
+    b = (s == skb) & (pkb >= p);
+  }
 };
+
+// The policy of one call of the tensor-core loops.
+VarlenPolicy varlen_policy(const void* seg_q, const void* seg_k,
+                           const void* pos_q, const void* pos_k,
+                           const void* ranges, int tq, int tk, int causal,
+                           int same_offsets) {
+  VarlenPolicy pol{};
+  pol.seg_q = static_cast<const int*>(seg_q);
+  pol.seg_k = static_cast<const int*>(seg_k);
+  pol.pos_q = static_cast<const int*>(pos_q);
+  pol.pos_k = static_cast<const int*>(pos_k);
+  pol.ranges = static_cast<const int*>(ranges);
+  pol.tq = tq;
+  pol.tk = tk;
+  pol.n_qt = (tq + kTile - 1) / kTile;
+  pol.n_kt = (tk + kTile - 1) / kTile;
+  pol.causal = causal;
+  pol.same_offsets = same_offsets;
+  return pol;
+}
 
 // The backward kernels' operands: q and dout (tq, heads, D), k and v (tk,
 // kv_heads, D), each read by its row and head strides with the head dim
@@ -485,7 +554,7 @@ struct BwdArgs {
 };
 
 // ------------------------------------------------------------------ dQ
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads, 1) va_dq_kernel(const BwdArgs a) {
   constexpr int NC = DP / 16;  // output dims per thread
   extern __shared__ float smem[];
@@ -507,14 +576,14 @@ __global__ void __launch_bounds__(kThreads, 1) va_dq_kernel(const BwdArgs a) {
   const int q0 = qt * kTile;
   const int h = blockIdx.y;
   const long long o_rs = static_cast<long long>(a.heads) * D;
-  T* dq = static_cast<T*>(a.dq);
+  float* dq = static_cast<float*>(a.dq);
   const int q_lo = a.ranges[2 * qt];
   const int q_hi = a.ranges[2 * qt + 1];
 
   if (q_hi < 0) {  // no real row: dQ = 0 without loading anything
     for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
       const int row = q0 + i / D;
-      if (row < tq) dq[row * o_rs + h * D + i % D] = from_float<T>(0.f);
+      if (row < tq) dq[row * o_rs + h * D + i % D] = 0.f;
     }
     return;
   }
@@ -522,10 +591,10 @@ __global__ void __launch_bounds__(kThreads, 1) va_dq_kernel(const BwdArgs a) {
   for (int i = threadIdx.x; i < 2 * n_kt; i += kThreads)
     kr_s[i] = a.ranges[2 * n_qt + i];
   const int hk = h / (a.heads / a.kv_heads);
-  const T* kb = static_cast<const T*>(a.k) + hk * a.k_hs;
-  const T* vb = static_cast<const T*>(a.v) + hk * a.v_hs;
-  stage<DP>(qs, static_cast<const T*>(a.q) + h * a.q_hs, a.q_rs, q0, tq, D);
-  stage<DP>(dos, static_cast<const T*>(a.dout) + h * a.do_hs, a.do_rs, q0,
+  const float* kb = static_cast<const float*>(a.k) + hk * a.k_hs;
+  const float* vb = static_cast<const float*>(a.v) + hk * a.v_hs;
+  stage<DP>(qs, static_cast<const float*>(a.q) + h * a.q_hs, a.q_rs, q0, tq, D);
+  stage<DP>(dos, static_cast<const float*>(a.dout) + h * a.do_hs, a.do_rs, q0,
             tq, D);
 
   int sq[4], pq[4];
@@ -618,11 +687,11 @@ __global__ void __launch_bounds__(kThreads, 1) va_dq_kernel(const BwdArgs a) {
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= tq) continue;
-    T* drow = dq + row * o_rs + h * D;
+    float* drow = dq + row * o_rs + h * D;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = tx + 16 * c;
-      if (d < D) drow[d] = from_float<T>(acc[i][c]);
+      if (d < D) drow[d] = acc[i][c];
     }
   }
   if (a.tile_count != nullptr && threadIdx.x == 0)
@@ -630,7 +699,7 @@ __global__ void __launch_bounds__(kThreads, 1) va_dq_kernel(const BwdArgs a) {
 }
 
 // --------------------------------------------------------------- dK/dV
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads, 1)
     va_dkv_kernel(const BwdArgs a) {
   constexpr int NC = DP / 16;
@@ -656,8 +725,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int hk = blockIdx.y;
   const int group = a.heads / a.kv_heads;
   const long long kv_rs = static_cast<long long>(a.kv_heads) * D;
-  T* dk = static_cast<T*>(a.dk);
-  T* dv = static_cast<T*>(a.dv);
+  float* dk = static_cast<float*>(a.dk);
+  float* dv = static_cast<float*>(a.dv);
   const int k_lo = a.ranges[2 * (n_qt + kt)];
   const int k_hi = a.ranges[2 * (n_qt + kt) + 1];
 
@@ -666,8 +735,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int row = k0 + i / D;
       if (row < tk) {
         const long long at = row * kv_rs + hk * D + i % D;
-        dk[at] = from_float<T>(0.f);
-        dv[at] = from_float<T>(0.f);
+        dk[at] = 0.f;
+        dv[at] = 0.f;
       }
     }
     return;
@@ -675,8 +744,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   for (int i = threadIdx.x; i < 2 * n_qt; i += kThreads)
     qr_s[i] = a.ranges[i];
-  stage<DP>(ks, static_cast<const T*>(a.k) + hk * a.k_hs, a.k_rs, k0, tk, D);
-  stage<DP>(vs, static_cast<const T*>(a.v) + hk * a.v_hs, a.v_rs, k0, tk, D);
+  stage<DP>(ks, static_cast<const float*>(a.k) + hk * a.k_hs, a.k_rs, k0, tk, D);
+  stage<DP>(vs, static_cast<const float*>(a.v) + hk * a.v_hs, a.v_rs, k0, tk, D);
   int sk[4], pk[4];
   float dka[4][NC], dva[4][NC];
 #pragma unroll
@@ -694,8 +763,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   for (int g = 0; g < group; ++g) {
     const int h = hk * group + g;
-    const T* qb = static_cast<const T*>(a.q) + h * a.q_hs;
-    const T* ob = static_cast<const T*>(a.dout) + h * a.do_hs;
+    const float* qb = static_cast<const float*>(a.q) + h * a.q_hs;
+    const float* ob = static_cast<const float*>(a.dout) + h * a.do_hs;
     for (int qt = qt0; qt < n_qt; ++qt) {
       const int q_lo = qr_s[2 * qt];
       const int q_hi = qr_s[2 * qt + 1];
@@ -781,14 +850,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = 0; i < 4; ++i) {
     const int row = k0 + ty * 4 + i;
     if (row >= tk) continue;
-    T* krow = dk + row * kv_rs + hk * D;
-    T* vrow = dv + row * kv_rs + hk * D;
+    float* krow = dk + row * kv_rs + hk * D;
+    float* vrow = dv + row * kv_rs + hk * D;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = tx + 16 * c;
       if (d < D) {
-        krow[d] = from_float<T>(dka[i][c]);
-        vrow[d] = from_float<T>(dva[i][c]);
+        krow[d] = dka[i][c];
+        vrow[d] = dva[i][c];
       }
     }
   }
@@ -815,12 +884,31 @@ size_t dkv_bytes(int dp, int n_other) {
 
 int padded_dim(int d) { return d <= 32 ? 32 : d <= 64 ? 64 : 128; }
 
-// Shared memory of the bf16 tensor-core forward, at padded head dim dp.
-size_t tc_fwd_bytes(int dp) {
+// Shared memory of the bf16 tensor-core loops at padded head dim DP: the
+// forward, dQ and dK/dV.
+template <int DP>
+size_t tc_bytes(int kernel) {
+  using attn_bwd_sm90::dkv_smem_bytes;
+  using attn_bwd_sm90::dq_smem_bytes;
   using attn_fwd_sm90::smem_bytes;
-  return dp == 32   ? smem_bytes<32, VarlenPolicy>()
-         : dp == 64 ? smem_bytes<64, VarlenPolicy>()
-                    : smem_bytes<128, VarlenPolicy>();
+  return kernel == 3   ? smem_bytes<DP, VarlenPolicy>()
+         : kernel == 4 ? dq_smem_bytes<DP>(VarlenPolicy::kExtraBytes)
+                       : dkv_smem_bytes<DP, VarlenPolicy>();
+}
+
+// The backward's operands where the tensor-core loops read them: q, dO and
+// dQ (tq, heads, d), K, V, dK and dV (tk, kv_heads, d), query head h
+// reading KV head h / group.
+attn_bwd_sm90::BwdLayout bwd_layout(int heads, int kv_heads, int d,
+                                    long long q_rs, long long q_hs,
+                                    long long k_rs, long long k_hs,
+                                    long long v_rs, long long v_hs,
+                                    long long do_rs, long long do_hs) {
+  return {q_rs,  q_hs,  k_rs,  k_hs,
+          v_rs,  v_hs,  do_rs, do_hs,
+          static_cast<long long>(heads) * d, d,
+          static_cast<long long>(kv_heads) * d, d,
+          heads / kv_heads};
 }
 
 bool args_ok(int tq, int tk, int heads, int kv_heads, int d, int dtype) {
@@ -849,8 +937,8 @@ cudaError_t prepare(K kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <typename T, int DP>
-cudaError_t fwd_typed(const void* q, const void* k, const void* v,
+template <int DP>
+cudaError_t fwd_f32(const void* q, const void* k, const void* v,
                       const void* seg_q, const void* seg_k, const void* pos_q,
                       const void* pos_k, const void* ranges, void* o,
                       void* lse, int tq, int tk, int heads, int group, int d,
@@ -860,27 +948,27 @@ cudaError_t fwd_typed(const void* q, const void* k, const void* v,
                       void* tile_count, cudaStream_t stream) {
   const int n_qt = (tq + kTile - 1) / kTile;
   const int n_kt = (tk + kTile - 1) / kTile;
-  auto kernel = va_fwd_kernel<T, DP>;
+  auto kernel = va_fwd_kernel<DP>;
   const size_t smem = fwd_bytes(DP, n_kt);
   cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
   dim3 grid(n_qt, heads);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(seg_q),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int*>(seg_q),
       static_cast<const int*>(seg_k), static_cast<const int*>(pos_q),
       static_cast<const int*>(pos_k), static_cast<const int*>(ranges),
-      static_cast<T*>(o), static_cast<float*>(lse), tq, tk, group, d, q_rs,
+      static_cast<float*>(o), static_cast<float*>(lse), tq, tk, group, d, q_rs,
       q_hs, k_rs, k_hs, v_rs, v_hs, scale, causal, same_offsets,
       static_cast<int*>(tile_count));
   return cudaGetLastError();
 }
 
-template <typename T, int DP>
-cudaError_t dq_typed(const BwdArgs& a, cudaStream_t stream) {
+template <int DP>
+cudaError_t dq_f32(const BwdArgs& a, cudaStream_t stream) {
   const int n_qt = (a.tq + kTile - 1) / kTile;
   const int n_kt = (a.tk + kTile - 1) / kTile;
-  auto kernel = va_dq_kernel<T, DP>;
+  auto kernel = va_dq_kernel<DP>;
   const size_t smem = dq_bytes(DP, n_kt);
   cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
@@ -888,11 +976,11 @@ cudaError_t dq_typed(const BwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, int DP>
-cudaError_t dkv_typed(const BwdArgs& a, cudaStream_t stream) {
+template <int DP>
+cudaError_t dkv_f32(const BwdArgs& a, cudaStream_t stream) {
   const int n_qt = (a.tq + kTile - 1) / kTile;
   const int n_kt = (a.tk + kTile - 1) / kTile;
-  auto kernel = va_dkv_kernel<T, DP>;
+  auto kernel = va_dkv_kernel<DP>;
   const size_t smem = dkv_bytes(DP, n_qt);
   cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
@@ -946,18 +1034,12 @@ cudaError_t bwd_prepare(BwdArgs& a, const void* q, const void* k,
 
 }  // namespace
 
-// Pick the instantiation for (dtype, padded head dim) and return F's
-// result with it.
-#define VA_DISPATCH(F, ...)                              \
-  const int dp = padded_dim(d);                          \
-  if (dtype == kF32) {                                   \
-    if (dp == 32) return F<float, 32>(__VA_ARGS__);      \
-    if (dp == 64) return F<float, 64>(__VA_ARGS__);      \
-    return F<float, 128>(__VA_ARGS__);                   \
-  }                                                      \
-  if (dp == 32) return F<__nv_bfloat16, 32>(__VA_ARGS__); \
-  if (dp == 64) return F<__nv_bfloat16, 64>(__VA_ARGS__); \
-  return F<__nv_bfloat16, 128>(__VA_ARGS__)
+// The fp32 (CUDA-core) instantiation of F for the padded head dim.
+#define VA_F32(F, ...)                    \
+  const int dp = padded_dim(d);           \
+  if (dp == 32) return F<32>(__VA_ARGS__); \
+  if (dp == 64) return F<64>(__VA_ARGS__); \
+  return F<128>(__VA_ARGS__)
 
 #define VA_BWD_ARGS                                                         \
   q, k, v, dout, lse, delta, seg_q, seg_k, pos_q, pos_k, ranges, tq, tk,    \
@@ -988,14 +1070,18 @@ int va_positions(const void* seg_q, const void* seg_k, int tq, int tk,
 }
 
 // Bytes of dynamic shared memory a kernel needs at head_dim d: kernel 0
-// the fp32 forward and 1 dQ, for n_other k tiles; 2 dK/dV, for n_other q
-// tiles; 3 the bf16 forward (tensor cores), whatever n_other.
+// the fp32 forward and 1 dQ, for n_other k tiles; 2 the fp32 dK/dV, for
+// n_other q tiles; 3, 4 and 5 the bf16 forward, dQ and dK/dV (tensor
+// cores), whatever n_other.
 size_t va_smem_bytes(int kernel, int n_other, int d) {
   const int dp = padded_dim(d);
+  if (kernel >= 3)
+    return dp == 32   ? tc_bytes<32>(kernel)
+           : dp == 64 ? tc_bytes<64>(kernel)
+                      : tc_bytes<128>(kernel);
   return kernel == 0   ? fwd_bytes(dp, n_other)
          : kernel == 1 ? dq_bytes(dp, n_other)
-         : kernel == 2 ? dkv_bytes(dp, n_other)
-                       : tc_fwd_bytes(dp);
+                       : dkv_bytes(dp, n_other);
 }
 
 // q: (tq, heads, d) read at q[t * q_rs + h * q_hs + i]; k, v: (tk, kv_heads,
@@ -1021,29 +1107,19 @@ int va_fwd(const void* q, const void* k, const void* v, const void* seg_q,
   cudaError_t e = launch_ranges(seg_q, seg_k, tq, tk, ranges, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (dtype == kBF16) {
-    VarlenPolicy pol{};
-    pol.seg_q = static_cast<const int*>(seg_q);
-    pol.seg_k = static_cast<const int*>(seg_k);
-    pol.pos_q = static_cast<const int*>(pos_q);
-    pol.pos_k = static_cast<const int*>(pos_k);
-    pol.ranges = static_cast<const int*>(ranges);
-    pol.tq = tq;
-    pol.tk = tk;
-    pol.n_qt = (tq + kTile - 1) / kTile;
-    pol.n_kt = (tk + kTile - 1) / kTile;
-    pol.causal = causal;
-    pol.same_offsets = same_offsets;
     const attn_fwd_sm90::Layout lay{
         q_rs, q_hs, k_rs, k_hs, v_rs, v_hs,
         static_cast<long long>(heads) * d, d, heads / kv_heads};
     return static_cast<int>(attn_fwd_sm90::run(
-        q, k, v, o, lse, lay, heads, tq, tk, d, scale, pol,
+        q, k, v, o, lse, lay, heads, tq, tk, d, scale,
+        varlen_policy(seg_q, seg_k, pos_q, pos_k, ranges, tq, tk, causal,
+                      same_offsets),
         static_cast<int*>(tile_count), s));
   }
   const int dp = padded_dim(d);
-  const auto fwd = dp == 32   ? fwd_typed<float, 32>
-                   : dp == 64 ? fwd_typed<float, 64>
-                              : fwd_typed<float, 128>;
+  const auto fwd = dp == 32   ? fwd_f32<32>
+                   : dp == 64 ? fwd_f32<64>
+                              : fwd_f32<128>;
   return static_cast<int>(fwd(q, k, v, seg_q, seg_k, pos_q, pos_k, ranges, o,
                               lse, tq, tk, heads, heads / kv_heads, d, q_rs,
                               q_hs, k_rs, k_hs, v_rs, v_hs, scale, causal,
@@ -1056,7 +1132,10 @@ int va_fwd(const void* q, const void* k, const void* v, const void* seg_q,
 // va_bwd_dkv dk and dv, contiguous (tk, kv_heads, d), all in `dtype`;
 // tile_count: null, or one int32 to which the number of computed (q tile,
 // k tile, query head) triples is added. Each launches two kernels on
-// `stream`, allocates nothing, and returns cudaGetLastError().
+// `stream`, allocates nothing, and returns cudaGetLastError(). bf16 runs
+// the tensor-core loops of attn_bwd_sm90.cuh, which also need d % 8 == 0,
+// 16-byte aligned bf16 operands and outputs, and every row and head
+// stride a multiple of 8.
 int va_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, const void* seg_q,
               const void* seg_k, const void* pos_q, const void* pos_k,
@@ -1069,11 +1148,23 @@ int va_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
   if (!args_ok(tq, tk, heads, kv_heads, d, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16) {
+    const cudaError_t e = launch_ranges(seg_q, seg_k, tq, tk, ranges, s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(attn_bwd_sm90::run_dq(
+        q, k, v, dout, lse, delta, dq,
+        bwd_layout(heads, kv_heads, d, q_rs, q_hs, k_rs, k_hs, v_rs, v_hs,
+                   do_rs, do_hs),
+        heads, tq, tk, d, scale,
+        varlen_policy(seg_q, seg_k, pos_q, pos_k, ranges, tq, tk, causal,
+                      same_offsets),
+        static_cast<int*>(tile_count), s));
+  }
   BwdArgs a;
-  cudaError_t e = bwd_prepare(a, VA_BWD_ARGS);
+  const cudaError_t e = bwd_prepare(a, VA_BWD_ARGS);
   if (e != cudaSuccess) return static_cast<int>(e);
   a.dq = dq;
-  VA_DISPATCH(dq_typed, a, s);
+  VA_F32(dq_f32, a, s);
 }
 
 int va_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
@@ -1088,12 +1179,24 @@ int va_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
   if (!args_ok(tq, tk, heads, kv_heads, d, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16) {
+    const cudaError_t e = launch_ranges(seg_q, seg_k, tq, tk, ranges, s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(attn_bwd_sm90::run_dkv(
+        q, k, v, dout, lse, delta, dk, dv,
+        bwd_layout(heads, kv_heads, d, q_rs, q_hs, k_rs, k_hs, v_rs, v_hs,
+                   do_rs, do_hs),
+        heads, tq, tk, d, scale,
+        varlen_policy(seg_q, seg_k, pos_q, pos_k, ranges, tq, tk, causal,
+                      same_offsets),
+        static_cast<int*>(tile_count), s));
+  }
   BwdArgs a;
-  cudaError_t e = bwd_prepare(a, VA_BWD_ARGS);
+  const cudaError_t e = bwd_prepare(a, VA_BWD_ARGS);
   if (e != cudaSuccess) return static_cast<int>(e);
   a.dk = dk;
   a.dv = dv;
-  VA_DISPATCH(dkv_typed, a, s);
+  VA_F32(dkv_f32, a, s);
 }
 
 }  // extern "C"

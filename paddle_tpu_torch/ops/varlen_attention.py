@@ -24,14 +24,15 @@ layout (q and dO (Tq, H, D); k and v (Tk, KVH, D); lse and delta
   * the Hopper kernels of `csrc/varlen_attention.cu` (`va_fwd`,
     `va_bwd_dq`, `va_bwd_dkv`), for CUDA tensors. dK and dV are the sums
     over each KV head's query group (JAX computes them per repeated head
-    and sums them through `jnp.repeat`'s transpose). The bf16 forward
-    runs on the tensor cores (`csrc/attn_fwd_sm90.cuh`); its operands are
-    padded to a head dim that is a multiple of 8, or copied where a base
-    or a stride does not suit its 16-byte copies
-    (`flash_attention.tensor_core_operands`). `tile_plan` is the plain
-    twin of its tile rule (skip, mask, or keep whole). Every launch first
-    computes the segment distances (`rev_pos`) on the card
-    (`va_positions`, one kernel).
+    and sums them through `jnp.repeat`'s transpose). The bf16 kernels
+    run on the tensor cores (`csrc/attn_fwd_sm90.cuh`,
+    `csrc/attn_bwd_sm90.cuh`); their operands are padded to a head dim
+    that is a multiple of 8, or copied where a base or a stride does not
+    suit their 16-byte copies (`flash_attention.tensor_core_operands`).
+    `tile_plan` is the plain twin of their tile rule (skip, mask, or
+    keep whole) and `dkv_walk` of the dK/dV kernel's walk over it by
+    columns. Every launch first computes the segment distances
+    (`rev_pos`) on the card (`va_positions`, one kernel).
 
 `flash_attention_varlen` runs them under a `torch.autograd.Function`
 whose forward saves (q, k, v, o, lse) and the segment ids and whose
@@ -55,7 +56,7 @@ from .flash_attention import tensor_core_operands
 __all__ = ["rev_pos", "seg_ids_from_cu_seqlens", "varlen_reference",
            "varlen_fwd_reference", "varlen_bwd_dq_reference",
            "varlen_bwd_dkv_reference", "flash_attention_varlen",
-           "flash_attn_unpadded", "tile_plan", "launches_fwd",
+           "flash_attn_unpadded", "tile_plan", "dkv_walk", "launches_fwd",
            "launches_dq", "launches_dkv"]
 
 NEG_INF = -1e30
@@ -122,9 +123,9 @@ def _tile_ids(seg, n_t):
 
 
 def tile_plan(seg_q, seg_k, causal, same_offsets):
-    """The bf16 forward kernel's tile rule, in plain torch: for every
-    (64-row q tile, 64-column k tile) whether the kernel skips it unloaded
-    (SKIP), masks it pair by pair (PARTIAL) or keeps every pair (FULL).
+    """The bf16 kernels' tile rule, in plain torch: for every (64-row q
+    tile, 64-column k tile) whether the kernels skip it unloaded
+    (SKIP), mask it pair by pair (PARTIAL) or keep every pair (FULL).
     Shape (n_qt, n_kt); every query head has this plan. The ids are as
     `flash_attention_varlen` takes them (any negative id is padding).
 
@@ -147,6 +148,35 @@ def tile_plan(seg_q, seg_k, causal, same_offsets):
         if same_offsets:
             need = need & (kt <= qt)
     return torch.where(need, torch.where(full, FULL, PARTIAL), SKIP)
+
+
+def dkv_walk(seg_q, seg_k, causal, same_offsets):
+    """The bf16 dK/dV kernel's walk, in plain torch, one k tile at a
+    time as `VarlenPolicy`'s k-major methods decide it: (begin, end,
+    plan). Each 64-column k tile visits the q tiles [begin, end)
+    (`q_begin`, `q_end`: from its own tile under causal masking with
+    same offsets, else from 0; none when it holds no real key), skips
+    those whose id range misses its own (`needed_q`), and keeps whole
+    those wholly inside its one segment, under causal masking only with
+    same offsets and below the diagonal (`full_q`). `plan` is
+    (n_kt, n_qt), SKIP outside [begin, end); it equals
+    `tile_plan(...).T`, the same rule read by rows."""
+    seg_q, seg_k = _sentinels(seg_q, seg_k)
+    n_qt, n_kt = -(-seg_q.numel() // TILE), -(-seg_k.numel() // TILE)
+    q_lo, q_hi, q_one = (x[None, :] for x in _tile_ids(seg_q, n_qt))
+    k_lo, k_hi, k_one = _tile_ids(seg_k, n_kt)
+    kt = torch.arange(n_kt, device=seg_k.device)
+    qt = torch.arange(n_qt, device=seg_k.device)[None, :]
+    begin = kt if causal and same_offsets else torch.zeros_like(kt)
+    end = torch.where(k_hi < 0, 0, n_qt)
+    kt, k_lo, k_hi, k_one = (x[:, None] for x in (kt, k_lo, k_hi, k_one))
+    walk = (qt >= begin[:, None]) & (qt < end[:, None])
+    need = walk & (q_hi >= 0) & (q_lo <= k_hi) & (q_hi >= k_lo)
+    full = (k_one >= 0) & (q_one == k_one)
+    if causal:
+        full = full & bool(same_offsets) & (kt < qt)
+    return begin, end, torch.where(need, torch.where(full, FULL, PARTIAL),
+                                   SKIP)
 
 
 def varlen_reference(q, k, v, seg_q, seg_k, causal, scale):
@@ -322,7 +352,8 @@ def _launch(name, kernel, dims, seg_q, seg_k, ins, outs, strides, causal,
             scale, same_offsets, count_tiles):
     """Launch va_<name> on operands `_check_operands` passed (sentinels
     already applied to the segment ids): `kernel` is its shared-memory
-    code (0 fp32 fwd, 1 dq, 2 dkv, 3 bf16 fwd), `dims` what the check
+    code (0, 1, 2 the fp32 fwd, dq and dkv; 3, 4, 5 the bf16 ones on the
+    tensor cores), `dims` what the check
     returned (with the head dim the kernel reads), `ins` the
     operand tensors before the ids (q first), `outs` the tensors it
     writes after the scratch, `strides` the operands' (row, head)
@@ -394,6 +425,33 @@ def _launch_fwd(q, k, v, seg_q, seg_k, causal, scale, same_offsets,
     return (o, lse, tiles) if count_tiles else (o, lse)
 
 
+def _launch_bwd(name, q, k, v, do, lse, delta, seg_q, seg_k, causal, scale,
+                same_offsets, count_tiles):
+    """Launch va_bwd_<name> ("dq" or "dkv") on CUDA operands (sentinels
+    already applied): bf16 operands go through `tensor_core_operands`
+    (the head dim padded to a multiple of 8). Returns the outputs, dQ
+    like q or (dK, dV) like k, sliced back to D, and the tile count or
+    None."""
+    tq, tk, hq, hk, d = _check_operands(q, k, v, seg_q, seg_k, do, lse,
+                                        delta)
+    kernel = 1 if name == "dq" else 2
+    if q.dtype == torch.bfloat16:   # the tensor-core loops' operands
+        q, k, v, do = tensor_core_operands(q, k, v, do)
+        kernel += 3
+    dp = q.shape[-1]
+    like = q if name == "dq" else k
+    outs = tuple(torch.empty((*like.shape[:2], dp), dtype=like.dtype,
+                             device=like.device)
+                 for _ in range(1 if name == "dq" else 2))
+    tiles = _launch(f"bwd_{name}", kernel, (tq, tk, hq, hk, dp), seg_q, seg_k,
+                    (q, k, v, do, lse, delta), outs,
+                    _qkv_strides(q, k, v) + [do.stride(0), do.stride(1)],
+                    causal, scale, same_offsets, count_tiles)
+    if dp != d:
+        outs = tuple(t[..., :d].contiguous() for t in outs)
+    return outs, tiles
+
+
 def _launch_bwd_dq(q, k, v, do, lse, delta, seg_q, seg_k, causal, scale,
                    same_offsets, count_tiles=False):
     """Launch `va_bwd_dq` on CUDA operands (sentinels already applied):
@@ -401,12 +459,8 @@ def _launch_bwd_dq(q, k, v, do, lse, delta, seg_q, seg_k, causal, scale,
     dtype, and with `count_tiles` also the (q tile, k tile, query head)
     triples computed."""
     global launches_dq
-    dims = _check_operands(q, k, v, seg_q, seg_k, do, lse, delta)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    tiles = _launch("bwd_dq", 1, dims, seg_q, seg_k,
-                    (q, k, v, do, lse, delta), (dq,),
-                    _qkv_strides(q, k, v) + [do.stride(0), do.stride(1)],
-                    causal, scale, same_offsets, count_tiles)
+    (dq,), tiles = _launch_bwd("dq", q, k, v, do, lse, delta, seg_q, seg_k,
+                               causal, scale, same_offsets, count_tiles)
     launches_dq += 1
     return (dq, tiles) if count_tiles else dq
 
@@ -418,13 +472,9 @@ def _launch_bwd_dkv(q, k, v, do, lse, delta, seg_q, seg_k, causal, scale,
     KV head's query group, and with `count_tiles` also the (q tile, k
     tile, query head) triples computed."""
     global launches_dkv
-    dims = _check_operands(q, k, v, seg_q, seg_k, do, lse, delta)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    tiles = _launch("bwd_dkv", 2, dims, seg_q, seg_k,
-                    (q, k, v, do, lse, delta), (dk, dv),
-                    _qkv_strides(q, k, v) + [do.stride(0), do.stride(1)],
-                    causal, scale, same_offsets, count_tiles)
+    (dk, dv), tiles = _launch_bwd("dkv", q, k, v, do, lse, delta, seg_q,
+                                  seg_k, causal, scale, same_offsets,
+                                  count_tiles)
     launches_dkv += 1
     return (dk, dv, tiles) if count_tiles else (dk, dv)
 
@@ -490,8 +540,8 @@ def flash_attention_varlen(q, k, v, seg_q, seg_k, causal=False,
     A CPU q runs the plain versions. A CUDA q launches the Hopper
     kernels, which take float32 or bfloat16 with head_dim up to 128 and
     the head dim contiguous (other strides are read as they are; the
-    bf16 forward pads a head dim that is not a multiple of 8 and copies
-    operands whose base or strides do not suit its 16-byte copies), and
+    bf16 kernels pad a head dim that is not a multiple of 8 and copy
+    operands whose base or strides do not suit their 16-byte copies), and
     raise on anything else."""
     d = q.shape[-1]
     scale = float(sm_scale if sm_scale is not None else 1.0 / math.sqrt(d))

@@ -794,13 +794,16 @@ def _host_tiles(seg_q, seg_k, diag):
 
 @pytest.mark.parametrize("layout", sorted(VARLEN_LAYOUTS))
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("h,kvh,d", [(4, 4, 64), (8, 2, 128), (4, 1, 40)])
+@pytest.mark.parametrize("h,kvh,d", [(4, 4, 64), (8, 2, 128), (4, 1, 40),
+                                     (4, 2, 100)])
 @pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
 def test_varlen_backward_kernels_match_plain(card, dtype, h, kvh, d, causal,
                                              layout):
     """va_bwd_dq and va_bwd_dkv (dK/dV summed over each KV head's query
     group) against their plain versions, and the tiles each computed
-    against the skip rule; dtypes as the operands'."""
+    against the skip rule; dtypes as the operands'. The bf16 wrappers pad
+    D = 100 to 104 for the tensor-core loops and slice the gradients
+    back."""
     lq, tq, lk, tk = VARLEN_LAYOUTS[layout]
     dt = FLASH_DTYPES[dtype]
     q, k, v, do, seg_q, seg_k, lse, delta = _varlen_bwd_operands(
@@ -824,6 +827,59 @@ def test_varlen_backward_kernels_match_plain(card, dtype, h, kvh, d, causal,
     assert n_dq == n_dkv == tiles * h
     assert bool((dq[sq < 0] == 0).all())
     assert bool((dk[sk < 0] == 0).all()) and bool((dv[sk < 0] == 0).all())
+
+
+@pytest.mark.parametrize("extra", [0, 3], ids=["aligned", "odd_rows"])
+@pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
+def test_varlen_backward_reads_strided_operands(card, dtype, extra):
+    """q, k, v as column slices of one fused projection, and dO as a
+    column slice of a wider tensor, give the backward kernels' answer on
+    contiguous copies, bit for bit. With `extra` columns first a row
+    holds 259 values, which the bf16 loops' 16-byte copies cannot read,
+    so their wrappers copy; the aligned bf16 slices are read in place."""
+    dt = FLASH_DTYPES[dtype]
+    seg = torch.from_numpy(_segments([50, 80], 150)).to(card)
+    g = torch.Generator(device=card)
+    g.manual_seed(extra)
+    x = torch.randn((150, extra + 4 * 32 + 2 * 2 * 32), generator=g,
+                    device=card).to(dt)
+    y = torch.randn((150, extra + 4 * 32 + 8), generator=g,
+                    device=card).to(dt)
+    q = x[:, extra:extra + 128].view(150, 4, 32)
+    k = x[:, extra + 128:extra + 192].view(150, 2, 32)
+    v = x[:, extra + 192:].view(150, 2, 32)
+    do = y[:, extra:extra + 128].view(150, 4, 32)
+    assert not q.is_contiguous() and not do.is_contiguous()
+    copied = tensor_core_operands(q, k, v, do)
+    assert all((a is b) == (extra == 0) for a, b in zip((q, k, v, do),
+                                                         copied))
+    _, lse = va.varlen_fwd_reference(q, k, v, seg, seg, True, 32 ** -0.5)
+    delta = torch.randn((4, 150), generator=g, device=card)
+    sq, sk = va._sentinels(seg, seg)
+    runs = []
+    for ops in ((q, k, v, do), tuple(t.contiguous() for t in (q, k, v, do))):
+        args = (*ops, lse, delta, sq, sk, True, 32 ** -0.5, True)
+        runs.append([va._launch_bwd_dq(*args), *va._launch_bwd_dkv(*args)])
+    for name, a, b in zip(("dq", "dk", "dv"), *runs):
+        torch.testing.assert_close(a, b, atol=0, rtol=0, msg=name)
+
+
+@pytest.mark.parametrize("t,d,causal", [(2048, 128, True), (300, 100, False)])
+def test_varlen_bf16_backward_repeats_bit_for_bit(card, t, d, causal):
+    """No atomics and a fixed order of sums (dK/dV of a GQA group summed
+    in one block): two launches of the bf16 dQ and dK/dV on the same
+    operands give the same bits."""
+    lens = [700, 1, 600, 500] if t == 2048 else [70, 1, 130, 64]
+    q, k, v, do, seg, _, lse, delta = _varlen_bwd_operands(
+        card, torch.bfloat16, lens, t, None, None, 8, 2, d, causal,
+        seed=t + d)
+    sq, sk = va._sentinels(seg, seg)
+    args = (q, k, v, do, lse, delta, sq, sk, causal, d ** -0.5, True)
+    runs = [[va._launch_bwd_dq(*args), *va._launch_bwd_dkv(*args)]
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), *runs):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16)), name
 
 
 @pytest.mark.parametrize("rep", [1, 4])

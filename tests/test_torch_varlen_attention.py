@@ -4,8 +4,9 @@ on the CPU: `rev_pos` and `seg_ids_from_cu_seqlens` equal JAX's, and
 `varlen_reference` and with the Pallas kernel `_vfwd_pallas` run in
 interpret mode (o and lse), causal and not, same and unequal
 cu_seqlens, GQA, and padding rows (o = 0, lse = -1e30). fp32 to 1e-5:
-the same sums in another order. The bf16 kernel's tile rule
+the same sums in another order. The bf16 kernels' tile rule
 (`tile_plan`) is held to the dense mask and to `chip_smoke.py`'s count,
+the dK/dV kernel's walk over it by columns (`dkv_walk`) to `tile_plan`,
 and the wrapper's pad and realign step to the plain version and JAX."""
 import importlib.util
 from pathlib import Path
@@ -274,6 +275,81 @@ def test_tile_plan_counts_at_the_main_paths(wave):
     assert int((plan == TV.FULL).sum()) > 0
 
 
+# chip_smoke.py's VARLEN_BWD_CASES: the layouts its varlen_kernel phase
+# runs the backward kernels on (`_varlen_case_segs`)
+BWD_CASES = ("causal_same", "causal_unequal", "noncausal_unequal",
+             "masked_rows", "unseen_keys")
+
+
+def _random_segs(seed):
+    """A random packed layout: seg_q and seg_k of up to 700 tokens,
+    segments of 1-200 tokens with non-decreasing ids (some ids on one
+    side only), padding trailing."""
+    rng = np.random.default_rng(seed)
+
+    def side(ids, pad):
+        lens = rng.integers(1, 200, size=len(ids))
+        seg = np.repeat(ids, lens).astype(np.int32)
+        return np.concatenate([seg, np.full(rng.integers(0, 130), pad,
+                                            np.int32)])
+    ids = np.sort(rng.choice(12, size=rng.integers(1, 6), replace=False))
+    return side(ids, -1), side(ids[rng.random(len(ids)) < 0.8], -2)
+
+
+def _walk_equals_plan(seg_q, seg_k, causal, same):
+    begin, end, plan = TV.dkv_walk(seg_q, seg_k, causal, same)
+    want = TV.tile_plan(seg_q, seg_k, causal, same).T
+    assert torch.equal(plan, want)
+    n_kt, n_qt = want.shape
+    assert begin.shape == end.shape == (n_kt,)
+    # every kept tile lies in its k tile's walk
+    qt = torch.arange(n_qt)[None, :]
+    kept = want != TV.SKIP
+    assert not (kept & ((qt < begin[:, None]) | (qt >= end[:, None]))).any()
+
+
+@pytest.mark.parametrize("same", [False, True], ids=["offsets", "same"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("case", BWD_CASES + ("train_packed",))
+def test_dkv_walk_reads_tile_plan_by_columns(case, causal, same):
+    """The bf16 dK/dV kernel's walk (`dkv_walk`: q_begin, q_end,
+    needed_q and full_q per k tile) decides every tile as `tile_plan`
+    does by rows, on chip_smoke.py's backward layouts and on
+    train_packed's row (eight documents in 8192 tokens), with and
+    without causal masking and same offsets."""
+    cs = _script("chip_smoke.py")
+    assert set(BWD_CASES) == set(cs.VARLEN_BWD_CASES)
+    if case == "train_packed":
+        seg_q = seg_k = cs._segments(cs.PACKED_DOCS, 8192)
+    else:
+        seg_q, seg_k, _, _ = cs._varlen_case_segs(case)
+    _walk_equals_plan(torch.from_numpy(seg_q), torch.from_numpy(seg_k),
+                      causal, same)
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_dkv_walk_reads_tile_plan_on_random_layouts(seed):
+    """As above on random non-decreasing segment layouts, q and k ids
+    apart and shared, every combination of causal and same offsets."""
+    seg_q, seg_k = (torch.from_numpy(x) for x in _random_segs(seed))
+    for causal in (False, True):
+        for same in (False, True):
+            _walk_equals_plan(seg_q, seg_k, causal, same)
+            _walk_equals_plan(seg_q, seg_q, causal, same)
+
+
+def test_dkv_walk_visits_the_packed_rows_kept_tiles():
+    """On train_packed's row, causal with same offsets: 1,904 kept tiles
+    a head, the k tiles walking from the diagonal, and no k tile of the
+    last document walking before it."""
+    cs = _script("chip_smoke.py")
+    seg = torch.from_numpy(cs._segments(cs.PACKED_DOCS, 8192))
+    begin, end, plan = TV.dkv_walk(seg, seg, True, True)
+    assert int((plan != TV.SKIP).sum()) == 1904
+    assert torch.equal(begin, torch.arange(128))
+    assert bool((end == 128).all())
+
+
 def _strided(x, d, kind):
     """(T, H, d) views of x's values as the bf16 wrapper may receive
     them: contiguous; a column slice of a fused projection whose rows
@@ -335,6 +411,12 @@ def test_tensor_core_operands_pad_and_realign(d, kind):
      "attention (varlen_attention.cu)"),
     ("void (anonymous namespace)::va_dq_kernel<__nv_bfloat16, 128>(...)",
      "attention (varlen_attention.cu)"),
+    ("void attn_bwd_sm90::dkv_tc_kernel<128, (anonymous namespace)::"
+     "VarlenPolicy, attn_bwd_sm90::BwdLayout, false>(...)",
+     "attention (varlen_attention.cu)"),
+    ("void attn_bwd_sm90::dq_tc_kernel<128, (anonymous namespace)::"
+     "FmPolicy, attn_bwd_sm90::ContiguousBwdLayout, false>(...)",
+     "attention (flashmask_attention.cu)"),
     ("void attn_fwd_sm90::fwd_tc_kernel<128, (anonymous namespace)::"
      "FlashPolicy>(...)", "attention (flash_attention.cu)"),
     ("void attn_fwd_sm90::fwd_tc_kernel<128, (anonymous namespace)::"
