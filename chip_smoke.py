@@ -30,7 +30,19 @@ non-zero):
                F.scaled_dot_product_attention over the wave's real
                extents (one call for the prefill slot, one batched call
                for the decode rows), KV gathered dense beforehand (a
-               yardstick only);
+               yardstick only). Each row names its `route`: bf16 q over
+               bf16 or int8 pages runs the tensor-core kernel
+               (`ragged_tc_kernel`, after the plan kernel, which its
+               `kernel_ms` holds; `kernel_only_ms` is the attention
+               kernel alone and `plan_kernel_ms` the plan kernel alone,
+               from torch.profiler, also on the prefill chunk's rows and
+               on the decode rows alone; `step_plan_ms` the call given a
+               plan, as unified_step makes it), whose k tiles computed
+               must equal the plain plan's (`ragged_tile_plan`: 284 a KV
+               head); fp32 q the CUDA-core one. Rows carry `design`,
+               `library_factor` and `bound_share` as train_kernel's, and
+               a tensor-core row over MAX_RAGGED_LIBRARY_FACTOR x its
+               SDPA yardstick fails;
   4. parity  — a depth-2 Llama-3-8B-width model (fp32, TF32 off) served
                by a card engine and a CPU engine from the same weights:
                4 greedy requests must give identical tokens;
@@ -370,26 +382,37 @@ VARIANTS = {"float32": ("float32", "float32"),
 TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2e-3, 8e-3)}
 
 
-def _mixed_wave(variant, seed=0, device="cuda"):
-    """The full-width mixed wave: (q, k, v, ks, vs, ptab, slot, pos,
-    info) on `device`."""
+def _mixed_wave_rows():
+    """The mixed wave's rows: (lens, slot, pos) as numpy int32, a
+    256-token prefill chunk of slot 0 at positions 512-767, 7 decode rows
+    of slots 1-7 at lengths 100-2000, inactive rows up to T = 384."""
     import numpy as np
-    import torch
-    from paddle_tpu_torch.ops.paged_attention import quantize_kv
-    QH, KVH, D, PAGE, T = 32, 8, 128, 16, 384
-    max_len = 2048
-    pps = max_len // PAGE
+    T = 384
     lens = [768] + [100, 400, 700, 1000, 1300, 1700, 2000]
-    S = len(lens)
-    P = S * pps + 1
-    rng = np.random.default_rng(seed)
-    ptab = rng.permutation(P - 1)[:S * pps].reshape(S, pps).astype(np.int32)
     slot = np.zeros(T, np.int32)
     pos = np.full(T, -1, np.int32)
     slot[:256] = 0
     pos[:256] = np.arange(512, 768)
     slot[256:263] = np.arange(1, 8)
     pos[256:263] = np.array(lens[1:]) - 1
+    return lens, slot, pos
+
+
+def _mixed_wave(variant, seed=0, device="cuda"):
+    """The full-width mixed wave: (q, k, v, ks, vs, ptab, slot, pos,
+    info) on `device`."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops.paged_attention import quantize_kv
+    QH, KVH, D, PAGE = 32, 8, 128, 16
+    max_len = 2048
+    pps = max_len // PAGE
+    lens, slot, pos = _mixed_wave_rows()
+    T = len(pos)
+    S = len(lens)
+    P = S * pps + 1
+    rng = np.random.default_rng(seed)
+    ptab = rng.permutation(P - 1)[:S * pps].reshape(S, pps).astype(np.int32)
     dev = torch.device(device)
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
@@ -516,8 +539,50 @@ def phase_kernel(card):
             fail(f"kernel vs plain ({name}): max |err| {max_err}")
         if not zeros:
             fail(f"kernel ({name}): inactive rows are not exactly zero")
+        group = info["QH"] // info["KVH"]
+        route = rpa.route(q.dtype, k.dtype, info["D"], group)
+        tc = route == rpa.TENSOR_CORES
+        tiles = plan_tiles = None
+        if tc:
+            # k tiles computed over the KV heads, against the plain plan's
+            _, tiles = rpa._launch(q, k, v, ptab, slot, pos,
+                                   info["D"] ** -0.5, ks, vs,
+                                   count_tiles=True)
+            plan = rpa.ragged_tile_plan(slot.cpu(), pos.cpu(), group,
+                                        ptab.shape[1] * info["PAGE"])
+            plan_tiles = info["KVH"] * int(plan[:, 2].sum())
+            if tiles != plan_tiles:
+                fail(f"kernel ({name}): {tiles} k tiles computed, the "
+                     f"plan has {plan_tiles}")
         ms = cuda_ms(lambda: rpa.ragged_paged_attention(
             q, k, v, ptab, slot, pos, **kw), reps=20)
+        # the wrapper's time holds the plan kernel too (tensor cores);
+        # unified_step builds the plan once a step and passes it to every
+        # layer's call (`step_plan_ms`)
+        kernel_only_ms = _profiled_ms(
+            lambda: rpa.ragged_paged_attention(q, k, v, ptab, slot, pos,
+                                               **kw),
+            ["ragged_tc_kernel" if tc else "ragged_kernel"])
+        step_plan_ms = plan_kernel_ms = None
+        parts_ms = {"chunk_rows": None, "decode_rows": None}
+        if tc:
+            splan = rpa.step_plan(q, k, ptab, slot, pos)
+            step_plan_ms = cuda_ms(lambda: rpa.ragged_paged_attention(
+                q, k, v, ptab, slot, pos, plan=splan, **kw), reps=20)
+            plan_kernel_ms = _profiled_ms(
+                lambda: rpa.step_plan(q, k, ptab, slot, pos),
+                ["ragged_plan_kernel"])
+            # the kernel alone on the wave's two parts, the other rows
+            # made inactive: which blocks set the wave's time
+            chunk = (slot == 0) & (pos >= 0)
+            for part, rows in (("chunk_rows", chunk),
+                               ("decode_rows", (pos >= 0) & ~chunk)):
+                ppos = torch.where(rows, pos, -1).to(torch.int32)
+                pplan = rpa.step_plan(q, k, ptab, slot, ppos)
+                parts_ms[part] = _profiled_ms(
+                    lambda p=ppos, pl=pplan: rpa.ragged_paged_attention(
+                        q, k, v, ptab, slot, p, plan=pl, **kw),
+                    ["ragged_tc_kernel"])
         plain_ms = cuda_ms(lambda: rpa.ragged_paged_attention_reference(
             q, k, v, ptab, slot, pos, **kw), reps=5, warmup=1)
         lib = _library_call(q, k, v, ks, vs, ptab, slot, pos, info)
@@ -528,7 +593,13 @@ def phase_kernel(card):
                "q_dtype": str(q.dtype).replace("torch.", ""),
                "T": info["T"], "active_rows": info["active"],
                "atol": atol, "rtol": rtol, "max_abs_err": max_err,
-               "inactive_rows_zero": zeros, "kernel_ms": ms,
+               "inactive_rows_zero": zeros, "route": route,
+               "tiles": tiles, "plan_tiles": plan_tiles,
+               "kernel_ms": ms, "kernel_only_ms": kernel_only_ms,
+               "step_plan_ms": step_plan_ms,
+               "plan_kernel_ms": plan_kernel_ms,
+               "kernel_only_ms_chunk_rows": parts_ms["chunk_rows"],
+               "kernel_only_ms_decode_rows": parts_ms["decode_rows"],
                "plain_ms": plain_ms, "library_ms": library_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "bound_bytes": nbytes, "bound_flops": flops,
@@ -536,7 +607,7 @@ def phase_kernel(card):
                # one launch per layer; the serve phase checks the count
                "launches_per_engine_step":
                    LlamaConfig.llama3_8b().num_hidden_layers}
-        emit(row)
+        emit(_design_row(row, "ragged_paged_attention", VARIANTS[name][1]))
         out[name] = row
         del q, k, v, ks, vs, ker, ref, lib
         torch.cuda.empty_cache()
@@ -790,17 +861,29 @@ TC_BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv", "flashmask_bwd_dq",
                   "flashmask_bwd_dkv", "varlen_bwd_dq", "varlen_bwd_dkv")
 MAX_FWD_LIBRARY_FACTOR = 6.0
 MAX_BWD_LIBRARY_FACTOR = 4.0
+# the ragged kernel's tensor-core route (bf16 q over bf16 or int8 pages);
+# the CUDA-core design ran at 9.2x (bf16) and 8.0x (int8) its SDPA
+# yardstick
+RAGGED_DESIGN = ("tensor cores: a device work plan of tiles of one run "
+                 "(64 / group tokens x the group's heads), K/V gathered "
+                 "through the page table by cp.async (ring of 3; int8 "
+                 "widened to bf16 in shared memory, scales folded in "
+                 "fp32), mma.sync m16n8k16, P as bf16 hi + lo")
+MAX_RAGGED_LIBRARY_FACTOR = 2.0
 
 
 def _design_row(row, kname, dname):
     """Add `design`, `library_factor` and `bound_share` to a kernel row;
     fail a bf16 tensor-core kernel slower than its limit
-    (MAX_FWD_LIBRARY_FACTOR, MAX_BWD_LIBRARY_FACTOR) x its library
-    call."""
+    (MAX_FWD_LIBRARY_FACTOR, MAX_BWD_LIBRARY_FACTOR,
+    MAX_RAGGED_LIBRARY_FACTOR) x its library call."""
     bf16 = dname == "bfloat16"
     limit = None
     row["design"] = FWD_DESIGN["float32"]
-    if bf16 and kname.endswith("_fwd"):
+    if kname == "ragged_paged_attention":
+        if row["route"] == "tensor_cores":
+            row["design"], limit = RAGGED_DESIGN, MAX_RAGGED_LIBRARY_FACTOR
+    elif bf16 and kname.endswith("_fwd"):
         row["design"], limit = FWD_DESIGN[dname], MAX_FWD_LIBRARY_FACTOR
     elif bf16 and kname in TC_BWD_KERNELS:
         row["design"], limit = BWD_DESIGN, MAX_BWD_LIBRARY_FACTOR
@@ -2783,7 +2866,8 @@ def main(argv=None):
             "launches": serve[run]["launches"] if run in serve else None,
             "max_abs_err": k["max_abs_err"], "ms": k["kernel_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+            "design": k["design"], "library_factor": k["library_factor"]})
     for kname in FLASH_KERNELS:
         k = tk.get((kname, "bfloat16"))
         if k is None:

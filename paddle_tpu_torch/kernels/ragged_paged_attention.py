@@ -13,13 +13,19 @@ Two implementations of one function:
     softmax scanned page ordinal by page ordinal, as the JAX reference
     does. The CPU tests use it, and `chip_smoke.py` holds the kernel
     against it on the card;
-  * the Hopper kernel in `csrc/ragged_paged_attention.cu`, reached
+  * the Hopper kernels in `csrc/ragged_paged_attention.cu`, reached
     through `ragged_paged_attention` for CUDA tensors.
 
 `ragged_paged_attention` dispatches on q's device: the plain version
-for a CPU tensor, the kernel for a CUDA tensor, an error for anything
-else. There is no fallback: a kernel that does not build or does not
-launch raises. `launches` counts kernel launches (only those).
+for a CPU tensor, a kernel for a CUDA tensor, an error for anything
+else. On the card `route` decides the kernel before launch: bf16 q over
+bf16 or int8 pages with head_dim % 8 == 0, head_dim <= 128 and a GQA
+group up to 64 runs the tensor-core kernel, which reads a work plan of
+the buffer (`ragged_plan`, one small kernel; `ragged_tile_plan` is its
+plain twin); everything else (fp32 q, head_dim 256) the CUDA-core one.
+There is no fallback: a kernel that does not build or does not launch
+raises. `launches` counts attention launches and `plan_launches` plan
+launches (only those).
 
 The JAX package asserts its kernel and reference bit-identical, which
 holds only inside XLA; here the two agree to the tolerances the tests
@@ -32,12 +38,17 @@ import ctypes
 import torch
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_reference",
-           "launches"]
+           "ragged_plan", "ragged_tile_plan", "route", "step_plan",
+           "launches", "plan_launches"]
 
 NEG_INF = -1e30
+TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
+TILE = 64  # rows of the M tile and columns of a k tile
 
-#: kernel launches since import (reset by callers that count a run)
+#: attention kernel launches since import (reset by callers that count a
+#: run), and launches of the plan kernel
 launches = 0
+plan_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _MAX_SMEM = 232448  # bytes of shared memory one Hopper block may use
@@ -93,6 +104,52 @@ def ragged_paged_attention_reference(q, k_pages, v_pages, page_table,
     return (acc / l).reshape(t, qh, d).to(q.dtype)
 
 
+def route(q_dtype, kv_dtype, head_dim, group):
+    """Which kernel a CUDA call takes: TENSOR_CORES for bf16 q over bf16
+    or int8 pages, head_dim a multiple of 8 up to 128 and a GQA group up
+    to 64 (its tokens x heads fill one 64-row tile); CUDA_CORES for
+    everything else (fp32 q, head_dim 256)."""
+    if (q_dtype == torch.bfloat16 and kv_dtype in (torch.bfloat16, torch.int8)
+            and head_dim % 8 == 0 and head_dim <= 128
+            and 1 <= group <= TILE):
+        return TENSOR_CORES
+    return CUDA_CORES
+
+
+def ragged_tile_plan(tok_slot, tok_pos, group, cap=None):
+    """The tensor-core kernel's tiles of a flat buffer, in plain Python:
+    the twin of `ragged_plan_kernel`, for CPU tensors. A run is a maximal
+    stretch of adjacent active rows (tok_pos >= 0) of one slot; a tile is
+    up to 64 // group rows of one run, counted from the run's first row.
+    Returns an (n_tiles, 4) int64 tensor of (row0, n_rows, kt_end, lim) in
+    row order: lim is the largest min(tok_pos + 1, cap) of the tile's
+    rows, kt_end = ceil(lim / 64) the k tiles the kernel computes for the
+    tile, once per KV head."""
+    slot, pos = tok_slot.tolist(), tok_pos.tolist()
+    per_tile = TILE // group
+    big = float("inf") if cap is None else cap
+    tiles, i = [], 0
+    while i < len(pos):
+        if pos[i] < 0:
+            i += 1
+            continue
+        end = i
+        while end < len(pos) and pos[end] >= 0 and slot[end] == slot[i]:
+            end += 1
+        for row0 in range(i, end, per_tile):
+            rows = range(row0, min(row0 + per_tile, end))
+            lim = int(max(min(pos[r] + 1, big) for r in rows))
+            tiles.append((row0, len(rows), -(-lim // TILE), lim))
+        i = end
+    return torch.tensor(tiles, dtype=torch.int64).reshape(-1, 4)
+
+
+def plan_size(t):
+    """int32 entries of a plan of t rows: (n_tiles, n_inactive), t tiles
+    of (row0, n_rows, kt_end, lim), t inactive rows."""
+    return 2 + 5 * t
+
+
 def _check(cond, msg):
     if not cond:
         raise ValueError(f"ragged_paged_attention: {msg}")
@@ -109,6 +166,8 @@ def _lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.rpa_smem_bytes.argtypes = [ci, ci]
         lib.rpa_smem_bytes.restype = ctypes.c_size_t
+        lib.rpa_tc_smem_bytes.argtypes = [ci, ci, ci]
+        lib.rpa_tc_smem_bytes.restype = ctypes.c_size_t
         lib.rpa_error_string.argtypes = [ci]
         lib.rpa_error_string.restype = ctypes.c_char_p
         # pointers and the stream as c_void_p: a bare Python int would
@@ -116,12 +175,78 @@ def _lib():
         lib.rpa_launch.argtypes = [vp] * 9 + [ci] * 7 + [ctypes.c_float,
                                                          ci, ci, vp]
         lib.rpa_launch.restype = ci
+        lib.rpa_plan.argtypes = [vp, vp, ci, ci, ci, vp, vp]
+        lib.rpa_plan.restype = ci
+        lib.rpa_tc_launch.argtypes = [vp] * 11 + [ci] * 7 + [
+            ctypes.c_float, ci, vp]
+        lib.rpa_tc_launch.restype = ci
         _LIB.append(lib)
     return _LIB[0]
 
 
+def _raise_rc(lib, rc, what):
+    if rc != 0:
+        raise RuntimeError(
+            f"ragged_paged_attention: {what} launch failed: "
+            f"{lib.rpa_error_string(rc).decode()} (cuda error {rc})")
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def ragged_plan(tok_slot, tok_pos, group, cap):
+    """The tensor-core kernel's work plan of a flat buffer on the card:
+    one launch of `ragged_plan_kernel` (a block of prefix scans over the
+    rows; no host sync). `ragged_tile_plan` is its plain twin; `cap` is
+    pages_per_seq x page_size. Every layer of a step shares tok_slot and
+    tok_pos, so `unified_step` builds it once (`step_plan`). Returns an
+    int32 tensor of `plan_size(T)` entries."""
+    global plan_launches
+    t = tok_slot.shape[0]
+    for name, a in (("tok_slot", tok_slot), ("tok_pos", tok_pos)):
+        _check(a.device.type == "cuda",
+               f"{name} must be a CUDA tensor")
+        _check(a.dtype == torch.int32 and tuple(a.shape) == (t,) and
+               a.is_contiguous(),
+               f"{name} must be contiguous int32 ({t},)")
+    _check(tok_pos.device == tok_slot.device, "tok_slot and tok_pos on "
+           "different devices")
+    _check(1 <= group <= TILE and cap >= 1,
+           f"group {group} outside 1..{TILE} or cap {cap} < 1")
+    if t == 0:
+        return torch.zeros(plan_size(0), dtype=torch.int32,
+                           device=tok_slot.device)
+    # the kernel writes the header and every entry the header counts
+    plan = torch.empty(plan_size(t), dtype=torch.int32,
+                       device=tok_slot.device)
+    lib = _lib()
+    with torch.cuda.device(tok_slot.device):
+        rc = lib.rpa_plan(tok_slot.data_ptr(), tok_pos.data_ptr(), t, group,
+                          cap, plan.data_ptr(), _stream(tok_slot.device))
+    _raise_rc(lib, rc, "plan kernel")
+    plan_launches += 1
+    return plan
+
+
+def step_plan(q, k_pages, page_table, tok_slot, tok_pos):
+    """The plan for calls with these operands where they take the
+    tensor-core route on the card, else None (a CPU tensor, or the
+    CUDA-core route, which needs none)."""
+    kvh, _, page_size, d = k_pages.shape
+    if (q.device.type != "cuda" or q.shape[1] % kvh != 0 or
+            route(q.dtype, k_pages.dtype, d, q.shape[1] // kvh)
+            != TENSOR_CORES):
+        return None
+    return ragged_plan(tok_slot, tok_pos, q.shape[1] // kvh,
+                       page_table.shape[1] * page_size)
+
+
 def _launch(q, k_pages, v_pages, page_table, tok_slot, tok_pos, scale,
-            k_scale, v_scale):
+            k_scale, v_scale, plan=None, count_tiles=False):
+    """The kernel of `route` on CUDA operands. Returns out, or with
+    `count_tiles` (out, the k tiles the tensor-core kernel computed over
+    all KV heads, or None on the CUDA-core route)."""
     global launches
     t, qh, d = q.shape
     _check(k_pages.dim() == 4 and k_pages.shape == v_pages.shape,
@@ -161,34 +286,60 @@ def _launch(q, k_pages, v_pages, page_table, tok_slot, tok_pos, scale,
         _check(a.is_contiguous(), "every operand must be contiguous")
 
     out = torch.empty_like(q)
+    tiles = None
     if t == 0:
-        return out
+        return (out, tiles) if count_tiles else out
     lib = _lib()
-    smem = lib.rpa_smem_bytes(qh // kvh, d)
+    group = qh // kvh
+    pps = page_table.shape[1]
+    tc = route(q.dtype, k_pages.dtype, d, group) == TENSOR_CORES
+    smem = (lib.rpa_tc_smem_bytes(d, _DTYPE_CODE[k_pages.dtype], pps) if tc
+            else lib.rpa_smem_bytes(group, d))
     _check(smem <= _MAX_SMEM,
-           f"GQA group {qh // kvh} x head_dim {d} needs {smem} bytes of "
-           f"shared memory, more than a block has ({_MAX_SMEM})")
+           f"GQA group {group} x head_dim {d} (pages_per_seq "
+           f"{pps}) needs {smem} bytes of shared memory, more than a "
+           f"block has ({_MAX_SMEM})")
+    if tc:
+        align = 8 if quant else 16
+        for name, a, al in (("q", q, 16), ("k_pages", k_pages, align),
+                            ("v_pages", v_pages, align)):
+            _check(a.data_ptr() % al == 0,
+                   f"{name} must start {al}-byte aligned")
+        if plan is None:
+            plan = ragged_plan(tok_slot, tok_pos, group, pps * page_size)
+        _check(plan.dtype == torch.int32 and plan.device == q.device and
+               tuple(plan.shape) == (plan_size(t),),
+               f"plan must be ragged_plan's for these {t} rows")
+        count = (torch.zeros(1, dtype=torch.int32, device=q.device)
+                 if count_tiles else None)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.rpa_launch(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            k_scale.data_ptr() if quant else None,
-            v_scale.data_ptr() if quant else None,
-            page_table.data_ptr(), tok_slot.data_ptr(), tok_pos.data_ptr(),
-            out.data_ptr(), t, qh, kvh, d, num_pages, page_size,
-            page_table.shape[1], scale, _DTYPE_CODE[q.dtype],
-            _DTYPE_CODE[k_pages.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(
-            "ragged_paged_attention: kernel launch failed: "
-            f"{lib.rpa_error_string(rc).decode()} (cuda error {rc})")
+        stream = _stream(q.device)
+        ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                k_scale.data_ptr() if quant else None,
+                v_scale.data_ptr() if quant else None,
+                page_table.data_ptr(), tok_slot.data_ptr(),
+                tok_pos.data_ptr())
+        if tc:
+            rc = lib.rpa_tc_launch(
+                *ptrs, plan.data_ptr(), out.data_ptr(),
+                count.data_ptr() if count_tiles else None, t, qh, kvh, d,
+                num_pages, page_size, pps, scale,
+                _DTYPE_CODE[k_pages.dtype], stream)
+        else:
+            rc = lib.rpa_launch(
+                *ptrs, out.data_ptr(), t, qh, kvh, d, num_pages, page_size,
+                pps, scale, _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype],
+                stream)
+    _raise_rc(lib, rc, "kernel")
     launches += 1
-    return out
+    if count_tiles and tc:
+        tiles = int(count.item())
+    return (out, tiles) if count_tiles else out
 
 
 def ragged_paged_attention(q, k_pages, v_pages, page_table, tok_slot,
                            tok_pos, sm_scale=None, k_scale=None,
-                           v_scale=None):
+                           v_scale=None, plan=None):
     """Ragged mixed prefill/decode attention over a paged KV cache.
 
     q: (T, QH, D); k_pages/v_pages: (KVH, num_pages, page_size, D);
@@ -197,10 +348,13 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, tok_slot,
     (KVH, num_pages, page_size, 1) fp32. Returns (T, QH, D) in q's
     dtype.
 
-    A CPU q runs the plain version. A CUDA q launches the Hopper kernel,
-    which takes float32 or bfloat16 q with pages of the same dtype or
-    int8, int32 index tensors, contiguous operands, head_dim 16..256 and
-    page_size up to 64, and raises on anything else."""
+    A CPU q runs the plain version. A CUDA q launches the kernel `route`
+    names, which takes float32 or bfloat16 q with pages of the same dtype
+    or int8, int32 index tensors, contiguous operands, head_dim 16..256
+    and page_size up to 64, and raises on anything else. `plan`, the
+    tensor-core route's `ragged_plan` for these tok_slot / tok_pos (a
+    step builds it once for its layers), is built here when not given;
+    the other routes ignore it."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("k_scale and v_scale must be given together")
     scale = float(sm_scale if sm_scale is not None else q.shape[-1] ** -0.5)
@@ -213,4 +367,4 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, tok_slot,
             f"ragged_paged_attention: no implementation for device "
             f"{q.device}; use a CUDA or a CPU tensor")
     return _launch(q, k_pages, v_pages, page_table, tok_slot, tok_pos, scale,
-                   k_scale, v_scale)
+                   k_scale, v_scale, plan)

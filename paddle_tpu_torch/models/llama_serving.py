@@ -67,7 +67,8 @@ import torch
 
 from .. import _prng
 from .._device import DEFAULT_DEVICE, resolve_device
-from ..kernels.ragged_paged_attention import ragged_paged_attention
+from ..kernels.ragged_paged_attention import (ragged_paged_attention,
+                                              step_plan)
 from ..ops.flash_attention import flash_attention_bhsd
 from ..ops.fused import rms_norm as _rms
 from ..ops.fused import swiglu
@@ -306,6 +307,7 @@ def unified_step(params, k_pool, v_pool, page_table, tokens, tok_slot,
     off = pos % page_size
 
     lw = params["layers"]
+    plan = None
     for li in range(k_pool.shape[0]):
         x = _rms(h, lw["ln1"][li], eps)
         q, k, v = _qkv(x, lw, li, (t,), nh, nkv, hd)
@@ -313,8 +315,13 @@ def unified_step(params, k_pool, v_pool, page_table, tokens, tok_slot,
         kl, vl, ksl, vsl = _scatter_kv(
             k_pool, v_pool, k_scale, v_scale, li, page_ids, off,
             k.transpose(0, 1), v.transpose(0, 1), quant)
+        if li == 0:
+            # the tensor-core kernel's work plan depends only on tok_slot
+            # and tok_pos: one per step, shared by every layer
+            plan = step_plan(q, kl, page_table, tok_slot, tok_pos)
         o = ragged_paged_attention(q, kl, vl, page_table, tok_slot, tok_pos,
-                                   k_scale=ksl, v_scale=vsl)   # (T, QH, D)
+                                   k_scale=ksl, v_scale=vsl,
+                                   plan=plan)                 # (T, QH, D)
         h = h + o.reshape(t, -1).to(h.dtype) @ lw["wo"][li]
         x = _rms(h, lw["ln2"][li], eps)
         h = h + swiglu(x, lw["w_gate"][li], lw["w_up"][li], lw["w_down"][li])

@@ -1,5 +1,6 @@
-"""paddle_tpu_torch on the card: the Hopper ragged paged-attention kernel,
-the three flash-attention kernels, the three FlashMask kernels, the
+"""paddle_tpu_torch on the card: the Hopper ragged paged-attention kernel
+(both designs, on engine-shaped waves, and its work plan against the
+plain twin), the three flash-attention kernels, the three FlashMask kernels, the
 varlen forward, dQ and dK/dV, the paged decode and the paged verify
 kernels against their plain PyTorch versions over the shapes and masks
 they cover, the card engines (ragged, bucketed, and bucketed with
@@ -88,13 +89,18 @@ def _wave(dev, dtype, qh, kvh, d, page, seed=0):
 @pytest.mark.parametrize("qh,kvh,d,page", [
     (32, 8, 128, 16), (8, 8, 64, 8), (32, 1, 16, 64), (16, 2, 256, 32),
     (64, 1, 256, 64), (12, 4, 96, 5)])
-def test_kernel_matches_plain(card, dtype, qh, kvh, d, page):
+def test_kernel_matches_plain(card, record_property, dtype, qh, kvh, d,
+                              page):
     q, k, v, ks, vs, ptab, slot, pos = _wave(card, dtype, qh, kvh, d, page)
-    before = rpa.launches
+    route = rpa.route(q.dtype, k.dtype, d, qh // kvh)
+    record_property("route", route)
+    before = rpa.launches, rpa.plan_launches
     ker = rpa.ragged_paged_attention(q, k, v, ptab, slot, pos,
                                      k_scale=ks, v_scale=vs)
     torch.cuda.synchronize()
-    assert rpa.launches == before + 1
+    # one attention launch; a plan launch only on the tensor-core route
+    assert (rpa.launches, rpa.plan_launches) == (
+        before[0] + 1, before[1] + (route == rpa.TENSOR_CORES))
     assert ker.dtype == q.dtype
     ref = rpa.ragged_paged_attention_reference(q, k, v, ptab, slot, pos,
                                                k_scale=ks, v_scale=vs)
@@ -150,6 +156,173 @@ def test_card_engine_matches_cpu_engine(card, cache_dtype):
             assert eng.pool.conserved(drained=True)
             outs.append({r.rid: r.output for r in done})
     assert outs[0] == outs[1] == outs[2] == outs[3]
+
+
+# Engine-shaped waves for the tensor-core kernel, as the ragged engine lays
+# out a buffer: decode rows first, then each chunk. (slot, first position,
+# tokens) per run: runs of 37 (starting mid-page, crossing a 64-column
+# tile) and 200 tokens, a run of 70 whose last tile is partial at every
+# group, slot 0 split into two runs that are not adjacent, inactive rows
+# between runs and at the end.
+ENGINE_RUNS = [(1, 1999, 1), (2, 99, 1), (3, 0, 1), (4, 700, 1),
+               (5, 50, 37), None, (6, 0, 200), (0, 300, 10), None, None,
+               (7, 64, 70), (0, 310, 20), None]
+
+
+def _engine_wave(dev, variant, qh, kvh, d, page=16, seed=0):
+    """(q, k, v, ks, vs, ptab, slot, pos) for ENGINE_RUNS (None: an
+    inactive row), max_seq_len 2048."""
+    rng = np.random.default_rng(seed)
+    slot, pos = [], []
+    for run in ENGINE_RUNS:
+        s, p0, n = run if run is not None else (0, -1, 1)
+        slot += [s] * n
+        pos += [p0 + i if p0 >= 0 else -1 for i in range(n)]
+    pps = 2048 // page
+    slots = 8
+    num_pages = slots * pps + 1
+    ptab = rng.permutation(num_pages - 1)[:slots * pps].reshape(
+        slots, pps).astype(np.int32)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    pools, qname = VARIANTS[variant]
+    q = torch.randn((len(pos), qh, d), generator=g, device=dev).to(
+        getattr(torch, qname))
+    k = torch.randn((kvh, num_pages, page, d), generator=g, device=dev)
+    v = torch.randn((kvh, num_pages, page, d), generator=g, device=dev)
+    ks = vs = None
+    if pools == "int8":
+        k, ks = quantize_kv(k)
+        v, vs = quantize_kv(v)
+    else:
+        k, v = k.to(q.dtype), v.to(q.dtype)
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.int32, device=dev)
+    return q, k, v, ks, vs, t(ptab), t(slot), t(pos)
+
+
+# (QH, KVH, D): 8B widths; group 3 (21 tokens a tile, one row unused);
+# group 1 (64 tokens a tile); group 64 (one token a tile); D 64 and 40
+TC_SHAPES = [(32, 8, 128), (12, 4, 128), (8, 8, 64), (64, 1, 64),
+             (16, 4, 40)]
+
+
+@pytest.mark.parametrize("qh,kvh,d", TC_SHAPES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_tc_kernel_on_engine_waves(card, dtype, qh, kvh, d):
+    """bf16 q over bf16 and int8 pages: the tensor-core route, held to
+    the plain version at TOL on every active row, inactive rows exactly
+    zero, and the k tiles it computed equal to the plan's."""
+    q, k, v, ks, vs, ptab, slot, pos = _engine_wave(card, dtype, qh, kvh, d)
+    assert rpa.route(q.dtype, k.dtype, d, qh // kvh) == rpa.TENSOR_CORES
+    ker, tiles = rpa._launch(q, k, v, ptab, slot, pos, d ** -0.5, ks, vs,
+                             count_tiles=True)
+    ref = rpa.ragged_paged_attention_reference(q, k, v, ptab, slot, pos,
+                                               k_scale=ks, v_scale=vs)
+    active = pos >= 0
+    atol, rtol = TOL["bfloat16"]
+    torch.testing.assert_close(ker.float()[active], ref.float()[active],
+                               atol=atol, rtol=rtol)
+    assert bool((ker[~active] == 0).all())
+    plan = rpa.ragged_tile_plan(slot.cpu(), pos.cpu(), qh // kvh,
+                                cap=ptab.shape[1] * k.shape[2])
+    assert tiles == kvh * int(plan[:, 2].sum())
+
+
+def _decode_plan(plan, t):
+    """(tiles (n_tiles, 4) int64, inactive rows (n_inactive,) int64) of a
+    device plan of t rows (`rpa.plan_size`: the header (n_tiles,
+    n_inactive), t tiles of 4 ints, t inactive rows)."""
+    p = plan.cpu().long()
+    n, z = int(p[0]), int(p[1])
+    return p[2:2 + 4 * n].reshape(n, 4), p[2 + 4 * t:2 + 4 * t + z]
+
+
+@pytest.mark.parametrize("group", [1, 3, 4, 64])
+def test_tc_plan_equals_its_plain_twin(card, group):
+    """The plan kernel's tiles and inactive rows equal
+    `ragged_tile_plan`'s and the inactive rows of the buffer, on the
+    engine wave and on a long random buffer (more rows than one pass of
+    the plan block)."""
+    _, _, _, _, _, ptab, slot, pos = _engine_wave(card, "bfloat16", 8, 8, 16)
+    rng = np.random.default_rng(group)
+    n = 3000
+    rslot = rng.integers(0, 4, n).repeat(2)[:n]
+    rpos = np.where(rng.random(n) < 0.2, -1, rng.integers(0, 2048, n))
+    cap = ptab.shape[1] * 16
+    for s, p in ((slot, pos), (torch.tensor(rslot, dtype=torch.int32,
+                                            device=card),
+                               torch.tensor(rpos, dtype=torch.int32,
+                                            device=card))):
+        tiles, idle = _decode_plan(rpa.ragged_plan(s, p, group, cap),
+                                   len(p))
+        assert torch.equal(tiles, rpa.ragged_tile_plan(s.cpu(), p.cpu(),
+                                                       group, cap))
+        assert torch.equal(idle, (p.cpu() < 0).nonzero().flatten())
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_tc_kernel_with_and_without_the_step_plan(card, dtype):
+    """A call given the step's plan and one that builds its own give the
+    same bits; two calls repeat bit for bit (no atomics in the sums)."""
+    q, k, v, ks, vs, ptab, slot, pos = _engine_wave(card, dtype, 32, 8, 128)
+    plan = rpa.step_plan(q, k, ptab, slot, pos)
+    assert plan is not None
+    outs = [rpa.ragged_paged_attention(q, k, v, ptab, slot, pos, k_scale=ks,
+                                       v_scale=vs, plan=p)
+            for p in (plan, None, plan)]
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+def test_tc_route_rule(card):
+    """bf16 at head_dim 256, fp32 q and a GQA group over 64 take the
+    CUDA-core route by rule: no plan, no tile count, the plain version's
+    answer."""
+    for qh, kvh, d, dtype in ((16, 2, 256, "bfloat16"), (8, 2, 64, "float32"),
+                              (8, 2, 64, "int8_fp32q"), (128, 1, 32,
+                                                         "bfloat16")):
+        q, k, v, ks, vs, ptab, slot, pos = _wave(card, dtype, qh, kvh, d, 16)
+        assert rpa.route(q.dtype, k.dtype, d, qh // kvh) == rpa.CUDA_CORES
+        assert rpa.step_plan(q, k, ptab, slot, pos) is None
+        before = rpa.plan_launches
+        ker, tiles = rpa._launch(q, k, v, ptab, slot, pos, d ** -0.5, ks,
+                                 vs, count_tiles=True)
+        assert tiles is None and rpa.plan_launches == before
+        ref = rpa.ragged_paged_attention_reference(q, k, v, ptab, slot, pos,
+                                                   k_scale=ks, v_scale=vs)
+        atol, rtol = TOL[VARIANTS[dtype][1]]
+        active = pos >= 0
+        torch.testing.assert_close(ker.float()[active], ref.float()[active],
+                                   atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("cache_dtype", [None, "int8"])
+def test_card_tc_engine_matches_cpu_engine(card, cache_dtype):
+    """bf16 weights at group 4 (the tensor-core route) on the card against
+    the CPU engine from the same weights: the same tokens, one plan per
+    device step, one attention launch per layer and step."""
+    cfg = LlamaConfig.tiny(vocab=128, hidden=256, layers=2, heads=8,
+                           kv_heads=2, ffn=256)
+    cpu = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cpu")
+    gpu = {k: ({kk: vv.to(card) for kk, vv in v.items()}
+               if isinstance(v, dict) else v.to(card))
+           for k, v in cpu.items()}
+    outs = []
+    for dev, params in ((card, gpu), ("cpu", cpu)):
+        eng = ServingEngine(params, cfg, max_seqs=3, max_seq_len=128,
+                            page_size=8, cache_dtype=cache_dtype, device=dev)
+        for i, n in enumerate((5, 40, 70)):
+            eng.submit(Request(i, list(range(1, n + 1)), max_new_tokens=12))
+        rpa.launches = rpa.plan_launches = 0
+        done = eng.run()
+        on_card = dev is card
+        assert rpa.launches == (cfg.num_hidden_layers * eng.device_steps
+                                if on_card else 0)
+        assert rpa.plan_launches == (eng.device_steps if on_card else 0)
+        assert eng.pool.conserved(drained=True)
+        outs.append({r.rid: r.output for r in done})
+    assert outs[0] == outs[1]
 
 
 # ------------------------------------------------------------ flash attention

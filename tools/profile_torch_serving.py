@@ -38,7 +38,8 @@ STEPS = 16          # decode steps in the profiled window
 
 def _group(name):
     n = name.lower()
-    if "ragged_kernel" in n:
+    if any(s in n for s in ("ragged_kernel", "ragged_tc_kernel",
+                            "ragged_plan_kernel")):
         return "attention (ragged_paged_attention.cu)"
     # before the generic tests below: va_fwd_kernel ends in fwd_kernel,
     # and the bf16 va_fwd is attn_fwd_sm90.cuh's fwd_tc_kernel with the
