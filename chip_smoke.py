@@ -870,19 +870,36 @@ RAGGED_DESIGN = ("tensor cores: a device work plan of tiles of one run "
                  "widened to bf16 in shared memory, scales folded in "
                  "fp32), mma.sync m16n8k16, P as bf16 hi + lo")
 MAX_RAGGED_LIBRARY_FACTOR = 2.0
+# the paged decode and verify kernels' tensor-core route (bf16 q over bf16
+# or int8 pages); the CUDA-core design ran at 1.4-2.4x its SDPA yardstick
+PAGED_KERNELS = ("paged_decode", "paged_decode_int8", "paged_verify",
+                 "paged_verify_int8")
+PAGED_DESIGN = ("tensor cores: a sequence's columns split over blocks (S = "
+                "384 columns while B x KVH x row tiles < 2 x SMs and the "
+                "splits' fp32 partials fit 16 MiB) and merged "
+                "by a second kernel, each block the ragged kernel's tile "
+                "loop (paged_tc_sm90.cuh: K/V gathered through the page "
+                "table by cp.async, ring of 3; int8 widened to bf16 in "
+                "shared memory, scales folded in fp32; mma.sync m16n8k16, "
+                "P as bf16 hi + lo)")
+MAX_PAGED_LIBRARY_FACTOR = 1.0
 
 
 def _design_row(row, kname, dname):
     """Add `design`, `library_factor` and `bound_share` to a kernel row;
     fail a bf16 tensor-core kernel slower than its limit
     (MAX_FWD_LIBRARY_FACTOR, MAX_BWD_LIBRARY_FACTOR,
-    MAX_RAGGED_LIBRARY_FACTOR) x its library call."""
+    MAX_RAGGED_LIBRARY_FACTOR, MAX_PAGED_LIBRARY_FACTOR) x its library
+    call."""
     bf16 = dname == "bfloat16"
     limit = None
     row["design"] = FWD_DESIGN["float32"]
     if kname == "ragged_paged_attention":
         if row["route"] == "tensor_cores":
             row["design"], limit = RAGGED_DESIGN, MAX_RAGGED_LIBRARY_FACTOR
+    elif kname in PAGED_KERNELS:
+        if row["route"] == "tensor_cores":
+            row["design"], limit = PAGED_DESIGN, MAX_PAGED_LIBRARY_FACTOR
     elif bf16 and kname.endswith("_fwd"):
         row["design"], limit = FWD_DESIGN[dname], MAX_FWD_LIBRARY_FACTOR
     elif bf16 and kname in TC_BWD_KERNELS:
@@ -894,6 +911,50 @@ def _design_row(row, kname, dname):
              f"{row['library_factor']:.2f}x its library call: the "
              "tensor-core kernel did not run at its speed")
     return row
+
+
+def _paged_row(call, kname, variant, q, k, lims, n_tok, bound_ms):
+    """The design fields of a pa_decode / pa_verify row: the route; on
+    the tensor-core route the k tiles and working blocks the kernel
+    counted, held to `paged_split_plan`'s, the split, the grid's blocks,
+    the attention and merge kernels' device time alone (`kernel_only_ms`,
+    their sum, and `merge_ms` apart), its share of `bound_ms` and the
+    workspace's bytes; on the CUDA-core route the kernel alone and its
+    grid (B x KVH blocks: one row tile at these shapes). `call(**kw)`
+    runs the wrapper's launch (`pa._launch` or `pa._launch_verify`)."""
+    import paddle_tpu_torch.ops.paged_attention as pa
+    qh, kvh, d = q.shape[1], k.shape[0], q.shape[-1]
+    route = pa.route(q.dtype, k.dtype, d, qh // kvh)
+    if route != pa.TENSOR_CORES:
+        name = "verify_kernel" if "verify" in kname else "decode_kernel"
+        row = {"kernel_only_ms": _profiled_ms(call, [name]),
+               "merge_ms": None, "k_tiles": None, "splits": None,
+               "split_cols": None, "blocks": q.shape[0] * kvh}
+    else:
+        _, counts = call(count_tiles=True)
+        pps = DECODE_SHAPE["MAX_LEN"] // DECODE_SHAPE["PAGE"]
+        plan = pa.paged_split_plan(lims, qh // kvh, n_tok, kvh,
+                                   pa.SPLIT_COLS, pa._sm_count(q.device),
+                                   pps * DECODE_SHAPE["PAGE"], d)
+        want = {"k_tiles": kvh * plan["k_tiles"],
+                "splits": kvh * plan["splits"]}
+        got = {x: counts[x] for x in want}
+        if got != want:
+            fail(f"{kname} ({variant}): the kernel counted {got}, the "
+                 f"split rule gives {want}")
+        names = ["paged_tc_kernel", "paged_merge_kernel"]
+        row = {"kernel_only_ms": _profiled_ms(call, names),
+               "merge_ms": _profiled_ms(call, names[1:]),
+               "k_tiles": got["k_tiles"], "splits": got["splits"],
+               "k_tiles_per_kv_head": plan["k_tiles"],
+               "splits_per_kv_head": plan["splits"],
+               "split_cols": counts["split_cols"],
+               "max_splits": counts["max_splits"], "blocks": plan["blocks"],
+               "working_blocks": got["splits"],
+               "workspace_bytes": counts["workspace_bytes"]}
+    alone = row["kernel_only_ms"]
+    return {"route": route, **row,
+            "kernel_only_bound_share": bound_ms / alone if alone else None}
 
 
 def _train_counts():
@@ -1846,18 +1907,23 @@ def phase_bucket_kernel(card):
             name, [n - 1 for n in DECODE_LENS], 1)
         kname = "paged_decode_int8" if VARIANTS[name][0] == "int8" \
             else "paged_decode"
+        design = _paged_row(
+            lambda **kw2: pa._launch(q, k, v, ptab, lengths,
+                                     DECODE_SHAPE["D"] ** -0.5, ks, vs,
+                                     **kw2),
+            kname, name, q, k, list(DECODE_LENS), 1, bound_ms)
         row = {"phase": "bucket_kernel", "kernel": kname, "card": card,
                "variant": name, "pools": VARIANTS[name][0],
                "q_dtype": VARIANTS[name][1], "lengths": list(DECODE_LENS),
                **DECODE_SHAPE, "atol": atol, "rtol": rtol,
                "max_abs_err": max_err, "length0_zero": True,
-               "kernel_ms": ms, "plain_ms": plain_ms,
+               "kernel_ms": ms, **design, "plain_ms": plain_ms,
                "library_ms": library_ms,
                "library_call": "sdpa over the live slots' KV gathered "
                                "dense, masked to each length",
                "bound_ms": bound_ms, "bound_by": bound_by,
                "bound_bytes": nbytes, "bound_flops": flops, "tf32": False}
-        emit(row)
+        emit(_design_row(row, kname, name))
         out[(kname, name)] = row
         del q, k, v, ks, vs, ker, ref, kd, vd
         torch.cuda.empty_cache()
@@ -1878,6 +1944,13 @@ def _bucket_counts():
             "ragged_paged_attention": rpa.launches}
 
 
+def _merge_launches():
+    """Launches of the paged kernels' merge since the counts were reset
+    (one per pa_decode / pa_verify launch where the split rule splits)."""
+    import paddle_tpu_torch.ops.paged_attention as pa
+    return pa.launches_merge
+
+
 def _reset_bucket_counts():
     import paddle_tpu_torch.kernels.ragged_paged_attention as rpa
     import paddle_tpu_torch.ops.flash_attention as fa
@@ -1886,6 +1959,7 @@ def _reset_bucket_counts():
     va.launches_fwd = fa.launches_fwd = rpa.launches = 0
     pa.launches_decode = pa.launches_decode_int8 = 0
     pa.launches_verify = pa.launches_verify_int8 = 0
+    pa.launches_merge = 0
 
 
 def _bucket_run(eng, pipelined, marks=None):
@@ -2059,6 +2133,7 @@ def phase_bucket_serve(card, cfg, params, init_s):
                "decode_step_ms_median": (statistics.median(gaps) * 1e3
                                          if gaps else None),
                "output_tok_s": 8 * 64 / wall, "launches": launches,
+               "merge_launches": _merge_launches(),
                "params_init_s": init_s}
         emit(row)
         runs[name] = row
@@ -2202,20 +2277,25 @@ def phase_spec_kernel(card):
                                                           VERIFY_G)
         kname = "paged_verify_int8" if VARIANTS[name][0] == "int8" \
             else "paged_verify"
+        scale = DECODE_SHAPE["D"] ** -0.5
+        design = _paged_row(
+            lambda **kw2: pa._launch_verify(q, k, v, ptab, base, scale, ks,
+                                            vs, **kw2),
+            kname, name, q, k, [b + 1 for b in VERIFY_BASES], VERIFY_G,
+            bound_ms)
         row = {"phase": "spec_kernel", "kernel": kname, "card": card,
                "variant": name, "pools": VARIANTS[name][0],
                "q_dtype": VARIANTS[name][1], "base_lengths":
                list(VERIFY_BASES), "G": VERIFY_G, **DECODE_SHAPE,
-               "blocks": len(VERIFY_BASES) * DECODE_SHAPE["KVH"],
                "atol": atol, "rtol": rtol, "max_abs_err": max_err,
                "g1_vs_pa_decode_max_abs_err": g1_err,
-               "kernel_ms": ms, "plain_ms": plain_ms,
+               "kernel_ms": ms, **design, "plain_ms": plain_ms,
                "library_ms": library_ms,
                "library_call": "sdpa over the slots' KV gathered dense, "
                                "each row masked to base + g + 1",
                "bound_ms": bound_ms, "bound_by": bound_by,
                "bound_bytes": nbytes, "bound_flops": flops, "tf32": False}
-        emit(row)
+        emit(_design_row(row, kname, name))
         out[name] = row
         del q, k, v, ks, vs, ker, ref, kd, vd, ver1, dec
         torch.cuda.empty_cache()
@@ -2415,6 +2495,7 @@ def phase_spec_serve(card, cfg, params, init_s, bserve):
                "spec_accepted": eng.spec_accepted,
                "accept_rate": eng.spec_accepted / eng.spec_drafted,
                "logit_rows": eng.logit_rows, "launches": launches,
+               "merge_launches": _merge_launches(),
                "bucket_serve_plain": {
                    k: plain.get(k) for k in (
                        "output_tok_s", "decode_step_ms_median",
@@ -2903,7 +2984,8 @@ def main(argv=None):
             else None,
             "max_abs_err": k["max_abs_err"], "ms": k["kernel_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+            "design": k["design"], "library_factor": k["library_factor"]})
     for kname, (tpu, row, run) in SPEC_KERNELS.items():
         k = sk.get(row)
         if k is None:
@@ -2916,7 +2998,8 @@ def main(argv=None):
             else None,
             "max_abs_err": k["max_abs_err"], "ms": k["kernel_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+            "design": k["design"], "library_factor": k["library_factor"]})
     for kname in VARLEN_BWD_KERNELS:
         k = vk.get((kname, "bfloat16"))
         if k is None:

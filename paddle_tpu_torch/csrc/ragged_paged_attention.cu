@@ -28,39 +28,25 @@
 //     tiles share its pages through L2. The grid is T x KVH blocks; those
 //     past the plan's tiles zero one inactive row each or exit. Q is read
 //     once, straight into m16n8k16 A fragments.
-//   * K/V tiles of 64 columns gathered through the slot's page-table row
-//     (read into shared memory once a block): 16-byte cp.async copies of
-//     column c from page ptab[c / page] at offset c % page into swizzled
-//     tiles, a ring of three stages; columns at or past the tile's
-//     largest limit are zero-filled, never read. With 4 warps and at most
-//     2 blocks an SM nothing hides an instruction's latency, and issuing
-//     the copies took as long as the products: c / page is a multiply by
-//     a reciprocal, and rows are 32-bit offsets within a KV head's pages.
-//   * S = Q K^T and O += P V by mma.sync.m16n8k16 (bf16 in, fp32
-//     accumulate), the online softmax in registers in the log2 domain, P
-//     as bf16 hi + lo: the tile loop of attn_fwd_sm90.cuh, whose helpers
-//     it uses; its layouts and policies do not express a paged gather,
-//     (token, head) rows or int8 scales. Each row masks by its own
-//     tok_pos on a tile that reaches it. A narrow tile (at most 16 rows:
-//     a decode row at group 4 holds 4) is shared by the 4 warps along its
-//     columns, 16 each, their softmax states merged at the end; on a wide
-//     one a warp whose 16 rows hold no query skips its products.
-//   * int8 pages: 8-byte cp.async copies into a ring of int8 stages, each
-//     thread widening its own chunks to bf16 (exact, |x| <= 127) by byte
-//     permutes and an fp32 add, no conversion instructions; a score
-//     column is multiplied by its K scale in fp32 after Q K^T, P by its V
-//     scale before the hi + lo split, and l sums the unscaled P, so the
-//     result differs from dequantize-then-multiply by the order of sums
-//     and the 2^-17 of P.
+//   * The tile loop of csrc/paged_tc_sm90.cuh, shared with the paged
+//     decode and verify kernels (csrc/paged_attention.cu): K/V tiles of
+//     64 columns gathered through the slot's page-table row by cp.async
+//     into a ring of three stages, S = Q K^T and O += P V by
+//     mma.sync.m16n8k16 with the online softmax in registers and P as
+//     bf16 hi + lo, a narrow tile split over the warps by columns, int8
+//     pages widened in shared memory with their scales folded in fp32
+//     (the header says how and why). Each row masks by its own tok_pos
+//     on a tile that reaches it; the work type `RaggedWork` says where a
+//     block's rows live.
 // What bounds it: the KV bytes (a decode row does about 2 flops a byte at
 // group 4); the wave fits the card at once, so its longest block, the
 // longest decode row's, sets the time. What it leaves: that row's columns
-// are walked by one block (a split over blocks with a merge pass would
-// shorten it); per k tile its warps spend as long issuing copies (and,
-// for int8, widening them through shared memory) as multiplying, in turn
-// (TMA, or producer warps, would overlap them); tiles are not ordered
-// longest first (the engine's layout puts decode rows first); mma.sync,
-// not wgmma.
+// are walked by one block (the paged kernels' split over blocks with a
+// merge pass, csrc/paged_attention.cu, would shorten it); per k tile its
+// warps spend as long issuing copies (and, for int8, widening them
+// through shared memory) as multiplying, in turn (TMA, or producer
+// warps, would overlap them); tiles are not ordered longest first (the
+// engine's layout puts decode rows first); mma.sync, not wgmma.
 //
 // CUDA cores (`ragged_kernel`): fp32 q (over fp32 or int8 pages) and any
 // other shape, such as head dim 256. One thread block per (token row, KV
@@ -80,6 +66,7 @@
 #include <type_traits>
 
 #include "attn_fwd_sm90.cuh"
+#include "paged_tc_sm90.cuh"
 
 namespace {
 
@@ -269,6 +256,7 @@ cudaError_t launch_typed(const void* q, const void* k_pages,
 
 // ------------------------------------------------- the tensor-core design
 namespace tc = attn_fwd_sm90;
+namespace ptc = paged_tc_sm90;
 using tc::kTileK;
 using tc::kTileQ;
 
@@ -372,15 +360,6 @@ __global__ void __launch_bounds__(kPlanThreads)
   }
 }
 
-// 8 bytes global -> shared; `bytes` 8 copies, 0 zero-fills.
-__device__ __forceinline__ void cp_async8(void* dst, const void* src,
-                                          int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
-                   tc::smem_addr(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
 struct TcArgs {
   const __nv_bfloat16* q;      // (T, qh, D)
   const void* k;               // (kvh, num_pages, page, D), bf16 or int8
@@ -397,36 +376,59 @@ struct TcArgs {
   float scale;
 };
 
-// Stages of the K/V copy ring: the copies of the next kStages - 1 k tiles
-// fly while one computes.
-constexpr int kStages = 3;
+// The work of one block of ragged_tc_kernel for paged_tc_sm90::tile_loop:
+// tile (row0, n_rows, kt_end, lim) of the plan for KV head h; M row m is
+// token row0 + m / group, its limit min(tok_pos + 1, cap); the k tiles
+// [0, kt_end) of the tile's slot. The epilogue writes O / l as bf16.
+struct RaggedWork {
+  const TcArgs& a;
+  int h, group, m_rows, lim, kt1, row0;
+  const int* prow;
+  static constexpr int kt0 = 0;
 
-// Shared memory of ragged_tc_kernel<DP, int8 pages?>: bf16 pages, a ring
-// of kStages K/V tile pairs; int8 pages, a ring of kStages int8 pairs with
-// their scales, and one bf16 pair they are widened into; then the slot's
-// page-table row. (Q lives in registers.)
-constexpr size_t tc_smem_bytes(int dp, bool quant, int pps) {
-  const size_t pair = 2 * static_cast<size_t>(kTileK) * dp;  // elements
-  return (quant ? kStages * (pair + 2 * kTileK * 4) + pair * 2
-                : kStages * pair * 2) +
-         static_cast<size_t>(pps) * 4;
-}
+  __device__ __forceinline__ const __nv_bfloat16* q_row(int m) const {
+    return a.q + (static_cast<long long>(row0 + m / group) * a.qh +
+                  h * group + m % group) * a.D;
+  }
+  __device__ __forceinline__ int row_lim(int m) const {
+    return min(a.tok_pos[row0 + m / group] + 1, a.pps * a.page);
+  }
+  // O / l in fp32, written as bf16 pairs to
+  // out[row0 + m / group, h * group + m % group]
+  template <int NB>
+  __device__ __forceinline__ void finish(float (&acc)[NB][4],
+                                         const float (&)[2],
+                                         const float (&l)[2], int row_a,
+                                         int col_in) const {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int mrow = row_a + 8 * r;
+      if (mrow >= m_rows) continue;
+      const float inv = l[r] == 0.f ? 0.f : 1.f / l[r];
+      __nv_bfloat16* orow =
+          a.out + (static_cast<long long>(row0 + mrow / group) * a.qh +
+                   h * group + mrow % group) * a.D;
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        const int d = 8 * j + col_in;
+        if (d < a.D)
+          *reinterpret_cast<unsigned*>(orow + d) =
+              tc::pack_bf16(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
+      }
+    }
+    if (a.tile_count != nullptr && threadIdx.x == 0)
+      atomicAdd(a.tile_count, kt1);
+  }
+};
 
-// One block of 4 warps per (tile of the plan, KV head h): M row m of the
-// 64 is token row0 + m / group and query head h * group + m % group.
-// Blocks past the plan's n_tiles x kvh zero one inactive row each, and
-// the rest exit. KV is int8_t or __nv_bfloat16.
+// One block of 4 warps per (tile of the plan, KV head h), the loop of
+// paged_tc_sm90.cuh over the tile's k tiles. Blocks past the plan's
+// n_tiles x kvh zero one inactive row each, and the rest exit. KV is
+// int8_t or __nv_bfloat16.
 template <int DP, class KV>
 __global__ void __launch_bounds__(tc::kThreads, 2)
     ragged_tc_kernel(const TcArgs a) {
-  constexpr bool kQuant = sizeof(KV) == 1;
-  constexpr int KS = DP / 16;  // k-steps of Q K^T
-  constexpr int NB = DP / 8;   // 8-dim blocks of the output
-  constexpr int kTileElems = kTileK * DP;
-  constexpr int kChunks = DP / 8;                // 8-element chunks a row
-  constexpr int kStep = tc::kThreads / kChunks;  // rows between two copies
   extern __shared__ __align__(128) unsigned char rtc_smem[];
-
   const int n_tiles = a.plan[0];
   const int b = blockIdx.x;
   if (b >= n_tiles * a.kvh) {
@@ -444,380 +446,19 @@ __global__ void __launch_bounds__(tc::kThreads, 2)
   const int tile = b % n_tiles;
   const int h = b / n_tiles;
   const int* tl = a.plan + kPlanHeader + kTileInts * tile;
-  const int row0 = tl[0], n_rows = tl[1], kt_end = tl[2], lim = tl[3];
+  const int row0 = tl[0];
   const int group = a.qh / a.kvh;
-  const int m_rows = n_rows * group;  // M rows that hold a query
-  const int cap = a.pps * a.page;
-  const int D = a.D;
-
-  // bf16 pages: stage s holds K at kv0 + 2s tiles, V one tile after it.
-  // int8 pages: stage s holds int8 K, V at stage8 + 2s tiles, their scales
-  // at scales + 2s * 64, and kv0 the one widened bf16 pair.
-  __nv_bfloat16* kv0 = reinterpret_cast<__nv_bfloat16*>(rtc_smem);
-  int8_t* stage8 = reinterpret_cast<int8_t*>(kv0 + 2 * kTileElems);
-  float* scales = reinterpret_cast<float*>(stage8 + kStages * 2 * kTileElems);
-  int* ptab = kQuant ? reinterpret_cast<int*>(scales + kStages * 2 * kTileK)
-                     : reinterpret_cast<int*>(kv0 + kStages * 2 * kTileElems);
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r0 = threadIdx.x / kChunks;  // this thread's copies: chunk c of
-  const int c = threadIdx.x % kChunks;   // rows r0, r0 + kStep, ...
-  const bool c_in = c * 8 < D;
-
-  const int* prow = a.page_table + static_cast<long long>(a.tok_slot[row0]) *
-                                       a.pps;
-  for (int i = threadIdx.x; i < (lim + a.page - 1) / a.page;
-       i += tc::kThreads)
-    ptab[i] = prow[i];
-  __syncthreads();  // the page row, before any K/V copy reads it
-
-  // Issue the copies of k tile kt into stage st: column col = kt * 64 + r
-  // from page ptab[col / page] at offset col % page; columns at or past
-  // lim and chunks past D are zero-filled (their source, the pool's base,
-  // is never read). A block's warps issue these between products, with no
-  // other warp to hide them, so the addresses cost few instructions: col /
-  // page is a multiply by ceil(2^32 / page) (exact for col < 2^26, which
-  // the launch checks; page 1 needs none), rows are 32-bit within the
-  // head's pages.
-  const unsigned page_magic =
-      static_cast<unsigned>((0x100000000ull + a.page - 1) / a.page);
-  const long long head_row0 = static_cast<long long>(h) * a.num_pages * a.page;
-  const KV* kh = static_cast<const KV*>(a.k) + head_row0 * D + c * 8;
-  const KV* vh = static_cast<const KV*>(a.v) + head_row0 * D + c * 8;
-  const float* ksh = a.k_scale + (kQuant ? head_row0 : 0);
-  const float* vsh = a.v_scale + (kQuant ? head_row0 : 0);
-  auto issue = [&](int kt, int st) {
-#pragma unroll
-    for (int i = 0; i < kTileK / kStep; ++i) {
-      const int r = r0 + i * kStep;
-      const unsigned col = kt * kTileK + r;
-      const bool in = col < static_cast<unsigned>(lim);
-      const unsigned pi = a.page == 1 ? col : __umulhi(col, page_magic);
-      // the column's row among the head's (num_pages x page) rows
-      const int row = in ? ptab[in ? pi : 0] * a.page + (col - pi * a.page)
-                         : 0;
-      const long long off = static_cast<long long>(row) * D;
-      const bool cp = in && c_in;
-      if constexpr (kQuant) {
-        int8_t* ks = stage8 + 2 * st * kTileElems + r * DP + c * 8;
-        cp_async8(ks, kh + off, cp ? 8 : 0);
-        cp_async8(ks + kTileElems, vh + off, cp ? 8 : 0);
-      } else {
-        __nv_bfloat16* ks = kv0 + 2 * st * kTileElems + tc::swz<DP>(r, c);
-        tc::cp_async16(ks, kh + off, cp ? 16 : 0);
-        tc::cp_async16(ks + kTileElems, vh + off, cp ? 16 : 0);
-      }
-    }
-    if constexpr (kQuant) {
-      // one scale a thread, so that no warp diverges: K's of column t
-      // for threads t < 64, V's of column t - 64 for the others
-      static_assert(tc::kThreads == 2 * kTileK, "a scale a thread");
-      const int t = threadIdx.x;
-      const unsigned col = kt * kTileK + t % kTileK;
-      const bool in = col < static_cast<unsigned>(lim);
-      const unsigned pi = a.page == 1 ? col : __umulhi(col, page_magic);
-      const int row = in ? ptab[in ? pi : 0] * a.page + (col - pi * a.page)
-                         : 0;
-      tc::cp_async4(scales + 2 * st * kTileK + t,
-                    (t < kTileK ? ksh : vsh) + row, in ? 4 : 0);
-    }
-  };
-  // int8 pages: widen this thread's own chunks of stage st to bf16 into
-  // the one bf16 K/V pair. Exact (|x| <= 128 has at most 8 significant
-  // bits) and without conversion instructions: byte b becomes the fp32
-  // 2^23 + (b ^ 0x80) by a byte permute, minus 2^23 + 128 that is x, and
-  // x's upper 16 bits are its bf16.
-  auto widen = [&](int st) {
-    const int8_t* ks8 = stage8 + 2 * st * kTileElems;
-#pragma unroll
-    for (int i = 0; i < kTileK / kStep; ++i) {
-      const int r = r0 + i * kStep;
-#pragma unroll
-      for (int x = 0; x < 2; ++x) {
-        const uint2 w = *reinterpret_cast<const uint2*>(
-            ks8 + x * kTileElems + r * DP + c * 8);
-        const unsigned half[2] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u};
-        unsigned f[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          f[e] = __float_as_uint(
-              __uint_as_float(__byte_perm(half[e / 4], 0x4B000000u,
-                                          0x7540u + e % 4)) -
-              8388736.f);
-        uint4 o;
-        o.x = __byte_perm(f[0], f[1], 0x7632u);
-        o.y = __byte_perm(f[2], f[3], 0x7632u);
-        o.z = __byte_perm(f[4], f[5], 0x7632u);
-        o.w = __byte_perm(f[6], f[7], 0x7632u);
-        *reinterpret_cast<uint4*>(kv0 + x * kTileElems + tc::swz<DP>(r, c)) =
-            o;
-      }
-    }
-  };
-
-  // the first kStages - 1 k tiles in flight, one commit group each (empty
-  // past kt_end, so that the waits count groups alike)
-#pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {
-    if (i < kt_end) issue(i, i);
-    tc::cp_async_commit();
-  }
-
-  // A narrow tile (at most 16 M rows: a decode row, a short verify chunk)
-  // is shared by the 4 warps along its columns, warp w taking columns
-  // 16w .. 16w + 15 of every k tile for rows 0-15, and their softmax
-  // states are merged at the end; a wide one gives warp w rows 16w ..
-  // 16w + 15 and all 64 columns.
-  const bool narrow = m_rows <= 16;
-  // this thread's two rows (fragment rows lane/4 and lane/4 + 8) and the
-  // columns each keeps, col < min(tok_pos + 1, cap); a row without a
-  // query keeps the tile's lim
-  const int row_a = (narrow ? 0 : warp * 16) + lane / 4;
-  const int row_b = row_a + 8;
-  const bool on_a = row_a < m_rows;
-  const bool on_b = row_b < m_rows;
-  const int lim_a =
-      on_a ? min(a.tok_pos[row0 + row_a / group] + 1, cap) : lim;
-  const int lim_b =
-      on_b ? min(a.tok_pos[row0 + row_b / group] + 1, cap) : lim;
-  // a warp whose rows hold no query skips its products; a k tile below
-  // every limit of the warp's rows needs no mask
-  const bool warp_on = row_a - lane / 4 < m_rows;
-  int warp_lim = min(lim_a, lim_b);
-#pragma unroll
-  for (int o = 4; o < 32; o <<= 1)
-    warp_lim = min(warp_lim, __shfl_xor_sync(0xffffffffu, warp_lim, o));
-  const int col_in = 2 * (lane % 4);  // first of its two columns per 8
-  const float sl2 = a.scale * tc::kLog2e;
-
-  // Q as m16n8k16 A fragments, straight from q (read once a block):
-  // registers 0/2 row a, 1/3 row b; columns 16t + col_in (+ 8)
-  unsigned qf[KS][4];
-  {
-    const __nv_bfloat16* qa =
-        a.q + (static_cast<long long>(row0 + row_a / group) * a.qh +
-               h * group + row_a % group) * D;
-    const __nv_bfloat16* qb =
-        a.q + (static_cast<long long>(row0 + row_b / group) * a.qh +
-               h * group + row_b % group) * D;
-#pragma unroll
-    for (int t = 0; t < KS; ++t) {
-#pragma unroll
-      for (int x = 0; x < 2; ++x) {
-        const int d = 16 * t + 8 * x + col_in;
-        qf[t][2 * x] = on_a && d < D
-                           ? *reinterpret_cast<const unsigned*>(qa + d)
-                           : 0u;
-        qf[t][2 * x + 1] = on_b && d < D
-                               ? *reinterpret_cast<const unsigned*>(qb + d)
-                               : 0u;
-      }
-    }
-  }
-
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-  float acc[NB][4];
-#pragma unroll
-  for (int j = 0; j < NB; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  // One k tile for this warp: columns c0 .. c0 + 8 NJ - 1 of the tile in
-  // stage `st` (NJ = 8 on a wide tile, 2 on a narrow one, where c0 = 16w).
-  auto tile_step = [&](auto nj_tag, int st, int k0) {
-    constexpr int NJ = decltype(nj_tag)::value;
-    const int c0 = NJ == 8 ? 0 : warp * 8 * NJ;
-    const __nv_bfloat16* ks = kv0 + (kQuant ? 0 : 2 * st * kTileElems);
-    const __nv_bfloat16* vs = ks + kTileElems;
-    const float* ksc = scales + 2 * st * kTileK;
-    const float* vsc = ksc + kTileK;
-
-    // S = Q K^T: NJ blocks of 8 columns, C fragments
-    float s[NJ][4];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int t = 0; t < KS; ++t) {
-#pragma unroll
-      for (int jp = 0; jp < NJ / 2; ++jp) {
-        unsigned bk[4];
-        tc::ldsm_x4(bk, ks + tc::swz<DP>(c0 + jp * 16 + (lane % 8) +
-                                             (lane / 16) * 8,
-                                         2 * t + (lane / 8) % 2));
-        tc::mma_bf16(s[2 * jp], qf[t], bk[0], bk[1]);
-        tc::mma_bf16(s[2 * jp + 1], qf[t], bk[2], bk[3]);
-      }
-    }
-
-    // into the log2 domain, int8 columns times their K scale; mask the
-    // columns past each row's limit on a tile that reaches one
-    const bool full = k0 + kTileK <= warp_lim;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int cc = c0 + 8 * j + col_in + e;
-        const float f = kQuant ? sl2 * ksc[cc] : sl2;
-        s[j][e] *= f;
-        s[j][2 + e] *= f;
-        if (!full) {
-          if (k0 + cc >= lim_a) s[j][e] = -INFINITY;
-          if (k0 + cc >= lim_b) s[j][2 + e] = -INFINITY;
-        }
-      }
-    }
-
-    // online softmax: row maxima over the quad, rescale, exponentiate
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
-    }
-    float mu[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      // a row that has kept nothing yet subtracts 0: its -inf scores
-      // still give exactly 0, and so does its alpha
-      mu[r] = mx[r] == -INFINITY ? 0.f : mx[r];
-      const float alpha = tc::fast_exp2(m[r] - mu[r]);
-      m[r] = mx[r];
-      l[r] *= alpha;
-#pragma unroll
-      for (int j = 0; j < NB; ++j) {
-        acc[j][2 * r] *= alpha;
-        acc[j][2 * r + 1] *= alpha;
-      }
-    }
-    // P = exp2(S - m) into s; l takes P, then int8 columns times their
-    // V scale, so PV multiplies the int8 values exactly
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = tc::fast_exp2(s[j][e] - mu[e / 2]);
-        l[e / 2] += s[j][e];
-        if (kQuant) s[j][e] *= vsc[c0 + 8 * j + col_in + e % 2];
-      }
-    }
-
-    // O += P V, 16 keys at a time, P as bf16 hi + lo (16 bits: one term,
-    // the TPU kernel's cast, moves rows that see few keys past TOL)
-#pragma unroll
-    for (int t = 0; t < NJ / 2; ++t) {
-      unsigned hi[4], lo[4];
-      tc::split_a(s[2 * t], s[2 * t + 1], hi, lo);
-      tc::mma_rows<DP>(acc, hi, lo, vs, c0 + 16 * t);
-    }
-  };
-
-  for (int kt = 0, st = 0; kt < kt_end;
-       ++kt, st = st == kStages - 1 ? 0 : st + 1) {
-    tc::cp_async_wait<kStages - 2>();
-    // tile kt has landed for every thread, and every warp is done with
-    // tile kt - 1, whose stage the copies of tile kt + kStages - 1 refill
-    // while this one computes
-    __syncthreads();
-    const int nxt = kt + kStages - 1;
-    if (nxt < kt_end) issue(nxt, st == 0 ? kStages - 1 : st - 1);
-    tc::cp_async_commit();
-    if constexpr (kQuant) {
-      widen(st);
-      __syncthreads();
-    }
-    if (narrow)
-      tile_step(std::integral_constant<int, 2>(), st, kt * kTileK);
-    else if (warp_on)
-      tile_step(std::integral_constant<int, 8>(), st, kt * kTileK);
-  }
-
-  // l over the quad
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  if (narrow) {
-    // warps 1-3 hand their states to warp 0 through the ring's memory
-    // (every copy has landed and every warp is past its last read):
-    // fragment order, lane fastest, so each store and load is one pass
-    float4* part = reinterpret_cast<float4*>(rtc_smem);
-    float4* stats = part + 3 * NB * 32;
-    __syncthreads();
-    if (warp > 0) {
-#pragma unroll
-      for (int j = 0; j < NB; ++j)
-        part[((warp - 1) * NB + j) * 32 + lane] =
-            make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
-      stats[(warp - 1) * 32 + lane] = make_float4(m[0], m[1], l[0], l[1]);
-    }
-    __syncthreads();
-    if (warp > 0) return;
-    float sc[4][2];  // each warp's factor exp2(m_w - max_w m_w) per row
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mw[4] = {m[r], 0.f, 0.f, 0.f};
-      float lw[4] = {l[r], 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int w = 1; w < 4; ++w) {
-        const float4 sw = stats[(w - 1) * 32 + lane];
-        mw[w] = r == 0 ? sw.x : sw.y;
-        lw[w] = r == 0 ? sw.z : sw.w;
-      }
-      // a warp whose columns a row never kept has m = -inf: factor 0
-      const float mm = fmaxf(fmaxf(mw[0], mw[1]), fmaxf(mw[2], mw[3]));
-      const float mu = mm == -INFINITY ? 0.f : mm;
-      l[r] = 0.f;
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        sc[w][r] = tc::fast_exp2(mw[w] - mu);
-        l[r] += lw[w] * sc[w][r];
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] *= sc[0][e / 2];
-#pragma unroll
-      for (int w = 1; w < 4; ++w) {
-        const float4 pw = part[((w - 1) * NB + j) * 32 + lane];
-        acc[j][0] += pw.x * sc[w][0];
-        acc[j][1] += pw.y * sc[w][0];
-        acc[j][2] += pw.z * sc[w][1];
-        acc[j][3] += pw.w * sc[w][1];
-      }
-    }
-  }
-
-  // epilogue: O / l in fp32, written as bf16 pairs to
-  // out[row0 + m / group, h * group + m % group]
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int mrow = r == 0 ? row_a : row_b;
-    if (mrow >= m_rows) continue;
-    const float inv = l[r] == 0.f ? 0.f : 1.f / l[r];
-    __nv_bfloat16* orow =
-        a.out + (static_cast<long long>(row0 + mrow / group) * a.qh +
-                 h * group + mrow % group) * D;
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      const int d = 8 * j + col_in;
-      if (d < D)
-        *reinterpret_cast<unsigned*>(orow + d) =
-            tc::pack_bf16(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
-    }
-  }
-  if (a.tile_count != nullptr && threadIdx.x == 0)
-    atomicAdd(a.tile_count, kt_end);
+  const RaggedWork w{a,      h,      group, tl[1] * group, tl[3], tl[2],
+                     row0,
+                     a.page_table +
+                         static_cast<long long>(a.tok_slot[row0]) * a.pps};
+  ptc::tile_loop<DP, KV>(w, rtc_smem);
 }
 
 template <int DP, class KV>
 cudaError_t tc_launch_typed(const TcArgs& a, cudaStream_t stream) {
   auto kernel = ragged_tc_kernel<DP, KV>;
-  const size_t smem = tc_smem_bytes(DP, sizeof(KV) == 1, a.pps);
+  const size_t smem = ptc::smem_bytes(DP, sizeof(KV) == 1, a.pps);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -826,8 +467,6 @@ cudaError_t tc_launch_typed(const TcArgs& a, cudaStream_t stream) {
   kernel<<<a.T * a.kvh, tc::kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
-
-int padded_dim(int d) { return d <= 32 ? 32 : d <= 64 ? 64 : 128; }
 
 }  // namespace
 
@@ -874,7 +513,8 @@ int rpa_launch(const void* q, const void* k_pages, const void* v_pages,
 // Bytes of dynamic shared memory one block of the tensor-core kernel
 // needs.
 size_t rpa_tc_smem_bytes(int head_dim, int kv_dtype, int pages_per_seq) {
-  return tc_smem_bytes(padded_dim(head_dim), kv_dtype == kI8, pages_per_seq);
+  return ptc::smem_bytes(ptc::padded_dim(head_dim), kv_dtype == kI8,
+                          pages_per_seq);
 }
 
 // The tensor-core kernel's work plan of a flat buffer (see
@@ -936,7 +576,7 @@ int rpa_tc_launch(const void* q, const void* k_pages, const void* v_pages,
                  pages_per_seq,
                  sm_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int dp = padded_dim(head_dim);
+  const int dp = ptc::padded_dim(head_dim);
   if (quant)
     return dp == 32   ? tc_launch_typed<32, int8_t>(a, s)
            : dp == 64 ? tc_launch_typed<64, int8_t>(a, s)

@@ -2,9 +2,12 @@
 (both designs, on engine-shaped waves, and its work plan against the
 plain twin), the three flash-attention kernels, the three FlashMask kernels, the
 varlen forward, dQ and dK/dV, the paged decode and the paged verify
-kernels against their plain PyTorch versions over the shapes and masks
-they cover, the card engines (ragged, bucketed, and bucketed with
-speculative decoding and chunked prefill) against the CPU engines, and
+kernels (both routes; on the tensor cores across several splits a
+slot, their counts against the split rule's plain twin) against their
+plain PyTorch versions over the shapes and masks they cover, the card
+engines (ragged, bucketed, and bucketed with speculative decoding and
+chunked prefill; bf16 ones on the paged kernels' tensor cores) against
+the CPU engines, and
 tiny-width train steps (plain and packed documents, the fused
 linear+CE head and remat="dots") on the card against the CPU.
 
@@ -1186,7 +1189,8 @@ def test_fused_ce_bf16_on_card_matches_fp32_products(card):
 @pytest.mark.parametrize("qh,kvh,d,page", [
     (32, 8, 128, 16), (8, 8, 64, 8), (32, 1, 16, 64), (16, 2, 256, 32),
     (12, 4, 96, 5)])
-def test_paged_decode_kernel_matches_plain(card, dtype, qh, kvh, d, page):
+def test_paged_decode_kernel_matches_plain(card, record_property, dtype, qh,
+                                           kvh, d, page):
     rng = np.random.default_rng(0)
     lens = [0, 1, page, page + 1, 70, 300]
     pps = -(-300 // page)
@@ -1208,6 +1212,7 @@ def test_paged_decode_kernel_matches_plain(card, dtype, qh, kvh, d, page):
         k, v = k.to(q.dtype), v.to(q.dtype)
     ptab = torch.from_numpy(ptab).to(card)
     lengths = torch.tensor(lens, dtype=torch.int32, device=card)
+    record_property("route", pa.route(q.dtype, k.dtype, d, qh // kvh))
     before = (pa.launches_decode, pa.launches_decode_int8)
     ker = pa.paged_attention(q, k, v, ptab, lengths, k_scale=ks, v_scale=vs)
     torch.cuda.synchronize()
@@ -1335,9 +1340,11 @@ def _verify_operands(card, dtype, qh, kvh, g, d, page, seed=0):
 @pytest.mark.parametrize("page", [8, 16])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("qh,kvh,g", VERIFY_SHAPES)
-def test_paged_verify_kernel_matches_plain(card, dtype, qh, kvh, g, d, page):
+def test_paged_verify_kernel_matches_plain(card, record_property, dtype, qh,
+                                           kvh, g, d, page):
     q, k, v, ks, vs, ptab, base = _verify_operands(card, dtype, qh, kvh, g,
                                                    d, page)
+    record_property("route", pa.route(q.dtype, k.dtype, d, qh // kvh))
     before = (pa.launches_verify, pa.launches_verify_int8)
     ker = pa.paged_verify_attention(q, k, v, ptab, base, k_scale=ks,
                                     v_scale=vs)
@@ -1388,6 +1395,287 @@ def test_paged_verify_kernel_refuses_what_it_does_not_take(card):
         pa.paged_verify_attention(q.transpose(2, 3).contiguous()
                                   .transpose(2, 3), pages, pages, ptab, base)
     assert (pa.launches_verify, pa.launches_verify_int8) == before
+
+
+# ------------------------------------- the paged kernels' tensor-core route
+def _paged_operands(card, dtype, lens, qh, kvh, d, page, g=None, cap=2048,
+                    seed=0):
+    """Slots of `lens` columns (decode lengths, or verify base lengths
+    with g tokens on top), room for `cap` a slot, pages in random order;
+    q (B, QH, D) for decode, (B, QH, G, D) for verify."""
+    rng = np.random.default_rng(seed)
+    pps = -(-cap // page)
+    num_pages = len(lens) * pps + 1
+    ptab = rng.permutation(num_pages - 1)[:len(lens) * pps].reshape(
+        len(lens), pps).astype(np.int32)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+    pools, qname = VARIANTS[dtype]
+    shape = (len(lens), qh, d) if g is None else (len(lens), qh, g, d)
+    q = torch.randn(shape, generator=gen, device=card).to(
+        getattr(torch, qname))
+    k = torch.randn((kvh, num_pages, page, d), generator=gen, device=card)
+    v = torch.randn((kvh, num_pages, page, d), generator=gen, device=card)
+    ks = vs = None
+    if pools == "int8":
+        k, ks = quantize_kv(k)
+        v, vs = quantize_kv(v)
+    else:
+        k, v = k.to(q.dtype), v.to(q.dtype)
+    return (q, k, v, ks, vs, torch.from_numpy(ptab).to(card),
+            torch.tensor(lens, dtype=torch.int32, device=card))
+
+
+def _paged_call(q, k, v, ks, vs, ptab, lens, count_tiles=False):
+    """The wrapper's launch of decode ((B, QH, D) q) or verify."""
+    fn = pa._launch if q.dim() == 3 else pa._launch_verify
+    return fn(q, k, v, ptab, lens, q.shape[-1] ** -0.5, ks, vs,
+              count_tiles=count_tiles)
+
+
+def _paged_plain(q, k, v, ks, vs, ptab, lens):
+    fn = pa.paged_decode_reference if q.dim() == 3 else \
+        pa.paged_verify_reference
+    return fn(q, k, v, ptab, lens, k_scale=ks, v_scale=vs)
+
+
+# (lengths or bases, G, QH, KVH, D, page): slots the rule cuts into 3 and
+# more splits of S = pa.SPLIT_COLS columns, lengths at split boundaries
+# +- 1, verify chunks that straddle one, groups 1, 3, 4 and 64, D 32, 64,
+# 96 and 128, pages of 5, 8 and 16
+_S = pa.SPLIT_COLS
+PAGED_SPLIT_CASES = {
+    "decode_bounds": ([_S - 1, _S, _S + 1, 2 * _S - 1, 2 * _S + 1,
+                       3 * _S - 1, 3 * _S, 3 * _S + 1, 0, 2048],
+                      None, 32, 8, 128, 16),
+    "decode_g1_d64": ([3 * _S + 7, 1500, 3, 0], None, 8, 8, 64, 8),
+    "decode_g3_d96": ([3 * _S + 1, 300, 0], None, 12, 4, 96, 5),
+    "decode_g64_d32": ([1200, _S + 1], None, 64, 1, 32, 16),
+    "verify_straddle": ([_S - 3, _S - 2, _S - 1, _S, 2 * _S - 2,
+                         3 * _S - 1, 1800], 4, 32, 8, 128, 16),
+    "verify_g20_two_tiles": ([_S - 10, 3 * _S - 10], 20, 32, 8, 64, 8),
+    "verify_g3": ([3 * _S - 3, 60], 7, 12, 4, 96, 5)}
+
+
+@pytest.mark.parametrize("case", sorted(PAGED_SPLIT_CASES))
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_paged_tc_kernel_across_splits(card, dtype, case):
+    """bf16 q over bf16 and int8 pages on slots cut into several splits:
+    the plain version at TOL, a length-0 slot exactly 0, one attention
+    launch and one merge, and the k tiles and working blocks the kernel
+    counted equal to `paged_split_plan`'s."""
+    lens, g, qh, kvh, d, page = PAGED_SPLIT_CASES[case]
+    q, k, v, ks, vs, ptab, lengths = _paged_operands(card, dtype, lens, qh,
+                                                     kvh, d, page, g)
+    assert pa.route(q.dtype, k.dtype, d, qh // kvh) == pa.TENSOR_CORES
+    before = pa.launches_merge
+    ker, counts = _paged_call(q, k, v, ks, vs, ptab, lengths,
+                              count_tiles=True)
+    ref = _paged_plain(q, k, v, ks, vs, ptab, lengths)
+    atol, rtol = TOL["bfloat16"]
+    torch.testing.assert_close(ker.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+    assert bool((ker[lengths == 0] == 0).all())
+    assert pa.launches_merge == before + 1
+    first = lens if g is None else [n + 1 for n in lens]
+    plan = pa.paged_split_plan(first, qh // kvh, g or 1, kvh, pa.SPLIT_COLS,
+                               pa._sm_count(q.device),
+                               ptab.shape[1] * page, d)
+    assert plan["max_splits"] > 2
+    assert max(len(parts) for row in plan["tiles"] for _, parts in row) >= 3
+    assert (counts["k_tiles"], counts["splits"]) == \
+        (kvh * plan["k_tiles"], kvh * plan["splits"])
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("verify", [False, True], ids=["decode", "verify"])
+def test_paged_tc_kernel_repeats_bit_for_bit(card, dtype, verify):
+    """The merge takes the splits in order and nothing sums by atomics:
+    two calls give the same bits."""
+    q, k, v, ks, vs, ptab, lengths = _paged_operands(
+        card, dtype, [2000, 700, 100, 1300], 32, 8, 128, 16,
+        4 if verify else None)
+    outs = [_paged_call(q, k, v, ks, vs, ptab, lengths) for _ in range(3)]
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+@pytest.mark.parametrize("verify", [False, True], ids=["decode", "verify"])
+def test_paged_tc_kernel_reads_no_stale_workspace(card, verify):
+    """Two calls of the same shapes and other lengths (a slot whose
+    split count falls, one that empties) each give the plain version's
+    answer: no partial of the first call is merged into the second."""
+    q, k, v, ks, vs, ptab, lengths = _paged_operands(
+        card, "bfloat16", [1900, 900, 40, 1200], 32, 8, 128, 16,
+        4 if verify else None)
+    atol, rtol = TOL["bfloat16"]
+    for lens in ([1900, 900, 40, 1200], [300, 0 if not verify else 10, 1999
+                                         if not verify else 1990, 64]):
+        lengths = torch.tensor(lens, dtype=torch.int32, device=card)
+        ker = _paged_call(q, k, v, ks, vs, ptab, lengths)
+        torch.testing.assert_close(
+            ker.float(), _paged_plain(q, k, v, ks, vs, ptab, lengths).float(),
+            atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("verify", [False, True], ids=["decode", "verify"])
+def test_paged_tc_workspace_is_bounded_at_long_caps(card, dtype, verify):
+    """Long slots: decode rows in slots of 131072 columns (S = SPLIT_COLS
+    would take 342 splits) and G = 64 chunks (four row tiles) in slots of
+    32768. The rule widens the split so that the partials stay within
+    MAX_SPLIT_WORKSPACE, the wrapper allocates the output and that
+    workspace, rows x splits x (D + 2) fp32, and nothing more (the
+    allocator's peak), and the answer is the plain version's, with the k
+    tiles and working blocks of `paged_split_plan`."""
+    if verify:
+        cap, g, qh, kvh = 32768, 64, 8, 2
+        lens = [30000, 12000, 700, 5]
+    else:
+        cap, g, qh, kvh = 131072, None, 32, 8
+        lens = [131000, 70000, 384, 0]
+    d = 128
+    q, k, v, ks, vs, ptab, lengths = _paged_operands(
+        card, dtype, lens, qh, kvh, d, 16, g, cap=cap)
+    _paged_call(q, k, v, ks, vs, ptab, lengths)             # warm-up
+    torch.cuda.synchronize(card)
+    base = torch.cuda.memory_allocated(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    ker, counts = _paged_call(q, k, v, ks, vs, ptab, lengths,
+                              count_tiles=True)
+    peak = torch.cuda.max_memory_allocated(card) - base
+    n_tok = g or 1
+    assert counts["split_cols"] > pa.SPLIT_COLS and counts["max_splits"] > 1
+    assert counts["workspace_bytes"] == \
+        len(lens) * qh * n_tok * counts["max_splits"] * (d + 2) * 4
+    assert counts["workspace_bytes"] <= pa.MAX_SPLIT_WORKSPACE
+    assert peak <= ker.numel() * 2 + counts["workspace_bytes"] + 2 ** 20
+    first = lens if g is None else [n + 1 for n in lens]
+    plan = pa.paged_split_plan(first, qh // kvh, n_tok, kvh, pa.SPLIT_COLS,
+                               pa._sm_count(q.device), cap, d)
+    assert plan["split_cols"] == counts["split_cols"]
+    assert (counts["k_tiles"], counts["splits"]) == \
+        (kvh * plan["k_tiles"], kvh * plan["splits"])
+    atol, rtol = TOL["bfloat16"]
+    torch.testing.assert_close(
+        ker.float(), _paged_plain(q, k, v, ks, vs, ptab, lengths).float(),
+        atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype,qh,kvh,d", [
+    ("bfloat16", 16, 2, 256), ("float32", 32, 8, 128),
+    ("int8_fp32q", 32, 8, 128), ("float32", 8, 8, 64)])
+@pytest.mark.parametrize("verify", [False, True], ids=["decode", "verify"])
+def test_paged_cuda_core_route_by_rule(card, dtype, qh, kvh, d, verify):
+    """bf16 at head_dim 256 and every fp32 q take the CUDA-core kernels
+    by rule: no tile count, no merge, the plain version's answer."""
+    q, k, v, ks, vs, ptab, lengths = _paged_operands(
+        card, dtype, [1500, 300, 0 if not verify else 7], qh, kvh, d, 32,
+        4 if verify else None)
+    assert pa.route(q.dtype, k.dtype, d, qh // kvh) == pa.CUDA_CORES
+    before = pa.launches_merge
+    ker, counts = _paged_call(q, k, v, ks, vs, ptab, lengths,
+                              count_tiles=True)
+    assert counts is None and pa.launches_merge == before
+    atol, rtol = TOL[VARIANTS[dtype][1]]
+    torch.testing.assert_close(
+        ker.float(), _paged_plain(q, k, v, ks, vs, ptab, lengths).float(),
+        atol=atol, rtol=rtol)
+
+
+# prompts over S = pa.SPLIT_COLS tokens in slots of 1024: the split rule
+# cuts the long slots (B x KVH = 6 blocks a split, far under 2 x SMs)
+PAGED_ENGINE_PROMPTS = (5, _S + 20, _S + 100)
+# The model's logits are bf16 and the CPU engine's top-2 margins include
+# exact ties. Two tokens whose logits are equal in bf16 have logprobs
+# that differ only by the two engines' log-softmax normalizers, which
+# the other logits' small differences move far less than one bf16 step;
+# a token one bf16 step apart differs by 2^-10 or more at |logit| >=
+# 1/8.
+BF16_LOGIT_TIE = 2 ** -11
+
+
+@pytest.mark.parametrize("cache_dtype", [None, "int8"])
+@pytest.mark.parametrize("engine", ["bucketed", "spec", "chunked"])
+def test_card_paged_tc_engines_match_cpu_engine(card, engine, cache_dtype):
+    """bf16 weights at group 4 (the paged kernels' tensor-core route) on
+    the bucketed engine, and on its speculative one with and without
+    chunked prefill, with prompts over one split in slots of 1024, so
+    that the split rule cuts slots: one decode or verify launch per layer
+    and step and one merge with each, and the CPU engine's tokens from
+    the same weights. bf16 pools give the same tokens. With int8 pools a
+    one-ulp difference of an attention output can move a K or V value to
+    another int8 code and a logit by one bf16 step, so the card is held
+    to every token of each CPU stream by teacher forcing: where it picks
+    another token, the two tokens' logprobs must tie (within
+    BF16_LOGIT_TIE), and the card restarts from the CPU's token (the
+    prompt and the CPU's tokens so far as its prompt) until the stream
+    ends."""
+    cfg = LlamaConfig.tiny(vocab=128, hidden=256, layers=2, heads=8,
+                           kv_heads=2, ffn=256)
+    cpu = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cpu")
+    gpu = {k: ({kk: vv.to(card) for kk, vv in v.items()}
+               if isinstance(v, dict) else v.to(card))
+           for k, v in cpu.items()}
+    spec = engine != "bucketed"
+    kw = {"spec_decode": 4, "chunked_prefill": engine == "chunked"} \
+        if spec else {}
+
+    def make(dev, params):
+        return ServingEngine(params, cfg, max_seqs=3, max_seq_len=1024,
+                             page_size=8, cache_dtype=cache_dtype,
+                             ragged=False, device=dev, **kw)
+    prompts = {}
+    for i, n in enumerate(PAGED_ENGINE_PROMPTS):
+        motif = [1 + i, 5, 9 + i]
+        prompts[i] = (motif * n)[:n] if spec else \
+            [1 + (7 * j + i) % 120 for j in range(n)]
+    outs = []
+    for dev, params in ((card, gpu), ("cpu", cpu)):
+        eng = make(dev, params)
+        for i, prompt in prompts.items():
+            eng.submit(Request(i, prompt, max_new_tokens=12, logprobs=True))
+        va.launches_fwd = fa.launches_fwd = rpa.launches = 0
+        pa.launches_decode = pa.launches_decode_int8 = 0
+        pa.launches_verify = pa.launches_verify_int8 = 0
+        pa.launches_merge = 0
+        done = eng.run()
+        on_card = dev is card
+        L = cfg.num_hidden_layers
+        paged = {"decode": pa.launches_decode + pa.launches_decode_int8,
+                 "verify": pa.launches_verify + pa.launches_verify_int8}
+        kind = "verify" if spec else "decode"
+        int8 = pa.launches_verify_int8 + pa.launches_decode_int8
+        assert paged[kind] == (L * eng.device_steps if on_card else 0)
+        assert paged["decode" if spec else "verify"] == 0
+        assert int8 == (paged[kind] if cache_dtype else 0)
+        assert pa.launches_merge == paged[kind]
+        assert rpa.launches == 0
+        if spec:
+            assert eng.spec_drafted > 0
+        assert eng.pool.conserved(drained=True)
+        outs.append({r.rid: (r.output, r.logprobs) for r in done})
+    for rid, (tok_cpu, lp_cpu) in outs[1].items():
+        tok, lp = outs[0][rid]
+        if cache_dtype is None:
+            assert tok == tok_cpu
+            continue
+        start = 0
+        while start < len(tok_cpu):
+            assert len(tok) == len(tok_cpu) - start
+            j = next((i for i, (a, b) in enumerate(zip(tok, tok_cpu[start:]))
+                      if a != b), None)
+            if j is None:
+                break
+            assert abs(lp[j] - lp_cpu[start + j]) <= BF16_LOGIT_TIE, \
+                (rid, start + j, lp[j], lp_cpu[start + j])
+            start += j + 1
+            if start < len(tok_cpu):
+                eng = make(card, gpu)
+                eng.submit(Request(rid, prompts[rid] + tok_cpu[:start],
+                                   max_new_tokens=len(tok_cpu) - start,
+                                   logprobs=True))
+                (r,) = eng.run()
+                tok, lp = r.output, r.logprobs
 
 
 @pytest.mark.parametrize("cache_dtype", [None, "int8"])

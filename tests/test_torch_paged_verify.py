@@ -6,8 +6,14 @@ interpret=True`), fp32 and int8 pages, over the JAX tests' setup and its
 awkward (QH, KVH, G) shapes, with the JAX tests' own limits: fp32 to 2e-5
 and int8 to 2e-4 (the same sums in another order; int8 pages dequantize
 to values up to 127 times their scale). G = 1 equals the decode plain
-version at base + 1."""
+version at base + 1. The tensor-core kernel's split of a sequence's
+columns over blocks: its plain twin `paged_split_plan` held to its rule
+for chunks of several row tiles and on chip_smoke.py's verify batch, and
+`paged_split_merge_reference` to JAX's verify reference on chunks that
+straddle a split boundary."""
 import importlib
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import jax.numpy as jnp
@@ -140,3 +146,85 @@ def test_wrapper_raises_off_cpu_and_cuda():
     with pytest.raises(ValueError, match="meta"):
         TP.paged_verify_attention(q, pages, pages, table, base)
     assert (TP.launches_verify, TP.launches_verify_int8) == before
+
+
+# ------------------------------------------ the tensor-core kernel's split
+def _chip_smoke():
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("group,g", [(1, 64), (3, 30), (4, 4), (4, 64),
+                                     (64, 3)])
+def test_split_plan_covers_each_row_once(group, g):
+    """A chunk of G tokens in row tiles of 64 // group tokens: every
+    column below each token's own limit lies in exactly one split of its
+    tile, a tile's lim is its last token's limit, and no split starts at
+    or past it."""
+    bases = [0, 120, 250, 1000, 2040 - g]
+    cap = 2048
+    plan = TP.paged_split_plan([b + 1 for b in bases], group, g, 2, 256, 132,
+                               cap, 128)
+    per_tile = 64 // group
+    assert plan["row_tiles"] == -(-g // per_tile)
+    for base, row in zip(bases, plan["tiles"]):
+        assert len(row) == plan["row_tiles"]
+        for rt, (lim, parts) in enumerate(row):
+            toks = range(rt * per_tile, min((rt + 1) * per_tile, g))
+            assert lim == min(base + toks[-1] + 1, cap)
+            seen = np.zeros(cap, np.int64)
+            for kt0, kt1 in parts:
+                assert kt0 * 64 < lim
+                seen[kt0 * 64:min(kt1 * 64, lim)] += 1
+            for tok in toks:
+                np.testing.assert_array_equal(
+                    seen[:min(base + tok + 1, cap)], 1)
+
+
+def test_split_plan_of_the_chip_smoke_verify_batch():
+    """chip_smoke.py's verify batch (the 8 live slots before a G = 4
+    chunk, KVH 8) at S = 256 on 132 SMs: one row tile of 16 rows a KV
+    head, 140 k tiles and 37 splits a KV head (296 working blocks; 27 at
+    the kernel's S = 384); a G = 64 chunked-prefill step there (256
+    blocks, under 2 x 132) does not split: two splits' partials, 17 MB,
+    pass MAX_SPLIT_WORKSPACE."""
+    smoke = _chip_smoke()
+    shape = smoke.DECODE_SHAPE
+    kvh, group = shape["KVH"], shape["QH"] // shape["KVH"]
+    lims = [b + 1 for b in smoke.VERIFY_BASES]
+    plan = TP.paged_split_plan(lims, group, smoke.VERIFY_G, kvh, 256, 132,
+                               shape["MAX_LEN"], shape["D"])
+    assert (plan["k_tiles"], plan["splits"], plan["row_tiles"]) == \
+        (140, 37, 1)
+    assert plan["splits"] * kvh == 296 and plan["blocks"] == 512
+    plan = TP.paged_split_plan(lims, group, smoke.VERIFY_G, kvh,
+                               TP.SPLIT_COLS, 132, shape["MAX_LEN"],
+                               shape["D"])
+    assert (plan["k_tiles"], plan["splits"]) == (140, 27)
+    wide = TP.paged_split_plan(lims, group, 64, kvh, 256, 132,
+                               shape["MAX_LEN"], shape["D"])
+    assert wide["row_tiles"] == 4 and wide["max_splits"] == 1
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("kvh,group,g", [(4, 1, 5), (2, 3, 3), (2, 4, 4)],
+                         ids=["g1", "g3", "g4"])
+def test_split_merge_reference_matches_jax(quant, kvh, group, g):
+    """Chunks that straddle a split boundary of 128 columns (and one at
+    the pages' end), each split's partial state merged: JAX's verify
+    reference, at this file's limits."""
+    page, ppseq = 16, 12
+    q, kp, vp, table, _, ks, vs = _setup(qh=kvh * group, kvh=kvh, g=g, d=32,
+                                         page=page, num_pages=4 * ppseq + 1,
+                                         ppseq=ppseq, seed=5, quant=quant,
+                                         b=4)
+    base = np.asarray([128 - g // 2, 126, 0, page * ppseq - g], np.int32)
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    got = TP.paged_split_merge_reference(t(q), t(kp), t(vp), t(table),
+                                         t(base), 128, k_scale=t(ks),
+                                         v_scale=t(vs)).numpy()
+    want = _jax(JP.paged_verify_reference, q, kp, vp, table, base, ks, vs)
+    np.testing.assert_allclose(got, want, atol=ATOL[quant], rtol=0)

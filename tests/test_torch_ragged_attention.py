@@ -8,7 +8,10 @@ Hopper kernel itself runs only on the card: tests/test_torch_cuda.py
 holds it to the plain version there. The tensor-core kernel's work
 plan (`ragged_tile_plan`, the plain twin of the card's plan kernel) is
 held to its rule on engine-shaped and random buffers, and its int8
-scale folding, emulated here, to the JAX reference."""
+scale folding, emulated here, to the JAX reference: on ragged rows, and
+split and merged as the paged decode and verify kernels do it, on their
+shapes."""
+import importlib
 import importlib.util
 from pathlib import Path
 
@@ -291,11 +294,14 @@ def test_cpu_tensors_build_no_plan():
 LOG2E = 1.4426950408889634
 
 
-def _folded_int8(q, k8, v8, ks, vs, ptab, slot, pos, scale):
+def _folded_int8(q, k8, v8, ks, vs, ptab, slot, pos, scale,
+                 split_cols=None):
     """The tensor-core kernel's int8 arithmetic in fp32: per 64-column k
     tile, S = (q . k_int) x k_scale x scale in the log2 domain, an online
     softmax, l summing the unscaled P, and P x v_scale multiplying the
-    int8 values of V."""
+    int8 values of V. With `split_cols` (the paged kernels' split), each
+    split of that many columns keeps its own state, and the states are
+    merged in order: O = sum 2^(m_s - M) O_s / sum 2^(m_s - M) l_s."""
     t, qh, d = q.shape
     kvh, _, page, _ = k8.shape
     group = qh // kvh
@@ -306,23 +312,32 @@ def _folded_int8(q, k8, v8, ks, vs, ptab, slot, pos, scale):
             continue
         cols = torch.arange(n)
         pages, off = ptab[int(slot[i])][cols // page].long(), cols % page
+        width = split_cols or n
         for h in range(kvh):
             kk, vv = k8[h, pages, off].float(), v8[h, pages, off].float()
             ksc, vsc = ks[h, pages, off, 0], vs[h, pages, off, 0]
             qq = q[i, h * group:(h + 1) * group].float()
-            m = torch.full((group,), -float("inf"))
-            l = torch.zeros(group)
-            acc = torch.zeros(group, d)
-            for c0 in range(0, n, 64):
-                c = slice(c0, c0 + 64)
-                s = (qq @ kk[c].T) * ksc[c] * (scale * LOG2E)
-                mx = torch.maximum(m, s.amax(-1))
-                alpha = torch.exp2(m - mx)
-                p = torch.exp2(s - mx[:, None])
-                l = l * alpha + p.sum(-1)
-                acc = acc * alpha[:, None] + (p * vsc[c]) @ vv[c]
-                m = mx
-            out[i, h * group:(h + 1) * group] = acc / l[:, None]
+            states = []
+            for s0 in range(0, n, width):
+                m = torch.full((group,), -float("inf"))
+                l = torch.zeros(group)
+                acc = torch.zeros(group, d)
+                for c0 in range(s0, min(s0 + width, n), 64):
+                    c = slice(c0, min(c0 + 64, s0 + width))
+                    s = (qq @ kk[c].T) * ksc[c] * (scale * LOG2E)
+                    mx = torch.maximum(m, s.amax(-1))
+                    alpha = torch.exp2(m - mx)
+                    p = torch.exp2(s - mx[:, None])
+                    l = l * alpha + p.sum(-1)
+                    acc = acc * alpha[:, None] + (p * vsc[c]) @ vv[c]
+                    m = mx
+                states.append((m, l, acc))
+            top = torch.stack([m for m, _, _ in states]).amax(0)
+            num, den = torch.zeros(group, d), torch.zeros(group)
+            for m, l, acc in states:
+                f = torch.exp2(m - top)
+                num, den = num + f[:, None] * acc, den + f * l
+            out[i, h * group:(h + 1) * group] = num / den[:, None]
     return out
 
 
@@ -352,6 +367,55 @@ def test_int8_scale_folding_matches_jax_reference():
     got = _folded_int8(t(q), t(k), t(v), t(ks), t(vs), t(ptab), t(slot),
                        t(pos), d ** -0.5)
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+
+
+# paged shapes (QH, KVH, tokens a row, split width): decode rows at split
+# boundaries (G = 1) and verify chunks straddling one (G = 4), groups 1,
+# 3 and 4
+PAGED_FOLD_CASES = {"decode_g4": (8, 2, 1, 128), "decode_g1": (4, 4, 1, 64),
+                    "verify_g4": (8, 2, 4, 128), "verify_g3": (6, 2, 4, 64)}
+
+
+@pytest.mark.parametrize("case", sorted(PAGED_FOLD_CASES))
+def test_int8_scale_folding_over_paged_splits(case):
+    """The paged kernels' int8 arithmetic (the folding above, split into
+    states of `split_cols` columns and merged) is JAX's paged decode or
+    verify reference, to the fp32 tolerance: decode rows are ragged rows
+    at pos = length - 1, verify token g one at base + g."""
+    qh, kvh, g, split_cols = PAGED_FOLD_CASES[case]
+    rng = np.random.default_rng(len(case))
+    d, page, pps = 32, 16, 20
+    b = 4
+    num_pages = b * pps + 1
+    shape = (kvh, num_pages, page, d)
+    (k, ks), (v, vs) = (
+        tuple(a.numpy() for a in quantize_kv(torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32))))
+        for _ in range(2))
+    ptab = rng.permutation(num_pages - 1)[:b * pps].reshape(
+        b, pps).astype(np.int32)
+    q = rng.standard_normal((b, qh, g, d)).astype(np.float32)
+    # bases whose rows end just before, at and after a split boundary
+    base = np.asarray([split_cols - 2, split_cols - 1, 2 * split_cols - g,
+                       300 - g], np.int32)
+    pos = (base[:, None] + np.arange(g)[None]).reshape(-1)
+    slot = np.repeat(np.arange(b, dtype=np.int32), g)
+    rows = np.ascontiguousarray(q.transpose(0, 2, 1, 3).reshape(-1, qh, d))
+    t = torch.from_numpy
+    got = _folded_int8(t(rows), t(k), t(v), t(ks), t(vs), t(ptab), t(slot),
+                       t(pos.astype(np.int32)), d ** -0.5, split_cols)
+    got = got.reshape(b, g, qh, d).permute(0, 2, 1, 3).numpy()
+    jp = importlib.import_module("paddle_tpu.ops.paged_attention")
+    args = [jnp.asarray(a) for a in (k, v, ptab)]
+    scales = {"k_scale": jnp.asarray(ks), "v_scale": jnp.asarray(vs)}
+    if g == 1:
+        want = np.asarray(jp.paged_attention_reference(
+            jnp.asarray(q[:, :, 0]), *args, jnp.asarray(base + 1),
+            **scales))[:, :, None]
+    else:
+        want = np.asarray(jp.paged_verify_reference(
+            jnp.asarray(q), *args, jnp.asarray(base), **scales))
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
 
 
 @pytest.mark.parametrize("name", [

@@ -47,7 +47,8 @@ def _group(name):
     if any(s in n for s in ("va_fwd_kernel", "va_dq_kernel", "va_dkv_kernel",
                             "varlenpolicy", "tile_ranges_kernel")):
         return "attention (varlen_attention.cu)"
-    if "decode_kernel" in n or "verify_kernel" in n:
+    if any(s in n for s in ("decode_kernel", "verify_kernel",
+                            "paged_tc_kernel", "paged_merge_kernel")):
         return "attention (paged_attention.cu)"
     # the bf16 forwards are attn_fwd_sm90.cuh's fwd_tc_kernel, told apart
     # by their mask policy
