@@ -163,9 +163,59 @@ non-zero):
                (one `_spec_step` that fed no prompt chunk, host clock),
                prefill tok/s, device steps, drafted and accepted tokens,
                the launches of every kernel, beside bucket_serve's plain
-               decode numbers.
+               decode numbers;
+ 18. prefix_kernel — the new shapes of the prefix-cache paths against the
+               plain versions, fp32, bf16 and int8 pools (bf16 q): (a)
+               pa_verify as the bucketed suffix prefill calls it: 8 slots
+               at 8B widths in slots of 3072 columns, slot 0 active over
+               a cached 1024-token prefix with a suffix of 300 tokens at
+               G = 512 and of 1500 at G = 2048, the other slots inactive
+               at live and free lengths (every row compared; rows past a
+               slot's cap see the cap), with times, `bound_ms`,
+               `library_ms` (SDPA over the KV gathered dense, masked),
+               and the k tiles held to the split rule's plan; (b) the
+               ragged kernel on a wave whose slot 0 feeds 256 prompt
+               tokens at 1024-1279 over its cached prefix beside 3 decode
+               rows, its tiles held to the plain plan, with times;
+ 19. prefix_parity — parity (depth 2, the vocabulary cut to 4096 as in
+               train_parity, fp32, TF32 off, max_seqs 2, page 16, 11
+               pages) with prefix_cache and a 1 GiB host tier
+               (verbatim pages) on the ragged engine, the bucketed engine
+               and the bucketed spec_decode=4 chunked engine, fp32 and
+               int8 pools: three prompts behind a 48-token header, a
+               first turn, a burst of four prompts that evicts it, and
+               the returning turn restored from the tier; tokens as in
+               spec_parity against the CPU engine (the tier-off card
+               engine too), cached and prefill tokens equal to the CPU's,
+               tier hits, the returning turn prefilling prompt - cached
+               tokens, and the exact launches (one pa_verify a layer and
+               suffix prefill, no va_fwd or fa_fwd for a hit); then KV
+               handoffs from a ragged prefill engine to a ragged decode
+               engine on the card (fp32 and int8 pools, tier_quantize
+               both ways; an fp32 pool's int8 transfer is lossy and only
+               reported) and from the CPU engine to the card, against the
+               single engine's tokens, with equal handoff_bytes and both
+               pools drained;
+ 20. prefix_serve — the serve phase's model: (a) the multi-turn workload
+               (8 conversations of 1024-token prompts and 32 greedy
+               tokens, a burst of 8 more prompts run one at a time, then
+               each conversation's returning turn: history + 64 tokens,
+               32 greedy tokens) on the ragged engine (max_seqs 4, 257
+               pages: 512 MiB of KV) with the tier off, and on (1 GiB,
+               int8 and verbatim): the returning turn's prefill tokens
+               (failing unless prompt - cached), wall time, median time
+               to first token (host clock, submit to seed), the tier's
+               spills, hits, drops, copy errors (failing on any) and host
+               bytes, and the share of tokens equal to the tier-off run's;
+               (b) a shared 1024-token system prompt before 8 user
+               suffixes of 64-500 tokens (numpy seed 3), 64 new tokens, on
+               the bucketed engine (max_seqs 8), request 0 first and the
+               other 7 once it is indexed; cache off and on, bf16 and int8
+               pools: prefill tokens, prefill and output tok/s,
+               pad_tokens and the suffix prefills' pa_verify launches (one
+               a layer each, else the phase fails).
 
- 18. varlen_kernel — the varlen dQ and dK/dV kernels against their plain
+ 21. varlen_kernel — the varlen dQ and dK/dV kernels against their plain
                versions: (a) at the packed row of train_packed (eight
                documents of 192-3000 tokens in 8192; QH=32 over KVH=8,
                D=128, causal, same offsets), bf16 and fp32, with times
@@ -202,12 +252,12 @@ non-zero):
                versions on the card: exactly one va_fwd, one va_bwd_dq
                and one va_bwd_dkv (the launches the kernels line reports
                for the two);
- 19. fused_parity — packed_parity's setup with a vocabulary of 12,000
+ 22. fused_parity — packed_parity's setup with a vocabulary of 12,000
                (two 8192-column chunks, the second short): two steps card
                against CPU with fused_ce=True, and again with
                remat="dots"; the card's fused losses against its losses
                through the full logits;
- 20. train_fused — train_packed's model and row with fused_ce=True and
+ 23. train_fused — train_packed's model and row with fused_ce=True and
                remat="dots": the same measurements, and the first loss
                against the full-logits loss of the same seed weights and
                batch (train_packed's first loss), within a bf16
@@ -217,7 +267,9 @@ After the phases, one line gives each phase's wall seconds
 (`phase_seconds`; the serve phases' shared 8B parameters are built
 outside them). The line before the last lists every kernel with its
 launches on the main path, its error against the plain version and its
-times; the last line is {"ok": true, "device": {...}}.
+times, the launches prefix_serve added (`prefix_launches`) and, for the
+ragged and verify rows, prefix_kernel's shapes (`prefix_kernel`); the
+last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -234,8 +286,9 @@ import time
 PHASES = ("device", "build", "kernel", "parity", "serve", "train_kernel",
           "train_parity", "train", "mask_kernel", "packed_parity",
           "train_packed", "bucket_kernel", "bucket_parity", "bucket_serve",
-          "spec_kernel", "spec_parity", "spec_serve", "varlen_kernel",
-          "fused_parity", "train_fused")
+          "spec_kernel", "spec_parity", "spec_serve", "prefix_kernel",
+          "prefix_parity", "prefix_serve", "varlen_kernel", "fused_parity",
+          "train_fused")
 SOURCES = ("ragged_paged_attention", "flash_attention", "flashmask_attention",
            "varlen_attention", "paged_attention")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
@@ -398,16 +451,17 @@ def _mixed_wave_rows():
     return lens, slot, pos
 
 
-def _mixed_wave(variant, seed=0, device="cuda"):
-    """The full-width mixed wave: (q, k, v, ks, vs, ptab, slot, pos,
-    info) on `device`."""
+def _mixed_wave(variant, seed=0, device="cuda", rows=_mixed_wave_rows):
+    """The full-width mixed wave, or the wave of `rows()` ((lens, slot,
+    pos) as `_mixed_wave_rows` gives them): (q, k, v, ks, vs, ptab, slot,
+    pos, info) on `device`."""
     import numpy as np
     import torch
     from paddle_tpu_torch.ops.paged_attention import quantize_kv
     QH, KVH, D, PAGE = 32, 8, 128, 16
     max_len = 2048
     pps = max_len // PAGE
-    lens, slot, pos = _mixed_wave_rows()
+    lens, slot, pos = rows()
     T = len(pos)
     S = len(lens)
     P = S * pps + 1
@@ -913,7 +967,8 @@ def _design_row(row, kname, dname):
     return row
 
 
-def _paged_row(call, kname, variant, q, k, lims, n_tok, bound_ms):
+def _paged_row(call, kname, variant, q, k, lims, n_tok, bound_ms,
+               cap=None):
     """The design fields of a pa_decode / pa_verify row: the route; on
     the tensor-core route the k tiles and working blocks the kernel
     counted, held to `paged_split_plan`'s, the split, the grid's blocks,
@@ -921,7 +976,8 @@ def _paged_row(call, kname, variant, q, k, lims, n_tok, bound_ms):
     their sum, and `merge_ms` apart), its share of `bound_ms` and the
     workspace's bytes; on the CUDA-core route the kernel alone and its
     grid (B x KVH blocks: one row tile at these shapes). `call(**kw)`
-    runs the wrapper's launch (`pa._launch` or `pa._launch_verify`)."""
+    runs the wrapper's launch (`pa._launch` or `pa._launch_verify`) on
+    slots of `cap` tokens (DECODE_SHAPE's by default)."""
     import paddle_tpu_torch.ops.paged_attention as pa
     qh, kvh, d = q.shape[1], k.shape[0], q.shape[-1]
     route = pa.route(q.dtype, k.dtype, d, qh // kvh)
@@ -932,7 +988,7 @@ def _paged_row(call, kname, variant, q, k, lims, n_tok, bound_ms):
                "split_cols": None, "blocks": q.shape[0] * kvh}
     else:
         _, counts = call(count_tiles=True)
-        pps = DECODE_SHAPE["MAX_LEN"] // DECODE_SHAPE["PAGE"]
+        pps = -(-(cap or DECODE_SHAPE["MAX_LEN"]) // DECODE_SHAPE["PAGE"])
         plan = pa.paged_split_plan(lims, qh // kvh, n_tok, kvh,
                                    pa.SPLIT_COLS, pa._sm_count(q.device),
                                    pps * DECODE_SHAPE["PAGE"], d)
@@ -2152,13 +2208,14 @@ VERIFY_G = 4
 VERIFY_CASES = ((4, 2, 3), (4, 2, 5), (6, 2, 3), (32, 8, 16), (32, 8, 64))
 
 
-def _verify_batch(variant, bases, g, qh=32, kvh=8, d=128, page=16, seed=0):
-    """pa_verify operands on the card, room for 2048 tokens a slot, pages
+def _verify_batch(variant, bases, g, qh=32, kvh=8, d=128, page=16, seed=0,
+                  cap=DECODE_SHAPE["MAX_LEN"]):
+    """pa_verify operands on the card, room for `cap` tokens a slot, pages
     in random order: (q (B, QH, G, D), k, v, ks, vs, ptab, base)."""
     import numpy as np
     import torch
     from paddle_tpu_torch.ops.paged_attention import quantize_kv
-    pps = -(-DECODE_SHAPE["MAX_LEN"] // page)
+    pps = -(-cap // page)
     B = len(bases)
     P = B * pps + 1
     rng = np.random.default_rng(seed)
@@ -2181,23 +2238,26 @@ def _verify_batch(variant, bases, g, qh=32, kvh=8, d=128, page=16, seed=0):
             torch.tensor(bases, dtype=torch.int32, device="cuda"))
 
 
-def _verify_bound(variant, bases, g):
+def _verify_bound(variant, bases, g, cap=DECODE_SHAPE["MAX_LEN"]):
     """Least time for one pa_verify call at 8B widths (a pa_decode call
-    at lengths n is one at bases n - 1, G = 1): each slot's K/V up to
-    base + G (and their int8 scales) read once for all of a KV head's
-    group x G rows, q read and the output written once, the page table
-    and base lengths, over the memory rate; or 4 flops per (query row,
-    column it sees, head dim) over the peak for q's type."""
+    at lengths n is one at bases n - 1, G = 1) in slots of `cap` tokens:
+    each slot's K/V up to base + G (and their int8 scales) read once for
+    all of a KV head's group x G rows, q read and the output written
+    once, the page table and base lengths, over the memory rate; or 4
+    flops per (query row, column it sees, head dim) over the peak for
+    q's type."""
     pools, qname = VARIANTS[variant]
     QH, KVH, D = (DECODE_SHAPE[x] for x in ("QH", "KVH", "D"))
     kv_elem = {"float32": 4, "bfloat16": 2, "int8": 1}[pools]
     q_elem = 4 if qname == "float32" else 2
-    toks = sum(b + g for b in bases)
+    # a row sees at most the slot's `cap` columns
+    toks = sum(min(b + g, cap) for b in bases)
     per_tok = KVH * D * kv_elem * 2 + (KVH * 4 * 2 if pools == "int8" else 0)
     B = len(bases)
     nbytes = (toks * per_tok + 2 * B * QH * g * D * q_elem
-              + B * (DECODE_SHAPE["MAX_LEN"] // DECODE_SHAPE["PAGE"] + 1) * 4)
-    flops = 4 * QH * D * sum(b + i + 1 for b in bases for i in range(g))
+              + B * (cap // DECODE_SHAPE["PAGE"] + 1) * 4)
+    flops = 4 * QH * D * sum(min(b + i + 1, cap) for b in bases
+                             for i in range(g))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[qname]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
@@ -2505,6 +2565,685 @@ def phase_spec_serve(card, cfg, params, init_s, bserve):
         runs[name] = row
         del eng
         torch.cuda.empty_cache()
+    return runs
+
+
+# ------------------------------------------- prefix cache, tier, handoff
+PREFIX_VARIANTS = ("float32", "bfloat16", "int8")
+# (a) the bucketed suffix prefill's pa_verify: slot 0 active over a
+# cached 1024-token prefix, its suffix of n tokens in a chunk of its
+# bucket G; the other slots inactive at the lengths live and free slots
+# hold, their rows computed as the engine's call computes them; slots of
+# 1024 + 2048 columns (rows past a slot's cap see the cap)
+PREFIX_VERIFY_BASES = (1024, 0, 100, 400, 0, 1000, 1500, 0)
+PREFIX_SUFFIXES = ((300, 512), (1500, 2048))        # (suffix tokens, G)
+PREFIX_VERIFY_CAP = 1024 + 2048
+
+
+def _prefix_wave_rows():
+    """A ragged wave of a prefix hit: slot 0 feeds 256 prompt tokens at
+    positions 1024-1279 over its cached 1024-token prefix, slots 1-3
+    decode at lengths 100, 1000 and 2000, inactive rows up to T = 272."""
+    import numpy as np
+    T = 272
+    lens = [1280, 100, 1000, 2000]
+    slot = np.zeros(T, np.int32)
+    pos = np.full(T, -1, np.int32)
+    pos[:256] = np.arange(1024, 1280)
+    slot[256:259] = np.arange(1, 4)
+    pos[256:259] = np.array(lens[1:]) - 1
+    return lens, slot, pos
+
+
+def _prefix_verify_rows(q, k, v, ks, vs, ptab, base):
+    """The plain verify one slot at a time (the whole batch's fp32 scores
+    at G = 2048 would take 20 GB)."""
+    import torch
+    import paddle_tpu_torch.ops.paged_attention as pa
+    return torch.cat([pa.paged_verify_reference(
+        q[i:i + 1], k, v, ptab[i:i + 1], base[i:i + 1], k_scale=ks,
+        v_scale=vs) for i in range(q.shape[0])])
+
+
+def phase_prefix_kernel(card):
+    import torch
+    import torch.nn.functional as F
+    import paddle_tpu_torch.kernels.ragged_paged_attention as rpa
+    import paddle_tpu_torch.ops.paged_attention as pa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grp = DECODE_SHAPE["QH"] // DECODE_SHAPE["KVH"]
+    cap = PREFIX_VERIFY_CAP
+    out = {}
+    for n, G in PREFIX_SUFFIXES:
+        for name in PREFIX_VARIANTS:
+            q, k, v, ks, vs, ptab, base = _verify_batch(
+                name, PREFIX_VERIFY_BASES, G, seed=G, cap=cap)
+            kw = {"k_scale": ks, "v_scale": vs}
+            ker = pa.paged_verify_attention(q, k, v, ptab, base, **kw)
+            torch.cuda.synchronize()
+            ref = _prefix_verify_rows(q, k, v, ks, vs, ptab, base)
+            atol, rtol = TOL[VARIANTS[name][1]]
+            err = (ker.float() - ref.float()).abs()
+            max_err = float(err.max())
+            if not torch.allclose(ker.float(), ref.float(), atol=atol,
+                                  rtol=rtol):
+                fail(f"prefix_kernel pa_verify G={G} ({name}): max |err| "
+                     f"{max_err}")
+            ms = cuda_ms(lambda: pa.paged_verify_attention(
+                q, k, v, ptab, base, **kw), reps=20)
+            plain_ms = cuda_ms(lambda: pa.paged_verify_reference(
+                q, k, v, ptab, base, **kw), reps=3, warmup=1)
+            ncols = min(int(base.max()) + G, cap)
+            slots = torch.arange(len(PREFIX_VERIFY_BASES), device="cuda")
+            kd = _dense_kv(k, ks, ptab, slots, ncols, grp, q.dtype)
+            vd = _dense_kv(v, vs, ptab, slots, ncols, grp, q.dtype)
+            limit = (base[:, None] + torch.arange(G, device="cuda")
+                     + 1).clamp(max=cap)
+            mask = (torch.arange(ncols, device="cuda")[None, None]
+                    < limit[:, :, None])[:, None]
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, kd, vd, attn_mask=mask), reps=10)
+            bound_ms, bound_by, nbytes, flops = _verify_bound(
+                name, PREFIX_VERIFY_BASES, G, cap)
+            kname = "paged_verify_int8" if VARIANTS[name][0] == "int8" \
+                else "paged_verify"
+            design = _paged_row(
+                lambda **kw2: pa._launch_verify(
+                    q, k, v, ptab, base, DECODE_SHAPE["D"] ** -0.5, ks, vs,
+                    **kw2),
+                kname, name, q, k, [b + 1 for b in PREFIX_VERIFY_BASES], G,
+                bound_ms, cap=cap)
+            row = {"phase": "prefix_kernel", "part": "suffix_verify",
+                   "kernel": kname, "card": card, "variant": name,
+                   "pools": VARIANTS[name][0],
+                   "q_dtype": VARIANTS[name][1],
+                   "base_lengths": list(PREFIX_VERIFY_BASES),
+                   "active_slot": 0, "suffix_tokens": n, "G": G,
+                   "cap": cap, **DECODE_SHAPE, "atol": atol, "rtol": rtol,
+                   "max_abs_err": max_err,
+                   "active_rows_max_abs_err": float(err[0, :, :n].max()),
+                   "kernel_ms": ms, **design, "plain_ms": plain_ms,
+                   "library_ms": library_ms,
+                   "library_call": "sdpa over the slots' KV gathered "
+                                   "dense, each row masked to base + g + "
+                                   "1 (at most the cap)",
+                   "library_factor": ms / library_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bound_share": bound_ms / ms, "bound_bytes": nbytes,
+                   "bound_flops": flops, "tf32": False}
+            emit(row)
+            out[(kname, name, G)] = row
+            del q, k, v, ks, vs, ker, ref, err, kd, vd, mask
+            torch.cuda.empty_cache()
+    for name in PREFIX_VARIANTS:
+        q, k, v, ks, vs, ptab, slot, pos, info = _mixed_wave(
+            name, rows=_prefix_wave_rows)
+        kw = {"k_scale": ks, "v_scale": vs}
+        ker = rpa.ragged_paged_attention(q, k, v, ptab, slot, pos, **kw)
+        torch.cuda.synchronize()
+        ref = rpa.ragged_paged_attention_reference(q, k, v, ptab, slot, pos,
+                                                   **kw)
+        active = pos >= 0
+        max_err = float((ker.float() - ref.float()).abs()[active].max())
+        atol, rtol = TOL[VARIANTS[name][1]]
+        if not torch.allclose(ker.float()[active], ref.float()[active],
+                              atol=atol, rtol=rtol):
+            fail(f"prefix_kernel ragged ({name}): max |err| {max_err}")
+        if not bool((ker[~active] == 0).all()):
+            fail(f"prefix_kernel ragged ({name}): inactive rows not zero")
+        route = rpa.route(q.dtype, k.dtype, info["D"], grp)
+        tiles = plan_tiles = None
+        if route == rpa.TENSOR_CORES:
+            _, tiles = rpa._launch(q, k, v, ptab, slot, pos,
+                                   info["D"] ** -0.5, ks, vs,
+                                   count_tiles=True)
+            plan = rpa.ragged_tile_plan(slot.cpu(), pos.cpu(), grp,
+                                        ptab.shape[1] * info["PAGE"])
+            plan_tiles = info["KVH"] * int(plan[:, 2].sum())
+            if tiles != plan_tiles:
+                fail(f"prefix_kernel ragged ({name}): {tiles} k tiles, the "
+                     f"plan has {plan_tiles}")
+        ms = cuda_ms(lambda: rpa.ragged_paged_attention(
+            q, k, v, ptab, slot, pos, **kw), reps=20)
+        plain_ms = cuda_ms(lambda: rpa.ragged_paged_attention_reference(
+            q, k, v, ptab, slot, pos, **kw), reps=5, warmup=1)
+        library_ms = cuda_ms(_library_call(q, k, v, ks, vs, ptab, slot, pos,
+                                           info), reps=10)
+        bound_ms, bound_by, nbytes, flops = _bound(name, info, pos.cpu())
+        kname = "ragged_paged_attention" + \
+            ("_int8" if VARIANTS[name][0] == "int8" else "")
+        row = {"phase": "prefix_kernel", "part": "ragged_prefix_run",
+               "kernel": kname, "card": card, "variant": name,
+               "pools": VARIANTS[name][0], "q_dtype": VARIANTS[name][1],
+               "lens": info["lens"], "T": info["T"],
+               "active_rows": info["active"], "atol": atol, "rtol": rtol,
+               "max_abs_err": max_err, "route": route, "tiles": tiles,
+               "plan_tiles": plan_tiles, "kernel_ms": ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "library_factor": ms / library_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "bound_share": bound_ms / ms,
+               "bound_bytes": nbytes, "bound_flops": flops, "tf32": False}
+        emit(row)
+        out[(kname, name, "ragged")] = row
+        del q, k, v, ks, vs, ker, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+# the prefix engines: name -> engine arguments
+PREFIX_ENGINES = {"ragged": {},
+                  "bucketed": {"ragged": False},
+                  "chunked": {"ragged": False, "spec_decode": 4,
+                              "chunked_prefill": True}}
+PREFIX_PARITY_NEW = 8
+PREFIX_PARITY_ENGINE = dict(max_seqs=2, max_seq_len=128, page_size=16,
+                            ragged_tokens=32, num_pages=12,
+                            prefix_cache=True)
+
+
+def _prefix_parity_traffic(vocab):
+    """prefix_parity's traffic (numpy seed 5): three prompts behind one
+    48-token header (3 pages), a 41-token first turn, a burst of four
+    40-token prompts with distinct leading tokens (which evicts the first
+    turn from 11 pages), and the returning turn (history + 8 tokens)."""
+    import numpy as np
+    rng = np.random.default_rng(5)
+
+    def draw(n):
+        return rng.integers(1, vocab, n).tolist()
+    header = draw(48)
+    shared = [header + draw(n) for n in (5, 20, 33)]
+    turn1 = draw(41)     # + 8 tokens: 48 cached positions, 3 pages
+    burst = [[vocab - 1 - i] + draw(39) for i in range(4)]
+    return shared, turn1, burst, draw(8)
+
+
+def _trace_calls(eng, names):
+    """Wrap the engine's `names` methods; returns the list each call
+    appends to: (name, host time at return, pa_verify launches made)."""
+    import paddle_tpu_torch.ops.paged_attention as pa
+    trace = []
+    for n in names:
+        def traced(*a, _n=n, _fn=getattr(eng, n), **k):
+            before = pa.launches_verify + pa.launches_verify_int8
+            out = _fn(*a, **k)
+            trace.append((_n, time.perf_counter(), pa.launches_verify
+                          + pa.launches_verify_int8 - before))
+            return out
+        setattr(eng, n, traced)
+    return trace
+
+
+def _call_counts(trace, names):
+    return {n: sum(1 for c in trace if c[0] == n) for n in names}
+
+
+def _prefix_script(eng, traffic, new):
+    """Run prefix_parity's traffic through `eng` (run()): the shared
+    prompts one then two, the first turn, the burst one at a time, the
+    returning turn. Returns ({rid: tokens}, {rid: cached_tokens},
+    prefill_tokens after each phase, {rid: prompt})."""
+    from paddle_tpu_torch.models.llama_serving import Request
+    shared, turn1, burst, more = traffic
+    prompts, steps = {}, []
+
+    def phase(reqs):
+        for rid, p in reqs:
+            prompts[rid] = p
+            eng.submit(Request(rid, p, max_new_tokens=new))
+        eng.run()
+        eng.host_tier.flush(timeout=60)
+        steps.append(eng.prefill_tokens)
+    phase([("s0", shared[0])])
+    phase([("s1", shared[1]), ("s2", shared[2])])
+    phase([("t1", turn1)])
+    for i, p in enumerate(burst):
+        phase([(f"b{i}", p)])
+    out1 = next(r for r in eng.finished if r.rid == "t1").output
+    phase([("t2", turn1 + list(out1) + more)])
+    done = {r.rid: r for r in eng.finished}
+    return ({rid: list(r.output) for rid, r in done.items()},
+            {rid: r.cached_tokens for rid, r in done.items()}, steps,
+            prompts)
+
+
+def _same_streams(what, card_out, cpu_out, prompts, cpu_params, cfg):
+    """Card tokens against the CPU's, as spec_parity holds them: equal,
+    or parting only where the CPU's top-2 logit margin is under 1e-3.
+    Returns {rid: {"identical": n, ...}}."""
+    compared = {}
+    for rid, b in cpu_out.items():
+        a = card_out[rid]
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None and len(a) == len(b):
+            compared[rid] = {"identical": len(a), "stopped_at": None}
+            continue
+        if j is None:
+            fail(f"{what}: request {rid} lengths {len(a)} / {len(b)}")
+        margin = _top2_margin(cpu_params, cfg, prompts[rid] + b[:j], 16)
+        if margin >= 1e-3:
+            fail(f"{what}: request {rid} diverges at token {j} with CPU "
+                 f"top-2 margin {margin}")
+        compared[rid] = {"identical": j, "stopped_at": j,
+                         "cpu_top2_margin": margin}
+    return compared
+
+
+def _want_prefix_counts(engine, layers, calls, steps, int8):
+    """The launches of a prefix run: the ragged kernel per layer and step
+    (ragged); else the decode (plain bucketed) or verify (chunked) kernel
+    per layer and step, pa_verify per layer and suffix prefill, va_fwd
+    per layer and packed wave of misses, fa_fwd per layer and lone miss."""
+    want = {k: 0 for k in _bucket_counts()}
+    if engine == "ragged":
+        want["ragged_paged_attention"] = layers * steps
+        return want
+    verify = "paged_verify_int8" if int8 else "paged_verify"
+    decode = "paged_decode_int8" if int8 else "paged_decode"
+    if engine == "chunked":
+        want[verify] = layers * steps
+    else:
+        want[decode] = layers * steps
+        want[verify] = layers * calls["_prefill_suffix_into"]
+        want["varlen_fwd"] = layers * calls["_prefill_packed"]
+        want["flash_fwd"] = layers * calls["_prefill_into"]
+    return want
+
+
+PREFILL_CALLS = ("_prefill_suffix_into", "_prefill_packed", "_prefill_into")
+
+
+def phase_prefix_parity(card):
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.models.llama_spmd import init_params
+    from paddle_tpu_torch.models.llama_serving import Request, ServingEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the vocabulary cut to 4096, as train_parity's: the CPU engines'
+    # steps are most of the phase
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_hidden_layers=2,
+                              vocab_size=4096)
+    L = cfg.num_hidden_layers
+    cpu_params = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    gpu_params = _tree_to(cpu_params, "cuda")
+    traffic = _prefix_parity_traffic(cfg.vocab_size)
+    new = PREFIX_PARITY_NEW
+    runs, cpu_ragged = {}, None
+    for engine, ekw in PREFIX_ENGINES.items():
+        for cache in (None, "int8"):
+            name = f"{engine}_{'fp32' if cache is None else 'int8'}"
+            res = {}
+            for dev, params, tier in (("cuda", gpu_params, 1 << 30),
+                                      ("cuda_tier_off", gpu_params, 0),
+                                      ("cpu", cpu_params, 1 << 30)):
+                eng = ServingEngine(params, cfg, cache_dtype=cache,
+                                    host_tier_bytes=tier,
+                                    tier_quantize=False,
+                                    device=dev.split("_")[0],
+                                    **PREFIX_PARITY_ENGINE, **ekw)
+                trace = _trace_calls(eng, PREFILL_CALLS)
+                _reset_bucket_counts()
+                t0 = time.perf_counter()
+                out, cached, steps, prompts = _prefix_script(eng, traffic,
+                                                             new)
+                if dev != "cpu":
+                    torch.cuda.synchronize()
+                res[dev] = {"out": out, "cached": cached, "steps": steps,
+                            "calls": _call_counts(trace, PREFILL_CALLS),
+                            "launches": _bucket_counts(),
+                            "device_steps": eng.device_steps,
+                            "tier": eng.host_tier.stats(),
+                            "seconds": time.perf_counter() - t0}
+                if not eng.pool.conserved(drained=True):
+                    fail(f"prefix_parity ({name}, {dev}): pool leaked")
+                if dev == "cpu" and any(res[dev]["launches"].values()):
+                    fail(f"prefix_parity ({name}): the CPU engine launched "
+                         "a CUDA kernel")
+            g, c, off = res["cuda"], res["cpu"], res["cuda_tier_off"]
+            if name == "ragged_fp32":
+                cpu_ragged = (c["out"], prompts)
+            compared = _same_streams(f"prefix_parity ({name})", g["out"],
+                                     c["out"], prompts, cpu_params, cfg)
+            tier_off = _same_streams(f"prefix_parity ({name}, tier off)",
+                                     off["out"], c["out"], prompts,
+                                     cpu_params, cfg)
+            if g["cached"] != c["cached"] or g["steps"] != c["steps"]:
+                fail(f"prefix_parity ({name}): cached {g['cached']} / "
+                     f"{c['cached']}, prefill tokens {g['steps']} / "
+                     f"{c['steps']}")
+            if g["cached"]["s1"] != 48 or g["cached"]["t2"] != 48:
+                fail(f"prefix_parity ({name}): cached tokens "
+                     f"{g['cached']}")
+            if g["tier"]["hits"] < 1 or g["tier"]["copy_errors"]:
+                fail(f"prefix_parity ({name}): tier {g['tier']}")
+            t2 = len(prompts["t2"])
+            if g["steps"][-1] - g["steps"][-2] != t2 - g["cached"]["t2"]:
+                fail(f"prefix_parity ({name}): the returning turn "
+                     f"prefilled {g['steps'][-1] - g['steps'][-2]} of "
+                     f"{t2} tokens with {g['cached']['t2']} cached")
+            want = _want_prefix_counts(engine, L, g["calls"],
+                                       g["device_steps"], cache == "int8")
+            if g["launches"] != want:
+                fail(f"prefix_parity ({name}): launches {g['launches']}, "
+                     f"want {want}")
+            row = {"phase": "prefix_parity", "card": card, "run": name,
+                   "engine": ekw, "config": "llama3_8b widths, 2 layers, "
+                   "vocabulary 4096, fp32, TF32 off, "
+                   + json.dumps(PREFIX_PARITY_ENGINE),
+                   "tier": "1 GiB, tier_quantize False (off: 0)",
+                   "requests": compared, "tier_off_vs_cpu": tier_off,
+                   "cached_tokens": g["cached"],
+                   "prefill_tokens_by_phase": g["steps"],
+                   "prefill_tokens_tier_off": off["steps"],
+                   "prefill_calls": g["calls"], "launches": g["launches"],
+                   "device_steps": g["device_steps"],
+                   "tier_stats": g["tier"], "cuda_seconds": g["seconds"],
+                   "cpu_seconds": c["seconds"]}
+            emit(row)
+            runs[name] = row
+    runs["handoff"] = _prefix_handoffs(card, cfg, gpu_params, cpu_params,
+                                       traffic, cpu_ragged)
+    del gpu_params
+    torch.cuda.empty_cache()
+    return runs
+
+
+def _handoff_pair(pre, dec, prompts, new):
+    """Export every prompt from `pre`, import each payload into `dec` as
+    the JAX scheduler re-submits it. Returns {rid: tokens}."""
+    from paddle_tpu_torch.models.llama_serving import Request
+    for rid, p in prompts.items():
+        r = Request(rid, p, max_new_tokens=new)
+        r._handoff_export = True
+        pre.submit(r)
+    pre.run()
+    hs = {r.rid: r._handoff_done for r in pre.finished}
+    if any(h is None for h in hs.values()):
+        fail("prefix_parity handoff: an export failed")
+    for rid, h in hs.items():
+        r = Request(rid, h.prompt, max_new_tokens=new)
+        r.output, r.next_token = list(h.output), h.next_token
+        r.cached_tokens = h.cached_tokens
+        r._kv_import = h
+        dec.submit(r)
+    return {r.rid: list(r.output) for r in dec.run()}
+
+
+def _prefix_handoffs(card, cfg, gpu_params, cpu_params, traffic,
+                     cpu_ragged):
+    """Ragged prefill engine to ragged decode engine, both on the card,
+    with int8 and fp32 pools and tier_quantize both ways, against the
+    single card engine; then the CPU engine's export imported on the
+    card, against the CPU's tokens. handoff_bytes agree, both pools
+    drain conserved."""
+    import torch
+    from paddle_tpu_torch.models.llama_serving import Request, ServingEngine
+    shared = traffic[0]
+    prompts = {f"s{i}": p for i, p in enumerate(shared)}
+    new = PREFIX_PARITY_NEW
+    out = {}
+
+    def make(params, dev, cache, quantize):
+        return ServingEngine(params, cfg, cache_dtype=cache,
+                             host_tier_bytes=1 << 30,
+                             tier_quantize=quantize, device=dev,
+                             **PREFIX_PARITY_ENGINE)
+    for cache in (None, "int8"):
+        single = make(gpu_params, "cuda", cache, False)
+        for rid, p in prompts.items():
+            single.submit(Request(rid, p, max_new_tokens=new))
+        want = {r.rid: list(r.output) for r in single.run()}
+        for quantize in (False, True):
+            pre = make(gpu_params, "cuda", cache, quantize)
+            dec = make(gpu_params, "cuda", cache, quantize)
+            got = _handoff_pair(pre, dec, prompts, new)
+            torch.cuda.synchronize()
+            # an fp32 pool's pages cross int8-quantized with
+            # tier_quantize: lossy, so its tokens are reported only
+            lossless = cache == "int8" or not quantize
+            same = sum(a == b for rid in want
+                       for a, b in zip(got[rid], want[rid]))
+            if lossless:
+                _same_streams(f"prefix_parity handoff ({cache}, "
+                              f"tier_quantize {quantize})", got, want,
+                              prompts, cpu_params, cfg)
+            if pre.handoff_bytes != dec.handoff_bytes or \
+                    dec.handoff_imports != len(prompts) or \
+                    pre.handoff_failures or dec.handoff_failures:
+                fail(f"prefix_parity handoff ({cache}, {quantize}): bytes "
+                     f"{pre.handoff_bytes} / {dec.handoff_bytes}, imports "
+                     f"{dec.handoff_imports}")
+            for e in (pre, dec):
+                if not e.pool.conserved(drained=True) or e._live:
+                    fail(f"prefix_parity handoff ({cache}, {quantize}): a "
+                         "pool leaked")
+            key = f"card_to_card_{'fp32' if cache is None else 'int8'}" \
+                f"_{'int8' if quantize else 'verbatim'}"
+            out[key] = {"identical": got == want, "lossless": lossless,
+                        "tokens_equal": same,
+                        "tokens": sum(len(t) for t in want.values()),
+                        "handoff_bytes": pre.handoff_bytes}
+    cpu_out, cpu_prompts = cpu_ragged
+    pre = make(cpu_params, "cpu", None, False)
+    dec = make(gpu_params, "cuda", None, False)
+    got = _handoff_pair(pre, dec, prompts, new)
+    want = {rid: cpu_out[rid] for rid in prompts}
+    out["cpu_to_card"] = _same_streams("prefix_parity handoff (CPU to card)",
+                                       got, want, cpu_prompts, cpu_params,
+                                       cfg)
+    if pre.handoff_bytes != dec.handoff_bytes or \
+            not dec.pool.conserved(drained=True):
+        fail("prefix_parity handoff (CPU to card): bytes or pool")
+    row = {"phase": "prefix_parity", "card": card, "run": "handoff",
+           "engine": "ragged", **out,
+           "cpu_to_card_bytes": dec.handoff_bytes}
+    emit(row)
+    return row
+
+
+# prefix_serve (a): the multi-turn workload of bench_models.py's
+# _bench_serving_multiturn at 8B; (b) a shared system prompt
+PREFIX_SERVE_MT = dict(max_seqs=4, max_seq_len=2048, page_size=16,
+                       ragged_tokens=256, num_pages=257, prefix_cache=True)
+PREFIX_SERVE_MT_RUNS = {"tier_off": (0, True), "tier_int8": (1 << 30, True),
+                        "tier_verbatim": (1 << 30, False)}
+PREFIX_SERVE_SYS = dict(max_seqs=8, max_seq_len=2048, page_size=16,
+                        ragged=False)
+
+
+def _multiturn_traffic(vocab):
+    """8 conversations of 1024-token prompts with distinct leading tokens,
+    a burst of 8 more, and each returning turn's 64 new tokens (numpy
+    seed 4)."""
+    import numpy as np
+    rng = np.random.default_rng(4)
+
+    def prompt(lead):
+        return [lead] + rng.integers(1, vocab, 1023).tolist()
+    convs = [prompt(vocab - 1 - i) for i in range(8)]
+    burst = [prompt(vocab - 9 - i) for i in range(8)]
+    more = [rng.integers(1, vocab, 64).tolist() for _ in range(8)]
+    return convs, burst, more
+
+
+def _prefix_multiturn(card, cfg, params, name, tier, quantize, traffic):
+    import torch
+    from paddle_tpu_torch.models.llama_serving import Request, ServingEngine
+    convs, burst, more = traffic
+    eng = ServingEngine(params, cfg, host_tier_bytes=tier,
+                        tier_quantize=quantize, device="cuda",
+                        **PREFIX_SERVE_MT)
+    for i, p in enumerate(convs):
+        eng.submit(Request(f"c{i}", p, max_new_tokens=32))
+    eng.run_pipelined()
+    for i, p in enumerate(burst):
+        eng.submit(Request(f"b{i}", p, max_new_tokens=4))
+        eng.run_pipelined()
+    eng.host_tier.flush(timeout=120)
+    first = {r.rid: list(r.output) for r in eng.finished}
+    returning = {f"r{i}": convs[i] + first[f"c{i}"] + more[i]
+                 for i in range(8)}
+    seeded = {}
+    seed = eng._seed_first_token
+
+    def timed_seed(slot, req, row):
+        seed(slot, req, row)
+        seeded.setdefault(req.rid, time.perf_counter())
+    eng._seed_first_token = timed_seed
+    # the pump thread's seconds in tier restores and spill snapshots
+    # (host clock; their copies run on after the calls return)
+    pump = {"restore_s": 0.0, "restore_calls": 0, "spill_s": 0.0,
+            "spill_calls": 0}
+
+    def clocked(fn, key):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                pump[key + "_s"] += time.perf_counter() - t
+                pump[key + "_calls"] += 1
+        return run
+    eng._tier_restore = clocked(eng._tier_restore, "restore")
+    if eng.prefix_cache.on_spill is not None:
+        eng.prefix_cache.on_spill = clocked(eng.prefix_cache.on_spill,
+                                            "spill")
+    _reset_bucket_counts()
+    pt0, steps0 = eng.prefill_tokens, eng.device_steps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for rid, p in returning.items():
+        eng.submit(Request(rid, p, max_new_tokens=32))
+    eng.run_pipelined()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eng.host_tier.flush(timeout=120)
+    done = {r.rid: r for r in eng.finished if r.rid in returning}
+    launches = _bucket_counts()
+    prefill = eng.prefill_tokens - pt0
+    want = sum(len(p) - done[rid].cached_tokens
+               for rid, p in returning.items())
+    st = eng.host_tier.stats()
+    if len(done) != 8 or any(len(r.output) != 32 for r in done.values()):
+        fail(f"prefix_serve ({name}): returning turns unfinished")
+    if prefill != want:
+        fail(f"prefix_serve ({name}): the returning turn prefilled "
+             f"{prefill} tokens, prompt - cached is {want}")
+    if st["copy_errors"]:
+        fail(f"prefix_serve ({name}): {st['copy_errors']} copy errors")
+    if not eng.pool.conserved(drained=True):
+        fail(f"prefix_serve ({name}): page pool not conserved")
+    want_launches = {k: 0 for k in launches}
+    want_launches["ragged_paged_attention"] = \
+        cfg.num_hidden_layers * (eng.device_steps - steps0)
+    if launches != want_launches:
+        fail(f"prefix_serve ({name}): launches {launches}, want "
+             f"{want_launches}")
+    ttft = sorted(seeded[rid] - t0 for rid in returning)
+    row = {"phase": "prefix_serve", "part": "multiturn", "card": card,
+           "run": name, "config": SERVE_CONFIG, "engine": PREFIX_SERVE_MT,
+           "host_tier_bytes": tier, "tier_quantize": quantize,
+           "conversations": 8, "prompt_tokens": 1024, "first_new": 32,
+           "burst": 8, "returning_new_prompt_tokens": 64,
+           "returning_new": 32,
+           "returning_prompt_tokens": sum(map(len, returning.values())),
+           "returning_cached_tokens": sum(r.cached_tokens
+                                          for r in done.values()),
+           "returning_prefill_tokens": prefill,
+           "returning_wall_s": wall,
+           "returning_device_steps": eng.device_steps - steps0,
+           "ttft_s_median": statistics.median(ttft),
+           "ttft_s": ttft, "pump": pump, "launches": launches,
+           "tier_stats": st, "host_bytes": st["host_bytes"],
+           "prefix_cache": eng.prefix_cache.stats(),
+           "tokens": {rid: list(r.output) for rid, r in done.items()}}
+    return row
+
+
+def _prefix_sysprompt(card, cfg, params, name, cache, cache_dtype):
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models.llama_serving import Request, ServingEngine
+    rng = np.random.default_rng(3)
+    system = rng.integers(1, cfg.vocab_size, 1024).tolist()
+    users = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+             for n in rng.integers(64, 501, 8)]
+    eng = ServingEngine(params, cfg, prefix_cache=cache,
+                        cache_dtype=cache_dtype, device="cuda",
+                        **PREFIX_SERVE_SYS)
+    trace = _trace_calls(eng, PREFILL_CALLS)
+    _reset_bucket_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.submit(Request(0, system + users[0], max_new_tokens=64))
+    eng.step()            # its prefill (indexed) and one decode step
+    t1 = time.perf_counter()
+    for i in range(1, 8):
+        eng.submit(Request(i, system + users[i], max_new_tokens=64))
+    eng.run_pipelined()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    done = {r.rid: r for r in eng.finished}
+    if len(done) != 8 or any(len(r.output) != 64 for r in done.values()):
+        fail(f"prefix_serve ({name}): requests unfinished")
+    if not eng.pool.conserved(drained=True):
+        fail(f"prefix_serve ({name}): page pool not conserved")
+    L = cfg.num_hidden_layers
+    launches = _bucket_counts()
+    calls = _call_counts(trace, PREFILL_CALLS)
+    suffix_verify = [c[2] for c in trace if c[0] == "_prefill_suffix_into"]
+    if any(n != L for n in suffix_verify):
+        fail(f"prefix_serve ({name}): suffix prefills launched "
+             f"{suffix_verify} pa_verify, want {L} each")
+    want_hits = 7 if cache else 0
+    if calls["_prefill_suffix_into"] != want_hits:
+        fail(f"prefix_serve ({name}): {calls} prefill calls")
+    prompt_tokens = sum(len(system) + len(u) for u in users)
+    row = {"phase": "prefix_serve", "part": "system_prompt", "card": card,
+           "run": name, "config": SERVE_CONFIG,
+           "engine": PREFIX_SERVE_SYS, "prefix_cache": cache,
+           "pool": "int8" if cache_dtype else "bf16",
+           "system_tokens": 1024, "user_tokens": [len(u) for u in users],
+           "new_tokens": 64, "prompt_tokens": prompt_tokens,
+           "prefill_tokens": eng.prefill_tokens,
+           "cached_tokens": sum(r.cached_tokens for r in done.values()),
+           "prefill_tok_s": (eng.prefill_tokens - len(system)
+                             - len(users[0])) / (trace[-1][1] - t1),
+           "output_tok_s": 8 * 64 / wall, "wall_s": wall,
+           "pad_tokens": eng.pad_tokens, "prefill_calls": calls,
+           "suffix_verify_launches": sum(suffix_verify),
+           "launches": launches, "merge_launches": _merge_launches(),
+           "device_steps": eng.device_steps}
+    return row
+
+
+def phase_prefix_serve(card, cfg, params):
+    import torch
+    runs = {}
+    traffic = _multiturn_traffic(cfg.vocab_size)
+    for name, (tier, quantize) in PREFIX_SERVE_MT_RUNS.items():
+        row = _prefix_multiturn(card, cfg, params, name, tier, quantize,
+                                traffic)
+        runs[name] = row
+        torch.cuda.empty_cache()
+    off = runs["tier_off"]["tokens"]
+    for name, row in runs.items():
+        toks = row.pop("tokens")
+        row["tokens_equal_tier_off"] = sum(
+            a == b for rid in off for a, b in zip(toks[rid], off[rid]))
+        row["tokens_total"] = sum(len(t) for t in off.values())
+        emit(row)
+    for cache in (False, True):
+        for cache_dtype in (None, "int8"):
+            name = f"sys_{'cache' if cache else 'nocache'}_" \
+                f"{'int8' if cache_dtype else 'bf16'}"
+            row = _prefix_sysprompt(card, cfg, params, name, cache,
+                                    cache_dtype)
+            emit(row)
+            runs[name] = row
+            torch.cuda.empty_cache()
     return runs
 
 
@@ -2890,9 +3629,9 @@ def main(argv=None):
     kern = timed("kernel", phase_kernel, smi) if "kernel" in phases else {}
     if "parity" in phases:
         timed("parity", phase_parity, smi)
-    serve, bserve, sserve = {}, {}, {}
-    if {"serve", "bucket_serve", "spec_serve"} & set(phases):
-        # the 8B parameters, built once for the three serve phases
+    serve, bserve, sserve, pserve = {}, {}, {}, {}
+    if {"serve", "bucket_serve", "spec_serve", "prefix_serve"} & set(phases):
+        # the 8B parameters, built once for the four serve phases
         t0 = time.perf_counter()
         cfg, params = serve_params()
         torch.cuda.synchronize()
@@ -2905,6 +3644,9 @@ def main(argv=None):
         if "spec_serve" in phases:
             sserve = timed("spec_serve", phase_spec_serve, smi, cfg, params,
                            init_s, bserve)
+        if "prefix_serve" in phases:
+            pserve = timed("prefix_serve", phase_prefix_serve, smi, cfg,
+                           params)
         del params
         torch.cuda.empty_cache()
     tk = timed("train_kernel", phase_train_kernel, smi) \
@@ -2926,6 +3668,10 @@ def main(argv=None):
         if "spec_kernel" in phases else {}
     if "spec_parity" in phases:
         timed("spec_parity", phase_spec_parity, smi)
+    pk = timed("prefix_kernel", phase_prefix_kernel, smi) \
+        if "prefix_kernel" in phases else {}
+    if "prefix_parity" in phases:
+        timed("prefix_parity", phase_prefix_parity, smi)
     vk = timed("varlen_kernel", phase_varlen_kernel, smi) \
         if "varlen_kernel" in phases else {}
     if "fused_parity" in phases:
@@ -2933,6 +3679,12 @@ def main(argv=None):
     if "train_fused" in phases:
         timed("train_fused", phase_train_fused, smi, packed)
     emit({"phase_seconds": secs})
+    # launches the prefix_serve runs added, by kernel (the returning turns
+    # of the multi-turn runs, the whole system-prompt runs)
+    prefix_counts = {}
+    for row in pserve.values():
+        for k, n in row["launches"].items():
+            prefix_counts[k] = prefix_counts.get(k, 0) + n
     kernels = []
     for kname, pools, run in (("ragged_paged_attention", "bfloat16", "bf16"),
                               ("ragged_paged_attention_int8", "int8",
@@ -3012,6 +3764,16 @@ def main(argv=None):
             "max_abs_err": k["max_abs_err"], "ms": k["kernel_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+    for row in kernels:
+        # None for the rows prefix_serve does not run (training, and
+        # the ragged kernel over int8 pages: its ragged runs are bf16)
+        row["prefix_launches"] = prefix_counts.get(row["name"])
+        for (kname, variant, shape), k in pk.items():
+            if kname == row["name"] and variant in ("bfloat16", "int8"):
+                row.setdefault("prefix_kernel", {})[str(shape)] = {
+                    "ms": k["kernel_ms"], "max_abs_err": k["max_abs_err"],
+                    "bound_ms": k["bound_ms"], "plain_ms": k["plain_ms"],
+                    "library_ms": k["library_ms"]}
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -42,8 +42,9 @@ Differences from the JAX package that a reader should know:
 
   * the KV pools (and the device token ring) are updated IN PLACE —
     torch tensors are not functional arrays. Anything that must outlive
-    a page's release (the preemption offload) is copied to the host
-    before the page goes back to the pool;
+    a page's release (the preemption offload, a spilled prefix page) is
+    copied to the host, in stream order, before the page goes back to
+    the pool;
   * the layer loop is a Python loop (the JAX package scans);
   * host tables go to the device as snapshots: packed into one pinned
     host buffer per step and copied asynchronously, so the host may
@@ -53,10 +54,25 @@ Differences from the JAX package that a reader should know:
     one device->host sync of the step loop — so `run_pipelined` keeps
     step N+1 queued while the host consumes step N.
 
+The prefix cache, the host KV tier and KV handoff (ROADMAP.md, Queue 1
+item 6): `ServingEngine(..., prefix_cache=True)` indexes full KV pages
+by a chained hash of their tokens (`serving/kvcache.py`), so admissions
+that share a prompt prefix map the same pages and prefill only their
+suffix — the ragged and chunked engines start the prompt feed at the
+cached count, the bucketed engine runs the suffix as ONE `verify_step`
+chunk (`_prefill_suffix_into`). `host_tier_bytes > 0` demotes evicted
+pages to host RAM (`serving/kvtier.py`, int8 unless
+`tier_quantize=False`) and restores them on a later match. A request
+flagged `_handoff_export` leaves the engine with its KV as a
+`serving.handoff.KVHandoff` once its prompt is seeded; one flagged
+`_kv_import` scatters such a payload back and decodes on. On the card,
+`python3 chip_smoke.py --phases
+device,build,prefix_kernel,prefix_parity,prefix_serve` checks and times
+these paths.
+
 Out of scope in this slice, raising NotImplementedError that names the
-ROADMAP.md item: the prefix cache, the host tier's spill side and KV
-handoff (Queue 1 item 6); metrics, fault injection and the observability
-hooks (item 7); tensor-parallel serving (`mesh`, item 10b).
+ROADMAP.md item: metrics, fault injection and the observability hooks
+(item 7); tensor-parallel serving (`mesh`, item 10b).
 """
 from __future__ import annotations
 
@@ -72,12 +88,13 @@ from ..kernels.ragged_paged_attention import (ragged_paged_attention,
 from ..ops.flash_attention import flash_attention_bhsd
 from ..ops.fused import rms_norm as _rms
 from ..ops.fused import swiglu
-from ..ops.paged_attention import (paged_attention, paged_verify_attention,
-                                   quantize_kv)
+from ..ops.paged_attention import (dequantize_kv, paged_attention,
+                                   paged_verify_attention, quantize_kv)
 from ..ops.varlen_attention import (flash_attention_varlen,
                                     seg_ids_from_cu_seqlens)
 from ..ops.rope import apply_rotary_emb, rope_cos_sin
-from ..serving.kvcache import PagePool
+from ..serving.handoff import KVHandoff
+from ..serving.kvcache import PagePool, PrefixCache
 from ..serving.kvtier import HostTier
 from .generation import filtered_probs_np, sample_logits_np
 from .llama import LlamaConfig
@@ -711,6 +728,8 @@ class Request:
         self.output = []
         self.slot = None
         self.next_token = None
+        # prompt tokens served from the prefix KV cache at admission
+        self.cached_tokens = 0
         self.cancelled = False
         self.want_logprobs = bool(logprobs)
         self.logprobs = [] if logprobs else None
@@ -721,6 +740,13 @@ class Request:
         self._pf_cursor = 0         # how many of them were fed
         self._pf_sample = False     # pick a first token when the feed ends
         self._admit_order = 0
+        self._kv_match = None       # (pages, cached) acquired at admission
+        # KV handoff: a KVHandoff to scatter in at admission, the flag
+        # that exports this request once its prompt is seeded, and the
+        # KVHandoff that export made
+        self._kv_import = None
+        self._handoff_export = False
+        self._handoff_done = None
 
     def pick(self, logits_row):
         """Select the next token from this request's logits row."""
@@ -775,6 +801,18 @@ class ServingEngine:
     verify step instead of prefilling at admission. A spec engine steps
     synchronously (`run_pipelined` runs `run`).
 
+    `prefix_cache=True` indexes full KV pages by a chained block hash of
+    their tokens: admissions sharing a prompt prefix map the same pages
+    (ref-counted by the PagePool) and prefill only their suffix.
+    Refcount-0 pages that are still indexed park in an LRU that
+    allocation reclaims last. `host_tier_bytes > 0` adds a bounded
+    host-RAM tier under that LRU: evictions demote their pages (an
+    asynchronous copy; int8 with per-token fp32 scales unless
+    `tier_quantize=False`) and admission lookups fall through device ->
+    host. A request with `_handoff_export` set finishes with its KV
+    exported as a KVHandoff (`_handoff_done`) once its prompt is seeded;
+    one with `_kv_import` set resumes from such a payload.
+
     Runs on `device` ("cuda" by default; raises without a CUDA device —
     pass device="cpu" to run on the CPU). `params` must already live
     there."""
@@ -784,13 +822,11 @@ class ServingEngine:
                  cache_dtype=None, preempt_policy="offload", spec_decode=0,
                  spec_ngram=2, chunked_prefill=False, spec_sample=False,
                  mesh=None, prefix_cache=False,
-                 host_tier_bytes=0, faults=None, ragged=True,
-                 ragged_tokens=None, lean=True, tokbuf=True,
+                 host_tier_bytes=0, tier_quantize=True, faults=None,
+                 ragged=True, ragged_tokens=None, lean=True, tokbuf=True,
                  device=DEFAULT_DEVICE):
         self.device = resolve_device(device)
         for on, what, item in (
-                (prefix_cache, "prefix_cache=True", 6),
-                (host_tier_bytes, "host_tier_bytes > 0", 6),
                 (faults is not None, "fault injection (faults=)", 7),
                 (mesh is not None, "tensor-parallel serving (mesh=)",
                  "10b")):
@@ -899,9 +935,28 @@ class ServingEngine:
         self.page_table = np.full((max_seqs, self.pages_per_seq),
                                   self.num_pages - 1, np.int32)
         self.lengths = np.zeros((max_seqs,), np.int32)
-        # the trash page (last id) is outside the pool
-        self.pool = PagePool(num_pages - 1)
-        self.host_tier = HostTier()
+        # the trash page (last id) is outside the pool, the cache and
+        # the tier
+        self.prefix_cache = PrefixCache(page_size) if prefix_cache else None
+        self.pool = PagePool(num_pages - 1, cache=self.prefix_cache)
+        # one ledger for all host-resident KV: the preemption stash
+        # always, spilled prefix pages with host_tier_bytes > 0
+        if host_tier_bytes and not prefix_cache:
+            raise ValueError(
+                f"host_tier_bytes={host_tier_bytes} needs "
+                "prefix_cache=True: only the prefix cache's evictions "
+                "feed the spill tier")
+        self.host_tier = HostTier(page_size, tier_bytes=host_tier_bytes,
+                                  quantize=tier_quantize)
+        if self.prefix_cache is not None and self.host_tier.enabled:
+            self.prefix_cache.on_spill = self._spill_page
+        self.handoff_exports = 0
+        self.handoff_imports = 0
+        self.handoff_bytes = 0
+        self.handoff_failures = 0
+        # flagged requests not yet exported: the per-launch harvest scan
+        # runs only while this is positive
+        self._handoff_pending = 0
         self._seq_pages = {s: [] for s in range(max_seqs)}
         self._slots = [None] * max_seqs          # slot -> Request
         self._live = set()                       # occupied slots
@@ -987,10 +1042,9 @@ class ServingEngine:
 
     def submit(self, req: Request):
         """Validate-or-reject now; queue what fits."""
-        if getattr(req, "_handoff_export", False) or \
-                getattr(req, "_kv_import", None) is not None:
-            raise _not_ported("KV handoff export/import", 6)
         self.validate(req)
+        if req._handoff_export:
+            self._handoff_pending += 1
         self._waiting.append(req)
 
     def cancel(self, req: Request):
@@ -1002,6 +1056,7 @@ class ServingEngine:
         if req in self._waiting:
             self._waiting.remove(req)
             self._drop_offload(req)
+            self._clear_handoff_flag(req)
             self.finished.append(req)
             return True
         return req.slot is not None
@@ -1018,6 +1073,7 @@ class ServingEngine:
             for r in self._waiting:
                 if r.cancelled:
                     self._drop_offload(r)
+                    self._clear_handoff_flag(r)
                     self.finished.append(r)
                 else:
                     keep.append(r)
@@ -1056,13 +1112,21 @@ class ServingEngine:
 
     def _admit(self):
         """Admit the waiting requests that both slots and KV pages can
-        hold, reserving the pages live slots will need this step. The
-        ragged engine, and any engine with `chunked_prefill`, attaches
-        them to feed their prompts through the coming steps; the
-        bucketed engine otherwise prefills them here."""
+        hold, reserving the pages live slots will need this step. A
+        candidate's cached prefix is acquired (ref-counted) as it is
+        considered, so a later candidate's allocation cannot evict it,
+        and its page need counts only the uncached pages. Offloaded
+        victims scatter their pages back and handoff imports their
+        payload; the ragged engine, and any engine with
+        `chunked_prefill`, attaches the rest to feed their prompts from
+        the first uncached token through the coming steps; the bucketed
+        engine otherwise prefills them here: a prefix hit through
+        `_prefill_suffix_into`, the misses alone through `prefill` or as
+        ONE packed `prefill_varlen` wave."""
         free_slots = [s for s in range(self.max_seqs)
                       if self._slots[s] is None]
         G = max(self.spec_decode, 1)
+        ps = self.page_size
 
         def _reserve(s):
             r = self._slots[s]
@@ -1072,63 +1136,74 @@ class ServingEngine:
             else:
                 # a decode step writes one position, a verify chunk up to G
                 horizon = min(int(self.lengths[s]) + G, self.max_seq_len)
-            return max(0, -(-horizon // self.page_size)
-                       - len(self._seq_pages[s]))
+            return max(0, -(-horizon // ps) - len(self._seq_pages[s]))
         reserve = sum(_reserve(s) for s in sorted(self._live))
         take = 0
         for req in self._waiting[:len(free_slots)]:
-            ofl = req._offload
+            ofl, hin = req._offload, req._kv_import
             if ofl is not None:
                 need = ofl["pages"]
-                if ofl["len"] % self.page_size == 0 and \
-                        need * self.page_size <= ofl["len"]:
+                if ofl["len"] % ps == 0 and need * ps <= ofl["len"]:
                     need += 1  # boundary growth this same step
+            elif hin is not None:
+                # an import scatters its shipped pages as a restore does:
+                # the payload is the prefix, so the cache is not probed
+                need = hin.pages
+                if hin.length % ps == 0 and need * ps <= hin.length:
+                    need += 1
             else:
-                feed_len = max(len(self._feed_ids(req)), 1)
-                need = -(-feed_len // self.page_size)
-                if feed_len % self.page_size == 0:
+                feed = self._feed_ids(req)
+                feed_len = max(len(feed), 1)
+                req._kv_match = self._cache_acquire(feed)
+                need = -(-feed_len // ps) - len(req._kv_match[0])
+                if feed_len % ps == 0:
                     need += 1  # its own first decode boundary, same step
+            # available() counts free and reclaimable (parked) pages; an
+            # acquired match already left the reclaimable side
             if need > self.pool.available() - reserve:
+                self._cache_unacquire(req)
                 break
             reserve += need
             take += 1
-        if not self.ragged and not self.chunked_prefill:
-            self._admit_bucketed(free_slots[:take])
-            return
+        reqs, slots = [], []
         for slot in free_slots[:take]:
             req = self._waiting.pop(0)
+            match = req._kv_match or ([], 0)
+            req._kv_match = None
             if req._offload is not None:
                 self._restore_into(slot, req)
-                continue
-            req._pf_feed = self._feed_ids(req)
-            req._pf_cursor = 0
-            # seed a first token iff none was ever seeded: a resumed
-            # decoding request keeps its pending next_token
-            req._pf_sample = not req.output
-            req._resume = False
-            req.slot = slot
-            req._admit_order = self._order
-            self._order += 1
-            self._attach(slot, req)
-            self._stage_tokbuf(slot, req)
-
-    def _admit_bucketed(self, slots):
-        """Bucketed admission of the head of the queue into `slots`:
-        offloaded victims scatter their pages back; the rest prefill at
-        once, alone through `prefill` or as ONE packed `prefill_varlen`
-        wave."""
-        reqs, fresh = [], []
-        for slot in slots:
-            req = self._waiting.pop(0)
-            if req._offload is not None:
-                self._restore_into(slot, req)
+            elif req._kv_import is not None and \
+                    self._import_handoff(slot, req):
+                pass  # scattered and attached; a failure falls through
+            elif self.ragged or self.chunked_prefill:
+                req._pf_feed = self._feed_ids(req)
+                req._pf_cursor = 0
+                # seed a first token iff none was ever seeded: a resumed
+                # decoding request keeps its pending next_token
+                req._pf_sample = not req.output
+                req._resume = False
+                req.slot = slot
+                req._admit_order = self._order
+                self._order += 1
+                self._attach(slot, req)
+                self._stage_tokbuf(slot, req)
+                if match[0]:
+                    # map the shared pages in and start the feed at the
+                    # first uncached token (the ring row holds the whole
+                    # feed from position 0, and lengths = the cursor)
+                    self._map_prefix(slot, match)
+                    req._pf_cursor = match[1]
+                self._note_prefix_admit(req, match)
+            elif match[0]:
+                self._prefill_suffix_into(slot, req, match)
             else:
+                self._note_prefix_admit(req, match)
                 reqs.append(req)
-                fresh.append(slot)
+                slots.append(slot)
         if len(reqs) == 1:
-            self._prefill_into(fresh[0], reqs[0])
+            self._prefill_into(slots[0], reqs[0])
         elif reqs:
-            self._prefill_packed(fresh, reqs)
+            self._prefill_packed(slots, reqs)
 
     def _bucket_for(self, n):
         """The power-of-two padding bucket of an n-token bucketed
@@ -1145,6 +1220,9 @@ class ServingEngine:
         req._admit_order = self._order
         self._order += 1
         self._attach(slot, req)
+        # index BEFORE seeding: a max_new_tokens == 1 request finishes
+        # (and releases) inside _seed_first_token
+        self._index_slot(slot, req)
         if req._resume:
             req._resume = False
         else:
@@ -1290,7 +1368,13 @@ class ServingEngine:
         req._resume = True
         req.slot = None
         self._waiting.insert(0, req)
+        flagged = req._handoff_export
         self._release(s)
+        if flagged:
+            # a preempted export candidate stays one: re-arm the flag
+            # _release consumed, so the re-admission still hands off
+            req._handoff_export = True
+            self._handoff_pending += 1
         self.preemptions += 1
         return True
 
@@ -1313,14 +1397,49 @@ class ServingEngine:
         self._stage_tokbuf(slot, req)
 
     def _scatter_host_kv(self, pages, k, v, ks, vs):
-        """Scatter host page KV (L, KVH, n, page, D) into device `pages`,
-        in place."""
+        """Scatter host page KV (L, KVH, n, page, D; CPU tensors or numpy)
+        into device `pages`, in place: the swap-in path of preemption
+        restore and handoff import (`_scatter_pages`)."""
+        self._scatter_pages(pages, *(None if a is None else
+                                     self._h2d(torch.as_tensor(a))
+                                     for a in (k, v, ks, vs)))
+
+    def _pages_h2d(self, parts):
+        """Per-page host tensors (L, KVH, page, D), pinned on the card as
+        the tier lands them, as ONE device tensor (L, KVH, n, page, D):
+        one asynchronous copy a page into a fresh device buffer, with no
+        host copy on the way (None when the pages have no such part)."""
+        if parts[0] is None:
+            return None
+        first = torch.as_tensor(parts[0])
+        dev = torch.empty((len(parts),) + tuple(first.shape),
+                          dtype=first.dtype, device=self.device)
+        for i, a in enumerate(parts):
+            dev[i].copy_(torch.as_tensor(a), non_blocking=True)
+        return dev.permute(1, 2, 0, 3, 4)
+
+    def _scatter_pages(self, pages, k, v, ks, vs):
+        """Scatter device page KV (L, KVH, n, page, D) into `pages`, in
+        place: the one write of every swap-in (preemption restore, tier
+        restore, handoff import). A payload of another encoding than the
+        pool's is converted here: int8 pages with scales dequantized
+        into a float pool, float pages quantized into an int8 one
+        (`dequantize_kv` / `quantize_kv`, the arithmetic of the tier's
+        `_dequantize_host` / `_quantize_host`), float pages cast to the
+        pool's dtype."""
         pg = self._h2d(np.asarray(pages, np.int64))
-        self.k_pool[:, :, pg] = self._h2d(k)
-        self.v_pool[:, :, pg] = self._h2d(v)
+        if ks is not None:
+            ks, vs = ks.to(torch.float32), vs.to(torch.float32)
+            if not self.cache_quant:
+                k, v = dequantize_kv(k, ks), dequantize_kv(v, vs)
+        elif self.cache_quant:
+            k, ks = quantize_kv(k)
+            v, vs = quantize_kv(v)
+        self.k_pool[:, :, pg] = k.to(self.k_pool.dtype)
+        self.v_pool[:, :, pg] = v.to(self.v_pool.dtype)
         if self.cache_quant:
-            self.k_scale[:, :, pg] = self._h2d(ks)
-            self.v_scale[:, :, pg] = self._h2d(vs)
+            self.k_scale[:, :, pg] = ks
+            self.v_scale[:, :, pg] = vs
 
     def _drop_offload(self, req):
         """Forget a waiting request's stashed KV (cancel path)."""
@@ -1342,10 +1461,112 @@ class ServingEngine:
             # the seed is the token position `lengths` consumes next
             self.tok_buf[slot, int(self.lengths[slot])] = tok
 
+    # -- disaggregated prefill/decode handoff ------------------------------
+    def _clear_handoff_flag(self, req):
+        """Consume a request's export flag, keeping the pending count
+        honest. Safe on unflagged requests."""
+        if req._handoff_export:
+            req._handoff_export = False
+            self._handoff_pending = max(0, self._handoff_pending - 1)
+
+    def _harvest_handoffs(self, carry=None):
+        """Export and finish every live slot flagged for handoff whose
+        prompt is prefilled and seeded and which the unconsumed ticket
+        `carry` does not hold. Runs at the top of each launch, before
+        decode planning, so the export reads KV, `lengths` and output
+        that agree. The ragged engine seeds a slot at the finish of its
+        last prefill wave, and the wave launched meanwhile skipped it
+        (its next_token was still None). The bucketed engine seeds at
+        admission: a pipelined launch leaves a flagged slot out of its
+        step (`_bucket_launch`), and a slot that a carried step still
+        holds waits for the next launch."""
+        if self._handoff_pending <= 0:
+            return
+        for s in sorted(self._live):
+            req = self._slots[s]
+            if req is None or not req._handoff_export:
+                continue
+            if req.next_token is None or self._prefilling(req):
+                continue  # prefill (or its seeding read) still pending
+            if carry is not None and carry.reqs.get(s) is req:
+                continue  # its step in flight is not consumed yet
+            self._export_handoff(s, req)
+
+    def _export_handoff(self, s, req):
+        """Ship slot `s`'s KV pages out as a KVHandoff and finish the
+        request here (the decode engine owns the rest of its life). The
+        pages are gathered at the fixed pages_per_seq width (the tail
+        reads the trash page, sliced off after) in the tier's encoding
+        (`_tier_pages`) and copied to the host in stream order; the tier's
+        copy thread waits for the copy. On any failure the slot is left
+        as it was and the request decodes locally."""
+        self._clear_handoff_flag(req)
+        n_pg = len(self._seq_pages[s])
+        pg = np.full((self.pages_per_seq,), self.num_pages - 1, np.int64)
+        pg[:n_pg] = self._seq_pages[s]
+        try:
+            host, ready = self._snapshot(self._tier_pages(self._h2d(pg)))
+            p = self.host_tier.export_pages(*host, ready=ready)
+        except Exception:  # noqa: BLE001 — the request decodes locally
+            self.handoff_failures += 1
+            return
+
+        def cut(a):
+            return None if a is None else a[:, :, :n_pg]
+        h = KVHandoff(
+            rid=req.rid, prompt=req.prompt, output=req.output,
+            next_token=int(req.next_token), length=int(self.lengths[s]),
+            pages=n_pg, k=cut(p["k"]), v=cut(p["v"]), ks=cut(p["ks"]),
+            vs=cut(p["vs"]), quantized=p["ks"] is not None,
+            logprobs=req.logprobs, cached_tokens=req.cached_tokens)
+        req._handoff_done = h
+        self.handoff_exports += 1
+        self.handoff_bytes += h.nbytes
+        self.finished.append(req)
+        self._release(s)  # indexes the prefix first: the source keeps it
+        req.slot = None
+
+    def _import_handoff(self, slot, req):
+        """Decode-side scatter of a KVHandoff (the port's, or the JAX
+        package's numpy one) into fresh pages through `_scatter_host_kv`,
+        which adapts its encoding to this pool. Returns True on
+        success; on any failure the fresh pages go back to the pool and
+        the caller falls back to the recompute-resume prefill (prompt +
+        output[:-1]), which replays token-identically."""
+        h = req._kv_import
+        self._seq_pages[slot] = []
+        try:
+            pages = self._alloc_pages(slot, h.pages)
+            try:
+                self._scatter_host_kv(pages, h.k, h.v, h.ks, h.vs)
+            except BaseException:
+                self.pool.decref(pages)
+                self._seq_pages[slot] = []
+                self.page_table[slot, :] = self.num_pages - 1
+                raise
+        except Exception:  # noqa: BLE001 — recompute instead
+            self.handoff_failures += 1
+            req._kv_import = None
+            req._resume = True
+            return False
+        self.lengths[slot] = h.length
+        req._kv_import = None
+        req._resume = False
+        req.slot = slot
+        req._admit_order = self._order
+        self._order += 1
+        self._attach(slot, req)
+        self._stage_tokbuf(slot, req)
+        self._index_slot(slot, req)
+        self.handoff_imports += 1
+        self.handoff_bytes += h.nbytes
+        return True
+
     # -- step loop --------------------------------------------------------
     def step(self):
         """One synchronous step (launch + consume); returns #slots run."""
         self._sweep_cancelled()
+        self._harvest_handoffs()
         self._admit()
         if self.spec_decode > 1:
             return self._spec_step()
@@ -1382,6 +1603,7 @@ class ServingEngine:
         back."""
         if not _admitted:
             self._sweep_cancelled()
+            self._harvest_handoffs(carry)
             self._admit()
         for s in sorted(self._live):
             cur = int(self.lengths[s])
@@ -1397,6 +1619,8 @@ class ServingEngine:
         launch, reqs = [], {}
         for s in sorted(self._live):
             req = self._slots[s]
+            if carry is not None and req._handoff_export:
+                continue  # exported at the next launch, not decoded here
             carried = carry is not None and carry.reqs.get(s) is req
             left = req.max_new_tokens - len(req.output) \
                 - (1 if carried else 0)
@@ -1504,6 +1728,7 @@ class ServingEngine:
         wave; its first token is picked on the host at finish."""
         if not _admitted:
             self._sweep_cancelled()
+            self._harvest_handoffs(carry)
             self._admit()
         for s in sorted(self._live):
             if self._prefilling(self._slots[s]):
@@ -1581,10 +1806,14 @@ class ServingEngine:
             req._pf_cursor += n
             self.lengths[s] += n
             self.prefill_tokens += n
-            if req._pf_cursor >= len(feed) and req._pf_sample:
-                # last chunk: its final row seeds the first token
-                seeds.append((s, req))
-                seed_flat.append(row + n - 1)
+            if req._pf_cursor >= len(feed):
+                # feed complete: index the slot's full pages now, so a
+                # live decoding slot's prefix serves the next admission
+                self._index_slot(s, req)
+                if req._pf_sample:
+                    # last chunk: its final row seeds the first token
+                    seeds.append((s, req))
+                    seed_flat.append(row + n - 1)
             row += n
         n_decode = len(decode_plan)
         parts = {"page_table": self.page_table, "tokens": tokens,
@@ -1935,7 +2164,15 @@ class ServingEngine:
                 {s: s * G for s in range(self.max_seqs)}, seed_rows)
 
     def _release(self, slot):
-        # decref tail-first, as the JAX engine does
+        req = self._slots[slot]
+        if req is not None:
+            self._clear_handoff_flag(req)
+            # a finished, cancelled, exported or preempted slot's KV is
+            # valid up to `lengths`: index its full pages so later
+            # admissions sharing the prefix skip their prefill
+            self._index_slot(slot, req)
+        # decref tail-first: the deepest blocks park least recently used,
+        # so eviction reclaims children before the prefixes they need
         self.pool.decref(reversed(self._seq_pages[slot]))
         self._seq_pages[slot] = []
         self.lengths[slot] = 0
@@ -1943,6 +2180,197 @@ class ServingEngine:
         self.page_table[slot, :] = self.num_pages - 1
         self._slots[slot] = None
         self._live.discard(slot)
+
+    # -- prefix KV cache (serving/kvcache.py + serving/kvtier.py) -----------
+    def _snapshot(self, tensors):
+        """Host copies of device tensors (None passes through), taken in
+        stream order: (copies, event). On the card the copies land in
+        pinned memory asynchronously and are complete once the event
+        has fired; on the CPU they are clones (a pool slice is a view,
+        which a later step would overwrite in place) and the event is
+        None."""
+        if self.device.type == "cpu":
+            return tuple(None if x is None else x.clone()
+                         for x in tensors), None
+        return self._d2h(tensors)
+
+    def _cache_acquire(self, feed):
+        """Longest-prefix match for an admission candidate, its pages
+        ref-counted at once so nothing later in this admission can evict
+        them; where the device match ends, the host tier's index takes
+        over and its hits are restored into fresh device pages. Returns
+        (pages, cached_tokens)."""
+        pc = self.prefix_cache
+        if pc is None:
+            return [], 0
+        pages, cached = pc.match(feed)
+        if pages:
+            self.pool.incref(pages)
+        if self.host_tier.enabled:
+            try:
+                pages, cached = self._tier_restore(feed, pages, cached)
+            except BaseException:
+                # the caller never sees the device-matched refs: give
+                # them back now
+                if pages:
+                    self.pool.decref(pages)
+                raise
+        return pages, cached
+
+    def _tier_restore(self, feed, pages, cached):
+        """Continue the prefix walk into the host tier and scatter its
+        hits into fresh pages (`_pages_h2d`, `_scatter_pages`), indexing
+        them in the device cache so this request, and every later one,
+        maps them as ordinary cached pages. Restored pages arrive
+        refcount-1 from alloc, as the device match's incref left its
+        own, so `_cache_unacquire` treats both alike."""
+        tier = self.host_tier
+        blocks = tier.match(feed, cached)
+        room = min(self.pages_per_seq - len(pages), self.pool.available())
+        n = min(len(blocks), max(room, 0))
+        if n == 0:
+            tier.note_lookup(0)
+            return pages, cached
+        blocks = blocks[:n]
+        # alloc may evict, and so spill, OTHER parked pages; this
+        # candidate's device-matched prefix is already increfed, so the
+        # restore cannot take its own chain
+        new_pages = self.pool.alloc(n)
+        try:
+            # an int8 tier over a float pool is dequantized on the device
+            self._scatter_pages(new_pages, *(
+                self._pages_h2d([b[name] for b in blocks])
+                for name in ("k", "v", "ks", "vs")))
+        except BaseException:
+            # never mapped or indexed: give the fresh pages back
+            self.pool.decref(new_pages)
+            raise
+        all_pages = pages + new_pages
+        new_cached = cached + n * self.page_size
+        self.prefix_cache.insert(feed, all_pages, new_cached)
+        tier.note_lookup(n)
+        return all_pages, new_cached
+
+    def _tier_pages(self, idx):
+        """The pools' pages at `idx` (a page id or an index tensor) in
+        the tier's encoding, as (k, v, ks, vs) device tensors: an int8
+        pool's pages and scales as they are; a float pool's quantized
+        here, on the device, when the tier stores int8 (`quantize_kv`,
+        the arithmetic of the tier's `_quantize_host`, so only int8 and
+        scales cross to the host and the copy thread has no arithmetic
+        left); else its pages verbatim with no scales."""
+        k, v = self.k_pool[:, :, idx], self.v_pool[:, :, idx]
+        if self.cache_quant:
+            return k, v, self.k_scale[:, :, idx], self.v_scale[:, :, idx]
+        if self.host_tier.quantize:
+            k, ks = quantize_kv(k)
+            v, vs = quantize_kv(v)
+            return k, v, ks, vs
+        return k, v, None, None
+
+    def _spill_page(self, page, parent, block, depth):
+        """The prefix cache's eviction hook: demote the page's KV to the
+        host tier. The pools are updated in place and allocation hands
+        the page out as soon as this returns, so the page is copied to
+        the host HERE, on the engine's stream (`_snapshot`), ahead of
+        any later write; the tier's copy thread waits for that copy."""
+        host, ready = self._snapshot(self._tier_pages(page))
+        self.host_tier.spill_async(parent, block, depth, *host, ready=ready)
+
+    def _cache_unacquire(self, req):
+        """Admission did not take the candidate after all: drop its
+        acquired prefix (refcount-0 pages park in the cache's LRU)."""
+        match = req._kv_match
+        if match and match[0]:
+            self.pool.decref(match[0])
+        req._kv_match = None
+
+    def _map_prefix(self, slot, match):
+        """Map acquired shared prefix pages into the slot's page-table
+        row and set its length to the cached token count: the device
+        sees only the suffix."""
+        pages, cached = match
+        self._seq_pages[slot] = list(pages)
+        for i, pg in enumerate(pages):
+            self.page_table[slot, i] = pg
+        self.lengths[slot] = cached
+
+    def _index_slot(self, slot, req):
+        """Index the slot's full pages under the chained block hash of
+        the tokens they hold (cache position i holds the KV of token
+        (prompt + output)[i])."""
+        pc = self.prefix_cache
+        if pc is None:
+            return
+        n = int(self.lengths[slot])
+        toks = (list(req.prompt) + [int(t) for t in req.output])[:n]
+        pc.insert(toks, self._seq_pages[slot], n)
+
+    def _note_prefix_admit(self, req, match):
+        """Admission-time cache accounting: only admitted requests
+        count, not a queued candidate probed again each step."""
+        pc = self.prefix_cache
+        if pc is None:
+            return
+        cached = match[1]
+        req.cached_tokens = cached
+        pc.lookups += 1
+        if cached > 0:
+            pc.hits += 1
+            pc.tokens_reused += cached
+
+    def _prefill_suffix_into(self, slot, req, match):
+        """The bucketed engine's prefill of a prefix hit: the matched
+        pages are mapped in shared and only the remaining tokens run,
+        as ONE `verify_step` chunk of the suffix's power-of-two bucket
+        whose rows attend to the cached pages through the slot's page
+        table; the other slots are inactive (n_tok 0). A partial last
+        page of the prompt is part of the suffix. The lean epilogue
+        computes the one row that seeds the first token."""
+        pages, cached = match
+        feed = self._feed_ids(req)
+        suffix = feed[cached:]
+        n = len(suffix)
+        self.prefill_tokens += n
+        self._map_prefix(slot, match)
+        total = -(-len(feed) // self.page_size)
+        if total > len(pages):
+            self._alloc_pages(slot, total - len(pages))
+        B = self.max_seqs
+        G = self._bucket_for(n)
+        tokens = np.zeros((B, G), np.int32)
+        tokens[slot, :n] = suffix
+        n_tok = np.zeros((B,), np.int32)
+        n_tok[slot] = n
+        active = np.zeros((B,), np.int32)
+        active[slot] = 1
+        parts = {"page_table": self.page_table, "lengths": self.lengths,
+                 "tokens": tokens, "n_tok": n_tok, "active": active}
+        if self.lean:
+            parts["need"] = np.array([slot * G + n - 1], np.int32)
+            self.logit_rows += 1
+            self.logit_rows_skipped += B * G - 1
+        else:
+            self.logit_rows += B * G
+        d = self._stage(parts)
+        logits = verify_step(
+            self.params, self.k_pool, self.v_pool, d["page_table"],
+            d["lengths"], d["tokens"], d["n_tok"], d["active"] != 0,
+            self.config, self.page_size, k_scale=self.k_scale,
+            v_scale=self.v_scale, need_rows=d.get("need"))
+        self.lengths[slot] = cached + n
+        req.slot = slot
+        req._admit_order = self._order
+        self._order += 1
+        self._attach(slot, req)
+        self._note_prefix_admit(req, match)
+        self._index_slot(slot, req)
+        if req._resume:
+            req._resume = False  # its next_token survived the preemption
+        else:
+            row = logits[0] if self.lean else logits[slot, n - 1]
+            self._seed_first_token(slot, req,
+                                   self._read((row.to(torch.float32),))[0])
 
     def run(self, max_steps=10000):
         steps = 0

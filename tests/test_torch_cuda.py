@@ -1594,6 +1594,33 @@ PAGED_ENGINE_PROMPTS = (5, _S + 20, _S + 100)
 BF16_LOGIT_TIE = 2 ** -11
 
 
+def _teacher_forced(card_out, cpu_out, prompts, rerun):
+    """Hold each card stream to the CPU's ({rid: (tokens, logprobs)})
+    by teacher forcing: where the card picks another token, the two
+    tokens' logprobs must tie (within BF16_LOGIT_TIE), and the card
+    restarts from the CPU's token, `rerun(rid, prompt, n)` giving its
+    next n (tokens, logprobs) after the prompt and the CPU's tokens so
+    far, until the stream ends. Returns the number of restarts."""
+    restarts = 0
+    for rid, (tok_cpu, lp_cpu) in cpu_out.items():
+        tok, lp = card_out[rid]
+        start = 0
+        while start < len(tok_cpu):
+            assert len(tok) == len(tok_cpu) - start
+            j = next((i for i, (a, b) in enumerate(zip(tok, tok_cpu[start:]))
+                      if a != b), None)
+            if j is None:
+                break
+            assert abs(lp[j] - lp_cpu[start + j]) <= BF16_LOGIT_TIE, \
+                (rid, start + j, lp[j], lp_cpu[start + j])
+            start += j + 1
+            if start < len(tok_cpu):
+                restarts += 1
+                tok, lp = rerun(rid, prompts[rid] + tok_cpu[:start],
+                                len(tok_cpu) - start)
+    return restarts
+
+
 @pytest.mark.parametrize("cache_dtype", [None, "int8"])
 @pytest.mark.parametrize("engine", ["bucketed", "spec", "chunked"])
 def test_card_paged_tc_engines_match_cpu_engine(card, engine, cache_dtype):
@@ -1654,28 +1681,17 @@ def test_card_paged_tc_engines_match_cpu_engine(card, engine, cache_dtype):
             assert eng.spec_drafted > 0
         assert eng.pool.conserved(drained=True)
         outs.append({r.rid: (r.output, r.logprobs) for r in done})
-    for rid, (tok_cpu, lp_cpu) in outs[1].items():
-        tok, lp = outs[0][rid]
-        if cache_dtype is None:
-            assert tok == tok_cpu
-            continue
-        start = 0
-        while start < len(tok_cpu):
-            assert len(tok) == len(tok_cpu) - start
-            j = next((i for i, (a, b) in enumerate(zip(tok, tok_cpu[start:]))
-                      if a != b), None)
-            if j is None:
-                break
-            assert abs(lp[j] - lp_cpu[start + j]) <= BF16_LOGIT_TIE, \
-                (rid, start + j, lp[j], lp_cpu[start + j])
-            start += j + 1
-            if start < len(tok_cpu):
-                eng = make(card, gpu)
-                eng.submit(Request(rid, prompts[rid] + tok_cpu[:start],
-                                   max_new_tokens=len(tok_cpu) - start,
-                                   logprobs=True))
-                (r,) = eng.run()
-                tok, lp = r.output, r.logprobs
+    if cache_dtype is None:
+        assert {r: o[0] for r, o in outs[0].items()} == \
+            {r: o[0] for r, o in outs[1].items()}
+        return
+
+    def rerun(rid, prompt, n):
+        eng = make(card, gpu)
+        eng.submit(Request(rid, prompt, max_new_tokens=n, logprobs=True))
+        (r,) = eng.run()
+        return r.output, r.logprobs
+    _teacher_forced(outs[0], outs[1], prompts, rerun)
 
 
 @pytest.mark.parametrize("cache_dtype", [None, "int8"])
@@ -1720,3 +1736,180 @@ def test_card_spec_engine_matches_cpu_engine(card, cache_dtype, chunked):
         assert eng.pool.conserved(drained=True)
         outs.append({r.rid: r.output for r in done})
     assert outs[0] == outs[1]
+
+
+# ------------------------------------------- prefix cache, tier, handoff
+@pytest.mark.parametrize("quantize", [False, True], ids=["verbatim", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_spill_snapshot_survives_the_page_being_handed_out(card, dtype,
+                                                           quantize):
+    """A spilled page's snapshot is taken on the engine's stream before
+    the hook returns: the stream is held busy, the page is spilled, and
+    the page is overwritten (as the allocator's next owner would) while
+    the copy thread still waits for the snapshot; the tier must land the
+    page as it was."""
+    from paddle_tpu_torch.serving import kvcache as kvc
+    cfg = LlamaConfig.tiny(vocab=64, hidden=64, layers=2, heads=4,
+                           kv_heads=2, ffn=64)
+    params = init_params(cfg, seed=0, device=card)
+    eng = ServingEngine(params, cfg, max_seqs=2, max_seq_len=64, page_size=8,
+                        prefix_cache=True, host_tier_bytes=1 << 20,
+                        tier_quantize=quantize,
+                        cache_dtype="int8" if dtype == "int8" else None,
+                        dtype=getattr(torch, dtype) if dtype != "int8"
+                        else None, device=card)
+    page = 3
+    gen = torch.Generator(device=card)
+    gen.manual_seed(0)
+    before = {}
+    for name in ("k_pool", "v_pool", "k_scale", "v_scale"):
+        t = getattr(eng, name)
+        if t is None:
+            continue
+        if t.dtype == torch.int8:
+            t[:, :, page] = torch.randint(-127, 128, t[:, :, page].shape,
+                                          generator=gen, device=card,
+                                          dtype=torch.int8)
+        else:
+            t[:, :, page] = torch.rand(t[:, :, page].shape, generator=gen,
+                                       device=card).to(t.dtype) + 0.5
+        before[name] = t[:, :, page].cpu().clone()
+    torch.cuda._sleep(200_000_000)          # the stream stays busy
+    block = tuple(range(8))
+    eng._spill_page(page, kvc._SEED, block, 1)
+    for name in before:                     # the page's next owner writes
+        getattr(eng, name)[:, :, page] = 0
+    assert eng.host_tier.flush(timeout=60)
+    (p,) = eng.host_tier.match(list(block) + [9], 0)
+    if dtype == "int8":
+        want = {"k": before["k_pool"], "v": before["v_pool"],
+                "ks": before["k_scale"], "vs": before["v_scale"]}
+    elif quantize:
+        # quantized on the card, as the card's int8 pool quantizes (its
+        # division by 127 is a reciprocal multiply there: a scale may
+        # differ from the host quantizer's in the last bit)
+        (kq, ks), (vq, vs) = (quantize_kv(before[n].to(card))
+                              for n in ("k_pool", "v_pool"))
+        want = {"k": kq.cpu(), "v": vq.cpu(), "ks": ks.cpu(), "vs": vs.cpu()}
+    else:
+        want = {"k": before["k_pool"], "v": before["v_pool"], "ks": None,
+                "vs": None}
+    for name, w in want.items():
+        assert (p[name] is None) == (w is None), name
+        if w is not None:
+            assert p[name].device.type == "cpu"
+            assert torch.equal(p[name], w), name
+    assert eng.host_tier.stats()["copy_errors"] == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("n,g", [(300, 512), (1500, 2048)])
+def test_paged_verify_suffix_prefill_shape_matches_plain(card, dtype, n, g):
+    """The bucketed suffix prefill's verify call: one slot active over a
+    cached 1024-token prefix with a chunk of G = 512 or 2048 rows, the
+    other slots inactive at live and free lengths (their rows computed
+    too, past the slot's cap at the cap); every row against the plain
+    version, the active rows apart."""
+    bases = [1024, 0, 100, 400, 0, 1000, 1500, 0]
+    q, k, v, ks, vs, ptab, base = _paged_operands(
+        card, dtype, bases, 8, 2, 128, 16, g=g, cap=1024 + 2048, seed=g)
+    got = _paged_call(q, k, v, ks, vs, ptab, base)
+    want = torch.cat([_paged_plain(q[i:i + 1], k, v, ks, vs, ptab[i:i + 1],
+                                   base[i:i + 1]) for i in range(len(bases))])
+    atol, rtol = TOL[VARIANTS[dtype][1]]
+    torch.testing.assert_close(got[0, :, :n].float(), want[0, :, :n].float(),
+                               atol=atol, rtol=rtol)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+PREFIX_HEADER = [1 + (5 * j) % 120 for j in range(32)]     # 4 pages of 8
+
+
+@pytest.mark.parametrize("cache_dtype", [None, "int8"])
+@pytest.mark.parametrize("engine", ["ragged", "bucketed", "chunked"])
+def test_card_prefix_engines_match_cpu_engine(card, engine, cache_dtype):
+    """bf16 weights at group 4 (the tensor-core routes) with the prefix
+    cache and the host tier (verbatim pages): shared-header prompts, then
+    a first turn evicted by a burst and restored from the tier; the card
+    engine against the CPU engine from the same weights, with the same
+    cached tokens and prefill tokens. Tokens are held by the teacher
+    forcing of test_card_paged_tc_engines_match_cpu_engine, bf16 pools
+    too: this model's bf16 logits tie exactly on some of these prompts
+    (a burst prompt's first token, one run). A restart runs on the same
+    card engine, its cache and tier warm, so the rest of the stream goes
+    through the prefix path too (a cached prefix each time); the number
+    of restarts is printed. The bucketed engine launches one pa_verify
+    per layer and suffix prefill."""
+    cfg = LlamaConfig.tiny(vocab=128, hidden=256, layers=2, heads=8,
+                           kv_heads=2, ffn=256)
+    L = cfg.num_hidden_layers
+    cpu = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cpu")
+    gpu = {k: ({kk: vv.to(card) for kk, vv in v.items()}
+               if isinstance(v, dict) else v.to(card))
+           for k, v in cpu.items()}
+    kw = {"ragged": engine == "ragged"}
+    if engine == "chunked":
+        kw.update(spec_decode=4, chunked_prefill=True)
+
+    def make(dev, params):
+        return ServingEngine(params, cfg, max_seqs=2, max_seq_len=128,
+                             page_size=8, num_pages=20, prefix_cache=True,
+                             host_tier_bytes=1 << 24, tier_quantize=False,
+                             cache_dtype=cache_dtype, device=dev, **kw)
+    prompts = {"s0": PREFIX_HEADER + [7, 8, 9],
+               "s1": PREFIX_HEADER + [10] * 11,
+               "s2": PREFIX_HEADER + [3, 2],
+               "t1": [2 + (3 * j) % 100 for j in range(41)]}
+    prompts.update({f"b{i}": [120 - i] + [1 + (11 * j + i) % 110
+                                           for j in range(47)]
+                    for i in range(4)})
+    outs, ledgers, engines = [], [], []
+    for dev, params in ((card, gpu), ("cpu", cpu)):
+        eng = make(dev, params)
+        engines.append(eng)
+        suffix = []
+        fn = eng._prefill_suffix_into
+
+        def counted(*a, _fn=fn, **k):
+            before = pa.launches_verify + pa.launches_verify_int8
+            _fn(*a, **k)
+            suffix.append(pa.launches_verify + pa.launches_verify_int8
+                          - before)
+        eng._prefill_suffix_into = counted
+        steps = []
+        for group in (["s0"], ["s1", "s2"], ["t1"], ["b0"], ["b1"], ["b2"],
+                      ["b3"], ["t2"]):
+            for rid in group:
+                if rid == "t2":
+                    t1 = next(r for r in eng.finished if r.rid == "t1")
+                    prompts["t2"] = prompts["t1"] + t1.output + [4, 5]
+                eng.submit(Request(rid, prompts[rid], max_new_tokens=8,
+                                   logprobs=True))
+            eng.run()
+            eng.host_tier.flush(timeout=60)
+            steps.append(eng.prefill_tokens)
+        if dev is card and engine == "bucketed":
+            assert suffix and all(n == L for n in suffix)
+        assert eng.pool.conserved(drained=True)
+        st = eng.host_tier.stats()
+        assert st["hits"] >= 1 and st["copy_errors"] == 0
+        outs.append({r.rid: (r.output, r.logprobs) for r in eng.finished})
+        ledgers.append((steps, {r.rid: r.cached_tokens
+                                for r in eng.finished}))
+    # cached and prefill tokens follow lengths, not token values
+    assert ledgers[0] == ledgers[1]
+    assert ledgers[0][1]["s1"] == ledgers[0][1]["s2"] == 32
+    assert ledgers[0][1]["t2"] == 48
+    warm = engines[0]
+
+    def rerun(rid, prompt, n):
+        r = Request(rid, prompt, max_new_tokens=n, logprobs=True)
+        warm.submit(r)
+        warm.run()
+        assert r.done and r.cached_tokens > 0
+        return r.output, r.logprobs
+    restarts = _teacher_forced(outs[0], outs[1], prompts, rerun)
+    assert warm.pool.conserved(drained=True)
+    print(f"prefix engines {engine} {cache_dtype}: {restarts} tie "
+          "restarts")

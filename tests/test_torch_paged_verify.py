@@ -209,6 +209,29 @@ def test_split_plan_of_the_chip_smoke_verify_batch():
     assert wide["row_tiles"] == 4 and wide["max_splits"] == 1
 
 
+@pytest.mark.parametrize("g,k_tiles,row_tiles", [(512, 3176, 32),
+                                                 (2048, 24864, 128)])
+def test_split_plan_of_the_chip_smoke_suffix_prefill(g, k_tiles, row_tiles):
+    """chip_smoke.py's suffix-prefill verify calls (prefix_kernel (a)):
+    8 slots of 3072 columns, one active at base 1024, a chunk of G = 512
+    or 2048 rows. B x KVH x row tiles (2048 or 8192 blocks) is past 2 x
+    SMs, so nothing splits: one working block a (slot, KV head, row
+    tile), the k tiles the plan counts."""
+    smoke = _chip_smoke()
+    shape = smoke.DECODE_SHAPE
+    kvh, group = shape["KVH"], shape["QH"] // shape["KVH"]
+    lims = [b + 1 for b in smoke.PREFIX_VERIFY_BASES]
+    assert (len(lims), lims[0]) == (8, 1025)
+    assert g in [G for _, G in smoke.PREFIX_SUFFIXES]
+    plan = TP.paged_split_plan(lims, group, g, kvh, TP.SPLIT_COLS, 132,
+                               smoke.PREFIX_VERIFY_CAP, shape["D"])
+    assert (plan["k_tiles"], plan["row_tiles"], plan["max_splits"]) == \
+        (k_tiles, row_tiles, 1)
+    assert plan["splits"] == plan["blocks"] // kvh == 8 * row_tiles
+    assert TP.split_rule(8, kvh, group, g, smoke.PREFIX_VERIFY_CAP,
+                         shape["D"], 132)[1] == 1
+
+
 @pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
 @pytest.mark.parametrize("kvh,group,g", [(4, 1, 5), (2, 3, 3), (2, 4, 4)],
                          ids=["g1", "g3", "g4"])

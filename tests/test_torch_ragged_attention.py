@@ -263,6 +263,20 @@ def test_tile_plan_of_the_chip_smoke_wave():
     assert int(tiles[:, 2].sum()) == 284
 
 
+def test_tile_plan_of_the_chip_smoke_prefix_wave():
+    """chip_smoke.py's prefix-hit wave (prefix_kernel (b)) at group 4:
+    the 256-row run at positions 1024-1279 over its cached prefix is 16
+    tiles (296 k tiles: its rows see 1025-1280 columns), the 3 decode
+    rows one tile each (50): 346 k tiles a KV head."""
+    lens, slot, pos = _script("chip_smoke.py")._prefix_wave_rows()
+    assert (lens[0], int(pos[0]), int(pos[255])) == (1280, 1024, 1279)
+    tiles = rpa.ragged_tile_plan(torch.from_numpy(slot),
+                                 torch.from_numpy(pos), 4, 2048)
+    assert len(tiles) == 19
+    assert int(tiles[:16, 2].sum()) == 296
+    assert int(tiles[16:, 2].sum()) == 50
+
+
 @pytest.mark.parametrize("q_dtype,kv_dtype,d,group,want", [
     (torch.bfloat16, torch.bfloat16, 128, 4, rpa.TENSOR_CORES),
     (torch.bfloat16, torch.int8, 128, 4, rpa.TENSOR_CORES),

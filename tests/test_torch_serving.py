@@ -409,11 +409,37 @@ def test_cancel_queued_and_active(tparams):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"prefix_cache": True}, 6), ({"host_tier_bytes": 1 << 20}, 6),
-    ({"faults": object()}, 7), ({"mesh": object()}, "10b")])
+    pytest.param({"faults": object()}, 7, id="kw2-7"),
+    pytest.param({"mesh": object()}, "10b", id="kw3-10b")])
 def test_unported_options_name_their_roadmap_item(tparams, kw, item):
     with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
         P.ServingEngine(tparams, CFG, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    {"prefix_cache": True},
+    {"prefix_cache": True, "host_tier_bytes": 1 << 20}],
+    ids=["prefix_cache", "host_tier_bytes"])
+def test_item_6_options_are_ported(tparams, kw):
+    """The two options that raised naming Queue 1 item 6 build an engine
+    whose second request maps the first one's full pages."""
+    eng = P.ServingEngine(tparams, CFG, max_seq_len=64, page_size=8,
+                          device="cpu", **kw)
+    assert eng.pool.cache is eng.prefix_cache is not None
+    assert eng.host_tier.enabled == ("host_tier_bytes" in kw)
+    assert (eng.prefix_cache.on_spill is not None) == eng.host_tier.enabled
+    header = list(range(1, 17))
+    for rid, tail in (("a", [20, 21]), ("b", [22])):
+        eng.submit(P.Request(rid, header + tail, max_new_tokens=3))
+        eng.run()
+    got = {r.rid: r for r in eng.finished}
+    assert (got["a"].cached_tokens, got["b"].cached_tokens) == (0, 16)
+    assert eng.prefill_tokens == 18 + 1
+    assert eng.pool.conserved(drained=True)
+    if "host_tier_bytes" in kw:
+        with pytest.raises(ValueError, match="needs prefix_cache"):
+            P.ServingEngine(tparams, CFG, device="cpu",
+                            host_tier_bytes=1 << 20)
 
 
 def test_unported_hooks_raise(tparams):
@@ -421,16 +447,30 @@ def test_unported_hooks_raise(tparams):
                           device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
         eng.metrics = object()
+
+
+def test_handoff_flags_are_ported(tparams):
+    """A request flagged for export, which raised naming item 6, leaves
+    with its KV as a KVHandoff once its prompt is seeded."""
+    eng = P.ServingEngine(tparams, CFG, max_seq_len=64, page_size=8,
+                          device="cpu")
     req = P.Request("h", [1, 2], max_new_tokens=2)
     req._handoff_export = True
-    with pytest.raises(NotImplementedError, match="item 6"):
-        eng.submit(req)
+    eng.submit(req)
+    eng.run()
+    h = req._handoff_done
+    assert req in eng.finished and eng.handoff_exports == 1
+    assert (h.length, h.pages, h.output) == (2, 1, req.output)
+    assert eng.handoff_bytes == h.nbytes > 0
+    assert eng.pool.conserved(drained=True)
 
 
 def test_kvcache_copy_matches_reference():
     """The port's PagePool/PrefixCache copy takes the reference's
     decisions on one script of allocations, sharing, parking and
-    eviction."""
+    eviction, and calls its eviction hooks (`on_spill` with the evicted
+    block's parent, tokens and depth, then `on_evict`) in the same
+    order."""
     from paddle_tpu.serving import kvcache as jkv
     from paddle_tpu_torch.serving import kvcache as tkv
     trace = []
@@ -438,6 +478,8 @@ def test_kvcache_copy_matches_reference():
         cache = kv.PrefixCache(4)
         pool = kv.PagePool(6, cache=cache)
         log = []
+        cache.on_spill = lambda *a, log=log: log.append(("spill",) + a)
+        cache.on_evict = lambda page, log=log: log.append(("evict", page))
         a = pool.alloc(3)
         cache.insert(list(range(12)), a, 12)
         log.append(cache.match(list(range(13))))
@@ -451,8 +493,20 @@ def test_kvcache_copy_matches_reference():
         log.append((pool.counts(), pool.conserved(drained=True)))
         with pytest.raises(RuntimeError, match="underflow"):
             pool.decref([b[0]])
+        # a second chain, released tail first, then reclaimed whole: the
+        # LRU gives back its deepest block first
+        c = pool.alloc(3)
+        cache.insert(list(range(50, 62)), c, 12)
+        pool.decref(reversed(c))
+        log.append((pool.alloc(6), pool.counts(), cache.evictions))
         trace.append(log)
     assert trace[0] == trace[1]
+    spills = [e for e in trace[1] if isinstance(e, tuple) and
+              e[0] == "spill"]
+    # depths (1-based) in eviction order: the first chain's leaf, its
+    # parked root and middle (least recently released first), then the
+    # second chain leaf first
+    assert [e[4] for e in spills] == [3, 1, 2, 3, 2, 1]
 
 
 def test_validate_rejects_oversize(tparams):
