@@ -215,7 +215,42 @@ non-zero):
                pad_tokens and the suffix prefills' pa_verify launches (one
                a layer each, else the phase fails).
 
- 21. varlen_kernel — the varlen dQ and dK/dV kernels against their plain
+ 21. runtime — the serving runtime (`paddle_tpu_torch.serving`) over the
+               serve phase's model: (a) ServingServer on 127.0.0.1:0 over
+               a RequestScheduler on the ragged bf16 engine (the serve
+               phase's settings), the serve phase's 8 prompts (64 new
+               tokens, greedy) over HTTP from 8 threads, the even ones
+               streamed, all queued while the scheduler is paused: their
+               tokens held to a direct eng.run() of the same settings
+               (equal, or parting only where the card's top-2 logit
+               margin of the common prefix is under 1e-3, counted as
+               `partings_at_ties`), 32 ragged launches a device step,
+               every metric family of `serving.server.METRIC_NAMES` on
+               /metrics (pt_mfu included: the steps were costed), each
+               /debug route 200 and the fleet routes 404; it reports
+               output tok/s over HTTP and direct, TTFT and TPOT p50 / p95
+               and the host gap from the pt_* histograms, pt_mfu and the
+               scrape's seconds; (b) on the same server a FaultPlan
+               raising at the first step launch (before any token) and
+               at the step finish that would consume request 0's first
+               decode row (mid-run: request 0 has its first token): the
+               requests finish with (a)'s direct tokens by the same rule
+               or part where the two top logits are within two bf16
+               steps (after a crash the scheduler admits the requeued
+               requests one at a time, so the waves are not the direct
+               run's), 2 restarts, the breaker closed; then a crash while
+               request 0 streams fails request 0 and no other (the
+               others' tokens reported against the direct run's); (c) a
+               Router (round robin) over a ragged and a bucketed bf16
+               replica sharing the weights, pipelined pump: each routed
+               request held to a direct run of its replica's engine
+               kind, each replica's launches its engine's counts, and
+               the requests per replica. The output tok/s compared with HTTP's is a second
+               direct run's (the first warms the card up), and `pt_mfu`
+               counts the step functions' computed rows (a ragged wave's
+               whole 256-row buffer), as the reference's XLA count does.
+
+ 22. varlen_kernel — the varlen dQ and dK/dV kernels against their plain
                versions: (a) at the packed row of train_packed (eight
                documents of 192-3000 tokens in 8192; QH=32 over KVH=8,
                D=128, causal, same offsets), bf16 and fp32, with times
@@ -252,12 +287,12 @@ non-zero):
                versions on the card: exactly one va_fwd, one va_bwd_dq
                and one va_bwd_dkv (the launches the kernels line reports
                for the two);
- 22. fused_parity — packed_parity's setup with a vocabulary of 12,000
+ 23. fused_parity — packed_parity's setup with a vocabulary of 12,000
                (two 8192-column chunks, the second short): two steps card
                against CPU with fused_ce=True, and again with
                remat="dots"; the card's fused losses against its losses
                through the full logits;
- 23. train_fused — train_packed's model and row with fused_ce=True and
+ 24. train_fused — train_packed's model and row with fused_ce=True and
                remat="dots": the same measurements, and the first loss
                against the full-logits loss of the same seed weights and
                batch (train_packed's first loss), within a bf16
@@ -267,7 +302,8 @@ After the phases, one line gives each phase's wall seconds
 (`phase_seconds`; the serve phases' shared 8B parameters are built
 outside them). The line before the last lists every kernel with its
 launches on the main path, its error against the plain version and its
-times, the launches prefix_serve added (`prefix_launches`) and, for the
+times, the launches prefix_serve added (`prefix_launches`), the
+launches of the runtime phase's runs (`runtime_launches`) and, for the
 ragged and verify rows, prefix_kernel's shapes (`prefix_kernel`); the
 last line is {"ok": true, "device": {...}}.
 """
@@ -287,8 +323,8 @@ PHASES = ("device", "build", "kernel", "parity", "serve", "train_kernel",
           "train_parity", "train", "mask_kernel", "packed_parity",
           "train_packed", "bucket_kernel", "bucket_parity", "bucket_serve",
           "spec_kernel", "spec_parity", "spec_serve", "prefix_kernel",
-          "prefix_parity", "prefix_serve", "varlen_kernel", "fused_parity",
-          "train_fused")
+          "prefix_parity", "prefix_serve", "runtime", "varlen_kernel",
+          "fused_parity", "train_fused")
 SOURCES = ("ragged_paged_attention", "flash_attention", "flashmask_attention",
            "varlen_attention", "paged_attention")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
@@ -668,24 +704,31 @@ def phase_kernel(card):
     return out
 
 
-def _top2_margin(params, cfg, toks, page_size):
-    """CPU engine's top-2 logit margin for the token after `toks`."""
+def _top2_margin(params, cfg, toks, page_size, with_top=False):
+    """The top-2 logit margin for the token after `toks`, from one
+    forward where `params` live (the CPU engine's, or the card's), the
+    pools in the parameters' dtype; with `with_top`, (margin, top
+    logit)."""
     import torch
     from paddle_tpu_torch.models.llama_serving import unified_step
+    dev, dtype = params["embed"].device, params["embed"].dtype
     n = len(toks)
     pages = -(-n // page_size)
     hd = cfg.hidden_size // cfg.num_attention_heads
     shape = (cfg.num_hidden_layers, cfg.num_key_value_heads, pages + 1,
              page_size, hd)
-    kp, vp = torch.zeros(shape), torch.zeros(shape)
-    ptab = torch.arange(pages, dtype=torch.int32)[None]
+    kp = torch.zeros(shape, dtype=dtype, device=dev)
+    vp = torch.zeros(shape, dtype=dtype, device=dev)
+    ptab = torch.arange(pages, dtype=torch.int32, device=dev)[None]
     logits = unified_step(
-        params, kp, vp, ptab, torch.tensor(toks, dtype=torch.int32),
-        torch.zeros(n, dtype=torch.int32),
-        torch.arange(n, dtype=torch.int32), cfg, page_size,
-        need_rows=torch.tensor([n - 1], dtype=torch.int32))
+        params, kp, vp, ptab,
+        torch.tensor(toks, dtype=torch.int32, device=dev),
+        torch.zeros(n, dtype=torch.int32, device=dev),
+        torch.arange(n, dtype=torch.int32, device=dev), cfg, page_size,
+        need_rows=torch.tensor([n - 1], dtype=torch.int32, device=dev))
     top = torch.topk(logits[0].float(), 2).values
-    return float(top[0] - top[1])
+    margin = float(top[0] - top[1])
+    return (margin, float(top[0])) if with_top else margin
 
 
 def phase_parity(card):
@@ -2821,12 +2864,13 @@ def _same_streams(what, card_out, cpu_out, prompts, cpu_params, cfg):
             continue
         if j is None:
             fail(f"{what}: request {rid} lengths {len(a)} / {len(b)}")
-        margin = _top2_margin(cpu_params, cfg, prompts[rid] + b[:j], 16)
+        margin, top = _top2_margin(cpu_params, cfg, prompts[rid] + b[:j],
+                                   16, with_top=True)
         if margin >= 1e-3:
             fail(f"{what}: request {rid} diverges at token {j} with CPU "
-                 f"top-2 margin {margin}")
+                 f"top-2 margin {margin} (top logit {top})")
         compared[rid] = {"identical": j, "stopped_at": j,
-                         "cpu_top2_margin": margin}
+                         "cpu_top2_margin": margin, "top_logit": top}
     return compared
 
 
@@ -3247,6 +3291,443 @@ def phase_prefix_serve(card, cfg, params):
     return runs
 
 
+# ------------------------------------------------------ serving runtime
+RUNTIME_ROUTES = ("/healthz", "/readyz", "/debug/flightrecorder",
+                  "/debug/trace", "/debug/requests", "/debug/pulse",
+                  "/debug/pulse?stream=1&count=1", "/debug/stacks")
+RUNTIME_FLEET_ROUTES = ("/debug/fleet/trace", "/debug/fleet/flightrecorder")
+RUNTIME_ROWS = 256      # the serve phase's ragged buffer
+
+
+def _runtime_faults(prompts):
+    """The fault drill (b): a raise at the first step launch (no token
+    yet), and one at the step finish that would consume request 0's
+    first decode row: request 0, admitted first and fed RUNTIME_ROWS
+    rows a wave, has its first token (seeded at the finish of its last
+    prefill wave) and no request has two, so the requeued requests
+    prefill their prompts only (a requeued request with more tokens
+    would prefill its generated tokens too, and their K/V would be the
+    prefill path's bf16 values, not the decode steps')."""
+    first_seed = -(-len(prompts[0]) // RUNTIME_ROWS)
+    return f"step_launch:raise@1;step_finish:raise@{first_seed + 1}"
+
+
+def _http_get(port, path, timeout=120):
+    """(status, body bytes, seconds) of one GET on the local server; a
+    streamed route is read until the server ends it."""
+    import http.client
+    t0 = time.perf_counter()
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        c.request("GET", path)
+        r = c.getresponse()
+        body = r.read()
+        return r.status, body, time.perf_counter() - t0
+    finally:
+        c.close()
+
+
+def _runtime_prompts(cfg):
+    """The serve phase's 8 prompts (64-1500 tokens, numpy seed 2)."""
+    rng, lens = _serve_rng()
+    return [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+
+
+def _runtime_engine(cfg, params, ragged=True):
+    """The serve phase's engine settings, bf16 pool, nothing submitted."""
+    from paddle_tpu_torch.models.llama_serving import ServingEngine
+    return ServingEngine(params, cfg, max_seqs=8, max_seq_len=2048,
+                         page_size=16, ragged_tokens=RUNTIME_ROWS,
+                         ragged=ragged, device="cuda")
+
+
+def _direct_tokens(cfg, params, prompts, ragged=True, pipelined=False):
+    """Tokens of a direct run of `prompts` (greedy, 64 new), with its
+    wall seconds: {index: tokens}, seconds."""
+    import torch
+    from paddle_tpu_torch.models.llama_serving import Request
+    eng = _runtime_engine(cfg, params, ragged)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(i, p, max_new_tokens=64))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run_pipelined() if pipelined else eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not eng.pool.conserved(drained=True):
+        fail("runtime: a direct run's page pool is not conserved")
+    out = {r.rid: list(r.output) for r in done}
+    del eng
+    torch.cuda.empty_cache()
+    return out, wall
+
+
+def _held(what, got, want, prompts, params, cfg):
+    """`got` held to `want` by `_same_streams`' rule, the top-2 margin
+    taken on the card (one forward of the common prefix): equal, or
+    parting only at a bf16 logit tie. Returns the partings, {rid:
+    (token index, margin, top logit)}."""
+    for rid, toks in got.items():
+        if len(toks) != 64 or not all(0 <= t < cfg.vocab_size for t in toks):
+            fail(f"{what}: request {rid}: {len(toks)} tokens, want 64 in "
+                 "the vocabulary")
+    compared = _same_streams(what, got, want, prompts, params, cfg)
+    return {rid: (c["stopped_at"], c["cpu_top2_margin"], c["top_logit"])
+            for rid, c in compared.items() if c["stopped_at"] is not None}
+
+
+def _feed_log(eng):
+    """Log what a scheduler feeds `eng` (its `submit` and `step`,
+    wrapped on the instance): entries (restarts, "submit", the request's
+    state) and (restarts, "step", None), `restarts` as the engine
+    counted them then. The entries of the last restart are what the
+    engine did after its last crash. `del eng.submit, eng.step`
+    unwraps."""
+    log = []
+    submit, step = eng.submit, eng.step
+
+    def logged_submit(req):
+        log.append((eng.restarts, "submit", {
+            "prompt": list(req.prompt), "max_new_tokens": req.max_new_tokens,
+            "eos_id": req.eos_id, "output": list(req.output),
+            "next_token": req.next_token, "resume": req._resume}))
+        return submit(req)
+
+    def logged_step():
+        log.append((eng.restarts, "step", None))
+        return step()
+    eng.submit, eng.step = logged_submit, logged_step
+    return log
+
+
+def _replay(cfg, params, log, prompts):
+    """A run without faults that admits what the logged engine was fed
+    after its last crash, at the same steps: on a new engine of the
+    serve settings, each logged request (greedy, with the output and
+    pending token it was requeued with) is submitted, and the engine
+    stepped, in the log's order. Returns ({prompt index: tokens}, the
+    steps it took beyond the logged ones)."""
+    from paddle_tpu_torch.models.llama_serving import Request
+    last = max(r for r, _, _ in log)
+    index = {tuple(p): i for i, p in enumerate(prompts)}
+    eng = _runtime_engine(cfg, params)
+    for restarts, kind, st in log:
+        if restarts != last:
+            continue
+        if kind == "step":
+            eng.step()
+            continue
+        req = Request(index[tuple(st["prompt"])], st["prompt"],
+                      max_new_tokens=st["max_new_tokens"],
+                      eos_id=st["eos_id"])
+        req.output = list(st["output"])
+        req.next_token, req._resume = st["next_token"], st["resume"]
+        eng.submit(req)
+    extra = 0
+    while eng._waiting or any(r is not None for r in eng._slots):
+        eng.step()
+        extra += 1
+    if not eng.pool.conserved(drained=True):
+        fail("runtime (b): the replay's page pool is not conserved")
+    out = {r.rid: list(r.output) for r in eng.finished}
+    del eng
+    return out, extra
+
+
+def _partings(got, want, prompts, params, cfg):
+    """Where each stream of `got` first parts from `want`, reported, not
+    held: {index: (token index, top-2 margin, top logit)} with the
+    margin taken on the card by one forward of the common prefix."""
+    out = {}
+    for i, a in got.items():
+        b = want[i]
+        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is not None:
+            out[i] = (j, *_top2_margin(params, cfg, prompts[i] + b[:j], 16,
+                                       with_top=True))
+    return out
+
+
+def _http_serve(sched, port, prompts, stream, on_chunk=None):
+    """`prompts` over HTTP from one thread each, queued in order while
+    the scheduler is paused, then served. `stream[i]` picks the SSE
+    route; `on_chunk(i)` runs after request i's first streamed chunk.
+    Returns ({index: tokens or the error}, wall seconds from resume)."""
+    import threading
+    from paddle_tpu_torch.serving import ServingClient, ServingHTTPError
+    cl = ServingClient(port=port, timeout=600)
+    out = {}
+
+    def call(i, prompt):
+        try:
+            if stream[i]:
+                toks = []
+                for ev in cl.stream_complete(prompt, max_tokens=64):
+                    if "state" in ev:
+                        if ev["state"] != "done":
+                            out[i] = ev["state"]
+                            return
+                        continue
+                    toks.extend(ev["tokens"])
+                    if on_chunk is not None and len(toks) == len(
+                            ev["tokens"]):
+                        on_chunk(i)
+                out[i] = toks
+            else:
+                out[i] = cl.complete(prompt, max_tokens=64)["tokens"]
+        except (ServingHTTPError, ConnectionError) as e:
+            out[i] = f"error: {e}"
+    sched.pause()
+    threads = []
+    for i, p in enumerate(prompts):
+        threads.append(threading.Thread(target=call, args=(i, p)))
+        threads[-1].start()
+        t_wait = time.perf_counter()
+        while sched.stats()["queued"] < i + 1:
+            if time.perf_counter() - t_wait > 60:
+                fail("runtime: a request did not reach the queue")
+            time.sleep(0.002)
+    t0 = time.perf_counter()
+    sched.resume()
+    for t in threads:
+        t.join(600)
+        if t.is_alive():
+            fail("runtime: an HTTP request did not finish")
+    return out, time.perf_counter() - t0
+
+
+def phase_runtime(card, cfg, params):
+    """The port's serving runtime on the card: (a) ServingServer over a
+    RequestScheduler on the ragged bf16 engine, the serve phase's 8
+    prompts over HTTP against a direct run; (b) a fault drill on the
+    same server; (c) a Router over a ragged and a bucketed replica
+    sharing the weights, under the pipelined pump."""
+    import torch
+    import paddle_tpu_torch.kernels.ragged_paged_attention as rpa
+    from paddle_tpu_torch.models import llama_serving as S
+    from paddle_tpu_torch.observability import device_telemetry as dt
+    from paddle_tpu_torch.serving import (FaultPlan, MetricsRegistry, Router,
+                                          RequestScheduler, ServingServer,
+                                          build_replicas)
+    from paddle_tpu_torch.serving.server import METRIC_NAMES
+    prompts = _runtime_prompts(cfg)
+    L = cfg.num_hidden_layers
+    runtime_launches = {}
+
+    def count(name, n):
+        runtime_launches[name] = runtime_launches.get(name, 0) + n
+
+    # (a) the direct run, then the same settings behind the server
+    direct, direct_wall = _direct_tokens(cfg, params, prompts)
+    eng = _runtime_engine(cfg, params)
+    sched = RequestScheduler(eng, max_queue=64, metrics=MetricsRegistry())
+    srv = ServingServer(sched, host="127.0.0.1", port=0).start()
+    try:
+        _reset_bucket_counts()
+        steps0 = eng.device_steps
+        # close the cost window of the steps run outside a scheduler
+        # (the direct run, earlier phases): no step is measured by it
+        dt.COSTS.note_step(0.0)
+        got, http_wall = _http_serve(sched, srv.port, prompts,
+                                     [i % 2 == 0 for i in range(8)])
+        torch.cuda.synchronize()
+        launches = rpa.launches
+        steps = eng.device_steps - steps0
+        count("ragged_paged_attention", launches)
+        if launches != L * steps:
+            fail(f"runtime (a): {launches} ragged launches, want {L} x "
+                 f"{steps}")
+        parted_a = _held("runtime (a)", got, direct, prompts, params, cfg)
+        # the first direct run warmed the card up: the tok/s compared
+        # with HTTP's is a second one's
+        again, direct_wall = _direct_tokens(cfg, params, prompts)
+        if again != direct:
+            fail("runtime (a): two direct runs gave other tokens")
+        t0 = time.perf_counter()
+        status, body, _ = _http_get(srv.port, "/metrics")
+        scrape_s = time.perf_counter() - t0
+        text = body.decode()
+        if status != 200:
+            fail(f"runtime (a): /metrics answered {status}")
+        typed = {ln.split()[2] for ln in text.splitlines()
+                 if ln.startswith("# TYPE")}
+        missing = [n for n in METRIC_NAMES if n not in typed]
+        if missing:
+            fail(f"runtime (a): /metrics lacks {missing}")
+        routes = {}
+        for path in RUNTIME_ROUTES + RUNTIME_FLEET_ROUTES:
+            st, _, _ = _http_get(srv.port, path)
+            routes[path] = st
+            want = 404 if path in RUNTIME_FLEET_ROUTES else 200
+            if st != want:
+                fail(f"runtime (a): GET {path} answered {st}, want {want}")
+        m = sched.metrics
+        row_a = {
+            "phase": "runtime", "part": "a", "card": card,
+            "config": SERVE_CONFIG + ", ragged, bf16 pool, greedy",
+            "prompt_lens": [len(p) for p in prompts], "new_tokens": 64,
+            "streamed": [0, 2, 4, 6], "http_wall_s": http_wall,
+            "direct_wall_s": direct_wall,
+            "http_output_tok_s": 8 * 64 / http_wall,
+            "direct_output_tok_s": 8 * 64 / direct_wall,
+            "partings_at_ties": parted_a, "device_steps": steps,
+            "launches": launches, "launches_per_step": launches / steps,
+            "ttft_p50_s": m.ttft.percentile(50),
+            "ttft_p95_s": m.ttft.percentile(95),
+            "tpot_p50_s": m.tpot.percentile(50),
+            "tpot_p95_s": m.tpot.percentile(95),
+            "host_gap_p50_s": m.host_gap.percentile(50),
+            "host_gap_p95_s": m.host_gap.percentile(95),
+            "host_gap_mean_s": m.host_gap.sum / max(m.host_gap.count, 1),
+            "ttft_count": m.ttft.count, "tpot_count": m.tpot.count,
+            "pt_mfu": dt.COSTS.last_mfu, "pt_mfu_peak": dt.COSTS.peak_mfu,
+            "pt_mfu_on_metrics": "pt_mfu" in typed,
+            "scrape_s": scrape_s, "metric_families": len(typed),
+            "routes": routes}
+        emit(row_a)
+        if not row_a["pt_mfu_on_metrics"] or not dt.COSTS.steps_measured:
+            fail("runtime (a): no step was costed on the card (pt_mfu)")
+
+        # (b) a fault drill on the same server: a raise before any first
+        # token, one mid-run; then a crash while request 0 streams.
+        # After a crash the scheduler admits the requeued requests one
+        # at a time until each survives a step (probation), so their
+        # waves are not a direct run's: each drill is held, under the
+        # tie rule of (a), to a replay without faults that admits what
+        # the engine was fed after its last crash, at the same steps;
+        # its partings from the direct run are reported
+        if sched._pipeline:
+            fail("runtime (b): the replay logs the synchronous pump")
+        faults = _runtime_faults(prompts)
+        plan = eng.faults = FaultPlan(faults)
+        eng.host_tier.faults = plan
+        restarts0 = eng.restarts
+        log = _feed_log(eng)
+        _reset_bucket_counts()
+        got_b, _ = _http_serve(sched, srv.port, prompts, [False] * 8)
+        count("ragged_paged_attention", rpa.launches)
+        restarts = eng.restarts - restarts0
+        breaker = sched.readiness()
+        if restarts != 2 or len(plan.fired) != 2:
+            fail(f"runtime (b): {restarts} restarts, {len(plan.fired)} "
+                 "faults fired, want 2 and 2")
+        if not breaker[0]:
+            fail(f"runtime (b): the breaker opened ({breaker})")
+        if not all(isinstance(t, list) for t in got_b.values()):
+            fail(f"runtime (b): a request failed: {got_b}")
+        replay_b, extra_b = _replay(cfg, params, log, prompts)
+        if sorted(replay_b) != list(range(8)):
+            fail(f"runtime (b): the replay finished {sorted(replay_b)}")
+        parted_b = _held("runtime (b)", got_b, replay_b, prompts, params,
+                         cfg)
+        vs_direct_b = _partings(got_b, direct, prompts, params, cfg)
+        replayed_b = sum(1 for r, k, _ in log
+                         if k == "step" and r == restarts0 + 2)
+
+        def crash(i):
+            plan.add("step_launch", "raise", count=1,
+                     exc=RuntimeError("mid-stream crash"))
+        log.clear()
+        _reset_bucket_counts()
+        got_c, _ = _http_serve(sched, srv.port, prompts,
+                               [i == 0 for i in range(8)], on_chunk=crash)
+        count("ragged_paged_attention", rpa.launches)
+        del eng.submit, eng.step
+        if isinstance(got_c[0], list):
+            fail("runtime (b): the streamed request survived its crash")
+        others = {i: t for i, t in got_c.items() if i != 0}
+        if not all(isinstance(t, list) for t in others.values()):
+            fail(f"runtime (b): a crash failed another request: {got_c}")
+        replay_c, extra_c = _replay(cfg, params, log, prompts)
+        if sorted(replay_c) != sorted(others):
+            fail(f"runtime (b, mid-stream): the replay finished "
+                 f"{sorted(replay_c)}, want {sorted(others)}")
+        parted_c = _held("runtime (b, mid-stream)", others, replay_c,
+                         prompts, params, cfg)
+        vs_direct_c = _partings(others, direct, prompts, params, cfg)
+        emit({"phase": "runtime", "part": "b", "card": card,
+              "faults": faults, "restarts": restarts,
+              "breaker_closed": breaker[0],
+              "replay_steps": replayed_b, "replay_extra_steps": extra_b,
+              "partings_from_replay": parted_b,
+              "partings_from_direct": vs_direct_b,
+              "mid_stream": {"request_0": got_c[0],
+                             "others_done": len(others),
+                             "replay_extra_steps": extra_c,
+                             "partings_from_replay": parted_c,
+                             "partings_from_direct": vs_direct_c},
+              "requeued": sched.stats()["requests"]["requeued"]})
+    finally:
+        srv.stop(drain=False, timeout=120)
+    del sched, eng, srv
+    torch.cuda.empty_cache()
+
+    # (c) a Router over a ragged and a bucketed replica on the one card
+    calls = {"waves": 0, "singles": 0}
+    originals = (S.prefill_varlen, S.prefill)
+
+    def counted(fn, key):
+        def wrapper(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return wrapper
+    reps = build_replicas(
+        lambda i: _runtime_engine(cfg, params, ragged=(i == 0)), 2,
+        max_queue=64, pipeline=True)
+    # round robin: the affinity ring places by Python's string hashes,
+    # which change between processes, and may give one replica all 8
+    router = Router(reps, policy="round_robin")
+    S.prefill_varlen = counted(originals[0], "waves")
+    S.prefill = counted(originals[1], "singles")
+    try:
+        router.pause()
+        _reset_bucket_counts()
+        t0 = time.perf_counter()
+        rrs = [router.submit(p, max_new_tokens=64) for p in prompts]
+        router.resume()
+        routed = [rr.result(timeout=600) for rr in rrs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _bucket_counts()
+        merges = _merge_launches()
+    finally:
+        S.prefill_varlen, S.prefill = originals
+        router.shutdown(drain=True, timeout=120)
+    placed = [rr.replica_id for rr in rrs]
+    r_eng, b_eng = reps[0].engine, reps[1].engine
+    if counts["ragged_paged_attention"] != L * r_eng.device_steps:
+        fail(f"runtime (c): {counts['ragged_paged_attention']} ragged "
+             f"launches, want {L} x {r_eng.device_steps}")
+    want = _want_bucket_counts(L, calls, b_eng.device_steps, False)
+    want["ragged_paged_attention"] = counts["ragged_paged_attention"]
+    if counts != want:
+        fail(f"runtime (c): launches {counts}, want {want}")
+    for k, n in counts.items():
+        if n:
+            count(k, n)
+    parted = {}
+    for rid, ragged in (("r0", True), ("r1", False)):
+        idx = [i for i, p in enumerate(placed) if p == rid]
+        if not idx:
+            continue
+        sub = [prompts[i] for i in idx]
+        want_toks, _ = _direct_tokens(cfg, params, sub, ragged=ragged,
+                                      pipelined=True)
+        parted.update({f"{rid}:{idx[j]}": v for j, v in _held(
+            f"runtime (c, {rid})", {j: routed[i] for j, i in enumerate(idx)},
+            want_toks, sub, params, cfg).items()})
+    del reps, router, r_eng, b_eng
+    torch.cuda.empty_cache()
+    emit({"phase": "runtime", "part": "c", "card": card,
+          "replicas": {"r0": "ragged bf16", "r1": "bucketed bf16"},
+          "pump": "pipelined", "policy": "round_robin", "placed": placed,
+          "requests_per_replica": {r: placed.count(r) for r in ("r0", "r1")},
+          "wall_s": wall, "output_tok_s": 8 * 64 / wall,
+          "launches": counts, "merge_launches": merges,
+          "prefill_calls": calls, "partings_at_ties": parted})
+    return {"launches": runtime_launches}
+
+
 # ------------------------------------------------------- varlen training
 VARLEN_BWD_KERNELS = tuple(VARLEN_BWD_TPU_KERNELS)
 # the packed row of train_packed in the varlen layout: q (T, H, D), k and
@@ -3629,9 +4110,10 @@ def main(argv=None):
     kern = timed("kernel", phase_kernel, smi) if "kernel" in phases else {}
     if "parity" in phases:
         timed("parity", phase_parity, smi)
-    serve, bserve, sserve, pserve = {}, {}, {}, {}
-    if {"serve", "bucket_serve", "spec_serve", "prefix_serve"} & set(phases):
-        # the 8B parameters, built once for the four serve phases
+    serve, bserve, sserve, pserve, rserve = {}, {}, {}, {}, {}
+    if {"serve", "bucket_serve", "spec_serve", "prefix_serve",
+            "runtime"} & set(phases):
+        # the 8B parameters, built once for the five serve phases
         t0 = time.perf_counter()
         cfg, params = serve_params()
         torch.cuda.synchronize()
@@ -3647,6 +4129,8 @@ def main(argv=None):
         if "prefix_serve" in phases:
             pserve = timed("prefix_serve", phase_prefix_serve, smi, cfg,
                            params)
+        if "runtime" in phases:
+            rserve = timed("runtime", phase_runtime, smi, cfg, params)
         del params
         torch.cuda.empty_cache()
     tk = timed("train_kernel", phase_train_kernel, smi) \
@@ -3764,10 +4248,14 @@ def main(argv=None):
             "max_abs_err": k["max_abs_err"], "ms": k["kernel_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+    runtime_counts = rserve.get("launches", {})
     for row in kernels:
         # None for the rows prefix_serve does not run (training, and
         # the ragged kernel over int8 pages: its ragged runs are bf16)
         row["prefix_launches"] = prefix_counts.get(row["name"])
+        # the launches of the runtime phase's served runs; None for the
+        # kernels it does not run (its pools are bf16)
+        row["runtime_launches"] = runtime_counts.get(row["name"])
         for (kname, variant, shape), k in pk.items():
             if kname == row["name"] and variant in ("bfloat16", "int8"):
                 row.setdefault("prefix_kernel", {})[str(shape)] = {

@@ -10,7 +10,9 @@ with ctypes:
 The library lands in `paddle_tpu_torch/_build/`, named by a hash of the
 source, every header of `csrc/` (`*.cuh`, which a source may include)
 and the flags, so an edited source or header rebuilds and an unchanged
-one is reused. Nothing here runs at import time; a missing nvcc or a failed
+one is reused. Each build reports to the compile telemetry
+(`observability.compile_telemetry.note_build`: nvcc ran, or a cache
+hit). Nothing here runs at import time; a missing nvcc or a failed
 compile raises."""
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+from ..observability import compile_telemetry as _compile
 
 __all__ = ["build", "load", "lib_path", "ptxas_report"]
 
@@ -70,7 +74,8 @@ def build(name):
     seconds spent. Raises RuntimeError with nvcc's output on failure."""
     t0 = time.perf_counter()
     out = lib_path(name)
-    if not out.is_file():
+    cached = out.is_file()
+    if not cached:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         p = subprocess.run(
@@ -83,7 +88,9 @@ def build(name):
                 f"paddle_tpu_torch: building {name} failed (nvcc exit "
                 f"{p.returncode}):\n{p.stdout}")
         os.replace(tmp, out)
-    return time.perf_counter() - t0
+    seconds = time.perf_counter() - t0
+    _compile.note_build(name, seconds, cache_hit=cached)
+    return seconds
 
 
 def ptxas_report(name):

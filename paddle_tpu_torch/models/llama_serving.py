@@ -70,19 +70,38 @@ flagged `_handoff_export` leaves the engine with its KV as a
 device,build,prefix_kernel,prefix_parity,prefix_serve` checks and times
 these paths.
 
+The serving runtime's hooks (ROADMAP.md, Queue 1 item 7): `metrics`
+takes an `EngineMetrics` (`serving/metrics.py`) that the step loop
+reports TTFT, TPOT, tokens, finishes, cancels, host gaps, pages,
+preemptions, prefix lookups and handoffs into; `faults=` (default
+`FaultPlan.from_env()`, the PT_FAULTS variable) arms a seeded
+`serving.faults.FaultPlan` at the engine's failure sites (`_fire`), and
+`crash_reset` returns a failed engine to a clean, servable state for the
+scheduler's recovery. Admissions, preemptions, prefix hits and handoffs
+leave flight records, and a request the scheduler gave a timeline gets
+its marks (`_tl_mark`, `_tl_count`). With `metrics=None` and no fault
+plan each hook is an attribute test. `serving.RequestScheduler`,
+`ServingServer` and `Router` drive the engine; on the card `python3
+chip_smoke.py --phases device,build,runtime` serves it over HTTP.
+
 Out of scope in this slice, raising NotImplementedError that names the
-ROADMAP.md item: metrics, fault injection and the observability hooks
-(item 7); tensor-parallel serving (`mesh`, item 10b).
+ROADMAP.md item: tensor-parallel serving (`mesh`, item 10b).
 """
 from __future__ import annotations
 
 import math
+import time
 
 import numpy as np
 import torch
 
 from .. import _prng
 from .._device import DEFAULT_DEVICE, resolve_device
+from ..observability import compile_telemetry as _compile
+from ..observability import device_telemetry as _devtel
+from ..observability import flight_recorder as _flight
+from ..observability import trace_context as _tc
+from ..observability.compile_telemetry import track_jit
 from ..kernels.ragged_paged_attention import (ragged_paged_attention,
                                               step_plan)
 from ..ops.flash_attention import flash_attention_bhsd
@@ -93,6 +112,7 @@ from ..ops.paged_attention import (dequantize_kv, paged_attention,
 from ..ops.varlen_attention import (flash_attention_varlen,
                                     seg_ids_from_cu_seqlens)
 from ..ops.rope import apply_rotary_emb, rope_cos_sin
+from ..serving.faults import FaultPlan
 from ..serving.handoff import KVHandoff
 from ..serving.kvcache import PagePool, PrefixCache
 from ..serving.kvtier import HostTier
@@ -587,6 +607,16 @@ def verify_step(params, k_pool, v_pool, page_table, lengths, tokens, n_tok,
     return logits, rec
 
 
+# every serving step function reports to the compile telemetry (calls
+# and first-seen signatures, `pt_compile_fn_*` on /metrics) and, on the
+# card, its analytic cost to the device telemetry (`pt_mfu`)
+prefill = track_jit("serving.prefill")(prefill)
+prefill_varlen = track_jit("serving.prefill_varlen")(prefill_varlen)
+decode_step = track_jit("serving.decode_step")(decode_step)
+verify_step = track_jit("serving.verify_step")(verify_step)
+unified_step = track_jit("serving.unified_step")(unified_step)
+
+
 def speculative_sample(prob_rows, drafts, rng, cand_probs=None):
     """Rejection-sampled acceptance of a deterministic draft sequence
     (speculative sampling, Leviathan et al.).
@@ -730,7 +760,11 @@ class Request:
         self.next_token = None
         # prompt tokens served from the prefix KV cache at admission
         self.cached_tokens = 0
+        # honoured at step boundaries; the stamps feed TTFT and TPOT
         self.cancelled = False
+        self._t_submit = None
+        self._t_first = None
+        self._t_last = None
         self.want_logprobs = bool(logprobs)
         self.logprobs = [] if logprobs else None
         # engine bookkeeping
@@ -766,6 +800,46 @@ class Request:
         return (len(self.output) >= self.max_new_tokens or
                 (self.eos_id is not None and self.output and
                  self.output[-1] == self.eos_id))
+
+
+class _record_span:
+    """A dispatch span, as the reference's `profiler.record_span`: a
+    trace_context span (the flight recorder, and the span ring when
+    tracing is on) and a torch.profiler range of the same name, so a
+    profile of a serving run attributes wall time to the engine's
+    phases."""
+
+    __slots__ = ("_span", "_range")
+
+    def __init__(self, name):
+        self._span = _tc.span(name)
+        self._range = torch.profiler.record_function(name)
+
+    def __enter__(self):
+        self._span.__enter__()
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._range.__exit__(*exc)
+        return self._span.__exit__(*exc)
+
+
+def _tl_mark(req, name):
+    """Stamp an exceptional transition (preempted / resumed, spill /
+    restore, handoff_export / import) on the request's timeline, which
+    the scheduler attaches (`serving/timeline.py`); a bare engine's
+    requests have none. Host clock only."""
+    tl = getattr(req, "_timeline", None)
+    if tl is not None:
+        tl.mark(name)
+
+
+def _tl_count(req, phase, n=1):
+    """Bump the request's per-phase step counter (same timeline)."""
+    tl = getattr(req, "_timeline", None)
+    if tl is not None:
+        tl.count(phase, n)
 
 
 class ServingEngine:
@@ -826,12 +900,8 @@ class ServingEngine:
                  ragged=True, ragged_tokens=None, lean=True, tokbuf=True,
                  device=DEFAULT_DEVICE):
         self.device = resolve_device(device)
-        for on, what, item in (
-                (faults is not None, "fault injection (faults=)", 7),
-                (mesh is not None, "tensor-parallel serving (mesh=)",
-                 "10b")):
-            if on:
-                raise _not_ported(what, item)
+        if mesh is not None:
+            raise _not_ported("tensor-parallel serving (mesh=)", "10b")
         c = config
         if params["embed"].device != self.device:
             raise ValueError(
@@ -891,6 +961,8 @@ class ServingEngine:
         self.spec_accepted = 0   # draft tokens accepted
         # padding rows the bucketed prefills dispatched (`_bucket_for`)
         self.pad_tokens = 0
+        # rows the ragged waves fed (decode rows, feeds, verify chunks)
+        self.ragged_tokens = 0
         self.ragged = bool(ragged)
         G_ = max(self.spec_decode, 1)
         if ragged_tokens is None:
@@ -948,15 +1020,36 @@ class ServingEngine:
                 "feed the spill tier")
         self.host_tier = HostTier(page_size, tier_bytes=host_tier_bytes,
                                   quantize=tier_quantize)
-        if self.prefix_cache is not None and self.host_tier.enabled:
-            self.prefix_cache.on_spill = self._spill_page
+        # the telemetry sink (an `EngineMetrics` or anything of its
+        # shape); None costs an attribute test a hook
+        self.metrics = None
+        # a seeded fault plan armed at the engine's and the tier's
+        # failure sites (`serving/faults.py`); None when PT_FAULTS is
+        # unset. `restarts` counts crash_reset() warm restarts
+        self.faults = faults if faults is not None else FaultPlan.from_env()
+        self.host_tier.faults = self.faults
+        self.restarts = 0
+        if self.prefix_cache is not None:
+            self.prefix_cache.on_evict = self._note_prefix_evict
+            if self.host_tier.enabled:
+                self.prefix_cache.on_spill = self._spill_page
         self.handoff_exports = 0
         self.handoff_imports = 0
         self.handoff_bytes = 0
         self.handoff_failures = 0
+        # each handoff's seconds, drained into pt_handoff_seconds by
+        # EngineMetrics.on_handoff (both on the pump thread)
+        self._handoff_times = []
         # flagged requests not yet exported: the per-launch harvest scan
         # runs only while this is positive
         self._handoff_pending = 0
+        self._index_suspend = False  # set while releasing failed slots
+        # launch telemetry: wall time between a step's dispatch returning
+        # and the next dispatch (pt_step_host_gap_seconds), and launched
+        # steps not yet consumed (pt_pipeline_depth)
+        self._t_launch_end = None
+        self.last_host_gap_s = 0.0
+        self.pipeline_depth = 0
         self._seq_pages = {s: [] for s in range(max_seqs)}
         self._slots = [None] * max_seqs          # slot -> Request
         self._live = set()                       # occupied slots
@@ -965,13 +1058,10 @@ class ServingEngine:
         self._order = 0
 
     @property
-    def metrics(self):
-        return None
-
-    @metrics.setter
-    def metrics(self, sink):
-        if sink is not None:
-            raise _not_ported("the metrics hook", 7)
+    def _free(self):
+        """The pool's free list (a view for the metrics and tools;
+        engine code goes through `self.pool`)."""
+        return self.pool.free
 
     # -- host <-> device -------------------------------------------------
     def _h2d(self, arr):
@@ -1043,31 +1133,44 @@ class ServingEngine:
     def submit(self, req: Request):
         """Validate-or-reject now; queue what fits."""
         self.validate(req)
+        if req._t_submit is None:
+            req._t_submit = time.perf_counter()
         if req._handoff_export:
             self._handoff_pending += 1
         self._waiting.append(req)
+        m = self.metrics
+        if m is not None:
+            m.on_submit(self)
 
     def cancel(self, req: Request):
         """Cancel a queued or active request: a queued one leaves the
         queue now; an active slot is released at the next step boundary.
         Either way the request lands in `finished` with cancelled=True.
-        Returns True if the request was queued or active."""
+        Returns True if the request was queued or active. Not
+        thread-safe: call from the thread that steps the engine (the
+        scheduler's pump)."""
         req.cancelled = True
         if req in self._waiting:
             self._waiting.remove(req)
             self._drop_offload(req)
             self._clear_handoff_flag(req)
             self.finished.append(req)
+            m = self.metrics
+            if m is not None:
+                m.on_cancel("queued")
             return True
         return req.slot is not None
 
     def _sweep_cancelled(self):
+        m = self.metrics
         for s in sorted(self._live):
             r = self._slots[s]
             if r is not None and r.cancelled:
                 self.finished.append(r)
                 self._release(s)
                 r.slot = None
+                if m is not None:
+                    m.on_cancel("active")
         if any(r.cancelled for r in self._waiting):
             keep = []
             for r in self._waiting:
@@ -1075,9 +1178,85 @@ class ServingEngine:
                     self._drop_offload(r)
                     self._clear_handoff_flag(r)
                     self.finished.append(r)
+                    if m is not None:
+                        m.on_cancel("queued")
                 else:
                     keep.append(r)
             self._waiting = keep
+
+    def _note_emit(self, req: Request, n: int):
+        """Token accounting: the first emission closes the TTFT clock
+        (from submit, queueing included), later ones feed the per-token
+        latency histogram."""
+        m = self.metrics
+        if m is None or n <= 0:
+            return
+        _tl_count(req, "decode")
+        now = time.perf_counter()
+        if req._t_first is None:
+            req._t_first = now
+            if req._t_submit is not None:
+                m.observe_ttft(now - req._t_submit)
+        elif req._t_last is not None:
+            m.observe_tpot((now - req._t_last) / n)
+        req._t_last = now
+        m.on_tokens(n)
+
+    def _note_finish(self, req: Request):
+        m = self.metrics
+        if m is not None:
+            dt = None if req._t_submit is None \
+                else time.perf_counter() - req._t_submit
+            m.on_finish(req, dt)
+
+    def _note_step(self, n_active: int):
+        m = self.metrics
+        if m is not None:
+            m.on_step(self, n_active)
+
+    def _fire(self, point, value=None, rids=None):
+        """Fault-injection hook (`serving/faults.py`): nothing unless a
+        FaultPlan is attached; an armed rule may raise, sleep or corrupt
+        `value` here, at the stack's real failure site."""
+        f = self.faults
+        if f is None:
+            return value
+        return f.fire(point, value, rids=rids)
+
+    def _cost_hint(self, rows, head_rows, cols, kv_tokens):
+        """Tell the device telemetry the work of the step about to be
+        dispatched, which its padded shapes do not fix: the rows of live
+        tokens, the rows whose logits are read, the attention's key
+        columns summed over its rows and the cached tokens read. Steps
+        on the CPU are not costed."""
+        if self.device.type == "cuda":
+            _devtel.COSTS.hint(rows, head_rows, cols, kv_tokens)
+
+    def crash_reset(self):
+        """The engine half of a warm restart after a step exception:
+        release every slot as a failure must (prefix indexing suspended,
+        since a failed step's K/V may be partial; a slot that was
+        mid-admission holds pages but no Request, so the sweep keys on
+        either), drop the engine-queued requests' stashed KV, and clear
+        the launch clock. What happens to the requests (requeue,
+        quarantine, fail) is the scheduler's decision. Returns the
+        requests that were engine-queued at the crash."""
+        self.restarts += 1
+        self._t_launch_end = None
+        self._index_suspend = True
+        try:
+            for s in range(self.max_seqs):
+                if self._slots[s] is not None or self._seq_pages[s]:
+                    self._release(s)
+        finally:
+            self._index_suspend = False
+        for r in self._waiting:
+            self._drop_offload(r)
+        waiting, self._waiting = self._waiting, []
+        # requeued requests keep their export flags; re-submission
+        # counts them again, so the pending count restarts from zero
+        self._handoff_pending = 0
+        return waiting
 
     def _attach(self, slot, req):
         """Single site that occupies a slot (release is the other
@@ -1154,7 +1333,7 @@ class ServingEngine:
             else:
                 feed = self._feed_ids(req)
                 feed_len = max(len(feed), 1)
-                req._kv_match = self._cache_acquire(feed)
+                req._kv_match = self._cache_acquire(feed, req)
                 need = -(-feed_len // ps) - len(req._kv_match[0])
                 if feed_len % ps == 0:
                     need += 1  # its own first decode boundary, same step
@@ -1165,9 +1344,19 @@ class ServingEngine:
                 break
             reserve += need
             take += 1
+        if take == 0:
+            return
+        admitted = [self._waiting.pop(0) for _ in range(take)]
+        _flight.record(
+            "engine.admit", rids=[str(r.rid) for r in admitted],
+            resumed=sum(1 for r in admitted if r._offload is not None),
+            free_pages=len(self._free))
         reqs, slots = [], []
-        for slot in free_slots[:take]:
-            req = self._waiting.pop(0)
+        for slot, req in zip(free_slots, admitted):
+            if req._resume:
+                # swap-in, recompute-resume or a crash requeue: one mark
+                # whichever path below runs
+                _tl_mark(req, "resumed")
             match = req._kv_match or ([], 0)
             req._kv_match = None
             if req._offload is not None:
@@ -1207,9 +1396,11 @@ class ServingEngine:
 
     def _bucket_for(self, n):
         """The power-of-two padding bucket of an n-token bucketed
-        prefill; counts its `b - n` padding rows into `pad_tokens`."""
+        prefill; counts its `b - n` padding rows into `pad_tokens` and
+        tags the next tracked call with it (`set_context(bucket=)`)."""
         b = max(self.page_size, 1 << math.ceil(math.log2(max(n, 1))))
         self.pad_tokens += b - n
+        _compile.set_context(bucket=b)
         return b
 
     def _seat(self, slot, req, row):
@@ -1234,11 +1425,14 @@ class ServingEngine:
         feed = self._feed_ids(req)
         S = len(feed)
         self.prefill_tokens += S
+        _tl_count(req, "prefill")
         ids = np.zeros((1, self._bucket_for(S)), np.int32)
         ids[0, :S] = feed
         self.logit_rows += 1            # one final row
-        logits, k_all, v_all = prefill(self.params, self._h2d(ids), S,
-                                       self.config)
+        self._cost_hint(S, 0 if req._resume else 1, S * (S + 1) // 2, S)
+        with _record_span("serving.prefill"):
+            logits, k_all, v_all = prefill(self.params, self._h2d(ids), S,
+                                           self.config)
         self._scatter_prompt(slot, k_all, v_all, S)
         row = None if req._resume else \
             logits.to(torch.float32).cpu().numpy()
@@ -1249,6 +1443,8 @@ class ServingEngine:
         back to back into one bucket, ONE `prefill_varlen` call, one
         read of the seed rows, one scatter of the packed K/V."""
         feeds = [self._feed_ids(r) for r in reqs]
+        for r in reqs:
+            _tl_count(r, "prefill")
         lens = [len(f) for f in feeds]
         total = sum(lens)
         self.prefill_tokens += total
@@ -1262,8 +1458,11 @@ class ServingEngine:
         cu[len(reqs) + 1:] = off      # unused tail: zero-length segments
         self.logit_rows += self.max_seqs  # one final row per segment
         d = self._stage({"ids": ids, "cu": cu})
-        logits, k_all, v_all = prefill_varlen(self.params, d["ids"],
-                                              d["cu"], self.config)
+        self._cost_hint(total, sum(not r._resume for r in reqs),
+                        sum(n * (n + 1) // 2 for n in lens), total)
+        with _record_span("serving.prefill"):
+            logits, k_all, v_all = prefill_varlen(self.params, d["ids"],
+                                                  d["cu"], self.config)
         pg, po = self._packed_indices(ids.shape[0])
         seed = [i for i, r in enumerate(reqs) if not r._resume]
         rows = dict(zip(seed, logits[seed].to(torch.float32).cpu().numpy())) \
@@ -1321,6 +1520,9 @@ class ServingEngine:
         start = len(self._seq_pages[slot]) - n
         for i, pg in enumerate(pages):
             self.page_table[slot, start + i] = pg
+        m = self.metrics
+        if m is not None:
+            m.on_page_alloc(n)
         return pages
 
     def _grow_one(self, s, carry, what):
@@ -1362,12 +1564,18 @@ class ServingEngine:
             payload = {"k": gather(self.k_pool), "v": gather(self.v_pool),
                        "ks": gather(self.k_scale), "vs": gather(self.v_scale)}
             self.host_tier.stash_put(id(req), payload, n_pg)
+            _tl_mark(req, "spill")
             # the actual page count: a victim evicted right after its
             # boundary growth already holds the next, still empty, page
             req._offload = {"len": int(self.lengths[s]), "pages": n_pg}
         req._resume = True
         req.slot = None
+        _tl_mark(req, "preempted")
         self._waiting.insert(0, req)
+        _flight.record(
+            "engine.preempt", rid=str(req.rid),
+            policy=self.preempt_policy, slot=s,
+            tokens=len(req.output), pages=len(self._seq_pages[s]))
         flagged = req._handoff_export
         self._release(s)
         if flagged:
@@ -1376,6 +1584,9 @@ class ServingEngine:
             req._handoff_export = True
             self._handoff_pending += 1
         self.preemptions += 1
+        m = self.metrics
+        if m is not None:
+            m.on_preempt(self.preempt_policy)
         return True
 
     def _restore_into(self, slot, req: Request):
@@ -1454,8 +1665,10 @@ class ServingEngine:
         req.next_token = tok
         req.output.append(tok)
         req.note_logprob(tok, row)
+        self._note_emit(req, 1)
         if req.done:  # e.g. max_new_tokens == 1
             self.finished.append(req)
+            self._note_finish(req)
             self._release(slot)
         elif self.tok_buf is not None:
             # the seed is the token position `lengths` consumes next
@@ -1491,6 +1704,11 @@ class ServingEngine:
             if carry is not None and carry.reqs.get(s) is req:
                 continue  # its step in flight is not consumed yet
             self._export_handoff(s, req)
+        # mirror now: if that was the last live slot the engine idles,
+        # and no later on_step would carry the export to /metrics
+        m = self.metrics
+        if m is not None:
+            m.on_handoff(self)
 
     def _export_handoff(self, s, req):
         """Ship slot `s`'s KV pages out as a KVHandoff and finish the
@@ -1500,16 +1718,23 @@ class ServingEngine:
         (`_tier_pages`) and copied to the host in stream order; the tier's
         copy thread waits for the copy. On any failure the slot is left
         as it was and the request decodes locally."""
+        t0 = time.perf_counter()
         self._clear_handoff_flag(req)
         n_pg = len(self._seq_pages[s])
         pg = np.full((self.pages_per_seq,), self.num_pages - 1, np.int64)
         pg[:n_pg] = self._seq_pages[s]
         try:
             host, ready = self._snapshot(self._tier_pages(self._h2d(pg)))
-            p = self.host_tier.export_pages(*host, ready=ready)
-        except Exception:  # noqa: BLE001 — the request decodes locally
+            p = self.host_tier.export_pages(*host, ready=ready,
+                                            rids=[str(req.rid)])
+        except Exception as e:  # noqa: BLE001 — the request decodes locally
             self.handoff_failures += 1
+            _flight.record("handoff.fail", rid=str(req.rid),
+                           trace_id=getattr(req, "_trace_id", None),
+                           where="export", error=repr(e))
             return
+        _tl_mark(req, "handoff_export")
+        tl = getattr(req, "_timeline", None)
 
         def cut(a):
             return None if a is None else a[:, :, :n_pg]
@@ -1518,10 +1743,18 @@ class ServingEngine:
             next_token=int(req.next_token), length=int(self.lengths[s]),
             pages=n_pg, k=cut(p["k"]), v=cut(p["v"]), ks=cut(p["ks"]),
             vs=cut(p["vs"]), quantized=p["ks"] is not None,
-            logprobs=req.logprobs, cached_tokens=req.cached_tokens)
+            trace_id=getattr(req, "_trace_id", None),
+            logprobs=req.logprobs, cached_tokens=req.cached_tokens,
+            timeline=None if tl is None else tl.to_dict())
         req._handoff_done = h
         self.handoff_exports += 1
         self.handoff_bytes += h.nbytes
+        self._handoff_times.append(time.perf_counter() - t0)
+        _flight.record("handoff.export", rid=str(req.rid),
+                       trace_id=h.trace_id, pages=n_pg, bytes=h.nbytes,
+                       tokens=h.length)
+        # finished without _note_finish: the decode engine completes the
+        # request; this engine's ledger records it as a handoff
         self.finished.append(req)
         self._release(s)  # indexes the prefix first: the source keeps it
         req.slot = None
@@ -1534,8 +1767,11 @@ class ServingEngine:
         the caller falls back to the recompute-resume prefill (prompt +
         output[:-1]), which replays token-identically."""
         h = req._kv_import
+        t0 = time.perf_counter()
         self._seq_pages[slot] = []
         try:
+            # the fault point comes before the alloc: a raise leaks nothing
+            self._fire("handoff_import", rids=[str(req.rid)])
             pages = self._alloc_pages(slot, h.pages)
             try:
                 self._scatter_host_kv(pages, h.k, h.v, h.ks, h.vs)
@@ -1544,12 +1780,16 @@ class ServingEngine:
                 self._seq_pages[slot] = []
                 self.page_table[slot, :] = self.num_pages - 1
                 raise
-        except Exception:  # noqa: BLE001 — recompute instead
+        except Exception as e:  # noqa: BLE001 — recompute instead
             self.handoff_failures += 1
+            _flight.record("handoff.fail", rid=str(req.rid),
+                           trace_id=h.trace_id, where="import",
+                           error=repr(e))
             req._kv_import = None
             req._resume = True
             return False
         self.lengths[slot] = h.length
+        _tl_mark(req, "handoff_import")
         req._kv_import = None
         req._resume = False
         req.slot = slot
@@ -1560,6 +1800,10 @@ class ServingEngine:
         self._index_slot(slot, req)
         self.handoff_imports += 1
         self.handoff_bytes += h.nbytes
+        self._handoff_times.append(time.perf_counter() - t0)
+        _flight.record("handoff.import", rid=str(req.rid),
+                       trace_id=h.trace_id, pages=h.pages, bytes=h.nbytes,
+                       tokens=h.length)
         return True
 
     # -- step loop --------------------------------------------------------
@@ -1572,6 +1816,21 @@ class ServingEngine:
             return self._spec_step()
         t = self.step_launch(_admitted=True)
         return 0 if t is None else self.step_finish(t)
+
+    def _note_launch_gap(self, depth):
+        """Host-gap and pipeline-depth telemetry, taken as a step is
+        about to dispatch: the wall time since the previous dispatch
+        returned is how long the device had no step queued behind the
+        running one."""
+        now = time.perf_counter()
+        m = self.metrics
+        if self._t_launch_end is not None:
+            self.last_host_gap_s = now - self._t_launch_end
+            if m is not None:
+                m.observe_host_gap(self.last_host_gap_s)
+        self.pipeline_depth = depth
+        if m is not None:
+            m.set_pipeline_depth(depth)
 
     def step_launch(self, carry=None, _admitted=False):
         """Admission, page growth and ONE device dispatch — a
@@ -1611,6 +1870,7 @@ class ServingEngine:
                     len(self._seq_pages[s]) * self.page_size <= cur:
                 self._grow_one(s, carry, "page growth")
         if not self._live:
+            self._t_launch_end = None
             return None
         B = self.max_seqs
         tokens = np.zeros((B,), np.int32)
@@ -1638,6 +1898,12 @@ class ServingEngine:
         active = np.zeros((B,), np.int32)
         active[launch] = 1
         self.lengths[launch] += 1
+        # fault point: one hit a device step, with the launched request
+        # ids so a rid-scoped rule can model a poison request
+        if self.faults is not None:
+            self._fire("step_launch",
+                       rids=[str(reqs[s].rid) for s in launch])
+        self._note_launch_gap(1 if carry is not None else 0)
         self.logit_rows += B            # one row per slot: none to skip
         d = self._stage({"page_table": self.page_table,
                          "lengths": self.lengths, "tokens": tokens,
@@ -1645,18 +1911,27 @@ class ServingEngine:
         sample = self._device_sampling(d)
         c_tok = carry.next_tok if carry is not None else \
             torch.zeros((B,), dtype=torch.int64, device=self.device)
-        _, rec = decode_step(
-            self.params, self.k_pool, self.v_pool, d["page_table"],
-            d["lengths"], d["tokens"], d["active"] != 0, self.config,
-            self.page_size, k_scale=self.k_scale, v_scale=self.v_scale,
-            sample=sample, carry_tok=c_tok, carry_mask=d["carry_mask"] != 0)
+        n_cols = int(self.lengths[launch].sum())
+        self._cost_hint(len(launch), len(launch), n_cols, n_cols)
+        with _record_span("serving.decode_step"):
+            _, rec = decode_step(
+                self.params, self.k_pool, self.v_pool, d["page_table"],
+                d["lengths"], d["tokens"], d["active"] != 0, self.config,
+                self.page_size, k_scale=self.k_scale, v_scale=self.v_scale,
+                sample=sample, carry_tok=c_tok,
+                carry_mask=d["carry_mask"] != 0)
         host, event = self._d2h(rec)
+        self._t_launch_end = time.perf_counter()
         self.device_steps += 1
         return StepTicket(launch, reqs, rec[0], host, event)
 
     def _bucket_finish(self, ticket, inflight=None):
         """ONE read of the step's record (a few values per slot), then
         the host bookkeeping in slot order."""
+        if self.faults is not None:
+            self._fire("step_finish",
+                       rids=[str(r.rid) for r in ticket.reqs.values()
+                             if r is not None])
         nxt, done, lp = self._fetch_results(ticket)
         for s in ticket.slots:
             req = ticket.reqs.get(s)
@@ -1664,6 +1939,7 @@ class ServingEngine:
                 continue  # zombie: slot released/reused since launch
             self._emit(s, req, int(nxt[s]), bool(done[s]), float(lp[s]),
                        inflight)
+        self._note_step(len(ticket.slots))
         return len(ticket.slots)
 
     def _emit(self, s, req, tok, done, lp, inflight):
@@ -1675,8 +1951,10 @@ class ServingEngine:
         req.next_token = tok
         if req.want_logprobs:
             req.logprobs.append(lp)
+        self._note_emit(req, 1)
         if done:
             self.finished.append(req)
+            self._note_finish(req)
             if inflight is not None and inflight.reqs.get(s) is req:
                 inflight.reqs[s] = None
                 self.lengths[s] -= 1
@@ -1738,6 +2016,7 @@ class ServingEngine:
                     len(self._seq_pages[s]) * self.page_size <= cur:
                 self._grow_one(s, carry, "page growth")
         if not self._live:
+            self._t_launch_end = None
             return None
         # plan decode rows (no state mutation yet: preemption in the
         # feed-growth pass below may still evict a planned slot)
@@ -1804,6 +2083,7 @@ class ServingEngine:
             tok_slot[row:row + n] = s
             tok_pos[row:row + n] = base + np.arange(n, dtype=np.int32)
             req._pf_cursor += n
+            _tl_count(req, "prefill")
             self.lengths[s] += n
             self.prefill_tokens += n
             if req._pf_cursor >= len(feed):
@@ -1815,6 +2095,7 @@ class ServingEngine:
                     seeds.append((s, req))
                     seed_flat.append(row + n - 1)
             row += n
+        self.ragged_tokens += row
         n_decode = len(decode_plan)
         parts = {"page_table": self.page_table, "tokens": tokens,
                  "tok_slot": tok_slot, "tok_pos": tok_pos,
@@ -1834,6 +2115,15 @@ class ServingEngine:
         bw = np.zeros((E,), np.int32)
         bw[:n_decode] = 1
         parts["buf_write"] = bw
+        if self.faults is not None:
+            self._fire("step_launch",
+                       rids=[str(p[1].rid) for p in decode_plan] +
+                            [str(p[1].rid) for p in prefill_plan])
+        self._note_launch_gap(1 if carry is not None else 0)
+        on = tok_pos >= 0
+        self._cost_hint(row, n_decode + len(seeds),
+                        int((tok_pos[on] + 1).sum()),
+                        int(self.lengths[np.unique(tok_slot[on])].sum()))
         d = self._stage(parts)
         sample = self._device_sampling(d)
         if self.tok_buf is not None:
@@ -1844,11 +2134,12 @@ class ServingEngine:
                 torch.zeros((E,), dtype=torch.int64, device=self.device)
             kw = {"carry_tok": c_tok, "carry_gather": d["carry_gather"],
                   "carry_mask": d["carry_mask"] != 0}
-        logits, rec = unified_step(
-            self.params, self.k_pool, self.v_pool, d["page_table"],
-            d["tokens"], d["tok_slot"], d["tok_pos"], self.config,
-            self.page_size, k_scale=self.k_scale, v_scale=self.v_scale,
-            sample=sample, need_rows=d.get("need_rows"), **kw)
+        with _record_span("serving.unified_step"):
+            logits, rec = unified_step(
+                self.params, self.k_pool, self.v_pool, d["page_table"],
+                d["tokens"], d["tok_slot"], d["tok_pos"], self.config,
+                self.page_size, k_scale=self.k_scale, v_scale=self.v_scale,
+                sample=sample, need_rows=d.get("need_rows"), **kw)
         seed_rows = None
         if seeds:
             # lean: seed rows were gathered into need rows n_decode..
@@ -1856,6 +2147,7 @@ class ServingEngine:
                 if self.lean else torch.stack([logits[i] for i in seed_flat])
             seed_rows = seed_rows.to(torch.float32)
         host, event = self._d2h((rec[0], rec[1], rec[2], seed_rows))
+        self._t_launch_end = time.perf_counter()
         self.device_steps += 1
         return RaggedTicket(reqs, flat, rec[0], seeds,
                             sorted([p[0] for p in decode_plan] +
@@ -1866,6 +2158,11 @@ class ServingEngine:
         """ONE read of the wave's record, then host bookkeeping: seeds
         first, then decode rows in slot order with the zombie /
         eos-rollback contract."""
+        if self.faults is not None:
+            self._fire("step_finish",
+                       rids=[str(r.rid) for r in ticket.reqs.values()
+                             if r is not None] +
+                            [str(r.rid) for _, r in ticket.seeds])
         nxt, done, lp, seed_rows = self._fetch_results(ticket)
         if seed_rows is not None:
             for (s, req), rowv in zip(ticket.seeds, seed_rows):
@@ -1879,6 +2176,7 @@ class ServingEngine:
             i = ticket.flat[s]
             self._emit(s, req, int(nxt[i]), bool(done[i]), float(lp[i]),
                        inflight)
+        self._note_step(len(ticket.slots))
         return len(ticket.slots)
 
     # -- speculative decoding and chunked prefill ---------------------------
@@ -1912,6 +2210,7 @@ class ServingEngine:
         B = self.max_seqs
         active_slots = sorted(self._live)
         if not active_slots:
+            self._t_launch_end = None
             return 0
         tokens = np.zeros((B, G), np.int32)
         n_tok = np.ones((B,), np.int32)
@@ -1967,6 +2266,20 @@ class ServingEngine:
                       and self._slots[s]._pf_cursor + int(n_tok[s])
                       >= len(self._slots[s]._pf_feed)
                       and self._slots[s]._pf_sample]
+        # the same fault point as a plain launch: one hit a device step
+        if self.faults is not None:
+            self._fire("step_launch",
+                       rids=[str(self._slots[s].rid)
+                             for s in active_slots])
+        self._note_launch_gap(0)
+        self._cost_hint(
+            sum(int(n_tok[s]) for s in active_slots),
+            sum(int(n_tok[s]) for s in active_slots
+                if not self._prefilling(self._slots[s])) + len(seed_slots),
+            sum(int(n_tok[s]) * int(self.lengths[s])
+                + int(n_tok[s]) * (int(n_tok[s]) + 1) // 2
+                for s in active_slots),
+            sum(int(self.lengths[s]) + int(n_tok[s]) for s in active_slots))
         if self.ragged:
             grid, lp_grid, rows_by_slot, cand_by_slot, flat_logits, \
                 row_of, seed_rows = self._spec_ragged(
@@ -1976,7 +2289,6 @@ class ServingEngine:
             grid, lp_grid, rows_by_slot, cand_by_slot, flat_logits, \
                 row_of, seed_rows = self._spec_bucketed(
                     tokens, n_tok, active, tab, need_rows, seed_slots)
-        self.device_steps += 1
         for s in active_slots:
             req = self._slots[s]
             n = int(n_tok[s])
@@ -1984,6 +2296,7 @@ class ServingEngine:
                 # a chunk fed; once the prompt is complete its last
                 # position's logits seed generation
                 req._pf_cursor += n
+                _tl_count(req, "prefill")
                 self.lengths[s] += n
                 if req._pf_cursor >= len(req._pf_feed) and req._pf_sample:
                     self._seed_first_token(s, req, seed_rows[s])
@@ -2037,10 +2350,24 @@ class ServingEngine:
             # the cache keeps chunk tokens 0..emitted-1: the pending
             # token and the drafts consumed to produce the emissions
             self.lengths[s] += emitted
+            self._note_emit(req, emitted)
             if req.done:
                 self.finished.append(req)
+                self._note_finish(req)
                 self._release(s)
+        self._note_step(len(active_slots))
         return len(active_slots)
+
+    def _spec_launched(self, active_slots):
+        """Between a verify step's dispatch and its read: the launch
+        clock, the device step count, and the step_finish fault point
+        (the read is the spec step's finish)."""
+        self._t_launch_end = time.perf_counter()
+        self.device_steps += 1
+        if self.faults is not None:
+            self._fire("step_finish",
+                       rids=[str(self._slots[s].rid)
+                             for s in active_slots])
 
     def _spec_ragged(self, tokens, n_tok, active_slots, tab, need_rows,
                      seed_slots):
@@ -2053,6 +2380,7 @@ class ServingEngine:
         for s in active_slots:
             base[s] = row
             row += int(n_tok[s])
+        self.ragged_tokens += row
         T = self.ragged_buf
         ftok = np.zeros((T,), np.int32)
         fslot = np.zeros((T,), np.int32)
@@ -2083,12 +2411,14 @@ class ServingEngine:
         else:
             self.logit_rows += T
         d = self._stage(parts)
-        logits, rec = unified_step(
-            self.params, self.k_pool, self.v_pool, d["page_table"],
-            d["tokens"], d["tok_slot"], d["tok_pos"], self.config,
-            self.page_size, k_scale=self.k_scale, v_scale=self.v_scale,
-            sample=self._device_sampling(d), need_rows=d.get("need_rows"),
-            cand_tok=d.get("cand"))
+        with _record_span("serving.unified_step"):
+            logits, rec = unified_step(
+                self.params, self.k_pool, self.v_pool, d["page_table"],
+                d["tokens"], d["tok_slot"], d["tok_pos"], self.config,
+                self.page_size, k_scale=self.k_scale, v_scale=self.v_scale,
+                sample=self._device_sampling(d),
+                need_rows=d.get("need_rows"), cand_tok=d.get("cand"))
+        self._spec_launched(active_slots)
         need_idx = [i for s in need_rows
                     for i in range(base[s], base[s] + int(n_tok[s]))] \
             if need_rows and not self.lean else None
@@ -2137,12 +2467,14 @@ class ServingEngine:
             parts["cand"] = cand
         self.logit_rows += self.max_seqs * G
         d = self._stage(parts)
-        logits, rec = verify_step(
-            self.params, self.k_pool, self.v_pool, d["page_table"],
-            d["lengths"], d["tokens"], d["n_tok"], d["active"] != 0,
-            self.config, self.page_size, k_scale=self.k_scale,
-            v_scale=self.v_scale, sample=self._device_sampling(d),
-            cand_tok=d.get("cand"))
+        with _record_span("serving.verify_step"):
+            logits, rec = verify_step(
+                self.params, self.k_pool, self.v_pool, d["page_table"],
+                d["lengths"], d["tokens"], d["n_tok"], d["active"] != 0,
+                self.config, self.page_size, k_scale=self.k_scale,
+                v_scale=self.v_scale, sample=self._device_sampling(d),
+                cand_tok=d.get("cand"))
+        self._spec_launched([s for s in range(self.max_seqs) if active[s]])
         dev = logits.device
         grid, lp_grid, row_vals, cand_vals, seed_vals = self._read(
             (rec[0], rec[1],
@@ -2194,7 +2526,7 @@ class ServingEngine:
                          for x in tensors), None
         return self._d2h(tensors)
 
-    def _cache_acquire(self, feed):
+    def _cache_acquire(self, feed, req=None):
         """Longest-prefix match for an admission candidate, its pages
         ref-counted at once so nothing later in this admission can evict
         them; where the device match ends, the host tier's index takes
@@ -2208,7 +2540,8 @@ class ServingEngine:
             self.pool.incref(pages)
         if self.host_tier.enabled:
             try:
-                pages, cached = self._tier_restore(feed, pages, cached)
+                pages, cached = self._tier_restore(feed, pages, cached,
+                                                   req)
             except BaseException:
                 # the caller never sees the device-matched refs: give
                 # them back now
@@ -2217,7 +2550,7 @@ class ServingEngine:
                 raise
         return pages, cached
 
-    def _tier_restore(self, feed, pages, cached):
+    def _tier_restore(self, feed, pages, cached, req):
         """Continue the prefix walk into the host tier and scatter its
         hits into fresh pages (`_pages_h2d`, `_scatter_pages`), indexing
         them in the device cache so this request, and every later one,
@@ -2232,6 +2565,10 @@ class ServingEngine:
             tier.note_lookup(0)
             return pages, cached
         blocks = blocks[:n]
+        # the fault point comes before the alloc: a raise leaks nothing
+        # (the caller gives the device-matched refs back)
+        self._fire("tier_restore",
+                   rids=None if req is None else [str(req.rid)])
         # alloc may evict, and so spill, OTHER parked pages; this
         # candidate's device-matched prefix is already increfed, so the
         # restore cannot take its own chain
@@ -2249,6 +2586,13 @@ class ServingEngine:
         new_cached = cached + n * self.page_size
         self.prefix_cache.insert(feed, all_pages, new_cached)
         tier.note_lookup(n)
+        if req is not None:
+            _tl_mark(req, "restore")
+        _flight.record(
+            "kvtier.hit", rid=None if req is None else str(req.rid),
+            trace_id=None if req is None
+            else getattr(req, "_trace_id", None),
+            pages=n, tokens=n * self.page_size, device_cached=cached)
         return all_pages, new_cached
 
     def _tier_pages(self, idx):
@@ -2300,7 +2644,7 @@ class ServingEngine:
         the tokens they hold (cache position i holds the KV of token
         (prompt + output)[i])."""
         pc = self.prefix_cache
-        if pc is None:
+        if pc is None or self._index_suspend:
             return
         n = int(self.lengths[slot])
         toks = (list(req.prompt) + [int(t) for t in req.output])[:n]
@@ -2318,6 +2662,17 @@ class ServingEngine:
         if cached > 0:
             pc.hits += 1
             pc.tokens_reused += cached
+            _flight.record("kvcache.hit", rid=str(req.rid),
+                           trace_id=getattr(req, "_trace_id", None),
+                           cached_tokens=cached, pages=len(match[0]))
+        m = self.metrics
+        if m is not None:
+            m.on_prefix_lookup(cached)
+
+    def _note_prefix_evict(self, page):
+        m = self.metrics
+        if m is not None:
+            m.on_prefix_evict()
 
     def _prefill_suffix_into(self, slot, req, match):
         """The bucketed engine's prefill of a prefix hit: the matched
@@ -2332,6 +2687,7 @@ class ServingEngine:
         suffix = feed[cached:]
         n = len(suffix)
         self.prefill_tokens += n
+        _tl_count(req, "prefill")
         self._map_prefix(slot, match)
         total = -(-len(feed) // self.page_size)
         if total > len(pages):
@@ -2346,6 +2702,7 @@ class ServingEngine:
         active[slot] = 1
         parts = {"page_table": self.page_table, "lengths": self.lengths,
                  "tokens": tokens, "n_tok": n_tok, "active": active}
+        self._fire("suffix_prefill", rids=[str(req.rid)])
         if self.lean:
             parts["need"] = np.array([slot * G + n - 1], np.int32)
             self.logit_rows += 1
@@ -2353,11 +2710,14 @@ class ServingEngine:
         else:
             self.logit_rows += B * G
         d = self._stage(parts)
-        logits = verify_step(
-            self.params, self.k_pool, self.v_pool, d["page_table"],
-            d["lengths"], d["tokens"], d["n_tok"], d["active"] != 0,
-            self.config, self.page_size, k_scale=self.k_scale,
-            v_scale=self.v_scale, need_rows=d.get("need"))
+        self._cost_hint(n, 0 if req._resume else 1,
+                        n * cached + n * (n + 1) // 2, cached + n)
+        with _record_span("serving.prefill"):
+            logits = verify_step(
+                self.params, self.k_pool, self.v_pool, d["page_table"],
+                d["lengths"], d["tokens"], d["n_tok"], d["active"] != 0,
+                self.config, self.page_size, k_scale=self.k_scale,
+                v_scale=self.v_scale, need_rows=d.get("need"))
         self.lengths[slot] = cached + n
         req.slot = slot
         req._admit_order = self._order

@@ -1,6 +1,6 @@
 """KV-cache tiering: a bounded host-RAM spill tier under the device
 prefix cache (counterpart of `paddle_tpu/serving/kvtier.py`, minus its
-flight records and fault drills).
+fleet hooks).
 
 The device-side `PrefixCache` (serving/kvcache.py) parks refcount-0
 pages in an LRU and discards them when allocation needs the page back,
@@ -21,9 +21,7 @@ demotion:
     (`quantize_kv`; an int8 pool's pages and scales go as they are), so
     they hold what its own int8 pool would hold. `_quantize_host` and
     `_dequantize_host` are the plain host twins of that arithmetic, bit
-    for bit the reference's (on the card `quantize_kv` divides by 127 as
-    a multiply by the reciprocal, so a scale may differ from the host's
-    in the last bit);
+    for bit the reference's and the card's;
   * **one ledger**: the preemption offload stash (`stash_put` /
     `stash_take`) lives here too, pinned outside the drop policy, so all
     host-resident KV is accounted against one `tier_bytes` budget.
@@ -55,6 +53,7 @@ from collections import OrderedDict
 
 import torch
 
+from ..observability import flight_recorder as _flight
 from . import kvcache as _kvc
 
 __all__ = ["HostTier"]
@@ -67,14 +66,16 @@ class _ExportJob:
     not to the copy-error count: a failed export leaves that one request
     to decode locally."""
 
-    __slots__ = ("k", "v", "ks", "vs", "ready", "payload", "error", "done")
+    __slots__ = ("k", "v", "ks", "vs", "ready", "rids", "payload", "error",
+                 "done")
 
-    def __init__(self, k, v, ks, vs, ready):
+    def __init__(self, k, v, ks, vs, ready, rids):
         self.k = k
         self.v = v
         self.ks = ks
         self.vs = vs
         self.ready = ready
+        self.rids = rids
         self.payload = None
         self.error = None
         self.done = threading.Event()
@@ -146,6 +147,9 @@ class HostTier:
         self.tokens_reused = 0
         self._q = None
         self._worker = None
+        # the engine's FaultPlan (serving/faults.py), fired on the copy
+        # thread at `tier_spill` and `handoff_export`
+        self.faults = None
 
     @property
     def enabled(self):
@@ -192,14 +196,20 @@ class HostTier:
                 continue
             try:
                 self._land(*item)
-            except Exception:  # noqa: BLE001 — a failed spill is a miss
+            except Exception as e:  # noqa: BLE001 — a failed spill is a miss
                 with self._lock:
                     self.copy_errors += 1
+                _flight.record("kvtier.error", error=repr(e))
             finally:
                 self._q.task_done()
 
     def _land(self, parent, block, depth, k, v, ks, vs, ready):
         _wait(ready)
+        if self.faults is not None:
+            # chaos drills of the copy path: raise -> the page is dropped
+            # and counted; corrupt -> a seeded byte flip lands in the
+            # stored page
+            k = self.faults.fire("tier_spill", k)
         payload = {"k": k, "v": v, "ks": ks, "vs": vs}
         nb = _nbytes(payload)
         key = _kvc.block_hash(parent, block)
@@ -215,9 +225,12 @@ class HostTier:
             self._bytes += nb
             self.spills += 1
             self._shrink_locked()
+            held, pages = self._bytes, len(self._entries)
+        _flight.record("kvtier.spill", depth=int(depth), bytes=nb,
+                       tier_bytes=held, tier_pages=pages)
 
     # -- handoff export (the pump blocks on the copy thread's wait) -----
-    def export_pages(self, k, v, ks=None, vs=None, ready=None,
+    def export_pages(self, k, v, ks=None, vs=None, ready=None, rids=None,
                      timeout=30.0):
         """A request's KV pages for a prefill -> decode handoff. `k`/`v`
         (and the scales) are host snapshots (L, KVH, pages, page, D) in
@@ -225,10 +238,12 @@ class HostTier:
         runs on the copy thread, behind the spills queued before it.
 
         Synchronous for the caller: returns the host payload dict
-        {k, v, ks, vs}, or raises whatever the copy path raised."""
+        {k, v, ks, vs}, or raises whatever the copy path raised (an
+        armed `handoff_export` fault, for the request ids `rids`,
+        included)."""
         if self._worker is None:
             self._start_worker()
-        job = _ExportJob(k, v, ks, vs, ready)
+        job = _ExportJob(k, v, ks, vs, ready, rids)
         self._q.put(job)
         if not job.done.wait(timeout):
             raise TimeoutError(
@@ -241,7 +256,12 @@ class HostTier:
         """Worker half of `export_pages`: the wait. Nothing is indexed or
         counted: the payload belongs to the destination."""
         _wait(job.ready)
-        return {"k": job.k, "v": job.v, "ks": job.ks, "vs": job.vs}
+        k = job.k
+        if self.faults is not None:
+            # raise -> the engine keeps the request for local decode;
+            # corrupt -> a byte flip lands in the shipped payload
+            k = self.faults.fire("handoff_export", k, rids=job.rids)
+        return {"k": k, "v": job.v, "ks": job.ks, "vs": job.vs}
 
     def _shrink_locked(self):
         """Drop spilled entries until the ledger fits `tier_bytes`,

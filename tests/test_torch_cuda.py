@@ -1691,7 +1691,9 @@ def test_card_paged_tc_engines_match_cpu_engine(card, engine, cache_dtype):
         eng.submit(Request(rid, prompt, max_new_tokens=n, logprobs=True))
         (r,) = eng.run()
         return r.output, r.logprobs
-    _teacher_forced(outs[0], outs[1], prompts, rerun)
+    restarts = _teacher_forced(outs[0], outs[1], prompts, rerun)
+    print(f"paged tc engines {engine} {cache_dtype}: {restarts} tie "
+          "restarts")
 
 
 @pytest.mark.parametrize("cache_dtype", [None, "int8"])
@@ -1785,9 +1787,9 @@ def test_spill_snapshot_survives_the_page_being_handed_out(card, dtype,
         want = {"k": before["k_pool"], "v": before["v_pool"],
                 "ks": before["k_scale"], "vs": before["v_scale"]}
     elif quantize:
-        # quantized on the card, as the card's int8 pool quantizes (its
-        # division by 127 is a reciprocal multiply there: a scale may
-        # differ from the host quantizer's in the last bit)
+        # quantized on the card, as the card's int8 pool quantizes (bit
+        # for bit the host quantizer's:
+        # test_quantize_kv_on_card_is_bit_equal_to_cpu)
         (kq, ks), (vq, vs) = (quantize_kv(before[n].to(card))
                               for n in ("k_pool", "v_pool"))
         want = {"k": kq.cpu(), "v": vq.cpu(), "ks": ks.cpu(), "vs": vs.cpu()}
@@ -1913,3 +1915,26 @@ def test_card_prefix_engines_match_cpu_engine(card, engine, cache_dtype):
     assert warm.pool.conserved(drained=True)
     print(f"prefix engines {engine} {cache_dtype}: {restarts} tie "
           "restarts")
+
+
+def test_quantize_kv_on_card_is_bit_equal_to_cpu(card):
+    """The int8 pool's per-token scales: absmax / 127 on the card is the
+    CPU's (and the reference's) true division, not a multiply by 1/127.
+    The inputs are chosen where the two differ in fp32."""
+    rng = np.random.default_rng(0)
+    amax = rng.uniform(1e-3, 1e3, 20000).astype(np.float32)
+    true_div = amax / np.float32(127.0)
+    by_recip = amax * (np.float32(1.0) / np.float32(127.0))
+    amax = amax[true_div != by_recip][:512]
+    assert len(amax) >= 256, "too few fp32 values where the roundings part"
+    x = rng.uniform(-1.0, 1.0, (len(amax), 16)).astype(np.float32)
+    x *= amax[:, None] / np.abs(x).max(axis=1, keepdims=True)
+    x = torch.from_numpy(x)
+    q_cpu, s_cpu = quantize_kv(x)
+    q_card, s_card = quantize_kv(x.to(card))
+    assert torch.equal(s_card.cpu().view(torch.int32),
+                       s_cpu.view(torch.int32))
+    assert torch.equal(q_card.cpu(), q_cpu)
+    assert torch.equal(s_cpu[:, 0],
+                       torch.from_numpy(np.abs(x.numpy()).max(axis=1)
+                                        / np.float32(127.0)))

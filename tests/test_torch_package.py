@@ -24,7 +24,14 @@ def _modules():
 def test_every_module_imports_without_jax_or_paddle_tpu():
     mods = _modules()
     for m in ("models.llama_serving", "ops.varlen_attention",
-              "ops.paged_attention"):
+              "ops.paged_attention", "_env", "utils.trace",
+              *(f"serving.{n}" for n in (
+                  "client", "faults", "metrics", "replica", "router",
+                  "scheduler", "server", "timeline")),
+              *(f"observability.{n}" for n in (
+                  "chrome_trace", "compile_telemetry", "device_telemetry",
+                  "flight_recorder", "health", "logging", "pulse",
+                  "trace_context"))):
         assert f"paddle_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -409,11 +409,40 @@ def test_cancel_queued_and_active(tparams):
 
 
 @pytest.mark.parametrize("kw,item", [
-    pytest.param({"faults": object()}, 7, id="kw2-7"),
     pytest.param({"mesh": object()}, "10b", id="kw3-10b")])
 def test_unported_options_name_their_roadmap_item(tparams, kw, item):
     with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
         P.ServingEngine(tparams, CFG, device="cpu", **kw)
+
+
+def test_faults_option_builds_and_fires(tparams, monkeypatch):
+    """`faults=`, which raised naming Queue 1 item 7, arms a FaultPlan
+    at the engine's and the tier's failure sites; crash_reset leaves the
+    engine empty and servable. Without it the plan comes from
+    PT_FAULTS."""
+    from paddle_tpu_torch.serving.faults import FaultPlan, InjectedFault
+    plan = FaultPlan("step_launch:raise@2")
+    eng = P.ServingEngine(tparams, CFG, max_seq_len=64, page_size=8,
+                          prefix_cache=True, host_tier_bytes=1 << 20,
+                          faults=plan, device="cpu")
+    assert eng.faults is plan and eng.host_tier.faults is plan
+    eng.submit(P.Request("a", [1, 2, 3], max_new_tokens=4))
+    eng.submit(P.Request("b", [4, 5], max_new_tokens=4))
+    eng.step()
+    with pytest.raises(InjectedFault, match="step_launch"):
+        eng.step()
+    assert plan.hits["step_launch"] == 2 and len(plan.fired) == 1
+    assert eng.crash_reset() == [] and eng.restarts == 1
+    assert not eng._live and eng.pool.conserved(drained=True)
+    eng.submit(P.Request("c", [1, 2, 3], max_new_tokens=4))
+    assert len(eng.run()[-1].output) == 4
+    monkeypatch.setenv("PT_FAULTS", "suffix_prefill:delay@1")
+    env = P.ServingEngine(tparams, CFG, max_seq_len=64, page_size=8,
+                          device="cpu")
+    assert "suffix_prefill:delay@1x1" in repr(env.faults)
+    monkeypatch.delenv("PT_FAULTS")
+    assert P.ServingEngine(tparams, CFG, max_seq_len=64, page_size=8,
+                           device="cpu").faults is None
 
 
 @pytest.mark.parametrize("kw", [
@@ -442,11 +471,26 @@ def test_item_6_options_are_ported(tparams, kw):
                             host_tier_bytes=1 << 20)
 
 
-def test_unported_hooks_raise(tparams):
+def test_metrics_hook_counts_a_short_run(tparams):
+    """The `metrics` hook, which raised naming Queue 1 item 7, takes an
+    EngineMetrics that counts submits, tokens, finishes, steps, TTFT and
+    TPOT of a short run."""
+    from paddle_tpu_torch.serving.metrics import EngineMetrics, \
+        MetricsRegistry
     eng = P.ServingEngine(tparams, CFG, max_seq_len=64, page_size=8,
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        eng.metrics = object()
+    reg = MetricsRegistry()
+    eng.metrics = m = EngineMetrics(reg)
+    for rid, prompt in (("a", [1, 2, 3]), ("b", [4, 5, 6, 7, 8, 9, 10])):
+        eng.submit(P.Request(rid, prompt, max_new_tokens=5))
+    done = eng.run()
+    assert m.accepted.value == 2 and m.completed.value == 2
+    assert m.tokens.value == sum(len(r.output) for r in done) == 10
+    assert m.ttft.count == 2 and m.tpot.count == 8
+    assert m.steps.value == eng.device_steps > 0
+    assert m.page_allocs.value > 0
+    text = reg.render_prometheus()
+    assert "pt_serving_generated_tokens_total 10" in text
 
 
 def test_handoff_flags_are_ported(tparams):
