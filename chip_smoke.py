@@ -250,7 +250,35 @@ non-zero):
                counts the step functions' computed rows (a ragged wave's
                whole 256-row buffer), as the reference's XLA count does.
 
- 22. varlen_kernel — the varlen dQ and dK/dV kernels against their plain
+ 22. fleet   — the fleet plane (`serving/fleet.py`, `wire.py`,
+               `distributed/rpc.py`) on the serve phase's model: (a) a
+               FleetPlane on 127.0.0.1 over two in-process FleetWorkers
+               sharing the weights, a prefill worker on the ragged bf16
+               engine and a decode worker on the bucketed bf16 engine
+               (the serve phase's pools, pipelined pumps, int8 handoffs),
+               a Router over the plane's replicas: the 8 prompts migrate
+               over the bulk socket (8 handoffs, 8 handoff serves, 32
+               ragged launches a prefill step and 32 pa_decode launches
+               a decode step, nothing else), each stream held by
+               runtime's tie rule to an in-process Router over local
+               Replicas of the same engines; output tok/s of both, TTFT
+               p50 / p95 (submit to first chunk), handoff bytes a
+               request, pt_handoff_seconds p50 / p95 and the socket hop's
+               seconds and GB/s; (b) a prefill and a decode worker
+               spawned as `python -m paddle_tpu_torch.serving.fleet` on
+               the card at 8B widths, depth cut to 2 layers (each
+               child's seeded weights), the router here: 3 prompts held
+               to an in-process Router over engines built here from the
+               same spec; the children load every kernel library from
+               the build cache, import neither jax nor paddle_tpu, and
+               exit 0 after drain; (c) the global prefix cache: two
+               "both" workers (ragged, prefix cache, int8 tiers; A's 16
+               pages) where A's budget drops land at their ring owner B
+               and a short match on A fetches them back; its tokens held
+               to one engine whose own tier restores the same pages;
+               pages and bytes spilled and fetched, fetch seconds,
+               prefill tokens saved;
+ 23. varlen_kernel — the varlen dQ and dK/dV kernels against their plain
                versions: (a) at the packed row of train_packed (eight
                documents of 192-3000 tokens in 8192; QH=32 over KVH=8,
                D=128, causal, same offsets), bf16 and fp32, with times
@@ -287,12 +315,12 @@ non-zero):
                versions on the card: exactly one va_fwd, one va_bwd_dq
                and one va_bwd_dkv (the launches the kernels line reports
                for the two);
- 23. fused_parity — packed_parity's setup with a vocabulary of 12,000
+ 24. fused_parity — packed_parity's setup with a vocabulary of 12,000
                (two 8192-column chunks, the second short): two steps card
                against CPU with fused_ce=True, and again with
                remat="dots"; the card's fused losses against its losses
                through the full logits;
- 24. train_fused — train_packed's model and row with fused_ce=True and
+ 25. train_fused — train_packed's model and row with fused_ce=True and
                remat="dots": the same measurements, and the first loss
                against the full-logits loss of the same seed weights and
                batch (train_packed's first loss), within a bf16
@@ -303,7 +331,8 @@ After the phases, one line gives each phase's wall seconds
 outside them). The line before the last lists every kernel with its
 launches on the main path, its error against the plain version and its
 times, the launches prefix_serve added (`prefix_launches`), the
-launches of the runtime phase's runs (`runtime_launches`) and, for the
+launches of the runtime phase's runs (`runtime_launches`), those of
+the fleet phase's in-process workers (`fleet_launches`) and, for the
 ragged and verify rows, prefix_kernel's shapes (`prefix_kernel`); the
 last line is {"ok": true, "device": {...}}.
 """
@@ -323,8 +352,8 @@ PHASES = ("device", "build", "kernel", "parity", "serve", "train_kernel",
           "train_parity", "train", "mask_kernel", "packed_parity",
           "train_packed", "bucket_kernel", "bucket_parity", "bucket_serve",
           "spec_kernel", "spec_parity", "spec_serve", "prefix_kernel",
-          "prefix_parity", "prefix_serve", "runtime", "varlen_kernel",
-          "fused_parity", "train_fused")
+          "prefix_parity", "prefix_serve", "runtime", "fleet",
+          "varlen_kernel", "fused_parity", "train_fused")
 SOURCES = ("ragged_paged_attention", "flash_attention", "flashmask_attention",
            "varlen_attention", "paged_attention")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
@@ -3728,6 +3757,487 @@ def phase_runtime(card, cfg, params):
     return {"launches": runtime_launches}
 
 
+# ------------------------------------------------------------ fleet plane
+FLEET_SPAWN_LAYERS = 2      # (b): 8B widths, the depth cut so each child
+                            # builds its seeded weights fast
+FLEET_SPAWN_PROMPTS = 3
+FLEET_PAGE_BUDGET = 16      # (c): worker A's tier holds 16 int8 pages
+FLEET_PREFIX_TOKENS = 1024  # (c): the shared prompt, 64 pages
+FLEET_FILL_TOKENS = 1984    # (c): a prompt that takes every page of A
+
+
+def _fleet_free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _fleet_plane(workers, build):
+    """A FleetPlane on 127.0.0.1 over in-process FleetWorkers: `build(i,
+    endpoint, world_size)` makes worker i (each in its own thread, as
+    the plane's rendezvous needs). Returns (plane, workers)."""
+    import threading
+    from paddle_tpu_torch.serving import connect_fleet
+    endpoint = f"127.0.0.1:{_fleet_free_port()}"
+    made, errors = [None] * len(workers), []
+
+    def up(i):
+        try:
+            made[i] = build(i, endpoint, len(workers) + 1)
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+    threads = [threading.Thread(target=up, args=(i,), daemon=True)
+               for i in range(len(workers))]
+    for t in threads:
+        t.start()
+    plane = connect_fleet(endpoint, list(workers))
+    for t in threads:
+        t.join(600)
+    if errors:
+        raise errors[0]
+    return plane, made
+
+
+def _fleet_stream(router, prompts, new):
+    """`prompts` through `router` (paused while they queue, then resumed),
+    each streamed on its own thread. Returns ({index: tokens}, wall
+    seconds from resume, [seconds from resume to each first chunk])."""
+    import threading
+    router.pause()
+    rrs = [router.submit(p, max_new_tokens=new) for p in prompts]
+    out, first, errors = {}, {}, []
+
+    def read(i, rr):
+        try:
+            toks = []
+            for chunk in rr.stream(timeout=600):
+                if not toks:
+                    first[i] = time.perf_counter() - t0
+                toks.extend(chunk)
+            out[i] = toks
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append((i, e))
+    threads = [threading.Thread(target=read, args=(i, rr), daemon=True)
+               for i, rr in enumerate(rrs)]
+    t0 = time.perf_counter()
+    router.resume()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    if errors or len(out) != len(prompts):
+        fail(f"fleet: requests failed: {errors}")
+    return out, wall, [first[i] for i in sorted(first)], rrs
+
+
+def _fleet_disagg(card, cfg, params, prompts, L):
+    """(a): a prefill FleetWorker (ragged bf16) and a decode FleetWorker
+    (bucketed bf16), the serve phase's pools, both under the pipelined
+    pump and sharing the weights, behind a Router over the plane's
+    replicas; the same traffic through an in-process Router over local
+    Replicas of the same engines and roles. Returns (row, launches)."""
+    import torch
+    from paddle_tpu_torch.serving import FleetWorker, Replica, Router
+    roles = {"p0": ("prefill", True), "d0": ("decode", False)}
+    hops = []
+
+    def build(i, endpoint, world):
+        name = list(roles)[i]
+        role, ragged = roles[name]
+        rep = Replica(name, _runtime_engine(cfg, params, ragged=ragged),
+                      role=role, max_queue=64, pipeline=True)
+        return FleetWorker(name, rep, master_endpoint=endpoint, rank=i + 1,
+                           world_size=world, host=f"host-{name}")
+    plane, (pw, dw) = _fleet_plane(roles, build)
+    serve_handoff = pw._serve_handoff
+
+    def timed_serve(conn, rid):
+        # the prefill worker's half of each socket hop: wall seconds and
+        # the payload bytes framed
+        b0, t0 = pw.handoff_wire_bytes.value, time.perf_counter()
+        serve_handoff(conn, rid)
+        hops.append((time.perf_counter() - t0,
+                     pw.handoff_wire_bytes.value - b0))
+    pw._serve_handoff = timed_serve
+    router = Router(plane.replicas, fleet=plane)
+    try:
+        _reset_bucket_counts()
+        pre_steps0 = pw.replica.engine.device_steps
+        dec_steps0 = dw.replica.engine.device_steps
+        got, wall, ttft, rrs = _fleet_stream(router, prompts, 64)
+        torch.cuda.synchronize()
+        counts = _bucket_counts()
+        merges = _merge_launches()
+        pre_steps = pw.replica.engine.device_steps - pre_steps0
+        dec_steps = dw.replica.engine.device_steps - dec_steps0
+        handoffs = router.registry.snapshot()["pt_router_handoffs"]["value"]
+        served = [rr.replica_id for rr in rrs]
+        serves = pw.handoff_serves.value
+        wire_bytes = pw.handoff_wire_bytes.value
+        hist = pw.replica.registry.histogram(
+            "pt_handoff_seconds", "Handoff export/transfer wall time.")
+        hist_p = (hist.percentile(50), hist.percentile(95), hist.count)
+    finally:
+        router.shutdown(drain=True, timeout=120)
+        for w in (pw, dw):
+            w.close()
+        plane.close()
+    if handoffs != 8 or serves != 8 or served != ["d0"] * 8:
+        fail(f"fleet (a): {handoffs} handoffs, {serves} handoff serves, "
+             f"served by {served}; want 8, 8 and all on d0")
+    want = _want_bucket_counts(L, {"waves": 0, "singles": 0}, dec_steps,
+                               False)
+    want["ragged_paged_attention"] = L * pre_steps
+    if counts != want:
+        fail(f"fleet (a): launches {counts}, want {want} ({L} a step: "
+             f"{pre_steps} prefill steps, {dec_steps} decode steps)")
+    del pw, dw, plane, router
+    torch.cuda.empty_cache()
+
+    # the same engines, roles and encoding behind an in-process Router
+    reps = [Replica(name, _runtime_engine(cfg, params, ragged=ragged),
+                    role=role, max_queue=64, pipeline=True)
+            for name, (role, ragged) in roles.items()]
+    local = Router(reps)
+    try:
+        want_toks, local_wall, local_ttft, _ = _fleet_stream(
+            local, prompts, 64)
+        torch.cuda.synchronize()
+    finally:
+        local.shutdown(drain=True, timeout=120)
+    del reps, local
+    torch.cuda.empty_cache()
+    parted = _held("fleet (a)", got, want_toks, prompts, params, cfg)
+    hop_s = sorted(s for s, _ in hops)
+    row = {
+        "phase": "fleet", "part": "a", "card": card,
+        "config": SERVE_CONFIG + ", prefill worker ragged bf16, decode "
+        "worker bucketed bf16, pipelined pumps, int8 handoffs",
+        "prompt_lens": [len(p) for p in prompts], "new_tokens": 64,
+        "fleet_wall_s": wall, "local_wall_s": local_wall,
+        "fleet_output_tok_s": 8 * 64 / wall,
+        "local_output_tok_s": 8 * 64 / local_wall,
+        "fleet_ttft_p50_s": statistics.median(ttft),
+        "fleet_ttft_p95_s": _pct(ttft, 95),
+        "local_ttft_p50_s": statistics.median(local_ttft),
+        "local_ttft_p95_s": _pct(local_ttft, 95),
+        "handoffs": handoffs, "handoff_serves": serves,
+        "handoff_wire_bytes": wire_bytes,
+        "handoff_bytes_per_request": wire_bytes / 8,
+        "pt_handoff_seconds_p50": hist_p[0],
+        "pt_handoff_seconds_p95": hist_p[1], "pt_handoff_count": hist_p[2],
+        "hop_s_p50": statistics.median(hop_s), "hop_s_p95": _pct(hop_s, 95),
+        "hop_gb_s": sum(b for _, b in hops) / sum(hop_s) / 1e9,
+        "prefill_steps": pre_steps, "decode_steps": dec_steps,
+        "launches": counts, "merge_launches": merges,
+        "partings_at_ties": parted}
+    emit(row)
+    return row, counts
+
+
+def _pct(xs, q):
+    """The q-th percentile of `xs` by nearest rank."""
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, math.ceil(q / 100 * len(xs)) - 1))]
+
+
+_PROBE_MODULES = ("sorted(m for m in __import__('sys').modules if m in "
+                  "('jax', 'paddle_tpu') or m.startswith(('jax.', "
+                  "'paddle_tpu.')))")
+# {nvcc:<source>: (loads, nvcc runs)} of the child's kernel libraries
+_PROBE_BUILDS = ("{n: (s['calls'], s['compiles']) for n, s in __import__("
+                 "'paddle_tpu_torch.observability.compile_telemetry', "
+                 "fromlist=['REGISTRY']).REGISTRY.snapshot().items() "
+                 "if n.startswith('nvcc:')}")
+
+
+def _fleet_spawned(card, cfg, prompts):
+    """(b): a prefill and a decode worker spawned as `python -m
+    paddle_tpu_torch.serving.fleet` on the card, at 8B widths with the
+    depth cut to FLEET_SPAWN_LAYERS, the router in this process; held
+    to an in-process Router over engines built here from the same spec.
+    Both children exit 0 after drain."""
+    import threading
+    import torch
+    from paddle_tpu_torch.models.llama_serving import ServingEngine
+    from paddle_tpu_torch.models.llama_spmd import init_params
+    from paddle_tpu_torch.serving import (Replica, Router, connect_fleet,
+                                          spawn_worker)
+    small = dataclasses.replace(cfg, num_hidden_layers=FLEET_SPAWN_LAYERS)
+    endpoint = f"127.0.0.1:{_fleet_free_port()}"
+    engine = dict(max_seqs=4, max_seq_len=2048, page_size=16,
+                  ragged_tokens=RUNTIME_ROWS)
+    spec = {"master": endpoint, "world_size": 3, "seed": 0,
+            "model": dataclasses.asdict(small), "dtype": "bfloat16",
+            "device": "cuda", "replica": {"pipeline": True}}
+    workers = {"p0": ("prefill", dict(engine)),
+               "d0": ("decode", dict(engine, ragged=False))}
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {"PYTHONPATH": os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p)}
+    t0 = time.perf_counter()
+    procs = [spawn_worker(dict(spec, name=n, rank=i + 1, role=role,
+                               engine=kw, host=f"proc-{n}"), env=env,
+                          stdout=subprocess.DEVNULL)
+             for i, (n, (role, kw)) in enumerate(workers.items())]
+    box = {}
+    router = None
+    try:
+        # the plane waits for both registrations; a child that dies
+        # first fails the phase instead of leaving the wait to its
+        # 900 s store timeout
+        th = threading.Thread(target=lambda: box.update(
+            plane=connect_fleet(endpoint, list(workers))), daemon=True)
+        th.start()
+        while th.is_alive():
+            th.join(0.5)
+            dead = [p.returncode for p in procs if p.poll() is not None]
+            if dead:
+                fail(f"fleet (b): a worker exited {dead} before it "
+                     "registered")
+            if time.perf_counter() - t0 > 300:
+                fail("fleet (b): the workers did not register in 300 s")
+        plane = box["plane"]
+        up_s = time.perf_counter() - t0
+        router = Router(plane.replicas, fleet=plane)
+        got, wall, ttft, rrs = _fleet_stream(router, prompts, 64)
+        served = [rr.replica_id for rr in rrs]
+        probes = {n: (plane._agent.invoke(n, eval, (_PROBE_MODULES,), {},
+                                          60).wait(60),
+                      plane._agent.invoke(n, eval, (_PROBE_BUILDS,), {},
+                                          60).wait(60))
+                  for n in workers}
+        drained = router.shutdown(drain=True, timeout=120)
+        router = None
+        codes = [p.wait(timeout=120) for p in procs]
+    finally:
+        if router is not None:
+            router.shutdown(drain=False, timeout=30)
+        if "plane" in box:
+            box["plane"].close()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    if served != ["d0"] * len(prompts):
+        fail(f"fleet (b): served by {served}, want all on d0")
+    for n, (mods, builds) in probes.items():
+        if mods:
+            fail(f"fleet (b): worker {n} imported {mods}")
+        if not builds or any(c for _, c in builds.values()):
+            fail(f"fleet (b): worker {n}'s kernel builds missed the "
+                 f"cache: {builds}")
+    if not drained or codes != [0, 0]:
+        fail(f"fleet (b): drain {drained}, exit codes {codes}")
+    # the same spec built here: an in-process Router over its engines
+    params = init_params(small, seed=0, dtype=torch.bfloat16, device="cuda")
+    reps = [Replica(n, ServingEngine(params, small, device="cuda", **kw),
+                    role=role, pipeline=True)
+            for n, (role, kw) in workers.items()]
+    local = Router(reps)
+    try:
+        want, _, _, _ = _fleet_stream(local, prompts, 64)
+    finally:
+        local.shutdown(drain=True, timeout=120)
+    parted = _held("fleet (b)", got, want, prompts, params, small)
+    del reps, local, params
+    torch.cuda.empty_cache()
+    row = {"phase": "fleet", "part": "b", "card": card,
+           "config": f"llama3_8b widths, {FLEET_SPAWN_LAYERS} layers, bf16 "
+           "random weights (seed 0) in each child; spawned prefill "
+           "(ragged) and decode (bucketed) workers",
+           "prompt_lens": [len(p) for p in prompts], "new_tokens": 64,
+           "workers_up_s": up_s, "wall_s": wall,
+           "output_tok_s": len(prompts) * 64 / wall,
+           "ttft_p50_s": statistics.median(ttft),
+           "child_modules": {n: m for n, (m, _) in probes.items()},
+           "child_builds": {n: b for n, (_, b) in probes.items()},
+           "exit_codes": codes, "partings_at_ties": parted}
+    emit(row)
+    return row
+
+
+def _owned_prompt(pages, owner, n_blocks, page, vocab, rng):
+    """A prompt of `n_blocks` pages whose every chained block hash the
+    fleet's ring gives to `owner`."""
+    from paddle_tpu_torch.serving.kvcache import _SEED, block_hash
+    parent, toks = _SEED, []
+    for _ in range(n_blocks):
+        while True:
+            block = tuple(int(t) for t in rng.integers(1, vocab, page))
+            key = block_hash(parent, block)
+            if pages.owner_of(key) == owner:
+                break
+        toks.extend(block)
+        parent = key
+    return toks
+
+
+def _fleet_prefix(card, cfg, params, L):
+    """(c): two "both" FleetWorkers (ragged bf16, prefix cache, int8 host
+    tiers; A's holds FLEET_PAGE_BUDGET pages) form one prefix cache. A
+    serves a prompt P whose every page
+    the ring gives to B, then a prompt that takes all of A's pages: P's
+    pages spill into A's tier, which keeps FLEET_PAGE_BUDGET of them
+    and ships the rest to B. P plus a suffix on A then restores the kept
+    pages and fetches the rest from B. Held to one engine whose own tier
+    keeps them all. Returns (row, launches)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch.kernels.ragged_paged_attention as rpa
+    from paddle_tpu_torch.models.llama_serving import Request, ServingEngine
+    from paddle_tpu_torch.serving import FleetWorker, Replica
+    page = 16
+    page_bytes = L * cfg.num_key_value_heads * page * \
+        (cfg.hidden_size // cfg.num_attention_heads + 4) * 2
+    blocks = FLEET_PREFIX_TOKENS // page
+
+    def engine(tier_bytes):
+        # 129 pages: one 2048-token sequence and the trash page, so the
+        # second prompt evicts every page of the first
+        return ServingEngine(params, cfg, max_seqs=2, max_seq_len=2048,
+                             page_size=page, ragged_tokens=RUNTIME_ROWS,
+                             num_pages=129, prefix_cache=True,
+                             host_tier_bytes=tier_bytes, tier_quantize=True,
+                             device="cuda")
+
+    def build(i, endpoint, world):
+        # A's tier is tight; B, the owner, has room for what lands there
+        rep = Replica(f"c{i}", engine(FLEET_PAGE_BUDGET * page_bytes
+                                      if i == 0 else 1 << 30), max_queue=8)
+        return FleetWorker(f"c{i}", rep, master_endpoint=endpoint,
+                           rank=i + 1, world_size=world, host=f"host-c{i}")
+    # fetch the whole chain in one match (the default fetches 8 pages)
+    old_max = os.environ.get("PT_FLEET_FETCH_MAX")
+    os.environ["PT_FLEET_FETCH_MAX"] = str(blocks)
+    plane, (wa, wb) = _fleet_plane(("c0", "c1"), build)
+    try:
+        rng = np.random.default_rng(5)
+        prompt = _owned_prompt(wa.pages, "c1", blocks, page, cfg.vocab_size,
+                               rng)
+        fill = rng.integers(1, cfg.vocab_size, FLEET_FILL_TOKENS).tolist()
+        suffix = rng.integers(1, cfg.vocab_size, page).tolist()
+        script = [(prompt, 16), (fill, 64), (prompt + suffix, 64)]
+        rep_a = plane.replica("c0")
+        ea, ta = wa.replica.engine, wa.replica.engine.host_tier
+        rpa.launches = 0
+        steps0 = ea.device_steps
+        out = []
+        for i, (p, new) in enumerate(script):
+            if i == 2:
+                # every spill landed in A's tier, every drop at B
+                if not ta.flush(timeout=120):
+                    fail("fleet (c): A's tier did not land its spills")
+                t_wait = time.perf_counter()
+                while wa.pages._q.unfinished_tasks:
+                    if time.perf_counter() - t_wait > 120:
+                        fail("fleet (c): A's spills to B did not finish")
+                    time.sleep(0.01)
+                spilled = (wa.pages.spill_pages.value,
+                           wa.pages.spill_bytes.value,
+                           wb.pages.recv_pages.value)
+                prefill0 = ea.prefill_tokens
+                tier0 = ta.stats()
+                fetch_t = []
+                fetch = wa.pages.fetch_missing
+
+                def timed_fetch(*a):
+                    t = time.perf_counter()
+                    got = fetch(*a)
+                    fetch_t.append(time.perf_counter() - t)
+                    return got
+                ta.fetch_missing = timed_fetch
+            out.append(rep_a.submit(p, max_new_tokens=new).result(
+                timeout=600))
+        torch.cuda.synchronize()
+        launches = rpa.launches
+        steps = ea.device_steps - steps0
+        prefilled = ea.prefill_tokens - prefill0
+        tier1 = ta.stats()
+        fetched = (wa.pages.fetch_pages.value, wa.pages.fetch_misses.value,
+                   wb.pages.page_serves.value)
+        wire = wa.replica.registry.snapshot()
+    finally:
+        if old_max is None:
+            os.environ.pop("PT_FLEET_FETCH_MAX", None)
+        else:
+            os.environ["PT_FLEET_FETCH_MAX"] = old_max
+        for w in (wa, wb):
+            w.replica.shutdown(drain=True, timeout=120)
+            w.close()
+        plane.close()
+    if launches != L * steps:
+        fail(f"fleet (c): {launches} ragged launches, want {L} x {steps}")
+    restored = tier1["restores"] - tier0["restores"]
+    kept = blocks - spilled[2]
+    if spilled[2] == 0 or fetched[0] != spilled[2] or fetched[2] != \
+            fetched[0] or restored != blocks:
+        fail(f"fleet (c): B received {spilled[2]} pages, A fetched "
+             f"{fetched[0]} (B served {fetched[2]}), A restored {restored}; "
+             f"want every page of P's {blocks} back")
+    del wa, wb, plane
+    torch.cuda.empty_cache()
+    # one engine whose own tier keeps every page of P
+    single = engine(1 << 30)
+    want = []
+    for i, (p, new) in enumerate(script):
+        if i == 2:
+            single.host_tier.flush(timeout=120)
+            s0 = single.host_tier.stats()["restores"]
+        single.submit(Request(i, p, max_new_tokens=new))
+        want.append(list(single.run()[-1].output))
+    single_restored = single.host_tier.stats()["restores"] - s0
+    del single
+    torch.cuda.empty_cache()
+    if single_restored != blocks:
+        fail(f"fleet (c): the single engine restored {single_restored} "
+             f"pages, want {blocks}")
+    toks = {i: o for i, o in enumerate(out) if i}
+    ref = {i: w for i, w in enumerate(want) if i}
+    parted = _held("fleet (c)", toks, ref, [p for p, _ in script], params,
+                   cfg)
+    row = {"phase": "fleet", "part": "c", "card": card,
+           "config": SERVE_CONFIG + ", two 'both' workers, ragged bf16, "
+           "prefix cache, int8 host tiers; 129-page pools; A's tier "
+           f"{FLEET_PAGE_BUDGET} pages, B's 1 GiB",
+           "prompt_tokens": len(prompt), "fill_tokens": len(fill),
+           "suffix_tokens": len(suffix), "page_bytes": page_bytes,
+           "spill_pages": spilled[0], "spill_bytes": spilled[1],
+           "recv_pages_at_b": spilled[2], "kept_at_a": kept,
+           "fetch_pages": fetched[0], "fetch_misses": fetched[1],
+           "page_serves_at_b": fetched[2],
+           "fetch_bytes": fetched[0] * page_bytes,
+           "fetch_s": sum(fetch_t), "fetch_calls": len(fetch_t),
+           "restored_pages": restored, "prefill_tokens": prefilled,
+           "prefill_tokens_saved": len(prompt + suffix) - prefilled,
+           "wire": {k: v["value"] for k, v in wire.items()
+                             if k.startswith("pt_wire")},
+           "launches": launches, "device_steps": steps,
+           "partings_at_ties": parted}
+    emit(row)
+    return row, {"ragged_paged_attention": launches}
+
+
+def phase_fleet(card, cfg, params):
+    """The fleet plane on the card: (a) disaggregated prefill and decode
+    across the bulk channel against an in-process router; (b) spawned
+    worker processes; (c) the global prefix cache."""
+    L = cfg.num_hidden_layers
+    prompts = _runtime_prompts(cfg)
+    fleet_launches = {}
+    row_a, counts_a = _fleet_disagg(card, cfg, params, prompts, L)
+    row_c, counts_c = _fleet_prefix(card, cfg, params, L)
+    for counts in (counts_a, counts_c):
+        for k, n in counts.items():
+            if n:
+                fleet_launches[k] = fleet_launches.get(k, 0) + n
+    row_b = _fleet_spawned(card, cfg, prompts[:FLEET_SPAWN_PROMPTS])
+    return {"launches": fleet_launches, "a": row_a, "b": row_b,
+            "c": row_c}
+
+
 # ------------------------------------------------------- varlen training
 VARLEN_BWD_KERNELS = tuple(VARLEN_BWD_TPU_KERNELS)
 # the packed row of train_packed in the varlen layout: q (T, H, D), k and
@@ -4110,10 +4620,10 @@ def main(argv=None):
     kern = timed("kernel", phase_kernel, smi) if "kernel" in phases else {}
     if "parity" in phases:
         timed("parity", phase_parity, smi)
-    serve, bserve, sserve, pserve, rserve = {}, {}, {}, {}, {}
+    serve, bserve, sserve, pserve, rserve, fserve = {}, {}, {}, {}, {}, {}
     if {"serve", "bucket_serve", "spec_serve", "prefix_serve",
-            "runtime"} & set(phases):
-        # the 8B parameters, built once for the five serve phases
+            "runtime", "fleet"} & set(phases):
+        # the 8B parameters, built once for the six serve phases
         t0 = time.perf_counter()
         cfg, params = serve_params()
         torch.cuda.synchronize()
@@ -4131,6 +4641,8 @@ def main(argv=None):
                            params)
         if "runtime" in phases:
             rserve = timed("runtime", phase_runtime, smi, cfg, params)
+        if "fleet" in phases:
+            fserve = timed("fleet", phase_fleet, smi, cfg, params)
         del params
         torch.cuda.empty_cache()
     tk = timed("train_kernel", phase_train_kernel, smi) \
@@ -4249,6 +4761,7 @@ def main(argv=None):
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
     runtime_counts = rserve.get("launches", {})
+    fleet_counts = fserve.get("launches", {})
     for row in kernels:
         # None for the rows prefix_serve does not run (training, and
         # the ragged kernel over int8 pages: its ragged runs are bf16)
@@ -4256,6 +4769,9 @@ def main(argv=None):
         # the launches of the runtime phase's served runs; None for the
         # kernels it does not run (its pools are bf16)
         row["runtime_launches"] = runtime_counts.get(row["name"])
+        # the launches of the fleet phase's in-process workers ((a) and
+        # (c)); None for the kernels the fleet does not run
+        row["fleet_launches"] = fleet_counts.get(row["name"])
         for (kname, variant, shape), k in pk.items():
             if kname == row["name"] and variant in ("bfloat16", "int8"):
                 row.setdefault("prefix_kernel", {})[str(shape)] = {

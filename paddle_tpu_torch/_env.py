@@ -100,6 +100,23 @@ declare("PT_PULSE_SLO_BURST", 3)        # violations a tick to capture
 declare("PT_CAPTURE_DIR", "")           # capture bundles (empty: off)
 declare("PT_CAPTURE_MAX", 8)
 declare("PT_CAPTURE_MIN_S", 30.0)
+# -- fleet plane -----------------------------------------------------------
+declare("PT_FLEET_HB_S", 0.5)           # worker heartbeat interval
+declare("PT_FLEET_HB_MISS_S", 3.0)      # stall that declares a worker dead
+declare("PT_FLEET_CALL_TIMEOUT_S", 30.0)  # control-plane call timeout
+declare("PT_FLEET_RETRIES", 2)          # idempotent-call retries
+declare("PT_FLEET_FETCH_TIMEOUT_S", 1.0)  # per-page fetch-on-miss budget
+declare("PT_FLEET_FETCH_MAX", 8)        # pages fetched per tier match
+declare("PT_FLEET_SPILL_QUEUE", 128)    # spill queue bound (full: drop)
+declare("PT_FLEET_CLOCK_ALPHA", 0.2)    # clock-offset EWMA factor
+declare("PT_FLEET_OBS_POLL_S", 1.0)     # router-side obs poll interval
+declare("PT_FLEET_CAPTURE_DIR", "")     # fleet capture bundles (empty: off)
+declare("PT_FLEET_CAPTURE_MAX", 8)
+declare("PT_FLEET_CAPTURE_MIN_S", 30.0)
+# -- distributed -----------------------------------------------------------
+declare("PT_RPC_BIND", "127.0.0.1")     # interface the rpc/bulk servers bind
+declare("PT_RPC_TIMEOUT_S", None)       # default rpc_sync timeout (unset: wait)
+declare("PT_RPC_THREADS", 8)            # threads per rpc agent pool
 # -- observability ---------------------------------------------------------
 declare("PADDLE_TPU_FLIGHT", True)
 declare("PADDLE_TPU_FLIGHT_EVENTS", 4096)

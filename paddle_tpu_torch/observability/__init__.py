@@ -17,20 +17,22 @@
     `torch.cuda.memory_stats` (`pt_mfu`, `pt_device_*`);
   * `pulse`            — ring-buffer time series of the metrics
     snapshots, `/debug/pulse`, and anomaly capture bundles;
+  * `fleet_obs`        — the fleet's observability: NTP-style clock-skew
+    estimation per worker, cross-host span stitching into one
+    skew-corrected chrome trace, merged flight-ring dumps and fleet
+    capture bundles;
   * `health`           — the training-health counters `/metrics`
     renders (`pt_train_*`); the checks that feed them come with the
     trainer (ROADMAP.md Queue 1 items 12 and 13).
 
-The fleet's observability (`fleet_obs`) comes with the fleet plane,
-ROADMAP.md Queue 1 item 11. Importing this package needs the standard
-library only (torch is imported inside the functions that read
-tensors or the card).
+Importing this package needs the standard library only (torch is
+imported inside the functions that read tensors or the card).
 """
 from __future__ import annotations
 
 from . import (  # noqa: F401
-    chrome_trace, compile_telemetry, device_telemetry, flight_recorder,
-    health, pulse, trace_context,
+    chrome_trace, compile_telemetry, device_telemetry, fleet_obs,
+    flight_recorder, health, pulse, trace_context,
 )
 from . import logging as logging  # noqa: F401,PLC0414 — shadows stdlib by design
 from .chrome_trace import chrome_trace_doc  # noqa: F401
@@ -50,7 +52,8 @@ from .trace_context import (  # noqa: F401
 
 __all__ = [
     "chrome_trace", "compile_telemetry", "device_telemetry",
-    "flight_recorder", "health", "pulse", "trace_context", "logging",
+    "fleet_obs", "flight_recorder", "health", "pulse", "trace_context",
+    "logging",
     "PulsePlane", "PulseRing", "PulseSampler",
     "CompileRegistry", "tracked", "track_jit", "signature_of",
     "CostRegistry", "COSTS", "MemoryAccountant", "ACCOUNTANT",

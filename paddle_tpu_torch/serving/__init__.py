@@ -20,23 +20,37 @@
                   the router dispatches to;
   * `router`    — prefix-affinity dispatch over N replicas, failover and
                   drain;
+  * `wire`      — length-framed socket framing for the fleet bulk
+                  channel: JSON control frames and raw array bytes,
+                  never pickle (the reference's frames, byte for byte);
+  * `fleet`     — the multi-host plane over `distributed/rpc.py`:
+                  `FleetWorker` processes serve replicas remotely,
+                  `RemoteReplica` proxies satisfy the `Replica`
+                  duck-type for an unchanged `Router`, KV handoffs and
+                  spilled prefix pages move host to host over the bulk
+                  channel (one global prefix cache);
   * `server`    — the stdlib HTTP frontend (`/v1/completions`,
                   `/healthz`, `/readyz`, `/metrics`, `/debug/*`);
   * `client`    — the stdlib HTTP client, SSE streaming included.
 
-The fleet plane (`fleet`, `wire`) is ROADMAP.md Queue 1 item 11. On the
-CPU: `RequestScheduler(ServingEngine(params, cfg, device="cpu"))`, then
-`ServingServer(sched, port=0)` and `ServingClient(url).complete(...)`.
+On the CPU: `RequestScheduler(ServingEngine(params, cfg, device="cpu"))`,
+then `ServingServer(sched, port=0)` and `ServingClient(url).complete(...)`;
+a fleet: `FleetWorker`s over `Replica`s, `connect_fleet(endpoint, names)`
+and `Router(plane.replicas, fleet=plane)`.
 No module here imports the engine at import time.
 """
 from __future__ import annotations
 
 from . import (  # noqa: F401
-    client, faults, handoff, kvcache, kvtier, metrics, replica, router,
-    scheduler, server, timeline,
+    client, faults, fleet, handoff, kvcache, kvtier, metrics, replica,
+    router, scheduler, server, timeline, wire,
 )
 from .client import ServingClient, ServingHTTPError  # noqa: F401
 from .faults import FaultPlan, InjectedFault  # noqa: F401
+from .fleet import (  # noqa: F401
+    FleetPages, FleetPlane, FleetWorker, RemoteHandoffRef, RemoteReplica,
+    RemoteRequest, connect_fleet, spawn_worker,
+)
 from .handoff import KVHandoff  # noqa: F401
 from .kvcache import PagePool, PrefixCache  # noqa: F401
 from .kvtier import HostTier  # noqa: F401
@@ -56,10 +70,12 @@ from .server import ServingServer  # noqa: F401
 from .timeline import (  # noqa: F401
     StepAnomalySentinel, Timeline, judge_slo, resolve_slo, slo_targets,
 )
+from .wire import WireError  # noqa: F401
 
 __all__ = [
-    "client", "faults", "handoff", "kvcache", "kvtier",
+    "client", "faults", "fleet", "handoff", "kvcache", "kvtier",
     "metrics", "replica", "router", "scheduler", "server", "timeline",
+    "wire",
     "Timeline", "StepAnomalySentinel",
     "resolve_slo", "slo_targets", "judge_slo",
     "ServingClient", "ServingHTTPError",
@@ -72,4 +88,7 @@ __all__ = [
     "BackpressureError", "DeadlineExceededError", "SchedulerClosedError",
     "PoisonedRequestError", "CrashLoopError",
     "ServingServer",
+    "WireError", "FleetWorker", "FleetPages", "FleetPlane",
+    "RemoteReplica", "RemoteRequest", "RemoteHandoffRef",
+    "connect_fleet", "spawn_worker",
 ]

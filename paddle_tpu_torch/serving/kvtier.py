@@ -1,6 +1,5 @@
 """KV-cache tiering: a bounded host-RAM spill tier under the device
-prefix cache (counterpart of `paddle_tpu/serving/kvtier.py`, minus its
-fleet hooks).
+prefix cache (counterpart of `paddle_tpu/serving/kvtier.py`).
 
 The device-side `PrefixCache` (serving/kvcache.py) parks refcount-0
 pages in an LRU and discards them when allocation needs the page back,
@@ -121,10 +120,15 @@ class HostTier:
     `stash_*`; the tier's own copy worker inserts landed spills. All
     shared state (`_entries`, `_stash`, the ledger and counters) is
     guarded by `self._lock`; the wait for a snapshot runs outside the
-    lock on the worker thread. The reference's fleet
-    hooks (`on_drop`, `fetch_missing`) come with the multi-host fleet,
-    ROADMAP Queue 1 item 11: until then a drop is final and a short
-    match stays short."""
+    lock on the worker thread.
+
+    Fleet hooks (`serving/fleet.py`, the global prefix cache): with
+    `on_drop` set, budget-evicted entries go to it after the lock is
+    released (peer-originated entries excepted: they never re-spill);
+    with `fetch_missing` set, a `match` that ends short asks it, also
+    outside the lock, for the chain's next blocks and inserts what it
+    returns. Both are None by default, and then a drop is final and a
+    short match stays short."""
 
     def __init__(self, page_size, tier_bytes=0, quantize=True):
         self.page_size = int(page_size)
@@ -150,6 +154,15 @@ class HostTier:
         # the engine's FaultPlan (serving/faults.py), fired on the copy
         # thread at `tier_spill` and `handoff_export`
         self.faults = None
+        # fleet hooks (serving/fleet.py). `on_drop(entries)` receives
+        # budget-evicted (key, entry) pairs after the lock is released
+        # (it enqueues spills to the owning peer: a network call under
+        # self._lock would stall the pump). `fetch_missing(parent,
+        # block_idx, tokens)` runs at the end of a short `match`, also
+        # outside the lock, and returns extra chain-order payloads
+        # fetched from peers. Both None: a single host's behaviour.
+        self.on_drop = None
+        self.fetch_missing = None
 
     @property
     def enabled(self):
@@ -224,10 +237,11 @@ class HostTier:
                                   "nbytes": nb}
             self._bytes += nb
             self.spills += 1
-            self._shrink_locked()
+            dropped = self._shrink_locked()
             held, pages = self._bytes, len(self._entries)
         _flight.record("kvtier.spill", depth=int(depth), bytes=nb,
                        tier_bytes=held, tier_pages=pages)
+        self._notify_drops(dropped)
 
     # -- handoff export (the pump blocks on the copy thread's wait) -----
     def export_pages(self, k, v, ks=None, vs=None, ready=None, rids=None,
@@ -268,14 +282,31 @@ class HostTier:
         deepest block first (ties: oldest), so a drop never orphans
         descendants and surviving roots keep matching. The pinned stash
         is never dropped; it still counts, so heavy preemption pressure
-        shrinks the spill side."""
+        shrinks the spill side. Returns the dropped (key, entry) pairs,
+        for the fleet's `on_drop` outside the lock."""
+        dropped = []
         while self._bytes > self.tier_bytes and self._entries:
             victim, depth = None, -1
             for key, e in self._entries.items():  # oldest-first scan
                 if e["depth"] > depth:
                     victim, depth = key, e["depth"]
-            self._bytes -= self._entries.pop(victim)["nbytes"]
+            e = self._entries.pop(victim)
+            self._bytes -= e["nbytes"]
             self.drops += 1
+            dropped.append((victim, e))
+        return dropped
+
+    def _notify_drops(self, dropped):
+        """Feed budget-evicted entries to the fleet hook, lock already
+        released. Fleet-originated entries (a peer spilled them here)
+        never re-spill: two budget-pressured hosts would otherwise pass
+        the same page back and forth forever."""
+        hook = self.on_drop
+        if hook is None or not dropped:
+            return
+        local = [(k, e) for k, e in dropped if not e.get("fleet")]
+        if local:
+            hook(local)
 
     def flush(self, timeout=None):
         """Block until every queued spill has landed (tests and
@@ -292,10 +323,14 @@ class HostTier:
         t.start()
         return landed.wait(timeout)
 
-    def insert(self, parent, block, depth, payload):
+    # -- fleet page exchange (serving/fleet.py) ---------------------------
+    def insert(self, parent, block, depth, payload, fleet=False):
         """Index a host-resident page payload directly (no snapshot to
-        wait for). Returns False when the tier is off or the key is
-        already held."""
+        wait for): the landing half of a fleet page transfer, a page a
+        peer shipped to its owner or a fetch-on-miss pulled back.
+        `fleet=True` marks the entry peer-originated, so budget pressure
+        drops it without spilling it again. Returns False when the tier
+        is off or the key is already held."""
         if not self.enabled:
             return False
         block = tuple(int(t) for t in block)
@@ -305,15 +340,19 @@ class HostTier:
             if key in self._entries:
                 self._entries.move_to_end(key)
                 return False
-            self._entries[key] = {"parent": parent, "block": block,
-                                  "depth": int(depth), "payload": payload,
-                                  "nbytes": nb}
+            e = {"parent": parent, "block": block, "depth": int(depth),
+                 "payload": payload, "nbytes": nb}
+            if fleet:
+                e["fleet"] = True
+            self._entries[key] = e
             self._bytes += nb
-            self._shrink_locked()
+            dropped = self._shrink_locked()
+        self._notify_drops(dropped)
         return True
 
     def peek(self, key):
-        """One spilled entry by chained hash, touching its recency:
+        """One spilled entry by chained hash (what a peer's
+        fetch-on-miss asks this tier for), touching its recency:
         {parent, block, depth, payload}, or None."""
         with self._lock:
             e = self._entries.get(key)
@@ -330,14 +369,20 @@ class HostTier:
         match tier entries block by block with raw (parent, block)
         verification, so a hash collision is a miss, never wrong KV.
         Capped one token short of len(tokens), as the device match.
-        Returns the matched entries' payloads in chain order."""
+        Returns the matched entries' payloads in chain order.
+
+        With a fleet `fetch_missing` hook attached, a walk that ends
+        short of the cap continues through the hook (lock released: the
+        fetch is a network round trip), and the chain-order payloads the
+        owning peer returns extend the match."""
         ps = self.page_size
         limit = (len(tokens) - 1) // ps
         skip = int(skip_tokens) // ps
         parent = _kvc._SEED
         out = []
+        b = 0
         with self._lock:
-            if not self._entries:
+            if not self._entries and self.fetch_missing is None:
                 return out
             for b in range(limit):
                 block = tuple(int(t) for t in tokens[b * ps:(b + 1) * ps])
@@ -350,6 +395,11 @@ class HostTier:
                     out.append(e["payload"])
                     self._entries.move_to_end(h)
                 parent = h
+            else:
+                b = limit
+        hook = self.fetch_missing
+        if hook is not None and skip <= b < limit:
+            out.extend(hook(parent, b, tokens))
         return out
 
     def note_lookup(self, restored_pages):
@@ -374,8 +424,8 @@ class HostTier:
                                    "held (double preemption?)")
             self._stash[key] = (payload, nb, int(pages))
             self._bytes += nb
-            if self.enabled:
-                self._shrink_locked()
+            dropped = self._shrink_locked() if self.enabled else []
+        self._notify_drops(dropped)
 
     def stash_take(self, key):
         with self._lock:

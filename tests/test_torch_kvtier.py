@@ -226,3 +226,61 @@ def test_a_failed_spill_costs_one_page_and_a_failed_export_raises():
         tier.export_pages(torch.zeros(SHAPE), torch.zeros(SHAPE),
                           ready=Broken())
     assert tier.stats()["copy_errors"] == 1
+
+
+def _hooked(mod, host, hooks):
+    """Budget drops and a short match on a tier with the fleet hooks
+    attached (`hooks`) or not: what the tier kept, matched and handed to
+    the hooks, which must run with the tier's lock released."""
+    tier = mod.HostTier(PS, tier_bytes=700, quantize=False)
+    assert tier.on_drop is None and tier.fetch_missing is None
+    calls = []
+
+    def on_drop(entries):
+        assert not tier._lock.locked()
+        calls.append(("drop", [(k, e["depth"]) for k, e in entries]))
+
+    def fetch_missing(parent, block_idx, tokens):
+        assert not tier._lock.locked()
+        calls.append(("fetch", parent, block_idx, list(tokens)))
+        return [{"k": host(_page(90)), "v": host(_page(91)),
+                 "ks": None, "vs": None}]
+    if hooks:
+        tier.on_drop, tier.fetch_missing = on_drop, fetch_missing
+    toks = list(range(1, 8))
+    parent, keys = jkv._SEED, []
+    for b in range(3):                       # the third overflows 700 B
+        block = tuple(toks[b * PS:(b + 1) * PS])
+        tier.insert(parent, block, b, {"k": host(_page(b)),
+                                       "v": host(_page(b + 5)),
+                                       "ks": None, "vs": None})
+        parent = jkv.block_hash(parent, block)
+        keys.append(parent)
+    # a peer's page, dropped under the budget without a spill
+    tier.insert(jkv._SEED, (40, 41), 5, {"k": host(_page(7)),
+                                         "v": host(_page(8)),
+                                         "ks": None, "vs": None}, fleet=True)
+    kept = [tier.peek(k) is not None for k in keys]
+    short = len(tier.match(toks, 0))
+    capped = len(tier.match(toks[:2 * PS + 1], 0))
+    return kept, short, capped, tier.stats()["drops"], calls
+
+
+@pytest.mark.parametrize("hooks", [False, True], ids=["no_hooks", "hooks"])
+def test_fleet_hooks_match_reference(hooks):
+    """With both hooks None a drop is final and a short match stays
+    short, as the reference's; with them, budget drops (a peer's pages
+    excepted) reach `on_drop` and a short walk asks `fetch_missing`,
+    outside the lock, with the reference's arguments."""
+    ref = _hooked(JT, lambda a: a, hooks)
+    got = _hooked(PT, torch.from_numpy, hooks)
+    assert got == ref
+    kept, short, capped, drops, calls = got
+    assert kept == [True, True, False] and drops == 2 and capped == 2
+    if hooks:
+        assert short == 3
+        assert [c[0] for c in calls] == ["drop", "fetch"]
+        assert calls[1][1:3] == (jkv.block_hash(jkv.block_hash(
+            jkv._SEED, (1, 2)), (3, 4)), 2)
+    else:
+        assert short == 2 and calls == []

@@ -301,3 +301,79 @@ def test_device_generation_from_the_device_name(name, row, monkeypatch):
     else:
         assert dt.device_peaks() == dt.PEAK_SPECS[row]
         assert reg.note_step(0.01)["mfu"] == 1e9 / (0.01 * 989e12)
+
+
+# -- fleet observability (fleet_obs) ---------------------------------------
+FLEET_SECTIONS = [
+    {"label": "router", "offset_s": 0.0, "spans": [
+        {"name": "fleet.submit", "t_start": 100.0, "dur_s": 0.25,
+         "trace_id": "tr-a", "span_id": "s1", "args": {"worker": "w0"}},
+        {"name": "router.idle", "t_start": 100.5, "dur_s": 0.125}]},
+    {"label": "fr0@host0", "offset_s": 0.375, "spans": [
+        {"name": "wire.stream", "t_start": 100.5, "dur_s": 0.5,
+         "trace_id": "tr-a", "span_id": "s2", "parent_id": "s1"},
+        {"name": "wire.handoff", "t_start": 101.0, "dur_s": 0.25,
+         "trace_id": "tr-b"}]},
+    {"label": "fr1@host1", "offset_s": None, "spans": [
+        {"name": "engine.step", "t_start": 100.25, "dur_s": 0.0625,
+         "trace_id": "tr-b"}]},
+]
+
+
+def _flight_sections():
+    return [{"label": lbl, "offset_s": off, "uncertainty_s": unc,
+             "host": f"h{i}", "replica_id": f"fr{i}",
+             "flight": {"pid": 10 + i, "dropped": i, "events": [
+                 {"kind": "fleet.spill", "ts": 50.0 + j * 0.5 - i,
+                  "owner": "fr1"} for j in range(3)]},
+             "pulse": {"enabled": i == 0}, "requests": [{"rid": str(i)}]}
+            for i, (lbl, off, unc) in enumerate(
+                (("router", 0.0, 0.0), ("fr0@host0", 0.25, 0.125),
+                 ("fr1@host1", -1.5, None)))]
+
+
+@pytest.mark.parametrize("alpha", [None, 0.5])
+def test_clock_skew_estimator_matches(alpha):
+    samples = [("w0", 10.0, 10.75, 10.5, 0.125), ("w0", 11.0, 11.5, 11.25,
+                                                   0.0),
+               ("w1", 20.0, 19.0, 20.5, 0.25), ("w0", 12.0, 12.9, 12.2, 0.05)]
+    out = {}
+    for name, O in (("jax", JO), ("torch", PO)):
+        est = O.fleet_obs.ClockSkewEstimator(alpha=alpha)
+        seen = [est.sample(*s) for s in samples]
+        out[name] = (est.alpha, seen, est.snapshot(), est.offset("w0"),
+                     est.uncertainty("w1"), est.offset("never"),
+                     est.rebase("w1", 30.0))
+    assert out["torch"] == out["jax"]
+
+
+def test_stitch_fleet_trace_matches():
+    docs = [O.fleet_obs.stitch_fleet_trace(FLEET_SECTIONS)
+            for O in (JO, PO)]
+    assert docs[1] == docs[0]
+    assert {e["ph"] for e in docs[1]["traceEvents"]} == {"M", "X", "s", "f"}
+
+
+def test_merge_flight_sections_matches():
+    docs = [O.fleet_obs.merge_flight_sections(_flight_sections())
+            for O in (JO, PO)]
+    for d in docs:
+        assert isinstance(d.pop("merged_at"), float)
+    assert docs[1] == docs[0]
+    # skew-corrected: fr0's clock runs 0.25 s ahead, fr1's 1.5 s behind
+    assert [e["ts_fleet"] for e in docs[1]["events"]][:3] == \
+        [48.75, 49.25, 49.5]
+
+
+def test_write_fleet_bundle_matches(tmp_path):
+    meta = {"trigger": "slo_burst", "worker": "w0", "trace_ids": ["tr-a"]}
+    trees = {}
+    for name, O in (("jax", JO), ("torch", PO)):
+        path = O.fleet_obs.write_fleet_bundle(str(tmp_path / name), "b0",
+                                              meta, _flight_sections())
+        root = tmp_path / name / "b0"
+        assert path == str(root)
+        trees[name] = {str(p.relative_to(root)): json.loads(p.read_text())
+                       for p in sorted(root.rglob("*.json"))}
+    assert trees["torch"] == trees["jax"]
+    assert "fr0@host0/flight.json" in trees["torch"]

@@ -25,13 +25,14 @@ def test_every_module_imports_without_jax_or_paddle_tpu():
     mods = _modules()
     for m in ("models.llama_serving", "ops.varlen_attention",
               "ops.paged_attention", "_env", "utils.trace",
+              "distributed", "distributed.rpc",
               *(f"serving.{n}" for n in (
-                  "client", "faults", "metrics", "replica", "router",
-                  "scheduler", "server", "timeline")),
+                  "client", "faults", "fleet", "metrics", "replica",
+                  "router", "scheduler", "server", "timeline", "wire")),
               *(f"observability.{n}" for n in (
                   "chrome_trace", "compile_telemetry", "device_telemetry",
-                  "flight_recorder", "health", "logging", "pulse",
-                  "trace_context"))):
+                  "fleet_obs", "flight_recorder", "health", "logging",
+                  "pulse", "trace_context"))):
         assert f"paddle_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -184,3 +185,13 @@ def test_bucketed_engine_without_device_raises_on_a_box_without_cuda(
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine({"embed": torch.zeros(1)}, LlamaConfig.tiny(),
                       ragged=False)
+
+
+def test_fleet_worker_without_device_raises_on_a_box_without_cuda(no_card):
+    """A spawned fleet worker's spec runs on the card unless it says
+    "device": "cpu": without one it raises before it binds anything."""
+    from paddle_tpu_torch.serving.fleet import run_worker
+    spec = {"name": "w0", "master": "127.0.0.1:1", "rank": 1,
+            "world_size": 2, "model": vars(LlamaConfig.tiny())}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_worker(spec)

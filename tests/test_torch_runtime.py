@@ -386,16 +386,12 @@ def test_router_matches_the_reference(stacks, roles):
 
 
 def test_exports_mirror_the_reference():
-    """The packages' `__all__` are the reference's, less the fleet plane
-    (`fleet`, `wire`, `fleet_obs`: ROADMAP.md Queue 1 item 11) and the
-    training-health checks, which come with their callers (the trainer,
-    item 12; `nn`, item 13)."""
-    fleet = {"fleet", "wire", "fleet_obs", "WireError", "FleetWorker",
-             "FleetPages", "FleetPlane", "RemoteReplica", "RemoteRequest",
-             "RemoteHandoffRef", "connect_fleet", "spawn_worker"}
+    """The packages' `__all__` are the reference's (the fleet plane
+    included), less the training-health checks, which come with their
+    callers (the trainer, item 12; `nn`, item 13)."""
     training = {"TrainingHealthMonitor", "health_stats", "nan_blame"}
-    assert set(PSV.__all__) == set(JSV.__all__) - fleet
-    assert set(PO.__all__) == set(JO.__all__) - fleet - training
+    assert set(PSV.__all__) == set(JSV.__all__)
+    assert set(PO.__all__) == set(JO.__all__) - training
     for name in PO.__all__:
         assert hasattr(PO, name), name
     for name in PSV.__all__:
