@@ -326,15 +326,49 @@ non-zero):
                batch (train_packed's first loss), within a bf16
                tolerance.
 
+ 26. parallel_parity — hybrid-parallel training (`make_train_step` on a
+               rank mesh): Llama-3-8B widths at 4 layers (pp 2 x vpp 2
+               needs L % 4 == 0) with the vocabulary cut to 4096, fp32,
+               TF32 off, remat, train_parity's batch 2 x 512 (seed 3)
+               and packed_parity's rows for doc_ids; two steps of each
+               layout on 2 ranks (dp 2, dp 2 + doc_ids, tp 2, pp 2 with
+               gpipe, 1f1b and interleave at vpp 2, sp 2 ring and
+               Ulysses) and on 4 (dp 2 x tp 2), each rank's shards held
+               by `_step_parity`'s rules to the single-rank step on the
+               card from the same `init_params(seed=0)` (computed once
+               a batch by this process before the ranks start; the
+               ranks map it from a file), the step-1 gradients being
+               the ones each rank's step hands AdamW, and each rank's
+               launches of rows 3-5 (6-8 with doc_ids) equal to what its
+               layers, microbatches and steps imply (none for the
+               ring);
+ 27. parallel — the train phase's bf16 model at 8B widths (4 layers; dp
+               2 at depth 2: two 4-layer replicas do not fit one card),
+               batch 2 x 2048 (seed 4), 4 steps each of tp 2, pp 2 with
+               1f1b and sp 2 with Ulysses: finite, falling losses, median
+               step (steps 2-4) and global tokens/s, each rank's peak
+               memory, collective bytes, calls and host seconds a step
+               (`distributed/collective.py`'s counters) and launches of
+               rows 3-5 (checked as in parallel_parity).
+               The ranks of both phases are spawned once per world size
+               (`distributed/launch.spawn`, a deadline each; a failed
+               rank fails the phase): one card a rank over NCCL when the
+               machine has enough, else all on card 0 over gloo, every
+               collective staged through the host; each row gives
+               `backend` and `ranks_per_card`.
+
 After the phases, one line gives each phase's wall seconds
 (`phase_seconds`; the serve phases' shared 8B parameters are built
-outside them). The line before the last lists every kernel with its
+outside them; the two parallel phases' spawned ranks are
+`parallel_spawn`). The line before the last lists every kernel with its
 launches on the main path, its error against the plain version and its
 times, the launches prefix_serve added (`prefix_launches`), the
 launches of the runtime phase's runs (`runtime_launches`), those of
-the fleet phase's in-process workers (`fleet_launches`) and, for the
-ragged and verify rows, prefix_kernel's shapes (`prefix_kernel`); the
-last line is {"ok": true, "device": {...}}.
+the fleet phase's in-process workers (`fleet_launches`), each rank's
+launches in each layout of the parallel phases for rows 3-8
+(`parallel_launches`) and, for the ragged and verify rows,
+prefix_kernel's shapes (`prefix_kernel`); the last line is {"ok": true,
+"device": {...}}.
 """
 from __future__ import annotations
 
@@ -343,9 +377,11 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 PHASES = ("device", "build", "kernel", "parity", "serve", "train_kernel",
@@ -353,7 +389,8 @@ PHASES = ("device", "build", "kernel", "parity", "serve", "train_kernel",
           "train_packed", "bucket_kernel", "bucket_parity", "bucket_serve",
           "spec_kernel", "spec_parity", "spec_serve", "prefix_kernel",
           "prefix_parity", "prefix_serve", "runtime", "fleet",
-          "varlen_kernel", "fused_parity", "train_fused")
+          "varlen_kernel", "fused_parity", "train_fused", "parallel_parity",
+          "parallel")
 SOURCES = ("ragged_paged_attention", "flash_attention", "flashmask_attention",
            "varlen_attention", "paged_attention")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
@@ -4592,6 +4629,457 @@ def phase_train_fused(card, packed):
     return row
 
 
+# ------------------------------------------------------------- parallel
+# the layouts of parallel_parity (fp32, 8B widths at 4 layers, vocab
+# 4096, batch 2 x 512) and parallel (bf16, 8B widths): name -> (ranks,
+# mesh axes, make_train_step options, batch or layers)
+PARALLEL_PARITY_LAYOUTS = {
+    "dp2": (2, {"dp": 2}, {}, "plain"),
+    "dp2_doc_ids": (2, {"dp": 2}, {}, "packed"),
+    "tp2": (2, {"tp": 2}, {"batch_spec": ()}, "plain"),
+    "pp2_gpipe": (2, {"pp": 2}, {"batch_spec": (), "schedule": "gpipe"},
+                  "plain"),
+    "pp2_1f1b": (2, {"pp": 2}, {"batch_spec": (), "schedule": "1f1b"},
+                 "plain"),
+    "pp2_interleave": (2, {"pp": 2}, {"batch_spec": (),
+                                      "schedule": "interleave", "vpp": 2,
+                                      "n_micro": 2}, "plain"),
+    "sp2_ring": (2, {"sp": 2}, {"batch_spec": (None, "sp"),
+                                "sp_axis": "sp"}, "plain"),
+    "sp2_ulysses": (2, {"sp": 2}, {"batch_spec": (None, "sp"),
+                                   "sp_axis": "sp", "sp_impl": "ulysses"},
+                    "plain"),
+    "dp2_tp2": (4, {"dp": 2, "tp": 2}, {}, "plain"),
+}
+PARALLEL_PARITY_LAYERS = 4      # pp 2 x vpp 2 needs L % 4 == 0
+PARALLEL_LAYOUTS = {
+    "tp2": (2, {"tp": 2}, {"batch_spec": ()}, 4),
+    "pp2_1f1b": (2, {"pp": 2}, {"batch_spec": (), "schedule": "1f1b"}, 4),
+    "sp2_ulysses": (2, {"sp": 2}, {"batch_spec": (None, "sp"),
+                                   "sp_axis": "sp", "sp_impl": "ulysses"},
+                    4),
+    # two full replicas of the 4-layer model (42.8 GB each on one card,
+    # PERF.md) do not fit one card: dp runs at depth 2
+    "dp2": (2, {"dp": 2}, {}, 2),
+}
+PARALLEL_STEPS = 4
+PARALLEL_DEADLINE_S = 420
+
+
+def _parallel_backend(world):
+    """NCCL with a card a rank when the machine has them, else gloo with
+    every rank on card 0 (collectives staged through the host)."""
+    import torch
+    n = torch.cuda.device_count()
+    return ("nccl", 1) if n >= world else ("gloo", world)
+
+
+def _want_parallel(family, layers_here, micro, steps):
+    """Launches of `steps` remat steps on `layers_here` layers and
+    `micro` microbatches a layer: the forward twice, dQ and dK/dV once,
+    each a microbatch; none on the other family."""
+    want = {k: 0 for k in _train_counts()}
+    if family:
+        n = layers_here * micro * steps
+        want.update({f"{family}_fwd": 2 * n, f"{family}_bwd_dq": n,
+                     f"{family}_bwd_dkv": n})
+    return want
+
+
+def _layout_family(axes, kw, batch):
+    """(kernel family, microbatches each layer of a rank runs a step)."""
+    if kw.get("sp_axis") and kw.get("sp_impl", "ring") == "ring":
+        family = None               # the ring is plain torch
+    else:
+        family = "flashmask" if batch == "packed" else "flash"
+    pp = axes.get("pp", 1)
+    if pp == 1:
+        micro = kw.get("n_micro") or 1
+    elif kw.get("schedule") == "interleave":
+        micro = kw.get("n_micro") or pp * kw.get("vpp", 2)
+    else:
+        micro = kw.get("n_micro") or pp
+    return family, micro
+
+
+def _parallel_batches(vocab):
+    """parallel_parity's batches: train_parity's plain batch 2 x 512 and
+    packed_parity's rows (doc_ids)."""
+    return {"plain": _train_batch(vocab, 2, 512, seed=3),
+            "packed": _packed_batch(vocab, PACKED_PARITY_ROWS, seed=3)}
+
+
+def _parallel_parity_config():
+    return dataclasses.replace(_parity_config(),
+                               num_hidden_layers=PARALLEL_PARITY_LAYERS)
+
+
+PARALLEL_LR, PARALLEL_PARITY_STEPS = 3e-4, 2
+
+
+def _parallel_references(kinds, out_dir, dev="cuda"):
+    """The single-rank step on the card, once a batch kind, before the
+    ranks start: its step-1 gradients and the parameters after
+    PARALLEL_PARITY_STEPS steps, saved leaf by leaf in `out_dir` as
+    <kind>_{grads,params}_<leaf>.npy (the ranks map them), and its
+    losses and each step-1 gradient leaf's largest magnitude,
+    returned."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import llama_spmd as T
+    cfg = _parallel_parity_config()
+    batches = _parallel_batches(cfg.vocab_size)
+    out = {}
+    for kind in kinds:
+        batch = tuple(torch.from_numpy(a).to(dev) for a in batches[kind])
+        params = T.init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+        opt = T.init_opt_state(params)
+        _, grads = T.loss_and_grads(params, batch, cfg, remat=True)
+        grads = T._leaves(grads)
+        grad_max = [float(g.abs().max()) for g in grads]
+        for i, g in enumerate(grads):
+            np.save(os.path.join(out_dir, f"{kind}_grads_{i}.npy"),
+                    g.cpu().numpy())
+        del grads
+        step = T.make_train_step(cfg, lr=PARALLEL_LR, device=dev)
+        losses = [float(step(params, opt, i, batch)[2])
+                  for i in range(PARALLEL_PARITY_STEPS)]
+        for i, p in enumerate(T._leaves(params)):
+            np.save(os.path.join(out_dir, f"{kind}_params_{i}.npy"),
+                    p.cpu().numpy())
+        out[kind] = {"losses": losses, "grad_max": grad_max}
+        del params, opt
+        gc_cuda()
+    return out
+
+
+def _reference_leaves(ref_dir, kind, what, n):
+    """A saved reference's leaves, mapped from its files (copy on
+    write: nothing is read until a shard is taken)."""
+    import numpy as np
+    import torch
+    return [torch.from_numpy(np.load(
+        os.path.join(ref_dir, f"{kind}_{what}_{i}.npy"), mmap_mode="c"))
+        for i in range(n)]
+
+
+def _ref_shards(leaves, cfg, mesh, dev, vpp):
+    """This rank's shard of each leaf of a full tree, leaf by leaf on
+    the card (`place_params`' split, without a copy of the whole
+    tree)."""
+    from paddle_tpu_torch.models import llama_spmd as T
+    pp, S, v = T._stages(mesh, None, vpp)
+    specs = T._leaves(T.param_specs(cfg, mesh, pp=pp))
+    for a, spec in zip(leaves, specs):
+        if v > 1 and tuple(spec)[:1] == ("pp",):
+            a = T._interleave_layers(a, S, v)
+        for dim, entry in enumerate(spec):
+            idx, n = T._block(mesh, T._spec_axes(entry))
+            if n > 1:
+                a = a.chunk(n, dim)[idx]
+        yield a.to(dev)
+
+
+def _parity_errors(name, cfg, mesh, vpp, ref, losses, grads, params):
+    """`_step_parity`'s rules, shard by shard (on the card): losses to
+    1e-5 relative plus 1e-5, each gradient to PARITY_GRAD_RTOL of itself
+    plus PARITY_GRAD_SCALE of its full leaf's largest magnitude,
+    parameters to 2.5 lr a step and 1e-5 in relative norm."""
+    from paddle_tpu_torch.models import llama_spmd as T
+    lr, steps = PARALLEL_LR, PARALLEL_PARITY_STEPS
+    loss_err = [abs(a - c) for a, c in zip(losses, ref["losses"])]
+    if any(e > 1e-5 * abs(c) + 1e-5 for e, c in zip(loss_err, ref["losses"])):
+        fail(f"{name}: losses {losses} vs {ref['losses']}")
+    dev = T._leaves(params)[0].device
+    worst = 0.0
+    for a, c, m in zip(T._leaves(grads), _ref_shards(ref["grads"], cfg,
+                                                    mesh, dev, vpp),
+                       ref["grad_max"]):
+        allowed = PARITY_GRAD_RTOL * c.abs() + PARITY_GRAD_SCALE * m + 1e-30
+        worst = max(worst, float(((a.float() - c).abs() / allowed).max()))
+    if worst > 1.0:
+        fail(f"{name}: step-1 gradients off, worst {worst} of the tolerance")
+    p_err = p_rel = 0.0
+    for a, c in zip(T._leaves(params), _ref_shards(ref["params"], cfg, mesh,
+                                                   dev, vpp)):
+        p_err = max(p_err, float((a - c).abs().max()))
+        p_rel = max(p_rel, float((a - c).norm() / c.norm()))
+    if p_err > 2.5 * lr * steps or p_rel > 1e-5:
+        fail(f"{name}: parameters off by {p_err} (relative norm {p_rel})")
+    return {"loss_abs_err": loss_err, "grad_worst_share_of_tol": worst,
+            "param_max_abs_err": p_err, "param_max_rel_norm_err": p_rel}
+
+
+class _FirstGrads:
+    """Keeps the gradients the train step hands AdamW on its first call
+    (the step's own, reduced over the data axes, before the clip), by
+    wrapping `llama_spmd.adamw_update` while it is entered."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.models import llama_spmd as T
+        self.grads, self._T, self._update = None, T, T.adamw_update
+
+        def update(params, grads, *args, **kw):
+            if self.grads is None:
+                self.grads = grads
+            return self._update(params, grads, *args, **kw)
+        T.adamw_update = update
+        return self
+
+    def __exit__(self, *exc):
+        self._T.adamw_update = self._update
+        return False
+
+
+def _parity_layouts(rank, world, layouts, dev, refs):
+    import torch
+    import paddle_tpu_torch.distributed.collective as C
+    from paddle_tpu_torch.models import llama_spmd as T
+    from paddle_tpu_torch.parallel import P, create_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _parallel_parity_config()
+    batches = _parallel_batches(cfg.vocab_size)
+    ref = {}
+    for kind in sorted({b for _, _, _, b in layouts.values()}):
+        # the parent's files, mapped; with two ranks on the card each
+        # keeps the plain batch's reference there (7.2 GB)
+        n = len(refs[kind]["grad_max"])         # one a leaf
+        trees = {what: _reference_leaves(refs["dir"], kind, what, n)
+                 for what in ("grads", "params")}
+        if world <= 2 and kind == "plain":
+            trees = {k: [t.to(dev) for t in ts] for k, ts in trees.items()}
+        ref[kind] = dict(refs[kind], **trees)
+    out = {}
+    for name, (_, axes, kw, kind) in layouts.items():
+        kw = dict(kw)
+        if "batch_spec" in kw:
+            kw["batch_spec"] = P(*kw["batch_spec"])
+        vpp = kw.get("vpp", 2) if kw.get("schedule") == "interleave" \
+            else None
+        mesh = create_mesh(axes)
+        batch = tuple(torch.from_numpy(a).to(dev) for a in batches[kind])
+        full = T.init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+        params = T.place_params(full, cfg, mesh, vpp=vpp)
+        del full
+        opt = T.init_opt_state(params)
+        step = T.make_train_step(cfg, mesh, lr=PARALLEL_LR, device=dev, **kw)
+        _reset_train_counts()
+        C.reset_counters()
+        t0 = time.perf_counter()
+        with _FirstGrads() as first:
+            losses = [float(step(params, opt, i, batch)[2])
+                      for i in range(PARALLEL_PARITY_STEPS)]
+        secs = time.perf_counter() - t0
+        row = {"losses": losses, "launches": _train_counts(),
+               "collectives": C.counters(), "seconds": secs,
+               **_parity_errors(f"parallel_parity {name} (rank {rank})", cfg,
+                                mesh, vpp, ref[kind], losses, first.grads,
+                                params)}
+        out[name] = row
+        del params, opt, first
+        gc_cuda()
+    return out
+
+
+def gc_cuda():
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _speed_layouts(rank, world, layouts, dev):
+    import torch
+    import paddle_tpu_torch.distributed.collective as C
+    from paddle_tpu_torch.models import llama_spmd as T
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.parallel import P, create_mesh
+    out = {}
+    for name, (_, axes, kw, layers) in layouts.items():
+        kw = dict(kw)
+        if "batch_spec" in kw:
+            kw["batch_spec"] = P(*kw["batch_spec"])
+        cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                                  num_hidden_layers=layers)
+        mesh = create_mesh(axes)
+        torch.cuda.reset_peak_memory_stats(dev)
+        full = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+        params = T.place_params(full, cfg, mesh)
+        del full
+        opt = T.init_opt_state(params)
+        batch = tuple(torch.from_numpy(a).to(dev) for a in
+                      _train_batch(cfg.vocab_size, 2, 2048, seed=4))
+        step = T.make_train_step(cfg, mesh, device=dev, **kw)
+        _reset_train_counts()
+        losses, times, coll = [], [], []
+        for i in range(PARALLEL_STEPS):
+            C.reset_counters()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            loss = step(params, opt, i, batch)[2]
+            losses.append(loss.item())          # waits for the step
+            times.append((time.perf_counter() - t0) * 1e3)
+            coll.append(C.counters())
+        out[name] = {"losses": losses, "step_ms": times,
+                     "launches": _train_counts(), "collectives": coll,
+                     "max_memory_allocated_gb":
+                         torch.cuda.max_memory_allocated(dev) / 1e9}
+        del params, opt, batch, step
+        gc_cuda()
+    return out
+
+
+def parallel_rank(rank, world, job):
+    """One spawned rank of the parallel phases: on its card (card 0 when
+    the ranks share one), the layouts of `job` for this world."""
+    import torch
+    from paddle_tpu_torch.distributed.launch import rank_device
+    dev = torch.device(rank_device("cuda"))
+    torch.cuda.set_device(dev)
+    out = {}
+    if job.get("parity"):
+        out["parity"] = _parity_layouts(rank, world, job["parity"], dev,
+                                        job["refs"])
+    if job.get("speed"):
+        out["speed"] = _speed_layouts(rank, world, job["speed"], dev)
+    return out
+
+
+def _spawn_parallel(phases):
+    """Spawn each world size once and run there every layout of the
+    selected phases; returns {world: [rank results]} and the backends."""
+    import torch
+    from paddle_tpu_torch.distributed.launch import spawn
+    import paddle_tpu_torch.ops.flash_attention as fa
+    import paddle_tpu_torch.ops.flashmask_attention as fm
+    fa._lib(), fm._lib()            # built here, loaded by the ranks
+    gc_cuda()
+    parent_gb = torch.cuda.memory_reserved() / 1e9
+    # two full replicas share the card: no fragmented reserve in a rank
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    jobs = {}
+    if "parallel_parity" in phases:
+        for name, lay in PARALLEL_PARITY_LAYOUTS.items():
+            jobs.setdefault(lay[0], {}).setdefault("parity", {})[name] = lay
+    if "parallel" in phases:
+        for name, lay in PARALLEL_LAYOUTS.items():
+            jobs.setdefault(lay[0], {}).setdefault("speed", {})[name] = lay
+    results, info = {}, {}
+    ref_dir = tempfile.mkdtemp(prefix="pt_parallel_ref_")
+    try:
+        if "parallel_parity" in phases:
+            t0 = time.perf_counter()
+            kinds = sorted({lay[3] for lay in
+                            PARALLEL_PARITY_LAYOUTS.values()})
+            refs = dict(_parallel_references(kinds, ref_dir), dir=ref_dir)
+            for job in jobs.values():
+                if "parity" in job:
+                    job["refs"] = refs
+            ref_s = time.perf_counter() - t0
+        for world, job in sorted(jobs.items()):
+            backend, per_card = _parallel_backend(world)
+            t0 = time.perf_counter()
+            results[world] = spawn(parallel_rank, world, backend, "cuda",
+                                   PARALLEL_DEADLINE_S, args=(job,), env=env)
+            info[world] = {"backend": backend, "ranks_per_card": per_card,
+                           "seconds": time.perf_counter() - t0,
+                           "parent_cuda_reserved_gb": parent_gb}
+            if "refs" in job:
+                info[world]["reference_seconds"] = ref_s
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    return results, info
+
+
+def _check_launches(phase, name, axes, kw, batch, layers, ranks, steps):
+    """Every rank's launches of rows 3-8 equal what its layers, its
+    microbatches and the steps imply."""
+    family, micro = _layout_family(axes, kw, batch)
+    want = _want_parallel(family, layers // axes.get("pp", 1), micro, steps)
+    for r, row in enumerate(ranks):
+        if row["launches"] != want:
+            fail(f"{phase} {name}: rank {r} launches {row['launches']}, "
+                 f"want {want}")
+    return want
+
+
+PARALLEL_PARITY_CONFIG = ("llama3_8b widths, 4 layers, vocab 4096, fp32, TF32 "
+                          "off, remat, batch 2 x 512 (packed: documents "
+                          f"{list(map(list, PACKED_PARITY_ROWS))})")
+
+
+def phase_parallel_parity(card, spawned):
+    results, info = spawned
+    out = {}
+    for name, (world, axes, kw, kind) in PARALLEL_PARITY_LAYOUTS.items():
+        ranks = [res["parity"][name] for res in results[world]]
+        want = _check_launches("parallel_parity", name, axes, kw, kind,
+                               PARALLEL_PARITY_LAYERS, ranks, 2)
+        row = {"phase": "parallel_parity", "card": card, "layout": name,
+               "config": PARALLEL_PARITY_CONFIG, "mesh": axes,
+               "options": kw, "batch": kind, **info[world],
+               "losses": ranks[0]["losses"],
+               "launches_per_rank": [r["launches"] for r in ranks],
+               "want_launches": want,
+               "grad_worst_share_of_tol": max(
+                   r["grad_worst_share_of_tol"] for r in ranks),
+               "param_max_abs_err": max(r["param_max_abs_err"] for r in ranks),
+               "param_max_rel_norm_err": max(r["param_max_rel_norm_err"]
+                                             for r in ranks),
+               "loss_abs_err": ranks[0]["loss_abs_err"],
+               "collective_bytes_per_rank": [r["collectives"]["bytes_sent"]
+                                             for r in ranks],
+               "steps_seconds": max(r["seconds"] for r in ranks)}
+        emit(row)
+        out[name] = row
+    return out
+
+
+PARALLEL_CONFIG = ("llama3_8b widths, {layers} layers, bf16 params, fp32 "
+                   "AdamW state, remat, random weights (seed 0), batch 2 x "
+                   "2048 (seed 4)")
+
+
+def phase_parallel(card, spawned):
+    import statistics as st
+    results, info = spawned
+    out = {}
+    for name, (world, axes, kw, layers) in PARALLEL_LAYOUTS.items():
+        ranks = [res["speed"][name] for res in results[world]]
+        want = _check_launches("parallel", name, axes, kw, "plain", layers,
+                               ranks, PARALLEL_STEPS)
+        losses = ranks[0]["losses"]
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"parallel {name}: losses not finite: {losses}")
+        if not losses[-1] < losses[0]:
+            fail(f"parallel {name}: loss did not fall: {losses}")
+        med = [st.median(r["step_ms"][1:]) for r in ranks]
+        step_ms = max(med)
+        per_step = lambda r, k: [c[k] for c in r["collectives"]]  # noqa: E731
+        row = {"phase": "parallel", "card": card, "layout": name,
+               "config": PARALLEL_CONFIG.format(layers=layers),
+               "mesh": axes, "options": kw, **info[world],
+               "steps": PARALLEL_STEPS, "losses": losses,
+               "step_ms_per_rank": [r["step_ms"] for r in ranks],
+               "median_step_ms": step_ms,
+               "global_tokens_per_s": 2 * 2048 / (step_ms / 1e3),
+               "max_memory_allocated_gb_per_rank":
+                   [r["max_memory_allocated_gb"] for r in ranks],
+               "collective_bytes_per_step_per_rank":
+                   [per_step(r, "bytes_sent") for r in ranks],
+               "collective_seconds_per_step_per_rank":
+                   [per_step(r, "seconds") for r in ranks],
+               "collective_calls_per_step_per_rank":
+                   [per_step(r, "calls") for r in ranks],
+               "launches_per_rank": [r["launches"] for r in ranks],
+               "want_launches": want}
+        emit(row)
+        out[name] = row
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4674,6 +5162,15 @@ def main(argv=None):
         timed("fused_parity", phase_fused_parity, smi)
     if "train_fused" in phases:
         timed("train_fused", phase_train_fused, smi, packed)
+    par_parity, par = {}, {}
+    if {"parallel_parity", "parallel"} & set(phases):
+        # each world size spawned once for both phases' layouts
+        spawned = timed("parallel_spawn", _spawn_parallel, phases)
+        if "parallel_parity" in phases:
+            par_parity = timed("parallel_parity", phase_parallel_parity,
+                               smi, spawned)
+        if "parallel" in phases:
+            par = timed("parallel", phase_parallel, smi, spawned)
     emit({"phase_seconds": secs})
     # launches the prefix_serve runs added, by kernel (the returning turns
     # of the multi-turn runs, the whole system-prompt runs)
@@ -4772,6 +5269,17 @@ def main(argv=None):
         # the launches of the fleet phase's in-process workers ((a) and
         # (c)); None for the kernels the fleet does not run
         row["fleet_launches"] = fleet_counts.get(row["name"])
+        # each rank's launches in each layout of the parallel phases
+        # (rows 3-8; None for the others)
+        if row["name"] in _train_counts() and (par_parity or par):
+            row["parallel_launches"] = {
+                f"{phase} {name}": [r[row["name"]] for r in
+                                    prow["launches_per_rank"]]
+                for phase, rows in (("parallel_parity", par_parity),
+                                    ("parallel", par))
+                for name, prow in rows.items()}
+        else:
+            row["parallel_launches"] = None
         for (kname, variant, shape), k in pk.items():
             if kname == row["name"] and variant in ("bfloat16", "int8"):
                 row.setdefault("prefix_kernel", {})[str(shape)] = {

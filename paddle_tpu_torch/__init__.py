@@ -18,7 +18,10 @@ single-device pretrain step (`models.llama_spmd.make_train_step`, on the
 flash-attention kernels of `ops.flash_attention`, or with packed
 documents on the FlashMask kernels of `ops.flashmask_attention`; with
 `fused_ce` and `remat="dots"`) and varlen training (the differentiable
-`ops.varlen_attention.flash_attention_varlen` and `flash_attn_unpadded`).
+`ops.varlen_attention.flash_attention_varlen` and `flash_attn_unpadded`)
+and hybrid-parallel training on a mesh of ranks (`parallel.create_mesh`,
+`distributed.launch`: tp, dp, sp ring / Ulysses, pp GPipe / 1F1B /
+interleaved, on the same step).
 Each kernel module counts its launches (`launches`, `launches_fwd`,
 `launches_dq`, `launches_decode`, ...). `python3 chip_smoke.py` drives
 every path on the card; `--phases

@@ -187,9 +187,15 @@ def _filter_draw(lg, temp, top_k, top_p, key, fold):
     raw-model logprob at that token (N,) f32); temp == 0 rows take the
     argmax."""
     greedy = torch.argmax(lg, dim=-1)
-    lt = _filtered_logits(lg, temp, top_k, top_p)
-    drawn = _prng.categorical(_prng.fold_in(key, fold), lt)
-    tok = torch.where(temp > 0.0, drawn, greedy)
+    if lg.device.type == "cpu" and not bool((temp > 0.0).any()):
+        # every row greedy: the draw would be masked out. On the card
+        # the draw runs anyway (no host sync); on the CPU skip its sort
+        # and threefry bits over the vocabulary
+        tok = greedy
+    else:
+        lt = _filtered_logits(lg, temp, top_k, top_p)
+        drawn = _prng.categorical(_prng.fold_in(key, fold), lt)
+        tok = torch.where(temp > 0.0, drawn, greedy)
     lp = torch.gather(torch.log_softmax(lg, dim=-1), -1, tok[:, None])[:, 0]
     return tok, lp
 

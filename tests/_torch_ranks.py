@@ -1,0 +1,301 @@
+"""What the spawned ranks of the parallel tests run (imported by the
+ranks, so it imports neither jax nor paddle_tpu).
+
+Every function here is `fn(rank, world, data)` for
+`paddle_tpu_torch.distributed.launch.spawn`: `data` holds numpy inputs
+made by the test, the result numpy arrays the test holds to the JAX
+package."""
+import numpy as np
+import torch
+
+from paddle_tpu_torch.distributed import collective as C
+from paddle_tpu_torch.models import llama_spmd as T
+from paddle_tpu_torch.models.llama import LlamaConfig
+from paddle_tpu_torch.parallel import pp as PP
+from paddle_tpu_torch.parallel.mesh import P, create_mesh
+from paddle_tpu_torch.parallel.ring import ring_attention
+from paddle_tpu_torch.parallel.ulysses import ulysses_attention
+
+
+def _t(a, grad=False):
+    t = torch.from_numpy(np.array(a))
+    return t.requires_grad_() if grad else t
+
+
+def _np(tree):
+    if isinstance(tree, dict):
+        return {k: _np(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_np(v) for v in tree]
+    return tree.detach().cpu().numpy() if torch.is_tensor(tree) else tree
+
+
+# ------------------------------------------------------------ launching
+def boom(rank, world):
+    if rank == 1:
+        raise ValueError("rank one says no")
+    return rank
+
+
+def sleeper(rank, world):
+    import time
+    time.sleep(60)
+
+
+# ------------------------------------------------------------ collectives
+def collectives(rank, world, data):
+    """Each collective on this rank's block of data["x"] (dim 0 split
+    over the ranks), forward and, for the differentiable ones, the
+    gradient of sum(out * w), on data["device"] (default the CPU)."""
+    mesh = create_mesh({"i": world})
+    return _np(_collectives_on(rank, world, data, mesh.group("i"),
+                               data.get("device", "cpu")))
+
+
+def _collectives_on(rank, world, data, g, dev):
+    t = lambda a, grad=False: _t(a).to(dev).requires_grad_(grad)  # noqa: E731
+    x = t(data["x"]).chunk(world)[rank].contiguous()
+    w = t(data["w"]).chunk(world)[rank].contiguous()
+    out = {"backend": C.get_backend(g)}
+    out["all_reduce_sum"] = C.all_reduce(x.clone(), group=g)
+    out["all_reduce_max"] = C.all_reduce(x.clone(), C.ReduceOp.MAX, g)
+    out["all_reduce_avg"] = C.all_reduce(x.clone(), C.ReduceOp.AVG, g)
+    out["all_gather"] = C.all_gather(None, x, group=g)
+    out["all_gather_list"] = torch.stack(C.all_gather([], x, group=g))
+    out["all_gather_cat"] = C.all_gather_cat(x, g, dim=1)
+    out["reduce_scatter"] = C.reduce_scatter(x.clone(), group=g)
+    rs = torch.empty_like(x.chunk(world)[0])
+    out["reduce_scatter_list"] = C.reduce_scatter(
+        rs, list(x.chunk(world)), group=g)
+    out["broadcast"] = C.broadcast(x.clone(), src=world - 1, group=g)
+    out["alltoall_single"] = C.alltoall_single(x, group=g)
+    out["alltoall_list"] = torch.stack(C.alltoall(list(x.chunk(world)),
+                                                  group=g))
+    ring = [(i, (i + 1) % world) for i in range(world)]
+    out["ppermute_ring"] = C.p2p_ppermute(x, ring, g)
+    out["ppermute_one"] = C.p2p_ppermute(x, [(0, world - 1)], g)
+    buf = torch.zeros_like(x)
+    if rank == 0:
+        C.send(x, dst=1, group=g)
+    elif rank == 1:
+        C.recv(buf, src=0, group=g)
+    out["recv"] = buf
+    C.barrier(g)
+    # the differentiable ones: gradients of sum(out * w)
+    x0 = t(data["x0"], grad=True)            # replicated input
+    (out["copy_to_group_grad"],) = torch.autograd.grad(
+        (C.copy_to_group(x0, g) * w).sum(), x0)
+    xs = x.clone().requires_grad_()
+    y = C.reduce_from_group(xs, g)
+    out["reduce_from_group"] = y
+    (out["reduce_from_group_grad"],) = torch.autograd.grad(
+        (y * t(data["w0"])).sum(), xs)
+    x3 = t(data["x3"]).chunk(world)[rank].contiguous().requires_grad_()
+    w3 = t(data["w3"]).chunk(world)[rank]
+    y = C.all_to_all(x3, g, 1, 0)
+    out["all_to_all"] = y
+    (out["all_to_all_grad"],) = torch.autograd.grad((y * w3).sum(), x3)
+    xs = x.clone().requires_grad_()
+    y = C.ppermute(xs, ring, g)
+    out["ppermute"] = y
+    (out["ppermute_grad"],) = torch.autograd.grad((y * w).sum(), xs)
+    out["devices"] = sorted({str(v.device) for v in out.values()
+                             if torch.is_tensor(v)})
+    C.reset_counters()
+    C.all_reduce(torch.ones(1000, device=dev), group=g)
+    out["counters"] = C.counters()
+    return out
+
+
+def card_collectives(rank, world, data):
+    """The collectives on CUDA tensors (staged through the host over
+    gloo) and on CPU tensors, from one rank a process on one card."""
+    from paddle_tpu_torch.distributed.launch import rank_device
+    dev = torch.device(rank_device("cuda"))
+    torch.cuda.set_device(dev)
+    g = create_mesh({"i": world}).group("i")
+    return {str(where): _np(_collectives_on(rank, world, data, g, where))
+            for where in ("cpu", dev)}
+
+
+def card_train(rank, world, data):
+    """Two steps of make_train_step on the card per layout of data
+    ["layouts"] (full trees gathered), and the single-rank card step
+    from the same weights; the flash kernels' launches of each."""
+    import paddle_tpu_torch.ops.flash_attention as fa
+    from paddle_tpu_torch.distributed.launch import rank_device
+    dev = torch.device(rank_device("cuda"))
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _config(data["dims"])
+    batch = tuple(torch.from_numpy(a).to(dev) for a in data["batch"])
+
+    def run(mesh, kw):
+        full = T.init_params(cfg, seed=0, device=dev)
+        vpp = _placed_vpp(kw)
+        params = full if mesh is None else T.place_params(full, cfg, mesh,
+                                                          vpp=vpp)
+        opt = T.init_opt_state(params)
+        mkw = dict(kw, mesh=mesh) if mesh is not None else {}
+        _, grads = T.loss_and_grads(params, batch, cfg, remat=True, **mkw)
+        step = T.make_train_step(cfg, lr=data["lr"], device=dev, **mkw)
+        fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+        losses = [float(step(params, opt, i, batch)[2]) for i in range(2)]
+        launches = (fa.launches_fwd, fa.launches_dq, fa.launches_dkv)
+        if mesh is not None:
+            grads = T.gather_params(grads, cfg, mesh, vpp=vpp)
+            params = T.gather_params(params, cfg, mesh, vpp=vpp)
+        return {"losses": losses, "grads": _np(_cpu(grads)),
+                "params": _np(_cpu(params)), "launches": launches,
+                "device": str(T._leaves(params)[0].device)}
+
+    out = {"single": run(None, {})}
+    for name, (axes, kw) in data["layouts"].items():
+        kw = dict(kw)
+        if "batch_spec" in kw:
+            kw["batch_spec"] = P(*kw["batch_spec"])
+        out[name] = run(create_mesh(axes), kw)
+    return out
+
+
+def _cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    return tree.detach().cpu()
+
+
+# ------------------------------------------------------------ attention
+def sequence_parallel(rank, world, data):
+    """Ring and Ulysses attention on this rank's block of the sequence:
+    outputs and the gradients of sum(out * w) for q, k and v."""
+    out = {}
+    mesh = create_mesh({"sp": world})
+    cases = (("ring", ring_attention, "kv"), ("ulysses", ulysses_attention, "kv"),
+             ("ulysses_gqa", ulysses_attention, "kv_gqa"))
+    for impl, fn, kv in cases:
+        for causal in (True, False):
+            qkv = [_t(a).chunk(world, 2)[rank].contiguous().requires_grad_()
+                   for a in (data["q"], *data[kv])]
+            w = _t(data["w"]).chunk(world, 2)[rank]
+            kw = {"q_chunk": data["q_chunk"]} if impl == "ring" else {}
+            o = fn(*qkv, mesh, "sp", causal=causal, **kw)
+            grads = torch.autograd.grad((o * w).sum(), qkv)
+            out[(impl, causal)] = _np([o] + list(grads))
+    return out
+
+
+# ------------------------------------------------------------ pipelines
+def toy_layer(lp, h, extra):
+    """The pipelines' test layer: h <- tanh(h @ w + b) * extra."""
+    return torch.tanh(h @ lp["w"] + lp["b"]) * extra
+
+
+def toy_head(hp, h, tgt):
+    """(loss_sum, weight): the squared error of h @ hp["w"] against the
+    targets, summed over rows whose target is not -1 (a weight a row)."""
+    keep = (tgt[..., 0] >= 0).float()
+    err = ((h @ hp["w"] - tgt) ** 2).sum(-1)
+    return (err * keep).sum(), keep.sum()
+
+
+def pipelines(rank, world, data):
+    """pipeline_apply (forward and the gradients of sum(out * w)),
+    pipeline_train_1f1b and pipeline_train_interleaved over a pp axis of
+    all the ranks, on the toy layer and head."""
+    mesh = create_mesh({"pp": world})
+    S, L = world, data["w"].shape[0]
+    stacked = {"w": _t(data["w"]), "b": _t(data["b"])}
+    extra = _t(data["extra"])
+    x, tgt = _t(data["x"]), _t(data["tgt"])
+    head = {"w": _t(data["head_w"])}
+    out = {}
+    local = {k: v.chunk(S)[rank].clone().requires_grad_()
+             for k, v in stacked.items()}
+    xg = x.clone().requires_grad_()
+    y = PP.pipeline_apply(local, xg, toy_layer, mesh, "pp",
+                          data["n_micro"], extra)
+    gs = torch.autograd.grad((y * _t(data["wy"])).sum(),
+                             [xg, local["b"], local["w"]])
+    out["apply"] = _np([y] + list(gs))
+    local = {k: v.chunk(S)[rank] for k, v in stacked.items()}
+    out["1f1b"] = _np(PP.pipeline_train_1f1b(
+        local, x, tgt, toy_layer, toy_head, head, mesh, "pp",
+        data["n_micro"], extra))
+    v = data["vpp"]
+    chunks = {k: a[rank] for k, a in
+              PP.group_virtual_stages(stacked, S, v).items()}
+    out["interleave"] = _np(PP.pipeline_train_interleaved(
+        chunks, x, tgt, toy_layer, toy_head, head, mesh, "pp",
+        data["n_micro"], v, extra))
+    out["L"] = L
+    return out
+
+
+# ------------------------------------------------------------ train step
+def _config(dims):
+    return LlamaConfig.tiny(**dims)
+
+
+def _placed_vpp(kw):
+    """place_params' vpp for a layout's step options: the step's chunks
+    under the interleaved schedule."""
+    return kw.get("vpp", 2) if kw.get("schedule") == "interleave" else None
+
+
+def _run_layout(case, params_np, opt_np, batch, steps, lr):
+    """`steps` steps of make_train_step on one layout, from the JAX
+    package's weights: (losses, step-1 grads, params, opt state), full
+    trees gathered from every rank's shard."""
+    cfg = _config(case["dims"])
+    mesh = create_mesh(case["axes"])
+    kw = dict(case["kw"])
+    if "batch_spec" in kw:
+        kw["batch_spec"] = P(*kw["batch_spec"])
+    vpp = _placed_vpp(kw)
+    params = T.place_params(T.params_from_jax(params_np, "cpu"), cfg, mesh,
+                            vpp=vpp)
+    opt = T.place_params(T.params_from_jax(opt_np, "cpu"), cfg, mesh,
+                         vpp=vpp)
+    bt = tuple(torch.from_numpy(a) for a in batch)
+    _, grads = T.loss_and_grads(params, bt, cfg, remat=True, mesh=mesh,
+                                **kw)
+    step = T.make_train_step(cfg, mesh, lr=lr, device="cpu", **kw)
+    losses = [float(step(params, opt, i, batch)[2]) for i in range(steps)]
+    return {"losses": losses,
+            "grads": _np(T.gather_params(grads, cfg, mesh, vpp=vpp)),
+            "params": _np(T.gather_params(params, cfg, mesh, vpp=vpp)),
+            "opt": _np(T.gather_params(opt, cfg, mesh, vpp=vpp))}
+
+
+def _refusal(case, params_np, batch):
+    """The exception a layout raises on its first step: (class, text)."""
+    cfg = _config(case["dims"])
+    mesh = create_mesh(case["axes"])
+    kw = dict(case["kw"])
+    if "batch_spec" in kw:
+        kw["batch_spec"] = P(*kw["batch_spec"])
+    try:
+        step = T.make_train_step(cfg, mesh, device="cpu", **kw)
+        params = T.place_params(T.params_from_jax(params_np, "cpu"), cfg,
+                                mesh, vpp=_placed_vpp(kw))
+        step(params, T.init_opt_state(params), 0, batch)
+    except Exception as e:        # the test holds the class and the words
+        return type(e).__name__, str(e)
+    return None
+
+
+def train_layouts(rank, world, data):
+    """Every case of data["cases"] for this world: layouts run `steps`
+    steps, refusals report their exception. Rank 0's results count (the
+    trees are gathered on every rank)."""
+    out = {}
+    for name, case in data["cases"].items():
+        params, opt = data["params"][case["params"]], data["opt"][
+            case["params"]]
+        batch = data["batches"][case["batch"]]
+        if case.get("refusal"):
+            out[name] = _refusal(case, params, batch)
+        else:
+            out[name] = _run_layout(case, params, opt, batch, data["steps"],
+                                    data["lr"])
+    return out if rank == 0 else None

@@ -9,7 +9,10 @@ engines (ragged, bucketed, and bucketed with speculative decoding and
 chunked prefill; bf16 ones on the paged kernels' tensor cores) against
 the CPU engines, and
 tiny-width train steps (plain and packed documents, the fused
-linear+CE head and remat="dots") on the card against the CPU.
+linear+CE head and remat="dots") on the card against the CPU, and on
+two gloo ranks sharing the card (tp 2, pp 2 with 1F1B) against the
+single-rank card step, with each collective staged through the host
+against the same collective on CPU tensors.
 
 Every test here needs a CUDA device and skips without one. This file
 imports neither jax nor paddle_tpu, so on a machine without jax it runs
@@ -1938,3 +1941,94 @@ def test_quantize_kv_on_card_is_bit_equal_to_cpu(card):
     assert torch.equal(s_cpu[:, 0],
                        torch.from_numpy(np.abs(x.numpy()).max(axis=1)
                                         / np.float32(127.0)))
+
+
+# ------------------------------------------------------------ parallel
+# Two gloo ranks sharing the one card (their collectives staged through
+# the host), spawned once for the module with a deadline; what they run
+# is tests/_torch_ranks.py (neither jax nor paddle_tpu).
+PAR_DIMS = dict(vocab=128, hidden=128, layers=4, heads=4, kv_heads=2,
+                ffn=256)
+PAR_LAYOUTS = {"tp2": ({"tp": 2}, {"batch_spec": ()}),
+               "pp2_1f1b": ({"pp": 2}, {"batch_spec": (),
+                                        "schedule": "1f1b"})}
+PAR_LR = 3e-4
+
+
+def _par_spawn(fn, data):
+    import _torch_ranks as R
+    from paddle_tpu_torch.distributed.launch import spawn
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the ranks compute on the card")
+    return spawn(getattr(R, fn), 2, "gloo", "cuda", 300, args=(data,))
+
+
+@pytest.fixture(scope="module")
+def card_collective_ranks():
+    rng = np.random.default_rng(2)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    n = 2
+    data = {"x": f(n * 2 * n, 3), "w": f(n * 2 * n, 3), "x0": f(2 * n, 3),
+            "w0": f(2 * n, 3), "x3": f(n * 2, 2 * n, 3),
+            "w3": f(n * 2 * n, 2, 3)}
+    return _par_spawn("card_collectives", data)
+
+
+@pytest.fixture(scope="module")
+def card_train_ranks():
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, PAR_DIMS["vocab"], (2, 64))
+    y = rng.integers(0, PAR_DIMS["vocab"], (2, 64))
+    y[1, :10] = -1
+    return _par_spawn("card_train", {"dims": PAR_DIMS, "batch": (x, y),
+                                     "layouts": PAR_LAYOUTS, "lr": PAR_LR})
+
+
+STAGED = ("all_reduce_sum", "all_reduce_max", "all_reduce_avg", "all_gather",
+          "all_gather_list", "all_gather_cat", "reduce_scatter",
+          "reduce_scatter_list", "broadcast", "alltoall_single",
+          "alltoall_list", "ppermute_ring", "ppermute_one", "recv",
+          "copy_to_group_grad", "reduce_from_group", "reduce_from_group_grad",
+          "all_to_all", "all_to_all_grad", "ppermute", "ppermute_grad")
+
+
+@pytest.mark.parametrize("name", STAGED)
+def test_staged_gloo_collective_on_card_equals_cpu(card_collective_ranks,
+                                                   name):
+    """Each collective on CUDA tensors of two gloo ranks sharing the
+    card (staged through pinned host buffers) gives the bits the same
+    collective gives on CPU tensors, and its results stay on the card."""
+    for r, res in enumerate(card_collective_ranks):
+        on_card = res["cuda:0"]
+        np.testing.assert_array_equal(on_card[name], res["cpu"][name],
+                                      err_msg=f"rank {r}")
+        assert on_card["devices"] == ["cuda:0"], on_card["devices"]
+        assert on_card["backend"] == "gloo"
+        assert on_card["counters"] == res["cpu"]["counters"] | {
+            "seconds": on_card["counters"]["seconds"]}
+
+
+@pytest.mark.parametrize("layout", list(PAR_LAYOUTS))
+def test_parallel_step_on_two_ranks_sharing_the_card_matches_one_rank(
+        card_train_ranks, layout):
+    """fp32, TF32 off, remat on: two steps of tp 2 or pp 2 (1F1B) on two
+    ranks sharing the card against the single-rank card step from the
+    same weights: losses, step-1 gradients and parameters (gathered from
+    the shards). Each rank launches the flash kernels for its own layers
+    and heads: every layer (tp) or half of them for each of 2
+    microbatches (pp), forward twice."""
+    L, steps = PAR_DIMS["layers"], 2
+    for r, res in enumerate(card_train_ranks):
+        one, got = res["single"], res[layout]
+        assert got["device"] == "cuda:0"
+        assert got["launches"] == (2 * L * steps, L * steps, L * steps)
+        np.testing.assert_allclose(got["losses"], one["losses"], rtol=1e-5)
+        for tree, tol in (("grads", dict(atol=1e-5, rtol=1e-4)),
+                          ("params", dict(atol=2.5 * PAR_LR * steps,
+                                          rtol=0))):
+            for k in one[tree]:
+                a, b = one[tree][k], got[tree][k]
+                for kk in (a if isinstance(a, dict) else {None: a}):
+                    np.testing.assert_allclose(
+                        b[kk] if kk else b, a[kk] if kk else a,
+                        err_msg=f"rank {r} {tree} {k} {kk}", **tol)

@@ -25,7 +25,10 @@ def test_every_module_imports_without_jax_or_paddle_tpu():
     mods = _modules()
     for m in ("models.llama_serving", "ops.varlen_attention",
               "ops.paged_attention", "_env", "utils.trace",
-              "distributed", "distributed.rpc",
+              "distributed", "distributed.rpc", "distributed.collective",
+              "distributed.env", "distributed.launch", "parallel",
+              "parallel.mesh", "parallel.pp", "parallel.ring",
+              "parallel.ulysses",
               *(f"serving.{n}" for n in (
                   "client", "faults", "fleet", "metrics", "replica",
                   "router", "scheduler", "server", "timeline", "wire")),

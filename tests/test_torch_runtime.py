@@ -106,9 +106,13 @@ def _serve(stacks, stack, kind, pipeline):
     try:
         # the process-global rings and counters start empty on both
         # stacks: other tests in this process may have fed them (a JAX
-        # training loop sets the reference's `pt_train_loss`)
+        # training loop sets the reference's `pt_train_loss`; JAX tests
+        # that compiled the serving functions before push the reference's
+        # compile registry towards its once-only retrace-storm warning)
         FR.RECORDER.clear()
         health.reset()
+        for obs in (JO, PO):
+            obs.compile_telemetry.reset()
         sched.pause()
         cl = SV.ServingClient(port=srv.port, timeout=WAIT_S)
         out = {}

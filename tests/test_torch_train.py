@@ -7,7 +7,10 @@ batch, whose labels are partly ignored (< 0), with and without packed
 documents (a third batch element, doc_ids). On the CPU the port's
 attention runs the plain versions of the flash and FlashMask kernels,
 the JAX step its XLA references (`mha_reference`,
-`flashmask_reference`)."""
+`flashmask_reference`). The options that take a mesh of ranks
+(sp_axis, schedule, a dp mesh with and without packed documents) run on
+two gloo ranks here and take the single-device step's losses;
+`tests/test_torch_train_parallel.py` holds every layout to JAX's."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -304,28 +307,64 @@ def test_step_updates_in_place():
     assert not wq.requires_grad and loss.dim() == 0
 
 
-@pytest.mark.parametrize("kw,match", [
-    ({"sp_axis": "sp"}, "sequence parallelism"),
-    ({"schedule": "1f1b"}, "pipeline schedules"),
-])
-def test_later_slices_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        T.make_train_step(CFG, device="cpu", **kw)
+# the options that once raised, on two gloo ranks spawned once for the
+# module (tests/_torch_ranks.py): name -> (mesh axes, options, batch)
+MESH_RUNS = {"sp_axis": ({"sp": 2}, {"batch_spec": (None, "sp"),
+                                     "sp_axis": "sp"}, "plain"),
+             "schedule": ({"pp": 2}, {"batch_spec": (), "schedule": "1f1b",
+                                      "n_micro": 2}, "plain"),
+             "mesh": ({"dp": 2}, {}, "plain"),
+             "mesh_doc_ids": ({"dp": 2}, {}, "docs")}
 
 
-def test_mesh_of_more_than_one_device_raises():
+@pytest.fixture(scope="module")
+def mesh_runs(tmp_path_factory):
+    import _torch_ranks as R
+    from paddle_tpu_torch.distributed import launch
+    cases = {name: {"world": 2, "axes": axes, "kw": kw, "dims": DIMS,
+                    "params": "p", "batch": batch}
+             for name, (axes, kw, batch) in MESH_RUNS.items()}
+    params = _jax_params()
+    data = {"cases": cases, "params": {"p": _np(params)},
+            "opt": {"p": _np(M.init_opt_state(params))},
+            "batches": {"plain": _batch(), "docs": _packed_batch()},
+            "steps": STEPS, "lr": LR}
+    return launch.spawn(R.train_layouts, 2, "gloo", "cpu", 180,
+                        args=(data,), threads=1,
+                        store_dir=str(tmp_path_factory.mktemp("store")))[0]
+
+
+@pytest.mark.parametrize("docs", [False, True], ids=["plain", "doc_ids"])
+def test_a_two_rank_mesh_runs(runs, mesh_runs, docs):
+    """A dp 2 mesh (the JAX package's dp-sharded step, with and without
+    packed documents) takes the single-device step's losses."""
+    got = mesh_runs["mesh_doc_ids" if docs else "mesh"]["losses"]
+    want = runs["packed" if docs else "remat"][1]["losses"]
+    np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
+
+
+def test_sp_axis_runs_on_a_two_rank_mesh(runs, mesh_runs):
+    np.testing.assert_allclose(mesh_runs["sp_axis"]["losses"],
+                               runs["remat"][1]["losses"], rtol=LOSS_RTOL)
+
+
+def test_schedule_runs_on_a_two_stage_mesh(runs, mesh_runs):
+    """schedule="1f1b" on a pp 2 mesh: the single-device losses."""
+    np.testing.assert_allclose(mesh_runs["schedule"]["losses"],
+                               runs["remat"][1]["losses"], rtol=LOSS_RTOL)
+
+
+def test_a_mesh_of_one_device_is_one_device():
+    """A JAX mesh of one device (or none) is the single-device step; a
+    JAX mesh of more devices cannot drive ranks."""
+    x, y = _batch()
     one = Mesh(np.asarray(jax.devices()[:1]), ("dp",))
-    T.make_train_step(CFG, mesh=one, device="cpu")
+    params = T.params_from_jax(_np(_jax_params()), "cpu")
+    step = T.make_train_step(CFG, mesh=one, device="cpu")
+    assert np.isfinite(float(step(params, T.init_opt_state(params), 0,
+                                  (x, y))[2]))
     two = Mesh(np.asarray(jax.devices()[:2]), ("dp",))
-    with pytest.raises(NotImplementedError, match="more than one device"):
-        T.make_train_step(CFG, mesh=two, device="cpu")
-
-
-def test_doc_ids_with_a_mesh_of_more_than_one_device_raise():
-    """Packed documents on a mesh (the JAX package's dp-sharded packed
-    step) wait for parallel training; the step refuses the mesh."""
-    two = Mesh(np.asarray(jax.devices()[:2]), ("dp",))
-    with pytest.raises(NotImplementedError, match="doc_ids"):
+    with pytest.raises(ValueError, match="rank mesh"):
         T.make_train_step(CFG, mesh=two, device="cpu")
 
 
