@@ -43,9 +43,10 @@ non-zero):
                `library_factor` and `bound_share` as train_kernel's, and
                a tensor-core row over MAX_RAGGED_LIBRARY_FACTOR x its
                SDPA yardstick fails;
-  4. parity  — a depth-2 Llama-3-8B-width model (fp32, TF32 off) served
-               by a card engine and a CPU engine from the same weights:
-               4 greedy requests must give identical tokens;
+  4. parity  — a Llama-3-8B-width model at depth PARITY_LAYERS (fp32,
+               TF32 off) served by a card engine and a CPU engine from
+               the same weights: 4 greedy requests must give identical
+               tokens;
   5. serve   — Llama-3-8B at full width (32 layers, bf16 random weights
                from a seed) serving 8 requests through run_pipelined(),
                with a bf16 pool and with an int8 pool;
@@ -122,7 +123,8 @@ non-zero):
                `library_ms` is F.scaled_dot_product_attention over the
                live slots' KV gathered dense;
  13. bucket_parity — parity with the bucketed engine (`ragged=False`,
-               max_seqs 3, run_pipelined): three requests admit in one
+               max_seqs 3, run_pipelined; depth PARITY_LAYERS): three
+               requests admit in one
                prefill_varlen wave and the fourth alone through prefill;
                fp32 and int8 pools; tokens as in parity, and the exact
                launches of va_fwd, fa_fwd and pa_decode (none ragged;
@@ -131,7 +133,10 @@ non-zero):
                bucketed engine through run_pipelined(), bf16 and int8
                pools, with the same measurements, pad_tokens, and the
                launches of every kernel (the 8B parameters are built
-               once for serve, bucket_serve and spec_serve);
+               once for serve, bucket_serve and spec_serve); then,
+               untimed, the same requests again on the drained engine,
+               keeping the logits each token was drawn from (for
+               tp_serve), whose streams must be the timed run's;
  15. spec_kernel — pa_verify against its plain version: (a) at 8B
                widths on bucket_kernel's 8 live slots (cache lengths
                100-2000 before a G = 4 chunk), fp32, bf16 and int8 pools
@@ -177,7 +182,7 @@ non-zero):
                ragged kernel on a wave whose slot 0 feeds 256 prompt
                tokens at 1024-1279 over its cached prefix beside 3 decode
                rows, its tiles held to the plain plan, with times;
- 19. prefix_parity — parity (depth 2, the vocabulary cut to 4096 as in
+ 19. prefix_parity — parity (depth 1, the vocabulary cut to 4096 as in
                train_parity, fp32, TF32 off, max_seqs 2, page 16, 11
                pages) with prefix_cache and a 1 GiB host tier
                (verbatim pages) on the ragged engine, the bucketed engine
@@ -356,17 +361,63 @@ non-zero):
                machine has enough, else all on card 0 over gloo, every
                collective staged through the host; each row gives
                `backend` and `ranks_per_card`.
+ 28. tp_parity — tensor-parallel serving (`ServingEngine(...,
+               mesh=create_mesh({"tp": 2}))`, two ranks): spec_parity's
+               model (8B widths, 2 layers, fp32, TF32 off), prompts and
+               32 new tokens on the bucketed engine (3 slots: one
+               prefill_varlen wave and one lone prefill), with
+               speculative decoding (G = 4: verify_step) and without
+               (decode_step), fp32 and int8 pools, the tp engine (each
+               rank keeping its shard of the same full weights) against
+               the single-rank card engine on each rank: tokens
+               identical or parting only where the single-rank model's
+               top-2 margin is under 1e-3, logprobs within the stated
+               tolerance of each pool (TP_PARITY_LP_ATOL), which a
+               control (the single-rank engine with bf16 weights and
+               pool) must exceed; with int8 pools each rank's K / V
+               codes at most one code from the single-rank engine's
+               (those that differ counted); the ranks alike, each rank's
+               pool cut to its 4 KV heads and its launches of rows 3, 9
+               and 12 / 13 or 14 / 14q those its calls and steps imply;
+               on rank 0, pa_decode and pa_verify at the local heads (16
+               over 4) against their plain versions, bf16 and int8;
+ 29. tp_serve — the serve phase's model (the same seeded bf16 weights,
+               each leaf cut to the rank's shard as it is drawn) and
+               bucket_serve's 8 requests on a tp 2 bucketed engine,
+               bf16 and int8 pools, run_pipelined: 8 x 64 tokens, the
+               ranks alike, launches as bucket_serve's on every rank.
+               Then, untimed, the same requests teacher-forced along
+               bucket_serve's streams (`serving_capture.StepLogits`), so
+               that each of the 512 rows of logits is drawn from the
+               context bucket_serve's was: those rows may differ from
+               bucket_serve's by at most TP_YARDSTICK times what serve's
+               ragged engine's first tokens' differ (one rank, other
+               shapes: the rounding noise of a second single-rank
+               engine), at most and on average. Where the free-running
+               streams part, and the greedy rows where the forced
+               engine's own pick is not bucket_serve's token (with each
+               engine's lead in bf16 steps), are reported.
+               It reports output tok/s, the median decode step, prefill
+               tok/s, each rank's peak memory, the collectives' bytes,
+               calls and host seconds a decode step and to the first
+               finish. Both run in parallel_spawn's world of 2 (their
+               ranks share the card over gloo: not a scaling figure),
+               after the serve phases (tp_serve runs serve and
+               bucket_serve too), whose engines must leave under 1 GB
+               allocated in this process (`serve_block`).
 
 After the phases, one line gives each phase's wall seconds
 (`phase_seconds`; the serve phases' shared 8B parameters are built
-outside them; the two parallel phases' spawned ranks are
+outside them; the spawned ranks of the parallel and tp phases are
 `parallel_spawn`). The line before the last lists every kernel with its
 launches on the main path, its error against the plain version and its
 times, the launches prefix_serve added (`prefix_launches`), the
 launches of the runtime phase's runs (`runtime_launches`), those of
 the fleet phase's in-process workers (`fleet_launches`), each rank's
 launches in each layout of the parallel phases for rows 3-8
-(`parallel_launches`) and, for the ragged and verify rows,
+(`parallel_launches`), each rank's launches in each run of the tp
+phases for rows 3, 9 and 12-14q (`tp_launches`) and, for the ragged and
+verify rows,
 prefix_kernel's shapes (`prefix_kernel`); the last line is {"ok": true,
 "device": {...}}.
 """
@@ -390,7 +441,7 @@ PHASES = ("device", "build", "kernel", "parity", "serve", "train_kernel",
           "spec_kernel", "spec_parity", "spec_serve", "prefix_kernel",
           "prefix_parity", "prefix_serve", "runtime", "fleet",
           "varlen_kernel", "fused_parity", "train_fused", "parallel_parity",
-          "parallel")
+          "parallel", "tp_parity", "tp_serve")
 SOURCES = ("ragged_paged_attention", "flash_attention", "flashmask_attention",
            "varlen_attention", "paged_attention")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
@@ -797,6 +848,12 @@ def _top2_margin(params, cfg, toks, page_size, with_top=False):
     return (margin, float(top[0])) if with_top else margin
 
 
+# parity's and bucket_parity's depth: their CPU engines' steps are most of
+# their time, and the depth-2 engines stay held by spec_parity and
+# tp_parity (cut from 2 to pay for the tp phases' repair, PERF.md §4)
+PARITY_LAYERS = 1
+
+
 def phase_parity(card):
     import numpy as np
     import torch
@@ -806,7 +863,8 @@ def phase_parity(card):
     from paddle_tpu_torch.models.llama_serving import Request, ServingEngine
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_hidden_layers=2)
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              num_hidden_layers=PARITY_LAYERS)
     cpu_params = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
     gpu_params = {k: ({kk: vv.cuda() for kk, vv in v.items()}
                       if isinstance(v, dict) else v.cuda())
@@ -851,7 +909,7 @@ def phase_parity(card):
         compared[rid] = {"identical": j, "stopped_at": j,
                          "cpu_top2_margin": margin}
     emit({"phase": "parity", "card": card, "config": "llama3_8b widths, "
-          "2 layers, fp32, TF32 off", "prompt_lens": lens,
+          f"{PARITY_LAYERS} layer(s), fp32, TF32 off", "prompt_lens": lens,
           "new_tokens": 16, "requests": compared,
           "launches": info["cuda"]["launches"],
           "device_steps": info["cuda"]["device_steps"],
@@ -921,26 +979,33 @@ def serve_engine(cfg, params, cache_dtype, new_tokens=64, ragged=True,
     sampled (temperature 0.8, top_k 50, seed = rid), the rest greedy;
     ragged, or bucketed with `ragged=False`; `engine_kw` overrides the
     engine's other arguments. Returns (engine, requests)."""
-    from paddle_tpu_torch.models.llama_serving import Request, ServingEngine
-    if prompts is None:
-        rng, lens = _serve_rng()
-        prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    from paddle_tpu_torch.models.llama_serving import ServingEngine
     kw = dict(max_seqs=8, max_seq_len=2048, page_size=16, ragged_tokens=256,
               ragged=ragged, cache_dtype=cache_dtype, device="cuda")
     kw.update(engine_kw)
     eng = ServingEngine(params, cfg, **kw)
-    reqs = [Request(i, p, max_new_tokens=new_tokens,
-                    **({"temperature": 0.8, "top_k": 50, "seed": i}
-                       if i < 2 else {}))
-            for i, p in enumerate(prompts)]
+    reqs = serve_requests(cfg, new_tokens, prompts)
     for r in reqs:
         eng.submit(r)
     return eng, reqs
 
 
+def serve_requests(cfg, new_tokens=64, prompts=None):
+    """serve_engine's 8 requests, not yet submitted."""
+    from paddle_tpu_torch.models.llama_serving import Request
+    if prompts is None:
+        rng, lens = _serve_rng()
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    return [Request(i, p, max_new_tokens=new_tokens,
+                    **({"temperature": 0.8, "top_k": 50, "seed": i}
+                       if i < 2 else {}))
+            for i, p in enumerate(prompts)]
+
+
 def phase_serve(card, cfg, params, init_s):
     import torch
     import paddle_tpu_torch.kernels.ragged_paged_attention as rpa
+    from paddle_tpu_torch.models.serving_capture import StepLogits
     runs = {}
     for cache in (None, "int8"):
         eng, reqs = serve_engine(cfg, params, cache)
@@ -954,10 +1019,18 @@ def phase_serve(card, cfg, params, init_s):
                           len(ticket.flat) == len(ticket.slots)))
             return n
         eng.step_finish = timed_finish
+        # the seed rows, the ragged engine's logits at each prompt's end
+        # (a dict entry a token on the host, nothing read from the card)
+        drawn = StepLogits(eng)
         torch.cuda.synchronize()
         rpa.launches = 0
         t0 = time.perf_counter()
-        done = eng.run_pipelined()
+        try:
+            done = eng.run_pipelined()
+        finally:
+            # the methods again: no cycle left
+            del eng.step_finish
+            drawn.close()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = rpa.launches
@@ -990,8 +1063,8 @@ def phase_serve(card, cfg, params, init_s):
                "launches_per_step": launches / eng.device_steps,
                "params_init_s": init_s}
         emit(row)
-        runs[name] = row
-        del eng
+        runs[name] = dict(row, seeds=drawn.seeds)
+        del eng, drawn
         torch.cuda.empty_cache()
     return runs
 
@@ -2157,6 +2230,8 @@ def _bucket_run(eng, pipelined, marks=None):
         done = eng.run_pipelined() if pipelined else eng.run()
     finally:
         S.prefill_varlen, S.prefill = originals
+        if marks is not None:
+            del eng._prefill_packed, eng._prefill_into
     return done, calls, _bucket_counts()
 
 
@@ -2179,7 +2254,8 @@ def phase_bucket_parity(card):
     from paddle_tpu_torch.models.llama_serving import Request, ServingEngine
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_hidden_layers=2)
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              num_hidden_layers=PARITY_LAYERS)
     cpu_params = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
     gpu_params = _tree_to(cpu_params, "cuda")
     rng = np.random.default_rng(1)
@@ -2232,8 +2308,9 @@ def phase_bucket_parity(card):
                              "cpu_top2_margin": margin}
         name = "fp32" if cache is None else "int8"
         row = {"phase": "bucket_parity", "card": card, "pool": name,
-               "config": "llama3_8b widths, 2 layers, fp32, TF32 off, "
-                         "ragged=False, max_seqs 3, run_pipelined",
+               "config": f"llama3_8b widths, {PARITY_LAYERS} layer(s), "
+                         "fp32, TF32 off, ragged=False, max_seqs 3, "
+                         "run_pipelined",
                "prompt_lens": lens, "new_tokens": 16, "requests": compared,
                "prefill_calls": g["calls"], "launches": g["launches"],
                "device_steps": g["device_steps"],
@@ -2249,6 +2326,7 @@ def phase_bucket_parity(card):
 
 def phase_bucket_serve(card, cfg, params, init_s):
     import torch
+    from paddle_tpu_torch.models.serving_capture import StepLogits
     runs = {}
     for cache in (None, "int8"):
         eng, reqs = serve_engine(cfg, params, cache, ragged=False)
@@ -2263,8 +2341,11 @@ def phase_bucket_serve(card, cfg, params, init_s):
         eng.step_finish = timed_finish
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        done, calls, launches = _bucket_run(eng, pipelined=True,
-                                            marks=prefills)
+        try:
+            done, calls, launches = _bucket_run(eng, pipelined=True,
+                                                marks=prefills)
+        finally:
+            del eng.step_finish
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         name = "bf16" if cache is None else "int8"
@@ -2300,9 +2381,26 @@ def phase_bucket_serve(card, cfg, params, init_s):
                "output_tok_s": 8 * 64 / wall, "launches": launches,
                "merge_launches": _merge_launches(),
                "params_init_s": init_s}
+        streams = {r.rid: list(r.output) for r in done}
+        # the logits each token was drawn from, for tp_serve: the same
+        # requests again on the drained engine, untimed, which must give
+        # the same streams
+        n0 = len(eng.finished)
+        for r in serve_requests(cfg):
+            eng.submit(r)
+        drawn = StepLogits(eng)
+        try:
+            again = eng.run_pipelined()[n0:]
+        finally:
+            drawn.close()
+        row["capture_run_identical"] = \
+            {r.rid: list(r.output) for r in again} == streams
         emit(row)
-        runs[name] = row
-        del eng
+        if not row["capture_run_identical"]:
+            fail(f"bucket_serve ({name}): the capture run's streams differ "
+                 "from the timed run's")
+        runs[name] = dict(row, streams=streams, drawn=drawn)
+        del eng, done, again, reqs, drawn
         torch.cuda.empty_cache()
     return runs
 
@@ -2574,8 +2672,8 @@ def phase_spec_parity(card):
                                  "cpu_top2_margin": margin}
             name = f"{engine}_{'fp32' if cache is None else 'int8'}"
             row = {"phase": "spec_parity", "card": card, "run": name,
-                   "engine": ekw, "config": "llama3_8b widths, 2 layers, "
-                   "fp32, TF32 off, max_seqs 4, run()",
+                   "engine": ekw, "config": f"llama3_8b widths, {L} "
+                   "layers, fp32, TF32 off, max_seqs 4, run()",
                    "prompt_lens": list(SPEC_PARITY_LENS),
                    "new_tokens": SPEC_PARITY_NEW,
                    "requests": compared, "prefill_calls": g["calls"],
@@ -2621,8 +2719,11 @@ def phase_spec_serve(card, cfg, params, init_s, bserve):
         eng._spec_step = timed_step
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        done, calls, launches = _bucket_run(eng, pipelined=False,
-                                            marks=prefills)
+        try:
+            done, calls, launches = _bucket_run(eng, pipelined=False,
+                                                marks=prefills)
+        finally:
+            del eng._spec_step
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         if len(done) != 8:
@@ -2846,6 +2947,10 @@ PREFIX_ENGINES = {"ragged": {},
                   "chunked": {"ragged": False, "spec_decode": 4,
                               "chunked_prefill": True}}
 PREFIX_PARITY_NEW = 8
+# depth 1 (2 before the tp phases were added): at the 4096 vocabulary a
+# layer is most of a CPU step, and the layer loop at depth 2 stays held
+# card against CPU by parity, bucket_parity and spec_parity
+PREFIX_PARITY_LAYERS = 1
 PREFIX_PARITY_ENGINE = dict(max_seqs=2, max_seq_len=128, page_size=16,
                             ragged_tokens=32, num_pages=12,
                             prefix_cache=True)
@@ -2971,9 +3076,10 @@ def phase_prefix_parity(card):
     from paddle_tpu_torch.models.llama_serving import Request, ServingEngine
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # the vocabulary cut to 4096, as train_parity's: the CPU engines'
-    # steps are most of the phase
-    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_hidden_layers=2,
+    # the vocabulary cut to 4096, as train_parity's, and the depth to
+    # PREFIX_PARITY_LAYERS: the CPU engines' steps are most of the phase
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              num_hidden_layers=PREFIX_PARITY_LAYERS,
                               vocab_size=4096)
     L = cfg.num_hidden_layers
     cpu_params = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
@@ -3039,8 +3145,8 @@ def phase_prefix_parity(card):
                 fail(f"prefix_parity ({name}): launches {g['launches']}, "
                      f"want {want}")
             row = {"phase": "prefix_parity", "card": card, "run": name,
-                   "engine": ekw, "config": "llama3_8b widths, 2 layers, "
-                   "vocabulary 4096, fp32, TF32 off, "
+                   "engine": ekw, "config": f"llama3_8b widths, {L} "
+                   "layers, vocabulary 4096, fp32, TF32 off, "
                    + json.dumps(PREFIX_PARITY_ENGINE),
                    "tier": "1 GiB, tier_quantize False (off: 0)",
                    "requests": compared, "tier_off_vs_cpu": tier_off,
@@ -4201,6 +4307,9 @@ def _fleet_prefix(card, cfg, params, L):
             os.environ.pop("PT_FLEET_FETCH_MAX", None)
         else:
             os.environ["PT_FLEET_FETCH_MAX"] = old_max
+        # A's own hook back in place of the timed one, for close() to
+        # take off the tier (whose copy thread outlives the workers)
+        wa.replica.engine.host_tier.fetch_missing = wa.pages.fetch_missing
         for w in (wa, wb):
             w.replica.shutdown(drain=True, timeout=120)
             w.close()
@@ -4882,6 +4991,20 @@ def _parity_layouts(rank, world, layouts, dev, refs):
     return out
 
 
+def _engines_alive():
+    """For the serve block's memory check: the ServingEngines still
+    alive after a collection, each with the types that refer to it, and
+    the threads still running."""
+    import gc
+    import threading
+    from paddle_tpu_torch.models.llama_serving import ServingEngine
+    gc.collect()
+    engines = [o for o in gc.get_objects() if isinstance(o, ServingEngine)]
+    return {"engines": [sorted({type(r).__name__ for r in gc.get_referrers(e)
+                                if r is not engines}) for e in engines],
+            "threads": [t.name for t in threading.enumerate()]}
+
+
 def gc_cuda():
     import gc
     import torch
@@ -4943,17 +5066,25 @@ def parallel_rank(rank, world, job):
                                         job["refs"])
     if job.get("speed"):
         out["speed"] = _speed_layouts(rank, world, job["speed"], dev)
+    if job.get("tp"):
+        out["tp"] = _tp_rank(rank, world, job["tp"], dev)
     return out
 
 
-def _spawn_parallel(phases):
+def _spawn_parallel(phases, bserve=None):
     """Spawn each world size once and run there every layout of the
-    selected phases; returns {world: [rank results]} and the backends."""
+    selected phases, and the tp phases in the world of 2 (tp_serve
+    holds its streams to bucket_serve's, `bserve`); returns {world:
+    [rank results]} and the backends."""
     import torch
     from paddle_tpu_torch.distributed.launch import spawn
+    import paddle_tpu_torch.kernels.ragged_paged_attention as rpa
     import paddle_tpu_torch.ops.flash_attention as fa
     import paddle_tpu_torch.ops.flashmask_attention as fm
-    fa._lib(), fm._lib()            # built here, loaded by the ranks
+    import paddle_tpu_torch.ops.paged_attention as pa
+    import paddle_tpu_torch.ops.varlen_attention as va
+    for mod in (fa, fm, pa, va, rpa):
+        mod._lib()                  # built here, loaded by the ranks
     gc_cuda()
     parent_gb = torch.cuda.memory_reserved() / 1e9
     # two full replicas share the card: no fragmented reserve in a rank
@@ -4965,6 +5096,11 @@ def _spawn_parallel(phases):
     if "parallel" in phases:
         for name, lay in PARALLEL_LAYOUTS.items():
             jobs.setdefault(lay[0], {}).setdefault("speed", {})[name] = lay
+    if {"tp_parity", "tp_serve"} & set(phases):
+        jobs.setdefault(2, {})["tp"] = {
+            "parity": "tp_parity" in phases,
+            "serve": {pool: row["streams"] for pool, row in bserve.items()}
+            if "tp_serve" in phases else None}
     results, info = {}, {}
     ref_dir = tempfile.mkdtemp(prefix="pt_parallel_ref_")
     try:
@@ -4980,8 +5116,10 @@ def _spawn_parallel(phases):
         for world, job in sorted(jobs.items()):
             backend, per_card = _parallel_backend(world)
             t0 = time.perf_counter()
+            deadline = PARALLEL_DEADLINE_S + (TP_DEADLINE_S if "tp" in job
+                                              else 0)
             results[world] = spawn(parallel_rank, world, backend, "cuda",
-                                   PARALLEL_DEADLINE_S, args=(job,), env=env)
+                                   deadline, args=(job,), env=env)
             info[world] = {"backend": backend, "ranks_per_card": per_card,
                            "seconds": time.perf_counter() - t0,
                            "parent_cuda_reserved_gb": parent_gb}
@@ -5080,6 +5218,565 @@ def phase_parallel(card, spawned):
     return out
 
 
+# ------------------------------------------------- tensor-parallel serving
+# tp_parity: spec_parity's model (8B widths, 2 layers, fp32), prompts and
+# new tokens on the bucketed engine; three slots, so that three prompts
+# admit in one prefill_varlen wave and the fourth alone through prefill
+# (rows 9 and 3 both run). Two modes: speculative decoding (G = 4, every
+# step a verify_step: rows 14 / 14q) and plain decoding (every step a
+# decode_step: rows 12 / 13)
+TP_PARITY_ENGINE = dict(max_seqs=3, max_seq_len=512, page_size=16,
+                        ragged=False)
+TP_PARITY_MODES = {"spec": {"spec_decode": 4}, "decode": {}}
+# fp32, TF32 off: the tp engine's logprobs against the single-rank
+# engine's over their common tokens. fp32 pools: the tp sums add in
+# another order (8.6e-6 measured on an H100, PERF.md). int8 pools: a
+# code is a 127th of its row's largest value, and the K / V that a rank
+# projects through its columns alone may differ in the last bit from
+# the whole product's, which moves a value to the next code now and then
+# (1.16e-3 measured there; the codes that differ are counted). The
+# control, the single-rank engine with its weights and pool in bf16,
+# must lie beyond each limit: else the limit would not tell a lower
+# precision from the tp engine's
+TP_PARITY_LP_ATOL = {"fp32": 1e-4, "int8": 5e-3}
+# tp_serve against bucket_serve (bf16, 32 layers): each rank rounds its
+# partial products of wo and w_down to bf16 before the sum over the
+# ranks, where one rank rounds the whole product once, and the random 8B
+# model carries such roundings far. Two single-rank engines already put
+# one context's logits apart: serve's ragged engine (other shapes) puts
+# its first tokens' logits 0.27 (bf16 pool) and 0.67 (int8) at most,
+# 0.04 / 0.10 on average, from bucket_serve's (on an H100, PERF.md); and
+# streams part wherever two top logits lie closer than that. So the tp
+# engine runs again, teacher-forced along bucket_serve's streams, and
+# its logits for every token (the same contexts) may differ from
+# bucket_serve's by at most this many times what the ragged engine's
+# first tokens' differ, at most and on average
+TP_YARDSTICK = 2.0
+# the kernel rows the tp phases launch (rows 3, 9, 12-14q)
+TP_KERNELS = ("flash_fwd", "varlen_fwd", "paged_decode", "paged_decode_int8",
+              "paged_verify", "paged_verify_int8")
+TP_DEADLINE_S = 480
+
+
+def _tp_local_kernels(world):
+    """pa_decode and pa_verify at one tp rank's local heads of Llama-3-8B
+    (QH 32 / world over KVH 8 / world), bf16 and int8 pools with bf16 q,
+    against their plain versions: a decode step at bucket_kernel's
+    lengths and a G = 4 verify chunk at spec_kernel's bases."""
+    import torch
+    import paddle_tpu_torch.ops.paged_attention as pa
+    qh, kvh = DECODE_SHAPE["QH"] // world, DECODE_SHAPE["KVH"] // world
+    out = {}
+    for name in ("bfloat16", "int8"):
+        atol, rtol = TOL[VARIANTS[name][1]]
+        int8 = "_int8" if name == "int8" else ""
+        for kname, bases, g in ((f"paged_decode{int8}", DECODE_LENS, 1),
+                                (f"paged_verify{int8}", VERIFY_BASES,
+                                 VERIFY_G)):
+            q, k, v, ks, vs, ptab, lens = _verify_batch(name, bases, g, qh,
+                                                        kvh)
+            kw = {"k_scale": ks, "v_scale": vs}
+            if g == 1:
+                q = q[:, :, 0].contiguous()
+                ker = pa.paged_attention(q, k, v, ptab, lens, **kw)
+                ref = pa.paged_decode_reference(q, k, v, ptab, lens, **kw)
+            else:
+                ker = pa.paged_verify_attention(q, k, v, ptab, lens, **kw)
+                ref = pa.paged_verify_reference(q, k, v, ptab, lens, **kw)
+            torch.cuda.synchronize()
+            err = float((ker.float() - ref.float()).abs().max())
+            if not torch.allclose(ker.float(), ref.float(), atol=atol,
+                                  rtol=rtol):
+                fail(f"tp_parity: {kname} at QH {qh} / KVH {kvh} vs plain: "
+                     f"max |err| {err}")
+            out[kname] = {"QH": qh, "KVH": kvh, "G": g,
+                          "route": pa.route(q.dtype, k.dtype, q.shape[-1],
+                                            qh // kvh),
+                          "max_abs_err": err, "atol": atol, "rtol": rtol}
+    return out
+
+
+def _common_lp(a, b):
+    """Where two runs' streams ({rid: tokens}, {rid: logprobs} each) first
+    part ({rid: index}, for those that do), the largest logprob
+    difference over the tokens before, and how many tokens that is."""
+    parted, err, n_common = {}, 0.0, 0
+    for rid, x in a["tokens"].items():
+        y = b["tokens"][rid]
+        n = next((i for i, (p, q) in enumerate(zip(x, y)) if p != q),
+                 min(len(x), len(y)))
+        if n < max(len(x), len(y)):
+            parted[rid] = n
+        n_common += n
+        err = max([err] + [abs(p - q) for p, q in zip(
+            a["logprobs"][rid][:n], b["logprobs"][rid][:n])])
+    return parted, err, n_common
+
+
+def _pool_gap(one, two, rank, world):
+    """How this rank's pool shard in the tp engine (`two`: its K and V
+    pools, (L, KVH, P, page, D)) differs from the single-rank engine's
+    (`one`, cut to this rank's KV heads) after the same run, but for the
+    trash page (the last: every inactive row writes it at once, and
+    which write lands there is the card's choice): int8 codes, how many
+    differ and the largest step between two; fp32, the largest
+    difference."""
+    import torch
+    out = {}
+    for name, a, b in zip(("k", "v"), one, two):
+        a, b = a.chunk(world, 1)[rank][:, :, :-1], b[:, :, :-1]
+        if a.dtype == torch.int8:
+            d = (a.short() - b.short()).abs()
+            out[name] = {"codes": a.numel(),
+                         "codes_written": int((a != 0).sum()),
+                         "codes_differ": int((d > 0).sum()),
+                         "max_code_step": int(d.max())}
+        else:
+            out[name] = {"max_abs": float((a.float() - b.float()).abs().max())}
+    return out
+
+
+def _tp_parity_rank(rank, world, dev):
+    """tp_parity on one rank: per pool and mode, the single-rank engine,
+    the tp engine (the same full weights, each rank keeping its shard)
+    and the control (the single-rank engine with its weights in bf16)
+    on spec_parity's prompts; where the tp engine's streams part from
+    the single-rank engine's, the single-rank model's top-2 margin
+    there; how the pools' K / V differ."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch.distributed.collective as C
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.models.llama_serving import Request, ServingEngine
+    from paddle_tpu_torch.models.llama_spmd import init_params
+    from paddle_tpu_torch.parallel import create_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_hidden_layers=2)
+    mesh = create_mesh({"tp": world})
+    full = init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+    low = _tree_to(full, torch.bfloat16)
+    prompts = _motif_prompts(np.random.default_rng(1), cfg.vocab_size,
+                             SPEC_PARITY_LENS)
+    out = {}
+    for cache in (None, "int8"):
+        for mode, mode_kw in TP_PARITY_MODES.items():
+            runs, pools = {}, {}
+            for name, m, params in (("single", None, full),
+                                    ("tp", mesh, full),
+                                    ("control", None, low)):
+                eng = ServingEngine(params, cfg, mesh=m, cache_dtype=cache,
+                                    device=dev, **TP_PARITY_ENGINE,
+                                    **mode_kw)
+                for i, p in enumerate(prompts):
+                    eng.submit(Request(i, p, max_new_tokens=SPEC_PARITY_NEW,
+                                       logprobs=True))
+                C.reset_counters()
+                t0 = time.perf_counter()
+                done, calls, launches = _bucket_run(eng, pipelined=False)
+                torch.cuda.synchronize(dev)
+                runs[name] = {
+                    "seconds": time.perf_counter() - t0,
+                    "tokens": {r.rid: list(r.output) for r in done},
+                    "logprobs": {r.rid: list(r.logprobs) for r in done},
+                    "calls": calls, "launches": launches,
+                    "device_steps": eng.device_steps,
+                    "spec_drafted": eng.spec_drafted,
+                    "spec_accepted": eng.spec_accepted,
+                    "conserved": eng.pool.conserved(drained=True),
+                    "kv_heads": int(eng.k_pool.shape[1]),
+                    "collectives": C.counters()}
+                pools[name] = (eng.k_pool, eng.v_pool)
+                del eng
+                gc_cuda()
+            parted, lp_err, _ = _common_lp(runs["tp"], runs["single"])
+            ctl_parted, ctl_err, ctl_n = _common_lp(runs["control"],
+                                                    runs["single"])
+            for rid, j in parted.items():
+                b = runs["single"]["tokens"][rid]
+                parted[rid] = (j, _top2_margin(full, cfg, prompts[rid]
+                                               + b[:j], 16))
+            out[f"{'fp32' if cache is None else 'int8'} {mode}"] = dict(
+                runs, partings=parted, logprob_max_abs_err=lp_err,
+                control_logprob_max_abs_err=ctl_err,
+                control_common_tokens=ctl_n,
+                control_partings=len(ctl_parted),
+                pool_gap=_pool_gap(pools["single"], pools["tp"], rank,
+                                   world))
+            del pools
+            gc_cuda()
+    del full, low
+    gc_cuda()
+    if rank == 0:
+        out["kernels"] = _tp_local_kernels(world)
+    return out
+
+
+def _tp_serve_rank(rank, world, dev, streams):
+    """tp_serve on one rank: the serve phase's 8B weights (seed 0, on the
+    card), each leaf cut to this rank's shard as it is drawn, then
+    bucket_serve's 8 requests on a tp engine with a bf16 and an int8
+    pool, measured as bucket_serve, with the collectives a step; then,
+    untimed, the same requests teacher-forced along bucket_serve's
+    `streams`, keeping the logits each token was drawn from (rank 0
+    returns them, (8, 64, V) bf16; every rank their sums)."""
+    import torch
+    import paddle_tpu_torch.distributed.collective as C
+    from paddle_tpu_torch.models import llama_spmd as T
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.models.serving_capture import StepLogits
+    from paddle_tpu_torch.parallel import create_mesh
+    cfg = LlamaConfig.llama3_8b()
+    mesh = create_mesh({"tp": world})
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev,
+                           mesh=mesh)
+    torch.cuda.synchronize(dev)
+    out = {"params_init_s": time.perf_counter() - t0,
+           "params_gb": sum(t.numel() * t.element_size() for t in
+                            T._leaves(params)) / 1e9,
+           "init_peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    for cache in (None, "int8"):
+        pool = "bf16" if cache is None else "int8"
+        eng, reqs = serve_engine(cfg, params, cache, ragged=False, mesh=mesh,
+                                 device=dev)
+        finishes, prefills, coll = [], [], []
+        finish = eng.step_finish
+
+        def timed_finish(ticket, inflight=None, _finish=finish):
+            n = _finish(ticket, inflight=inflight)
+            finishes.append(time.perf_counter())
+            coll.append(C.counters())
+            return n
+        eng.step_finish = timed_finish
+        C.reset_counters()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        try:
+            done, calls, launches = _bucket_run(eng, pipelined=True,
+                                                marks=prefills)
+        finally:
+            del eng.step_finish
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        # decode-only intervals and their collectives, as bucket_serve's
+        gaps, per_step = [], []
+        for i in range(1, len(finishes)):
+            a, b = finishes[i - 1], finishes[i]
+            if not any(a < p <= b for p in prefills):
+                gaps.append(b - a)
+                per_step.append({k: coll[i][k] - coll[i - 1][k]
+                                 for k in coll[i]})
+        row = out[pool] = {
+            "wall_s": wall, "device_steps": eng.device_steps,
+            "prefill_calls": calls, "prefill_tokens": eng.prefill_tokens,
+            "pad_tokens": eng.pad_tokens,
+            "prefill_tok_s": eng.prefill_tokens
+            / (max(prefills, default=t0) - t0),
+            "decode_step_ms_median": (statistics.median(gaps) * 1e3
+                                      if gaps else None),
+            "output_tok_s": 8 * 64 / wall, "launches": launches,
+            "merge_launches": _merge_launches(),
+            "conserved": eng.pool.conserved(drained=True),
+            "kv_heads": int(eng.k_pool.shape[1]),
+            "tokens": {r.rid: list(r.output) for r in done},
+            "collectives_total": C.counters(),
+            "collectives_to_first_finish": coll[0] if coll else None,
+            "collectives_per_decode_step_median": {
+                k: statistics.median(d[k] for d in per_step)
+                for k in ("bytes_sent", "calls", "seconds")}
+            if per_step else None}
+        # teacher forcing, untimed: the same requests again on the
+        # drained engine, each emitting bucket_serve's stream
+        n0 = len(eng.finished)
+        for r in serve_requests(cfg):
+            eng.submit(r)
+        forced = StepLogits(eng, force=streams[pool])
+        t0 = time.perf_counter()
+        try:
+            again = eng.run()[n0:]
+        finally:
+            forced.close()
+        rows = torch.stack([torch.stack([forced.row(rid, j).bfloat16()
+                                         for j in range(64)])
+                            for rid in sorted(streams[pool])])
+        row.update(
+            forced_s=time.perf_counter() - t0,
+            forced_streams_ok={r.rid: list(r.output) for r in again}
+            == streams[pool],
+            forced_conserved=eng.pool.conserved(drained=True),
+            forced_sums=[float(rows.float().sum()),
+                         float(rows.float().abs().sum())],
+            forced_rows=rows if rank == 0 else None)
+        del eng, reqs, done, again, forced, rows
+        gc_cuda()
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del params
+    gc_cuda()
+    return out
+
+
+def _tp_rank(rank, world, job, dev):
+    out = {}
+    if job.get("parity"):
+        t0 = time.perf_counter()
+        out["parity"] = _tp_parity_rank(rank, world, dev)
+        out["parity_seconds"] = time.perf_counter() - t0
+    if job.get("serve") is not None:
+        t0 = time.perf_counter()
+        out["serve"] = _tp_serve_rank(rank, world, dev, job["serve"])
+        out["serve_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _tp_equal_ranks(phase, ranks, keys):
+    """Every rank's `keys` of each row equal rank 0's: the ranks stayed
+    in lockstep."""
+    for r, row in enumerate(ranks[1:], 1):
+        for k in keys:
+            if row[k] != ranks[0][k]:
+                fail(f"{phase}: rank {r}'s {k} differ from rank 0's")
+
+
+TP_PARITY_CONFIG = ("llama3_8b widths, 2 layers, fp32, TF32 off, bucketed "
+                    "{mode}, max_seqs 3, run()")
+
+
+def phase_tp_parity(card, spawned):
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    results, info = spawned
+    ranks = [res["tp"]["parity"] for res in results[2]]
+    L, kvh = 2, LlamaConfig.llama3_8b().num_key_value_heads
+    out = {}
+    for key in (k for k in ranks[0] if k != "kernels"):
+        pool, mode = key.split()
+        rows = [r[key] for r in ranks]
+        for r, row in enumerate(rows):
+            for name in ("single", "tp", "control"):
+                run = row[name]
+                if len(run["tokens"]) != 4 or not run["conserved"]:
+                    fail(f"tp_parity ({key}, {name}, rank {r}): "
+                         f"{len(run['tokens'])} of 4 finished or the pool "
+                         "leaked")
+            for name in ("single", "tp"):
+                run = row[name]
+                if mode == "spec":
+                    if run["spec_drafted"] == 0:
+                        fail(f"tp_parity ({key}, {name}): nothing drafted")
+                    want = _want_spec_counts(False, L, run["calls"],
+                                             run["device_steps"],
+                                             pool == "int8")
+                else:
+                    want = _want_bucket_counts(L, run["calls"],
+                                               run["device_steps"],
+                                               pool == "int8")
+                if run["launches"] != want:
+                    fail(f"tp_parity ({key}, {name}, rank {r}): launches "
+                         f"{run['launches']}, want {want}")
+            if row["tp"]["kv_heads"] != kvh // 2:
+                fail(f"tp_parity: rank {r}'s pool holds "
+                     f"{row['tp']['kv_heads']} KV heads, want {kvh // 2}")
+        _tp_equal_ranks(f"tp_parity ({key})", [r["tp"] for r in rows],
+                        ("tokens", "logprobs", "launches", "device_steps"))
+        tp = [r["tp"] for r in rows]
+        row = {"phase": "tp_parity", "card": card, "pool": pool,
+               "mode": mode, "config": TP_PARITY_CONFIG.format(
+                   mode="spec_decode=4" if mode == "spec" else "decode"),
+               "mesh": {"tp": 2}, **info[2],
+               "prompt_lens": list(SPEC_PARITY_LENS),
+               "new_tokens": SPEC_PARITY_NEW,
+               "requests_identical": 4 - len(rows[0]["partings"]),
+               "partings": rows[0]["partings"],
+               "logprob_max_abs_err": max(r["logprob_max_abs_err"]
+                                          for r in rows),
+               "logprob_atol": TP_PARITY_LP_ATOL[pool],
+               "control_logprob_max_abs_err": min(
+                   r["control_logprob_max_abs_err"] for r in rows),
+               "control_common_tokens": rows[0]["control_common_tokens"],
+               "control_partings": rows[0]["control_partings"],
+               "pool_gap_per_rank": [r["pool_gap"] for r in rows],
+               "prefill_calls": tp[0]["calls"],
+               "device_steps": tp[0]["device_steps"],
+               "spec_drafted": tp[0]["spec_drafted"],
+               "spec_accepted": tp[0]["spec_accepted"],
+               "launches_per_rank": [t["launches"] for t in tp],
+               "single_rank_launches": rows[0]["single"]["launches"],
+               "collectives_per_rank": [t["collectives"] for t in tp],
+               "tp_seconds": max(t["seconds"] for t in tp),
+               "single_rank_seconds": max(r["single"]["seconds"]
+                                          for r in rows)}
+        emit(row)
+        out[key] = row
+        for rid, (j, margin) in row["partings"].items():
+            if margin >= 1e-3:
+                fail(f"tp_parity ({key}): request {rid} parts at token {j} "
+                     f"with top-2 margin {margin}")
+        if row["logprob_max_abs_err"] > row["logprob_atol"]:
+            fail(f"tp_parity ({key}): logprobs differ by "
+                 f"{row['logprob_max_abs_err']} > {row['logprob_atol']}")
+        if row["control_logprob_max_abs_err"] <= row["logprob_atol"]:
+            fail(f"tp_parity ({key}): the bf16 control's logprobs lie "
+                 f"{row['control_logprob_max_abs_err']} from the "
+                 f"single-rank engine's, within the limit "
+                 f"{row['logprob_atol']}")
+        if pool == "int8" and not row["partings"]:
+            for r, gap in enumerate(row["pool_gap_per_rank"]):
+                for name, g in gap.items():
+                    if g["max_code_step"] > 1:
+                        fail(f"tp_parity ({key}): rank {r}'s {name} codes "
+                             f"differ from one rank's by up to "
+                             f"{g['max_code_step']}")
+    emit({"phase": "tp_parity", "part": "local kernels", "card": card,
+          "rank": 0, "kernels": ranks[0]["kernels"],
+          "seconds": max(res["tp"]["parity_seconds"] for res in results[2])})
+    return out
+
+
+TP_SERVE_CONFIG = SERVE_CONFIG + ", ragged=False, tp 2"
+# the forced rows' distances by token index: the first token (prefill),
+# then decode steps early, middle and late
+TP_DEPTHS = ((0, 1), (1, 16), (16, 32), (32, 64))
+
+
+def _seed_gaps(rows, want):
+    """How far two engines' logits for the first token of each request
+    lie apart ({rid: (V,) rows} each, from the same prompts): the largest
+    and the mean absolute difference over every request's row."""
+    import numpy as np
+    d = np.stack([np.abs(np.asarray(rows[r], np.float32)
+                         - np.asarray(want[r], np.float32)) for r in want])
+    return {"max_abs": float(d.max()), "mean_abs": float(d.mean())}
+
+
+def _forced_gaps(tp_rows, one, want):
+    """The teacher-forced tp engine's logits (`tp_rows`, (R, N, V))
+    against bucket_serve's for the same contexts (`one`): the largest
+    and the mean absolute difference, overall and by TP_DEPTHS; and
+    each greedy row (requests 2-7) where the tp engine's own pick is not
+    bucket_serve's token, with each engine's lead of its pick over the
+    other's, beside the bf16 step of the top logit."""
+    import torch
+    from paddle_tpu_torch.models.serving_capture import bf16_step
+    d = (tp_rows.float() - one).abs()
+    row_max, row_mean = d.amax(-1), d.mean(-1)
+    del d
+    out = {"max_abs": float(row_max.max()),
+           "mean_abs": float(row_mean.mean()),
+           "by_depth": {f"{a}-{b - 1}": {
+               "max_abs": float(row_max[:, a:b].max()),
+               "mean_abs": float(row_mean[:, a:b].mean())}
+               for a, b in TP_DEPTHS}}
+    picks = tp_rows.float().argmax(-1)
+    flips = []
+    for rid in range(2, tp_rows.shape[0]):
+        for j in range(tp_rows.shape[1]):
+            a, b = int(picks[rid, j]), want[rid][j]
+            if a != b:
+                t, o = tp_rows[rid, j].float(), one[rid, j]
+                flips.append({"request": rid, "token": j,
+                              "tp_lead": float(t[a] - t[b]),
+                              "bucket_lead": float(o[b] - o[a]),
+                              "bf16_step": bf16_step(float(o.max()))})
+    out["greedy_rows"] = 6 * tp_rows.shape[1]
+    out["greedy_flips"] = flips
+    return out
+
+
+def phase_tp_serve(card, spawned, bserve, serve):
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    results, info = spawned
+    ranks = [res["tp"]["serve"] for res in results[2]]
+    cfg = LlamaConfig.llama3_8b()
+    out = {}
+    for pool in ("bf16", "int8"):
+        rows = [r[pool] for r in ranks]
+        for r, row in enumerate(rows):
+            toks = row["tokens"]
+            if len(toks) != 8 or not row["conserved"]:
+                fail(f"tp_serve ({pool}, rank {r}): {len(toks)} of 8 "
+                     "finished or the pool leaked")
+            for rid, t in toks.items():
+                if len(t) != 64 or not all(0 <= x < cfg.vocab_size
+                                           for x in t):
+                    fail(f"tp_serve ({pool}): request {rid} has {len(t)} "
+                         "tokens, want 64 in the vocabulary")
+            want = _want_bucket_counts(cfg.num_hidden_layers,
+                                       row["prefill_calls"],
+                                       row["device_steps"], pool == "int8")
+            if row["launches"] != want:
+                fail(f"tp_serve ({pool}, rank {r}): launches "
+                     f"{row['launches']}, want {want}")
+            if not (row["forced_streams_ok"] and row["forced_conserved"]):
+                fail(f"tp_serve ({pool}, rank {r}): the forced run did not "
+                     "emit bucket_serve's streams or its pool leaked")
+        _tp_equal_ranks(f"tp_serve ({pool})", rows,
+                        ("tokens", "launches", "device_steps",
+                         "forced_sums"))
+        plain = bserve[pool]
+        streams, drawn = plain["streams"], plain["drawn"]
+        one = torch.stack([torch.stack([drawn.row(rid, j) for j in range(64)])
+                           for rid in range(8)])
+        forced = _forced_gaps(rows[0]["forced_rows"], one, streams)
+        del one
+        # the yardstick: the first token's logits of another single-rank
+        # engine (serve's ragged engine, other shapes) against
+        # bucket_serve's
+        ragged = _seed_gaps(serve[pool]["seeds"], drawn.seeds)
+        # where the free-running streams first part from bucket_serve's
+        parted = {rid: next((j for j, (x, y) in enumerate(zip(t, streams[rid]))
+                             if x != y), None)
+                  for rid, t in rows[0]["tokens"].items()}
+        row = {"phase": "tp_serve", "card": card, "pool": pool,
+               "config": TP_SERVE_CONFIG, "mesh": {"tp": 2}, **info[2],
+               "new_tokens": 64, "sampled": [0, 1],
+               "kv_heads_per_rank": rows[0]["kv_heads"],
+               **{k: rows[0][k] for k in (
+                   "device_steps", "prefill_calls", "prefill_tokens",
+                   "pad_tokens")},
+               "streams_identical": sum(j is None for j in parted.values()),
+               "first_parting": parted,
+               "forced_vs_bucket_serve": forced,
+               "ragged_first_token_vs_bucket_serve": ragged,
+               "yardstick_factor": TP_YARDSTICK,
+               "forced_s_per_rank": [r["forced_s"] for r in rows],
+               "wall_s_per_rank": [r["wall_s"] for r in rows],
+               "output_tok_s": min(r["output_tok_s"] for r in rows),
+               "decode_step_ms_median": max(r["decode_step_ms_median"]
+                                            for r in rows),
+               "prefill_tok_s": min(r["prefill_tok_s"] for r in rows),
+               "max_memory_allocated_gb_per_rank":
+                   [r["max_memory_allocated_gb"] for r in ranks],
+               "params_gb_per_rank": [r["params_gb"] for r in ranks],
+               "params_init_s": max(r["params_init_s"] for r in ranks),
+               "collectives_per_decode_step_median_per_rank":
+                   [r["collectives_per_decode_step_median"] for r in rows],
+               "collectives_to_first_finish_per_rank":
+                   [r["collectives_to_first_finish"] for r in rows],
+               "collectives_total_per_rank":
+                   [r["collectives_total"] for r in rows],
+               "launches_per_rank": [r["launches"] for r in rows],
+               "merge_launches_per_rank": [r["merge_launches"] for r in rows],
+               "bucket_serve": {k: plain.get(k) for k in (
+                   "output_tok_s", "decode_step_ms_median", "prefill_tok_s",
+                   "device_steps")},
+               "seconds": max(res["tp"]["serve_seconds"]
+                              for res in results[2])}
+        emit(row)
+        out[pool] = row
+    for pool, row in out.items():
+        got, ragged = (row[k] for k in ("forced_vs_bucket_serve",
+                                        "ragged_first_token_vs_bucket_serve"))
+        for k in ("max_abs", "mean_abs"):
+            if got[k] > TP_YARDSTICK * ragged[k]:
+                fail(f"tp_serve ({pool}): the forced run's logits differ "
+                     f"from bucket_serve's by {got[k]} ({k}), over "
+                     f"{TP_YARDSTICK} x the ragged engine's first tokens' "
+                     f"{ragged[k]}")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5110,15 +5807,17 @@ def main(argv=None):
         timed("parity", phase_parity, smi)
     serve, bserve, sserve, pserve, rserve, fserve = {}, {}, {}, {}, {}, {}
     if {"serve", "bucket_serve", "spec_serve", "prefix_serve",
-            "runtime", "fleet"} & set(phases):
+            "runtime", "fleet", "tp_serve"} & set(phases):
         # the 8B parameters, built once for the six serve phases
         t0 = time.perf_counter()
         cfg, params = serve_params()
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
-        if "serve" in phases:
+        if {"serve", "tp_serve"} & set(phases):
+            # tp_serve's yardstick is the ragged engine's logits
             serve = timed("serve", phase_serve, smi, cfg, params, init_s)
-        if "bucket_serve" in phases:
+        if {"bucket_serve", "tp_serve"} & set(phases):
+            # tp_serve holds its streams to bucket_serve's
             bserve = timed("bucket_serve", phase_bucket_serve, smi, cfg,
                            params, init_s)
         if "spec_serve" in phases:
@@ -5132,7 +5831,15 @@ def main(argv=None):
         if "fleet" in phases:
             fserve = timed("fleet", phase_fleet, smi, cfg, params)
         del params
-        torch.cuda.empty_cache()
+        gc_cuda()
+        # nothing of the serve phases may outlive them: the parallel and
+        # tp ranks share the card with this process
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        emit({"phase": "serve_block", "card": smi,
+              "memory_allocated_gb_after": held_gb})
+        if held_gb > 1.0:
+            fail(f"the serve phases left {held_gb:.2f} GB allocated on the "
+                 f"card: {_engines_alive()}")
     tk = timed("train_kernel", phase_train_kernel, smi) \
         if "train_kernel" in phases else {}
     if "train_parity" in phases:
@@ -5162,15 +5869,22 @@ def main(argv=None):
         timed("fused_parity", phase_fused_parity, smi)
     if "train_fused" in phases:
         timed("train_fused", phase_train_fused, smi, packed)
-    par_parity, par = {}, {}
-    if {"parallel_parity", "parallel"} & set(phases):
-        # each world size spawned once for both phases' layouts
-        spawned = timed("parallel_spawn", _spawn_parallel, phases)
+    par_parity, par, tpp, tps = {}, {}, {}, {}
+    if {"parallel_parity", "parallel", "tp_parity", "tp_serve"} & \
+            set(phases):
+        # each world size spawned once for the layouts of the parallel
+        # phases; the tp phases run in the world of 2
+        spawned = timed("parallel_spawn", _spawn_parallel, phases, bserve)
         if "parallel_parity" in phases:
             par_parity = timed("parallel_parity", phase_parallel_parity,
                                smi, spawned)
         if "parallel" in phases:
             par = timed("parallel", phase_parallel, smi, spawned)
+        if "tp_parity" in phases:
+            tpp = timed("tp_parity", phase_tp_parity, smi, spawned)
+        if "tp_serve" in phases:
+            tps = timed("tp_serve", phase_tp_serve, smi, spawned, bserve,
+                        serve)
     emit({"phase_seconds": secs})
     # launches the prefix_serve runs added, by kernel (the returning turns
     # of the multi-turn runs, the whole system-prompt runs)
@@ -5280,6 +5994,16 @@ def main(argv=None):
                 for name, prow in rows.items()}
         else:
             row["parallel_launches"] = None
+        # each rank's launches in each run of the tp phases (rows 3, 9,
+        # 12-14q; None for the others)
+        if row["name"] in TP_KERNELS and (tpp or tps):
+            row["tp_launches"] = {
+                f"{phase} {pool}": [r[row["name"]] for r in
+                                    prow["launches_per_rank"]]
+                for phase, rows in (("tp_parity", tpp), ("tp_serve", tps))
+                for pool, prow in rows.items()}
+        else:
+            row["tp_launches"] = None
         for (kname, variant, shape), k in pk.items():
             if kname == row["name"] and variant in ("bfloat16", "int8"):
                 row.setdefault("prefix_kernel", {})[str(shape)] = {

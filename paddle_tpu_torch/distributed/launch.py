@@ -19,7 +19,9 @@ card. Ranks compute on the card unless the caller asks for the CPU
 
 From Python, `spawn(fn, world, backend, device, deadline_s, args)` runs
 `fn(rank, world, *args)` (a module-level function) on every rank after
-the rendezvous and returns the ranks' results, in rank order."""
+the rendezvous and returns the ranks' results, in rank order;
+`serve(build, requests, world, backend, ...)` drives a tensor-parallel
+serving engine that way, every rank in lockstep on the same requests."""
 from __future__ import annotations
 
 import argparse
@@ -150,17 +152,11 @@ def spawn(fn, world, backend, device="cuda", deadline_s=300.0,
     `deadline_s` seconds every rank is killed and TimeoutError raised."""
     _check_backend(backend)
     _check_device(device)
-    module, sys_path = fn.__module__, list(sys.path)
-    if module == "__main__":
-        # a function of the script that is running: the ranks import the
-        # script by its file's name
-        path = os.path.abspath(sys.modules["__main__"].__file__)
-        module = os.path.splitext(os.path.basename(path))[0]
-        sys_path.insert(0, os.path.dirname(path))
+    module, name, sys_path = _reference(fn)
     tmp = tempfile.mkdtemp(prefix="pt_spawn_", dir=store_dir)
     try:
         with open(os.path.join(tmp, "job.pkl"), "wb") as f:
-            pickle.dump({"module": module, "name": fn.__qualname__,
+            pickle.dump({"module": module, "name": name,
                          "sys_path": sys_path, "args": tuple(args)}, f)
         store = os.path.join(tmp, "store")
         base = dict(os.environ if env is None else env)
@@ -206,21 +202,79 @@ def spawn(fn, world, backend, device="cuda", deadline_s=300.0,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _reference(fn):
+    """(module, qualified name, sys.path) by which a rank imports the
+    module-level function `fn`. A function of the script that is running
+    is imported by the script's file name."""
+    module, sys_path = fn.__module__, list(sys.path)
+    if module == "__main__":
+        path = os.path.abspath(sys.modules["__main__"].__file__)
+        module = os.path.splitext(os.path.basename(path))[0]
+        sys_path.insert(0, os.path.dirname(path))
+    return module, fn.__qualname__, sys_path
+
+
+def _resolve(module, name, sys_path):
+    sys.path[:0] = [p for p in sys_path if p not in sys.path]
+    fn = importlib.import_module(module)
+    for part in name.split("."):
+        fn = getattr(fn, part)
+    return fn
+
+
+def serve(build, requests, world, backend, device="cuda", deadline_s=300.0,
+          args=(), pipelined=False, threads=None, env=None, store_dir=None):
+    """Drive a tensor-parallel serving engine in `world` spawned ranks, in
+    lockstep: each rank builds its engine by `build(rank, world, *args)`
+    (a module-level function, imported by the ranks as spawn's `fn` is,
+    that returns a `ServingEngine` over a rank mesh), submits `requests`
+    (`Request`s not yet submitted) in order and runs it to the end
+    (`run`, or `run_pipelined`). Returns rank 0's finished requests.
+
+    Every rank must finish the same requests with the same tokens, as
+    the ranks' host state (admission, pages, preemption) follows the
+    tokens they all draw from the same gathered logits: ranks that
+    differ raise RuntimeError naming the first request that parts. A
+    rank that fails stops the others, and at the deadline every rank is
+    killed (TimeoutError), as under `spawn`."""
+    done = spawn(_serve_rank, world, backend, device, deadline_s,
+                 args=(_reference(build), list(requests), tuple(args),
+                       pipelined), threads=threads, env=env,
+                 store_dir=store_dir)
+    want = [(r.rid, list(r.output)) for r in done[0]]
+    for rank, reqs in enumerate(done[1:], 1):
+        got = [(r.rid, list(r.output)) for r in reqs]
+        if got != want:
+            i = next((i for i, (a, b) in enumerate(zip(got, want))
+                      if a != b), min(len(got), len(want)))
+            raise RuntimeError(
+                f"serve: rank {rank} finished other tokens than rank 0 "
+                f"(first difference at finished request {i}: "
+                f"{got[i:i + 1]} against {want[i:i + 1]}); the ranks "
+                "left lockstep")
+    return done[0]
+
+
+def _serve_rank(rank, world, build, requests, args, pipelined):
+    """One rank of `serve`: its engine, the requests, the run."""
+    eng = _resolve(*build)(rank, world, *args)
+    for r in requests:
+        eng.submit(r)
+    return eng.run_pipelined() if pipelined else eng.run()
+
+
 def _rank_worker(tmp):
     """A spawned rank: join the group, run the job, write its result."""
     rank = int(os.environ["RANK"])
     try:
         with open(os.path.join(tmp, "job.pkl"), "rb") as f:
             job = pickle.load(f)
-        sys.path[:0] = [p for p in job["sys_path"] if p not in sys.path]
         import torch
         if os.environ.get("PT_SPAWN_THREADS"):
             torch.set_num_threads(int(os.environ["PT_SPAWN_THREADS"]))
         from . import env
         env.init_parallel_env()
-        fn = importlib.import_module(job["module"])
-        for part in job["name"].split("."):
-            fn = getattr(fn, part)
+        fn = _resolve(job["module"], job["name"], job["sys_path"])
         out = fn(rank, int(os.environ["WORLD_SIZE"]), *job["args"])
         with open(os.path.join(tmp, f"result{rank}.pkl.part"), "wb") as f:
             pickle.dump(out, f)

@@ -84,8 +84,27 @@ plan each hook is an attribute test. `serving.RequestScheduler`,
 `ServingServer` and `Router` drive the engine; on the card `python3
 chip_smoke.py --phases device,build,runtime` serves it over HTTP.
 
-Out of scope in this slice, raising NotImplementedError that names the
-ROADMAP.md item: tensor-parallel serving (`mesh`, item 10b).
+Tensor-parallel serving (ROADMAP.md, Queue 1 item 10b):
+`ServingEngine(..., ragged=False, mesh=create_mesh({"tp": n}))` in each
+of n ranks (processes on torch.distributed, `parallel/mesh.py`) keeps
+this rank's Megatron shard of the weights (`llama_spmd.place_params`,
+pp=False: q/k/v, gate and up by columns, o and down by rows, the
+embedding and `lm_head` by vocabulary) and of the KV pools and int8
+scales (their KV-head axis). The step functions take the rank's plan
+(`par`): heads are local (nh / n query heads, nkv / n KV heads), the
+token lookup is the vocabulary-parallel `llama_spmd._embed`, the `wo`
+and `w_down` products are summed over the tp group (`reduce_from_group`)
+and the logits all-gathered along the vocabulary before any sampling,
+so every rank holds the same logits and draws the same token. The
+paged, varlen and flash kernels run unchanged on the local heads and
+pool shard. Page tables, lengths, the page pool, admission, preemption
+and the prefix cache are host state, the same on every rank: every rank
+runs the same engine on the same submissions, in lockstep
+(`distributed.launch.serve` drives one in spawned ranks). On the card,
+`python3 chip_smoke.py --phases device,build,tp_parity,tp_serve`.
+
+Out of scope, raising NotImplementedError that names the ROADMAP.md
+item: the host KV tier and KV handoff under a tp mesh (item 10c).
 """
 from __future__ import annotations
 
@@ -97,6 +116,7 @@ import torch
 
 from .. import _prng
 from .._device import DEFAULT_DEVICE, resolve_device
+from ..distributed import collective as _coll
 from ..observability import compile_telemetry as _compile
 from ..observability import device_telemetry as _devtel
 from ..observability import flight_recorder as _flight
@@ -289,6 +309,55 @@ def _qkv(x, lw, li, shape, nh, nkv, hd):
             (x @ lw["wv"][li]).reshape(*shape, nkv, hd))
 
 
+class _TPPlan:
+    """This rank's place in tensor-parallel serving, the `par` of the
+    step functions: its tp group and the first vocabulary row of its
+    embedding and `lm_head` shard (what `llama_spmd._embed` reads)."""
+
+    __slots__ = ("tp", "vocab_lo")
+
+    def __init__(self, mesh, config):
+        self.tp = mesh.group("tp")
+        self.vocab_lo = mesh.coord("tp") * (config.vocab_size
+                                            // mesh.shape["tp"])
+
+    def __repr__(self):
+        # the step functions' compile telemetry keys calls by the reprs
+        # of their arguments: one signature per plan, not per object
+        return f"_TPPlan(tp={self.tp.nranks}, rank={self.tp.rank})"
+
+
+def _heads(params, config):
+    """(query heads, KV heads, head_dim) of the layers in `params`: all
+    of them, or this rank's under tensor parallelism."""
+    hd = config.hidden_size // config.num_attention_heads
+    lw = params["layers"]
+    return lw["wq"].shape[-1] // hd, lw["wk"].shape[-1] // hd, hd
+
+
+def _embed(params, ids, par):
+    """The token lookup; under tensor parallelism the vocabulary-parallel
+    one of the train step (this rank's rows, summed over the tp axis)."""
+    if par is None:
+        return params["embed"][ids.long()]
+    from .llama_spmd import _embed as embed_tp  # it imports this module
+    return embed_tp(ids.long(), params["embed"], par)
+
+
+def _reduce(x, par):
+    """A row-split product (`wo`, `w_down`): this rank's partial sums,
+    summed over the tp axis."""
+    return x if par is None else _coll.reduce_from_group(x, par.tp)
+
+
+def _logits(h, params, par):
+    """h @ lm_head; under tensor parallelism this rank's vocabulary
+    columns, all-gathered along the vocabulary, so every rank holds the
+    whole row and draws the same token from it."""
+    lg = h @ params["lm_head"]
+    return lg if par is None else _coll.all_gather_cat(lg, par.tp, dim=-1)
+
+
 def unified_step(params, k_pool, v_pool, page_table, tokens, tok_slot,
                  tok_pos, config: LlamaConfig, page_size, k_scale=None,
                  v_scale=None, sample=None, carry_tok=None,
@@ -398,20 +467,21 @@ def unified_step(params, k_pool, v_pool, page_table, tokens, tok_slot,
 
 
 @torch.no_grad()
-def prefill(params, input_ids, length, config: LlamaConfig):
+def prefill(params, input_ids, length, config: LlamaConfig, par=None):
     """One prompt, padded to its bucket. input_ids: (1, S_padded) token
     ids; length: the prompt's real length. Causal flash attention over
     the padded row (the GQA K/V heads repeated first; rows past `length`
     compute values nobody reads). Returns (next-token logits (V,),
-    k_all, v_all: (L, KVH, S_padded, D)), K after RoPE."""
+    k_all, v_all: (L, KVH, S_padded, D)), K after RoPE. `par`: this
+    rank's `_TPPlan` under tensor parallelism (its heads, its K/V), or
+    None on one device, as for every step function here."""
     c = config
-    nh, nkv = c.num_attention_heads, c.num_key_value_heads
-    hd = c.hidden_size // nh
+    nh, nkv, hd = _heads(params, c)
     eps = c.rms_norm_eps
     b, s = input_ids.shape
     cos, sin = rope_cos_sin(s, hd, base=c.rope_theta,
                             device=input_ids.device)
-    h = params["embed"][input_ids.long()]                 # (1, S, H)
+    h = _embed(params, input_ids, par)                    # (1, S, H)
     lw = params["layers"]
     ks, vs = [], []
     for li in range(lw["wq"].shape[0]):
@@ -423,18 +493,21 @@ def prefill(params, input_ids, length, config: LlamaConfig):
         kr = k.repeat_interleave(rep, dim=1) if rep > 1 else k
         vr = v.repeat_interleave(rep, dim=1) if rep > 1 else v
         o = flash_attention_bhsd(q, kr, vr, causal=True)  # (1, QH, S, D)
-        h = h + o.transpose(1, 2).reshape(b, s, -1) @ lw["wo"][li]
+        h = h + _reduce(o.transpose(1, 2).reshape(b, s, -1) @ lw["wo"][li],
+                        par)
         x = _rms(h, lw["ln2"][li], eps)
-        h = h + swiglu(x, lw["w_gate"][li], lw["w_up"][li], lw["w_down"][li])
+        h = h + _reduce(swiglu(x, lw["w_gate"][li], lw["w_up"][li],
+                               lw["w_down"][li]), par)
         ks.append(k[0])
         vs.append(v[0])
     h = _rms(h, params["final_norm"], eps)
-    logits = h[0, int(length) - 1] @ params["lm_head"]
+    logits = _logits(h[0, int(length) - 1], params, par)
     return logits, torch.stack(ks), torch.stack(vs)
 
 
 @torch.no_grad()
-def prefill_varlen(params, input_ids, cu_seqlens, config: LlamaConfig):
+def prefill_varlen(params, input_ids, cu_seqlens, config: LlamaConfig,
+                   par=None):
     """An admission wave in ONE call: input_ids (T_pad,) all prompts
     packed back to back; cu_seqlens (B+1,) prefix sums (unused tail
     entries repeat the last offset: zero-length segments). Each token's
@@ -443,8 +516,7 @@ def prefill_varlen(params, input_ids, cu_seqlens, config: LlamaConfig):
     (per-segment next-token logits (B, V), k_all, v_all: (L, KVH, T_pad,
     D)), K after RoPE."""
     c = config
-    nh, nkv = c.num_attention_heads, c.num_key_value_heads
-    hd = c.hidden_size // nh
+    nh, nkv, hd = _heads(params, c)
     eps = c.rms_norm_eps
     t = input_ids.shape[0]
     dev = input_ids.device
@@ -455,7 +527,7 @@ def prefill_varlen(params, input_ids, cu_seqlens, config: LlamaConfig):
     starts = torch.cat([cu[:1] * 0, cu])[seg.long() + 1]
     pos = torch.clamp_min(torch.arange(t, device=dev) - starts, 0)
     cos, sin = rope_cos_sin(None, hd, base=c.rope_theta, position_ids=pos)
-    h = params["embed"][input_ids.long()]                 # (T, H)
+    h = _embed(params, input_ids, par)                    # (T, H)
     lw = params["layers"]
     ks, vs = [], []
     for li in range(lw["wq"].shape[0]):
@@ -464,15 +536,16 @@ def prefill_varlen(params, input_ids, cu_seqlens, config: LlamaConfig):
         q, k = apply_rotary_emb(q, k, cos[:, None], sin[:, None])
         o = flash_attention_varlen(q, k, v, seg, seg, causal=True,
                                    same_offsets=True)    # (T, QH, D)
-        h = h + o.reshape(t, -1) @ lw["wo"][li]
+        h = h + _reduce(o.reshape(t, -1) @ lw["wo"][li], par)
         x = _rms(h, lw["ln2"][li], eps)
-        h = h + swiglu(x, lw["w_gate"][li], lw["w_up"][li], lw["w_down"][li])
+        h = h + _reduce(swiglu(x, lw["w_gate"][li], lw["w_up"][li],
+                               lw["w_down"][li]), par)
         ks.append(k)
         vs.append(v)
     h = _rms(h, params["final_norm"], eps)
     # row-sparse epilogue: one final row per packed segment
     last = torch.clamp_min(cu[1:] - 1, 0)
-    logits = h[last] @ params["lm_head"]                  # (B, V)
+    logits = _logits(h[last], params, par)                # (B, V)
     # (L, T, KVH, D) -> (L, KVH, T, D), the pool scatter layout
     return (logits, torch.stack(ks).transpose(1, 2),
             torch.stack(vs).transpose(1, 2))
@@ -481,7 +554,7 @@ def prefill_varlen(params, input_ids, cu_seqlens, config: LlamaConfig):
 @torch.no_grad()
 def decode_step(params, k_pool, v_pool, page_table, lengths, tokens, active,
                 config: LlamaConfig, page_size, k_scale=None, v_scale=None,
-                sample=None, carry_tok=None, carry_mask=None):
+                sample=None, carry_tok=None, carry_mask=None, par=None):
     """One token for every slot.
 
     k_pool/v_pool: (L, KVH, P, page, D); page_table (B, pages_per_seq)
@@ -501,15 +574,14 @@ def decode_step(params, k_pool, v_pool, page_table, lengths, tokens, active,
     c = config
     if carry_tok is not None:
         tokens = torch.where(carry_mask, carry_tok, tokens)
-    nh, nkv = c.num_attention_heads, c.num_key_value_heads
-    hd = c.hidden_size // nh
+    nh, nkv, hd = _heads(params, c)
     eps = c.rms_norm_eps
     B = tokens.shape[0]
     Pn = k_pool.shape[2]
     quant = k_scale is not None
     pos = torch.clamp_min(lengths.long() - 1, 0)
     cos, sin = rope_cos_sin(None, hd, base=c.rope_theta, position_ids=pos)
-    h = params["embed"][tokens.long()]                    # (B, H)
+    h = _embed(params, tokens, par)                       # (B, H)
     page_ids = page_table.long()[torch.arange(B, device=pos.device),
                                  pos // page_size]
     page_ids = torch.where(active, page_ids, Pn - 1)      # trash page
@@ -524,11 +596,12 @@ def decode_step(params, k_pool, v_pool, page_table, lengths, tokens, active,
             k.transpose(0, 1), v.transpose(0, 1), quant)
         o = paged_attention(q, kl, vl, page_table, lengths, k_scale=ksl,
                             v_scale=vsl)                  # (B, QH, D)
-        h = h + o.reshape(B, -1).to(h.dtype) @ lw["wo"][li]
+        h = h + _reduce(o.reshape(B, -1).to(h.dtype) @ lw["wo"][li], par)
         x = _rms(h, lw["ln2"][li], eps)
-        h = h + swiglu(x, lw["w_gate"][li], lw["w_up"][li], lw["w_down"][li])
+        h = h + _reduce(swiglu(x, lw["w_gate"][li], lw["w_up"][li],
+                               lw["w_down"][li]), par)
     h = _rms(h, params["final_norm"], eps)
-    logits = h @ params["lm_head"]                        # (B, V)
+    logits = _logits(h, params, par)                      # (B, V)
     if sample is None:
         return logits
     return logits, _sample_record(logits, lengths, active, sample)
@@ -537,7 +610,8 @@ def decode_step(params, k_pool, v_pool, page_table, lengths, tokens, active,
 @torch.no_grad()
 def verify_step(params, k_pool, v_pool, page_table, lengths, tokens, n_tok,
                 active, config: LlamaConfig, page_size, k_scale=None,
-                v_scale=None, sample=None, need_rows=None, cand_tok=None):
+                v_scale=None, sample=None, need_rows=None, cand_tok=None,
+                par=None):
     """Speculative-decoding verify and chunked prefill: G chunk tokens
     per slot in ONE forward, every matmul at (B, G, ...).
 
@@ -563,8 +637,7 @@ def verify_step(params, k_pool, v_pool, page_table, lengths, tokens, n_tok,
     each candidate token under the filtered distribution
     (`_cand_probs`)."""
     c = config
-    nh, nkv = c.num_attention_heads, c.num_key_value_heads
-    hd = c.hidden_size // nh
+    nh, nkv, hd = _heads(params, c)
     eps = c.rms_norm_eps
     B, G = tokens.shape
     Pn = k_pool.shape[2]
@@ -574,7 +647,7 @@ def verify_step(params, k_pool, v_pool, page_table, lengths, tokens, n_tok,
     pos = lengths.long()[:, None] + ar[None, :]               # (B, G)
     cos, sin = rope_cos_sin(None, hd, base=c.rope_theta,
                             position_ids=pos)                 # (B, G, hd)
-    h = params["embed"][tokens.long()]                        # (B, G, H)
+    h = _embed(params, tokens, par)                           # (B, G, H)
     # a padded position may lie past the table's last page (a slot near
     # max_seq_len); it writes the trash page, so any in-range page will do
     pidx = torch.clamp_max(pos // page_size, page_table.shape[1] - 1)
@@ -594,14 +667,16 @@ def verify_step(params, k_pool, v_pool, page_table, lengths, tokens, n_tok,
         o = paged_verify_attention(q.contiguous(), kl, vl, page_table,
                                    lengths, k_scale=ksl,
                                    v_scale=vsl)           # (B, QH, G, D)
-        h = h + o.transpose(1, 2).reshape(B, G, -1).to(h.dtype) @ lw["wo"][li]
+        h = h + _reduce(o.transpose(1, 2).reshape(B, G, -1).to(h.dtype)
+                        @ lw["wo"][li], par)
         x = _rms(h, lw["ln2"][li], eps)
-        h = h + swiglu(x, lw["w_gate"][li], lw["w_up"][li], lw["w_down"][li])
+        h = h + _reduce(swiglu(x, lw["w_gate"][li], lw["w_up"][li],
+                               lw["w_down"][li]), par)
     h = _rms(h, params["final_norm"], eps)
     if need_rows is not None:
         hf = h.reshape(B * G, -1)[torch.clamp_min(need_rows, 0).long()]
-        return hf @ params["lm_head"]                         # (M, V)
-    logits = h @ params["lm_head"]                            # (B, G, V)
+        return _logits(hf, params, par)                       # (M, V)
+    logits = _logits(h, params, par)                          # (B, G, V)
     if sample is None:
         return logits
     rec = _sample_grid(logits, lengths, sample)
@@ -893,9 +968,22 @@ class ServingEngine:
     exported as a KVHandoff (`_handoff_done`) once its prompt is seeded;
     one with `_kv_import` set resumes from such a payload.
 
+    `mesh`: a rank mesh (`parallel.create_mesh`) whose `tp` axis has
+    more than one rank makes this rank's engine one of a tensor-parallel
+    group: it keeps its shard of the weights and of the pools (module
+    docstring), and the group's ranks must run the same submissions in
+    the same order (`distributed.launch.serve`). tp must divide the
+    query and KV heads (and, as `place_params` cuts them, the vocabulary
+    and the FFN width). Only the bucketed engine runs under such a mesh:
+    `ragged` defaults to True without one and to False with one, and
+    ragged=True with one raises, as in the JAX package. A mesh without
+    a tp axis, or of tp 1, builds the unsharded engine.
+
     Runs on `device` ("cuda" by default; raises without a CUDA device —
     pass device="cpu" to run on the CPU). `params` must already live
-    there."""
+    there; under a tp mesh they may also be the full tree on the CPU
+    (each rank copies only its shard to `device`) or a tree already
+    placed by `place_params`."""
 
     def __init__(self, params, config: LlamaConfig, max_seqs=4,
                  max_seq_len=512, page_size=16, dtype=None, num_pages=None,
@@ -903,13 +991,35 @@ class ServingEngine:
                  spec_ngram=2, chunked_prefill=False, spec_sample=False,
                  mesh=None, prefix_cache=False,
                  host_tier_bytes=0, tier_quantize=True, faults=None,
-                 ragged=True, ragged_tokens=None, lean=True, tokbuf=True,
+                 ragged=None, ragged_tokens=None, lean=True, tokbuf=True,
                  device=DEFAULT_DEVICE):
         self.device = resolve_device(device)
-        if mesh is not None:
-            raise _not_ported("tensor-parallel serving (mesh=)", "10b")
         c = config
-        if params["embed"].device != self.device:
+        # this rank's tensor-parallel plan; None serves on one device.
+        # `_tp` is what the step calls take for it: nothing on one device
+        self._par, self._tp = None, {}
+        tp = 1 if mesh is None else mesh.shape.get("tp", 1)
+        if tp > 1:
+            if c.num_attention_heads % tp or c.num_key_value_heads % tp:
+                raise ValueError(
+                    f"tp={tp} must divide num_attention_heads="
+                    f"{c.num_attention_heads} and num_key_value_heads="
+                    f"{c.num_key_value_heads} (degenerate GQA shardings "
+                    "are not supported)")
+            if ragged:
+                raise ValueError(
+                    "ragged=True does not run under tensor parallelism yet "
+                    "— build the engine with ragged=False to keep the "
+                    "bucketed entry points")
+            ragged = False
+            if host_tier_bytes:
+                raise _not_ported(
+                    "the host KV tier under tensor parallelism "
+                    "(host_tier_bytes with a tp mesh)", "10c")
+            self._par = _TPPlan(mesh, c)
+            self._tp = {"par": self._par}
+            params = self._place(params, c, mesh)
+        elif params["embed"].device != self.device:
             raise ValueError(
                 f"params live on {params['embed'].device}, the engine on "
                 f"{self.device}: build them there (init_params(device=) / "
@@ -969,7 +1079,7 @@ class ServingEngine:
         self.pad_tokens = 0
         # rows the ragged waves fed (decode rows, feeds, verify chunks)
         self.ragged_tokens = 0
-        self.ragged = bool(ragged)
+        self.ragged = True if ragged is None else bool(ragged)
         G_ = max(self.spec_decode, 1)
         if ragged_tokens is None:
             ragged_tokens = 1 << math.ceil(math.log2(max(max_seqs * G_, 16)))
@@ -992,7 +1102,8 @@ class ServingEngine:
         self.tok_buf = torch.zeros((max_seqs, max_seq_len + 1),
                                    dtype=torch.int32, device=dev) \
             if tokbuf and self.ragged and self.spec_decode <= 1 else None
-        kvh = c.num_key_value_heads
+        # this rank's KV heads: the pools and scales are cut over them
+        kvh = c.num_key_value_heads // tp
         hd = c.hidden_size // c.num_attention_heads
         L = c.num_hidden_layers
         self.cache_quant = cache_dtype in ("int8", torch.int8)
@@ -1062,6 +1173,26 @@ class ServingEngine:
         self._waiting = []
         self.finished = []
         self._order = 0
+
+    def _place(self, params, config, mesh):
+        """This rank's shard of `params` on the engine's device: a full
+        tree (on any device) cut by `place_params` with pp=False, as the
+        JAX engine places it, or a tree that is already this rank's
+        shard, taken as it is."""
+        from . import llama_spmd as _spmd
+        tp = mesh.shape["tp"]
+        rows = params["embed"].shape[0]
+        if rows == config.vocab_size:
+            params = _spmd.place_params(params, config, mesh, pp=False)
+        elif rows * tp != config.vocab_size or \
+                params["layers"]["wq"].shape[-1] * tp != config.hidden_size:
+            raise ValueError(
+                f"params are neither the full tree nor a tp={tp} shard of "
+                f"it (embed {tuple(params['embed'].shape)}, vocab "
+                f"{config.vocab_size})")
+        return {k: ({kk: vv.to(self.device) for kk, vv in v.items()}
+                    if isinstance(v, dict) else v.to(self.device))
+                for k, v in params.items()}
 
     @property
     def _free(self):
@@ -1139,6 +1270,11 @@ class ServingEngine:
     def submit(self, req: Request):
         """Validate-or-reject now; queue what fits."""
         self.validate(req)
+        if self._par is not None and (req._handoff_export or
+                                      req._kv_import is not None):
+            raise _not_ported("KV handoff under tensor parallelism (a "
+                              "request to export or import with a tp "
+                              "mesh)", "10c")
         if req._t_submit is None:
             req._t_submit = time.perf_counter()
         if req._handoff_export:
@@ -1438,7 +1574,7 @@ class ServingEngine:
         self._cost_hint(S, 0 if req._resume else 1, S * (S + 1) // 2, S)
         with _record_span("serving.prefill"):
             logits, k_all, v_all = prefill(self.params, self._h2d(ids), S,
-                                           self.config)
+                                           self.config, **self._tp)
         self._scatter_prompt(slot, k_all, v_all, S)
         row = None if req._resume else \
             logits.to(torch.float32).cpu().numpy()
@@ -1468,7 +1604,8 @@ class ServingEngine:
                         sum(n * (n + 1) // 2 for n in lens), total)
         with _record_span("serving.prefill"):
             logits, k_all, v_all = prefill_varlen(self.params, d["ids"],
-                                                  d["cu"], self.config)
+                                                  d["cu"], self.config,
+                                                  **self._tp)
         pg, po = self._packed_indices(ids.shape[0])
         seed = [i for i, r in enumerate(reqs) if not r._resume]
         rows = dict(zip(seed, logits[seed].to(torch.float32).cpu().numpy())) \
@@ -1925,7 +2062,7 @@ class ServingEngine:
                 d["lengths"], d["tokens"], d["active"] != 0, self.config,
                 self.page_size, k_scale=self.k_scale, v_scale=self.v_scale,
                 sample=sample, carry_tok=c_tok,
-                carry_mask=d["carry_mask"] != 0)
+                carry_mask=d["carry_mask"] != 0, **self._tp)
         host, event = self._d2h(rec)
         self._t_launch_end = time.perf_counter()
         self.device_steps += 1
@@ -2479,7 +2616,7 @@ class ServingEngine:
                 d["lengths"], d["tokens"], d["n_tok"], d["active"] != 0,
                 self.config, self.page_size, k_scale=self.k_scale,
                 v_scale=self.v_scale, sample=self._device_sampling(d),
-                cand_tok=d.get("cand"))
+                cand_tok=d.get("cand"), **self._tp)
         self._spec_launched([s for s in range(self.max_seqs) if active[s]])
         dev = logits.device
         grid, lp_grid, row_vals, cand_vals, seed_vals = self._read(
@@ -2723,7 +2860,8 @@ class ServingEngine:
                 self.params, self.k_pool, self.v_pool, d["page_table"],
                 d["lengths"], d["tokens"], d["n_tok"], d["active"] != 0,
                 self.config, self.page_size, k_scale=self.k_scale,
-                v_scale=self.v_scale, need_rows=d.get("need"))
+                v_scale=self.v_scale, need_rows=d.get("need"),
+                **self._tp)
         self.lengths[slot] = cached + n
         req.slot = slot
         req._admit_order = self._order

@@ -61,12 +61,17 @@ __all__ = ["init_params", "params_from_jax", "param_specs", "place_params",
 
 
 def init_params(config: LlamaConfig, seed=0, dtype=torch.float32,
-                device=DEFAULT_DEVICE):
+                device=DEFAULT_DEVICE, mesh=None):
     """Random weights in the stacked layout, drawn from a seeded
     `torch.Generator` on `device` (normal, std `initializer_range`;
     norms ones). The numbers differ from the JAX package's
     `init_params` for the same seed; parity tests load the JAX
-    package's weights through `params_from_jax` instead."""
+    package's weights through `params_from_jax` instead.
+
+    With a rank `mesh`, each leaf is cut to this rank's shard as soon as
+    it is drawn: the numbers of `place_params(init_params(...), config,
+    mesh)`, without the whole tree ever on the device (at 8B in bf16
+    the largest leaf is 3.8 GB of the 16 GB)."""
     c = config
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
@@ -75,30 +80,41 @@ def init_params(config: LlamaConfig, seed=0, dtype=torch.float32,
         c.num_hidden_layers
     KV = c.num_key_value_heads * (H // c.num_attention_heads)
     std = c.initializer_range
+    specs = None
+    if mesh is not None:
+        specs = param_specs(c, mesh, pp=_stages(mesh, None, None)[0])
 
-    def w(*shape):
+    def cut(t, path):
+        if specs is None:
+            return t
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        return _shard(t, spec, mesh)
+
+    def w(shape, *path):
         # drawn straight in `dtype`: a full-width bf16 model never
         # holds an fp32 copy of its largest stack
-        return torch.empty(shape, dtype=dtype, device=dev).normal_(
-            0.0, std, generator=gen)
+        return cut(torch.empty(shape, dtype=dtype, device=dev).normal_(
+            0.0, std, generator=gen), path)
 
-    def ones(*shape):
-        return torch.ones(shape, dtype=dtype, device=dev)
+    def ones(shape, *path):
+        return cut(torch.ones(shape, dtype=dtype, device=dev), path)
 
     return {
-        "embed": w(V, H),
-        "final_norm": ones(H),
-        "lm_head": w(H, V),
+        "embed": w((V, H), "embed"),
+        "final_norm": ones((H,), "final_norm"),
+        "lm_head": w((H, V), "lm_head"),
         "layers": {
-            "ln1": ones(L, H),
-            "wq": w(L, H, H),
-            "wk": w(L, H, KV),
-            "wv": w(L, H, KV),
-            "wo": w(L, H, H),
-            "ln2": ones(L, H),
-            "w_gate": w(L, H, F_),
-            "w_up": w(L, H, F_),
-            "w_down": w(L, F_, H),
+            "ln1": ones((L, H), "layers", "ln1"),
+            "wq": w((L, H, H), "layers", "wq"),
+            "wk": w((L, H, KV), "layers", "wk"),
+            "wv": w((L, H, KV), "layers", "wv"),
+            "wo": w((L, H, H), "layers", "wo"),
+            "ln2": ones((L, H), "layers", "ln2"),
+            "w_gate": w((L, H, F_), "layers", "w_gate"),
+            "w_up": w((L, H, F_), "layers", "w_up"),
+            "w_down": w((L, F_, H), "layers", "w_down"),
         },
     }
 

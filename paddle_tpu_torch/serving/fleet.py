@@ -563,6 +563,13 @@ class FleetPages:
 
     def stop(self):
         self._stop.set()
+        # the tier's copy thread lives as long as the process: hooks left
+        # on the tier would keep this worker, its replica and its
+        # engine's weights alive after the worker closes
+        if self.tier.on_drop == self.on_drop:
+            self.tier.on_drop = None
+        if self.tier.fetch_missing == self.fetch_missing:
+            self.tier.fetch_missing = None
 
 
 # ---------------------------------------------------------------------------

@@ -299,3 +299,202 @@ def train_layouts(rank, world, data):
             out[name] = _run_layout(case, params, opt, batch, data["steps"],
                                     data["lr"])
     return out if rank == 0 else None
+
+
+# ------------------------------------------------------------ tp serving
+def _tp_requests(specs):
+    from paddle_tpu_torch.models.llama_serving import Request
+    return [Request(**s) for s in specs]
+
+
+def _tp_engine(data, mesh, kw):
+    from paddle_tpu_torch.models.llama_serving import ServingEngine
+    params = T.params_from_jax(data["params"], "cpu")
+    return ServingEngine(params, _config(data["dims"]), mesh=mesh,
+                         device="cpu", **kw)
+
+
+def _tp_case(data, mesh, case):
+    """One engine of a tp serving case: its request batches, each
+    submitted and run to the end in turn; what the test holds."""
+    eng = _tp_engine(data, mesh, case["engine"])
+    C.reset_counters()
+    for batch in case["batches"]:
+        for r in _tp_requests(batch):
+            eng.submit(r)
+        eng.run(max_steps=500)
+    pc = eng.prefix_cache
+    return {"out": {r.rid: list(r.output) for r in eng.finished},
+            "lp": {r.rid: list(r.logprobs) for r in eng.finished},
+            "order": [r.rid for r in eng.finished],
+            "conserved": eng.pool.conserved(drained=True),
+            "pool_shape": tuple(eng.k_pool.shape),
+            "preemptions": eng.preemptions,
+            "spec_accepted": eng.spec_accepted,
+            "prefix_hits": None if pc is None else pc.hits,
+            "cached": {r.rid: r.cached_tokens for r in eng.finished},
+            "calls": C.calls}
+
+
+def _tp_refusal(data, mesh, flag):
+    """The exception a tp engine raises at submit for a handoff."""
+    from paddle_tpu_torch.models.llama_serving import Request
+    eng = _tp_engine(data, mesh, {})
+    req = Request("h", [1, 2, 3], max_new_tokens=2)
+    if flag == "export":
+        req._handoff_export = True
+    else:
+        req._kv_import = object()
+    try:
+        eng.submit(req)
+    except Exception as e:        # the test holds the class and the words
+        return type(e).__name__, str(e)
+    return None
+
+
+def _tp_steps(data, mesh):
+    """One decode_step and one verify_step (sampling on) of the full
+    model (tp 1) and of this rank's shard (tp 2), from the same pools:
+    logits, records and the pools' updated K/V, this rank's heads."""
+    from paddle_tpu_torch.models import llama_serving as S
+    cfg = _config(data["dims"])
+    full = T.params_from_jax(data["params"], "cpu")
+    shard = T.place_params(full, cfg, mesh, pp=False)
+    par = S._TPPlan(mesh, cfg)
+    u = {k: _t(v) for k, v in data["steps"].items()}
+    tp, me = mesh.shape["tp"], mesh.coord("tp")
+
+    def pools(quant):
+        k, v = u["k_pool"].clone(), u["v_pool"].clone()
+        ks = vs = None
+        if quant:
+            (k, ks), (v, vs) = S.quantize_kv(k), S.quantize_kv(v)
+        return [k, v, ks, vs]
+
+    def mine(t):
+        return None if t is None else t.chunk(tp, 1)[me]
+
+    sample = {"temp": u["temp"], "top_k": u["top_k"], "top_p": u["top_p"],
+              "key": u["key"], "eos": u["eos"], "remaining": u["remaining"]}
+    out = {}
+    for quant in (False, True):
+        got = {}
+        for name, params, p, kw in (
+                ("tp1", full, pools(quant), {}),
+                ("tp2", shard, [mine(t) for t in pools(quant)],
+                 {"par": par})):
+            dec = S.decode_step(params, p[0], p[1], u["page_table"],
+                                u["lengths"], u["tokens"], u["active"], cfg,
+                                data["page_size"], k_scale=p[2],
+                                v_scale=p[3], sample=sample, **kw)
+            ver = S.verify_step(params, p[0], p[1], u["page_table"],
+                                u["lengths"], u["chunk"], u["n_tok"],
+                                u["active"], cfg, data["page_size"],
+                                k_scale=p[2], v_scale=p[3],
+                                sample={k: sample[k] for k in
+                                        ("temp", "top_k", "top_p", "key")},
+                                **kw)
+            if name == "tp1":
+                p = [mine(t) for t in p]
+            got[name] = _np({"decode": [dec[0], *dec[1]],
+                             "verify": [ver[0], *ver[1]],
+                             "pools": [t for t in p if t is not None]})
+        out["int8" if quant else "float"] = got
+    return out
+
+
+def serve_tp_cases(rank, world, data):
+    """The tp serving tests' port side on one rank of a tp mesh of every
+    rank: each case of data["cases"] on its engine, the handoff
+    refusals and the step functions at tp 2 against tp 1."""
+    mesh = create_mesh({"tp": world})
+    out = {name: _tp_case(data, mesh, case)
+           for name, case in data["cases"].items()}
+    out["refusals"] = {f: _tp_refusal(data, mesh, f)
+                       for f in ("export", "import")}
+    out["steps"] = _tp_steps(data, mesh)
+    cfg = _config(data["dims"])
+    drawn = T.init_params(cfg, seed=3, device="cpu", mesh=mesh)
+    placed = T.place_params(T.init_params(cfg, seed=3, device="cpu"), cfg,
+                            mesh)
+    out["init_shards"] = [bool(torch.equal(a, b)) and a.shape == b.shape
+                          for a, b in zip(T._leaves(drawn),
+                                          T._leaves(placed))]
+    return out
+
+
+def tp_engine(rank, world, data):
+    """`launch.serve`'s build: a tp engine over every rank, or with
+    data["unsharded"], each rank's own engine from weights drawn with
+    its rank as the seed (whose tokens differ)."""
+    mesh = create_mesh({"tp": world})
+    if not data.get("unsharded"):
+        return _tp_engine(data, mesh, data["engine"])
+    from paddle_tpu_torch.models.llama_serving import ServingEngine
+    cfg = _config(data["dims"])
+    return ServingEngine(T.init_params(cfg, seed=rank, device="cpu"), cfg,
+                         device="cpu", **data["engine"])
+
+
+def card_tp_serve(rank, world, data):
+    """The card's tp serving test on one rank: per pool, the single-rank
+    engine (the weights on the card) and a tp engine over every rank
+    (the same bf16 weights given on the CPU: each rank copies its shard
+    to the card), greedy, synchronous; then the tp engine again,
+    teacher-forced along the single-rank streams (`StepLogits`), so that
+    each of its rows is drawn from the context the single-rank row was,
+    every rank alike. Returns each free run's tokens, the tp run's
+    launches, whether the forced run emitted the single-rank streams,
+    and each forced row where the tp engine's own pick is not the
+    single-rank token: (request, token index, the tp pick's lead over
+    the single-rank token in the tp logits, the single-rank token's
+    lead in its own logits, the top logit)."""
+    import paddle_tpu_torch.ops.paged_attention as pa
+    from paddle_tpu_torch.distributed.launch import rank_device
+    from paddle_tpu_torch.models.llama_serving import Request, ServingEngine
+    from paddle_tpu_torch.models.serving_capture import StepLogits
+    dev = torch.device(rank_device("cuda"))
+    torch.cuda.set_device(dev)
+    cfg = _config(data["dims"])
+    full = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cpu")
+    on_card = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                   if isinstance(v, dict) else v.to(dev))
+               for k, v in full.items()}
+    mesh = create_mesh({"tp": world})
+    prompts = {int(k): v for k, v in data["prompts"].items()}
+    out = {}
+    for cache in (None, "int8"):
+        def run(m, force=None, launches=None):
+            eng = ServingEngine(full if m is not None else on_card, cfg,
+                                mesh=m, cache_dtype=cache, device=dev,
+                                **data["engine"])
+            for rid, p in prompts.items():
+                eng.submit(Request(rid, p, max_new_tokens=data["new_tokens"]))
+            pa.launches_decode = pa.launches_decode_int8 = 0
+            drawn = StepLogits(eng, force=force)
+            try:
+                done = eng.run()
+            finally:
+                drawn.close()
+            if launches is not None:
+                launches.update(
+                    decode=pa.launches_decode, int8=pa.launches_decode_int8,
+                    steps=eng.device_steps, heads=int(eng.k_pool.shape[1]),
+                    conserved=eng.pool.conserved(drained=True))
+            return {r.rid: list(r.output) for r in done}, drawn
+        single, one = run(None)
+        launches = {}
+        tp, _ = run(mesh, launches=launches)
+        forced, two = run(mesh, force=single)
+        parts = []
+        for rid, want in single.items():
+            for j, b in enumerate(want):
+                lt, ls = two.row(rid, j), one.row(rid, j)
+                a = int(torch.argmax(lt))
+                if a != b:
+                    parts.append((rid, j, float(lt[a] - lt[b]),
+                                  float(ls[b] - ls[a]), float(ls.max())))
+        out["int8" if cache else "bf16"] = {
+            "single": single, "tp": tp, "forced_ok": forced == single,
+            "parts": parts, "launches": launches}
+    return out

@@ -35,6 +35,7 @@ from paddle_tpu_torch.models import llama_spmd as T
 from paddle_tpu_torch.models.llama import LlamaConfig
 from paddle_tpu_torch.models.llama_spmd import init_params
 from paddle_tpu_torch.models.llama_serving import Request, ServingEngine
+from paddle_tpu_torch.models.serving_capture import bf16_step
 from paddle_tpu_torch.ops.flash_attention import tensor_core_operands
 from paddle_tpu_torch.ops.fused import fused_linear_cross_entropy
 from paddle_tpu_torch.ops.paged_attention import quantize_kv
@@ -1961,6 +1962,58 @@ def _par_spawn(fn, data):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the ranks compute on the card")
     return spawn(getattr(R, fn), 2, "gloo", "cuda", 300, args=(data,))
+
+
+# the tp serving test: the paged tc engine test's model (group 4 on each
+# rank: 4 query heads over 1 KV head) and prompts over one split
+TP_DIMS = dict(vocab=128, hidden=256, layers=2, heads=8, kv_heads=2, ffn=256)
+
+
+@pytest.fixture(scope="module")
+def card_tp_ranks():
+    prompts = {i: [1 + (7 * j + i) % 120 for j in range(n)]
+               for i, n in enumerate(PAGED_ENGINE_PROMPTS)}
+    return _par_spawn("card_tp_serve", {
+        "dims": TP_DIMS, "prompts": prompts, "new_tokens": 12,
+        "engine": dict(max_seqs=3, max_seq_len=1024, page_size=8,
+                       ragged=False)})
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+def test_tp_engine_on_two_ranks_sharing_the_card_matches_one_rank(
+        card_tp_ranks, pool):
+    """Bucketed tp 2 serving on two gloo ranks sharing the card (each
+    rank its shard of the weights, given on the CPU, and of the pool; the
+    paged decode kernel on its tensor-core route at 4 query heads over 1
+    KV head) against the single-rank card engine from the same bf16
+    weights, greedy: each rank launches pa_decode once a layer and step,
+    its pool holds its KV head and is conserved, the ranks give the same
+    tokens, and the tp engine, run again teacher-forced along each
+    single-rank stream (`serving_capture.StepLogits`), emits it and is
+    held to it at every token. Where the forced tp engine's own pick is
+    another token, the two tokens tie: each engine's pick leads the
+    other's token by at most one bf16 step of the top logit in that
+    engine's own logits (each tp rank rounds its partial products of
+    `wo` and `w_down` to bf16 before the sum over the ranks, where one
+    rank rounds the whole product once: every logit, and the log-softmax
+    normalizer with them, moves by up to a bf16 step, so the logprob
+    rule of BF16_LOGIT_TIE, which compares two engines' normalizers,
+    does not apply)."""
+    L = TP_DIMS["layers"]
+    for r, res in enumerate(card_tp_ranks):
+        got = res[pool]
+        n = got["launches"]
+        assert n["decode" if pool == "bf16" else "int8"] == L * n["steps"]
+        assert n["int8" if pool == "bf16" else "decode"] == 0
+        assert n["heads"] == TP_DIMS["kv_heads"] // 2 and n["conserved"]
+        assert got["forced_ok"]
+        for rid, tok, lead_tp, lead_one, top in got["parts"]:
+            step = bf16_step(top)
+            assert 0 <= lead_tp <= step and 0 <= lead_one <= step, (
+                r, rid, tok, lead_tp, lead_one, top)
+        print(f"tp engine {pool} rank {r}: {len(got['parts'])} forced "
+              "rows tie")
+    assert card_tp_ranks[0][pool] == card_tp_ranks[1][pool]
 
 
 @pytest.fixture(scope="module")

@@ -284,3 +284,26 @@ def test_fleet_hooks_match_reference(hooks):
             jkv._SEED, (1, 2)), (3, 4)), 2)
     else:
         assert short == 2 and calls == []
+
+
+def test_fleet_pages_take_their_hooks_off_the_tier_when_they_stop():
+    """The tier's copy thread lives as long as the process: a stopped
+    FleetPages takes its hooks off the tier, so nothing running keeps
+    its worker, replica and engine alive; hooks that are not its own
+    stay."""
+    from types import SimpleNamespace
+    from paddle_tpu_torch.serving.fleet import FleetPages
+    from paddle_tpu_torch.serving.metrics import MetricsRegistry
+    for other in (False, True):
+        tier = PT.HostTier(PS, tier_bytes=1 << 20)
+        worker = SimpleNamespace(replica=SimpleNamespace(
+            engine=SimpleNamespace(host_tier=tier), replica_id="w",
+            registry=MetricsRegistry()))
+        pages = FleetPages(worker)
+        assert tier.on_drop == pages.on_drop
+        assert tier.fetch_missing == pages.fetch_missing
+        if other:
+            tier.on_drop = print
+        pages.stop()
+        assert tier.fetch_missing is None
+        assert tier.on_drop is (print if other else None)

@@ -24,6 +24,7 @@ from paddle_tpu_torch import _prng
 from paddle_tpu_torch.models import llama_serving as P
 from paddle_tpu_torch.models.llama import LlamaConfig
 from paddle_tpu_torch.models.llama_spmd import init_params, params_from_jax
+from paddle_tpu_torch.parallel.mesh import RankMesh
 
 DIMS = dict(vocab=64, hidden=32, layers=2, heads=4, kv_heads=2, ffn=64,
             seq=128)
@@ -408,11 +409,36 @@ def test_cancel_queued_and_active(tparams):
     assert eng.pool.conserved(drained=True)
 
 
+def _tp_mesh(n):
+    """A tp mesh of n ranks seen from rank 0, without process groups:
+    what the engine's constructor checks before it needs them."""
+    return RankMesh(np.arange(n), ("tp",), rank=0)
+
+
 @pytest.mark.parametrize("kw,item", [
-    pytest.param({"mesh": object()}, "10b", id="kw3-10b")])
+    pytest.param({"mesh": _tp_mesh(2), "prefix_cache": True,
+                  "host_tier_bytes": 1 << 20}, "10c", id="kw3-10c")])
 def test_unported_options_name_their_roadmap_item(tparams, kw, item):
     with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
         P.ServingEngine(tparams, CFG, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("axes", [{"tp": 1}, {"dp": 2}], ids=["tp1", "dp"])
+def test_mesh_option_builds(tparams, axes):
+    """`mesh=`, which raised naming Queue 1 item 10b, builds: a mesh of
+    one tp rank or without a tp axis serves unsharded, as without a
+    mesh (tp meshes of two ranks: tests/test_torch_serving_tp.py)."""
+    sizes = list(axes.values())
+    mesh = RankMesh(np.arange(int(np.prod(sizes))).reshape(sizes),
+                    list(axes), rank=0)
+    outs = []
+    for m in (mesh, None):
+        eng = P.ServingEngine(tparams, CFG, max_seqs=2, max_seq_len=64,
+                              page_size=8, mesh=m, device="cpu")
+        assert eng._par is None and eng.ragged
+        eng.submit(P.Request("a", [1, 5, 9, 3], max_new_tokens=6))
+        outs.append(eng.run()[0].output)
+    assert outs[0] == outs[1]
 
 
 def test_faults_option_builds_and_fires(tparams, monkeypatch):
