@@ -405,6 +405,27 @@ non-zero):
                after the serve phases (tp_serve runs serve and
                bucket_serve too), whose engines must leave under 1 GB
                allocated in this process (`serve_block`).
+30. layer_parity — the Paddle-shaped surface: the Layer-tree
+               `LlamaForCausalLM` at 8B widths, depth cut to 2,
+               vocabulary cut to 4096, fp32, TF32 off, batch 1 x 256,
+               drawn on the card after `paddle.seed(0)` and copied to
+               the CPU; 3 steps of `paddle.optimizer.AdamW` with
+               `ClipGradByGlobalNorm(1.0)` and a `LinearWarmup` (1e-4 to
+               3e-4) on the card and on the CPU, held to train_parity's
+               limits (parameters to 2.5 x the summed lr); fa_fwd,
+               fa_bwd_dq and fa_bwd_dkv once a layer a step each (no
+               remat), nothing on the CPU. Then `F.flash_attn_unpadded`
+               and `F.flashmask_attention` through Tensors on the card
+               (fp32, 2048 tokens of 3 documents, 32 / 8 heads, D 128),
+               forward and backward once each, against their plain
+               versions on the same card tensors (1e-4), one launch of
+               each kernel;
+31. layer_train — the bf16 Layer tree (`model.bfloat16()`,
+               `AdamW(multi_precision=True)`, clip 1.0) at 8B widths,
+               depth 4, full vocabulary, 6 steps on 2 x 2048 tokens: the
+               loss must fall, the flash kernels once a layer a step;
+               tokens/s (median of steps 2-6) and the peak beside the
+               train phase's (run `train` with it for those).
 
 After the phases, one line gives each phase's wall seconds
 (`phase_seconds`; the serve phases' shared 8B parameters are built
@@ -416,8 +437,9 @@ launches of the runtime phase's runs (`runtime_launches`), those of
 the fleet phase's in-process workers (`fleet_launches`), each rank's
 launches in each layout of the parallel phases for rows 3-8
 (`parallel_launches`), each rank's launches in each run of the tp
-phases for rows 3, 9 and 12-14q (`tp_launches`) and, for the ragged and
-verify rows,
+phases for rows 3, 9 and 12-14q (`tp_launches`), the Layer-tree
+Llama's (`layer_launches`: layer_train's for rows 3-5, layer_parity's
+entry points' for rows 6-11) and, for the ragged and verify rows,
 prefix_kernel's shapes (`prefix_kernel`); the last line is {"ok": true,
 "device": {...}}.
 """
@@ -441,7 +463,7 @@ PHASES = ("device", "build", "kernel", "parity", "serve", "train_kernel",
           "spec_kernel", "spec_parity", "spec_serve", "prefix_kernel",
           "prefix_parity", "prefix_serve", "runtime", "fleet",
           "varlen_kernel", "fused_parity", "train_fused", "parallel_parity",
-          "parallel", "tp_parity", "tp_serve")
+          "parallel", "tp_parity", "tp_serve", "layer_parity", "layer_train")
 SOURCES = ("ragged_paged_attention", "flash_attention", "flashmask_attention",
            "varlen_attention", "paged_attention")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
@@ -5777,6 +5799,323 @@ def phase_tp_serve(card, spawned, bserve, serve):
     return out
 
 
+# --------------------------------------------- the Paddle-shaped surface
+LAYER_PARITY_LAYERS = 2
+LAYER_PARITY_VOCAB = 4096
+LAYER_PARITY_STEPS = 3
+LAYER_PARITY_CONFIG = ("LlamaForCausalLM (Layer tree) at llama3_8b widths, "
+                       f"{LAYER_PARITY_LAYERS} layers, vocab "
+                       f"{LAYER_PARITY_VOCAB}, fp32, TF32 off, no remat, "
+                       "batch 1 x 256, AdamW + ClipGradByGlobalNorm(1.0) + "
+                       "LinearWarmup(3e-4, 2 steps from 1e-4)")
+LAYER_TRAIN_LAYERS = 4
+LAYER_TRAIN_STEPS = 6
+LAYER_TRAIN_CONFIG = ("LlamaForCausalLM (Layer tree) at llama3_8b widths, "
+                      f"{LAYER_TRAIN_LAYERS} layers, full vocabulary, "
+                      "model.bfloat16(), AdamW(multi_precision=True, lr "
+                      "3e-4) + ClipGradByGlobalNorm(1.0), no remat, random "
+                      "weights (seed 0), batch 2 x 2048")
+# the entry points' check: fp32 at Llama-3-8B attention widths, the
+# documents of one packed row of 2048 tokens
+LAYER_ENTRY_ATTN = {"T": 2048, "H": 32, "KVH": 8, "D": 128}
+LAYER_ENTRY_DOCS = (700, 500, 848)
+# fp32 kernels against their plain versions (TF32 off): sums over up to
+# 2048 keys in another order
+LAYER_ENTRY_TOL = (1e-4, 1e-4)
+
+
+def _paddle(device):
+    import paddle_tpu_torch as paddle
+    paddle.set_device(device)
+    return paddle
+
+
+def _layer_batch(vocab, b, s, seed):
+    """(input_ids, labels) from a numpy seed: labels the next token
+    (every one a valid class: the Layer tree's cross_entropy ignores
+    only -100)."""
+    import numpy as np
+    toks = np.random.default_rng(seed).integers(0, vocab, (b, s + 1))
+    return toks[:, :-1], toks[:, 1:].copy()
+
+
+def _layer_steps(paddle, model, batch, steps):
+    """`steps` AdamW steps (clip 1.0, LinearWarmup from 1e-4 to 3e-4
+    over 2 steps) of the Layer tree on `batch`. Returns (losses, the
+    step-1 gradients on the CPU, the lr of each step)."""
+    ids, labels = (paddle.to_tensor(a) for a in batch)
+    sched = paddle.optimizer.lr.LinearWarmup(3e-4, 2, 1e-4, 3e-4)
+    opt = paddle.optimizer.AdamW(
+        sched, parameters=model.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+    losses, first, lrs = [], None, []
+    for i in range(steps):
+        loss, _ = model(ids, labels=labels)
+        loss.backward()
+        if i == 0:
+            first = [p.grad._value.detach().cpu() for p in
+                     model.parameters()]
+        lrs.append(opt.get_lr())
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        losses.append(float(loss))
+    return losses, first, lrs
+
+
+def _layer_entry_points(card):
+    """F.flash_attn_unpadded and F.flashmask_attention through Tensors on
+    the card, forward and backward once each, against their plain
+    versions on the same card tensors (autograd through the dense
+    references). Returns the row and each kernel's launches."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch.ops.flashmask_attention as fm
+    import paddle_tpu_torch.ops.varlen_attention as va
+    paddle = _paddle("gpu:0")
+    F = paddle.nn.functional
+    t, h, kvh, d = (LAYER_ENTRY_ATTN[k] for k in ("T", "H", "KVH", "D"))
+    rep, scale = h // kvh, 1.0 / math.sqrt(d)
+    rs = np.random.RandomState(7)
+    qn, kn, vn, won = (rs.randn(t, n, d).astype(np.float32) * 0.5
+                       for n in (h, kvh, kvh, h))
+    cu = np.concatenate([[0], np.cumsum(LAYER_ENTRY_DOCS)]).astype(np.int32)
+    doc = np.repeat(np.arange(len(LAYER_ENTRY_DOCS)), LAYER_ENTRY_DOCS)
+    rtol, atol = LAYER_ENTRY_TOL
+    out = {}
+
+    def check(name, got, want):
+        errs = []
+        for g, w in zip(got, want):
+            g, w = g.float(), w.float()
+            errs.append(float((g - w).abs().max().detach()))
+            if not torch.allclose(g, w, rtol=rtol, atol=atol):
+                fail(f"layer_parity {name}: off its plain version by "
+                     f"{errs[-1]}")
+        return errs
+
+    # varlen: (T, H, D) packed; plain = varlen_reference over GQA-repeated
+    # heads
+    va.launches_fwd = va.launches_dq = va.launches_dkv = 0
+    ts = [paddle.to_tensor(a, stop_gradient=False) for a in (qn, kn, vn)]
+    o = F.flash_attn_unpadded(*ts, cu, cu, t, t, causal=True)[0]
+    (o * paddle.to_tensor(won)).sum().backward()
+    torch.cuda.synchronize()
+    launches = {"varlen_fwd": va.launches_fwd,
+                "varlen_bwd_dq": va.launches_dq,
+                "varlen_bwd_dkv": va.launches_dkv}
+    raw = [torch.from_numpy(a).cuda().requires_grad_(True)
+           for a in (qn, kn, vn)]
+    seg = torch.from_numpy(doc).cuda()
+    po, _ = va.varlen_reference(
+        raw[0].transpose(0, 1), raw[1].repeat_interleave(rep, 1).transpose(
+            0, 1), raw[2].repeat_interleave(rep, 1).transpose(0, 1), seg,
+        seg, True, scale)
+    (po.transpose(0, 1) * torch.from_numpy(won).cuda()).sum().backward()
+    out["flash_attn_unpadded"] = check(
+        "flash_attn_unpadded", [o._value] + [x.grad._value for x in ts],
+        [po.transpose(0, 1)] + [r.grad for r in raw])
+    # FlashMask: (1, T, H, D) with a document-causal mask (each key's
+    # rows end at its document's end)
+    fm.launches_fwd = fm.launches_dq = fm.launches_dkv = 0
+    ends = cu[1:][doc].astype(np.int32)
+    sri = np.broadcast_to(ends[None, None, :, None], (1, kvh, t, 1)).copy()
+    ts = [paddle.to_tensor(a[None], stop_gradient=False)
+          for a in (qn, kn, vn)]
+    o = F.flashmask_attention(*ts, paddle.to_tensor(sri), causal=True)
+    (o * paddle.to_tensor(won[None])).sum().backward()
+    torch.cuda.synchronize()
+    launches.update({"flashmask_fwd": fm.launches_fwd,
+                     "flashmask_bwd_dq": fm.launches_dq,
+                     "flashmask_bwd_dkv": fm.launches_dkv})
+    raw = [torch.from_numpy(a[None]).cuda().requires_grad_(True)
+           for a in (qn, kn, vn)]
+    qh, kh, vh = (x.transpose(1, 2) for x in raw)
+    po, _ = fm.flashmask_reference(
+        qh, kh.repeat_interleave(rep, 1), vh.repeat_interleave(rep, 1),
+        torch.from_numpy(sri).cuda().repeat_interleave(rep, 1), causal=True)
+    (po.transpose(1, 2) * torch.from_numpy(won[None]).cuda()).sum() \
+        .backward()
+    out["flashmask_attention"] = check(
+        "flashmask_attention", [o._value] + [x.grad._value for x in ts],
+        [po.transpose(1, 2)] + [r.grad for r in raw])
+    if any(n != 1 for n in launches.values()):
+        fail(f"layer_parity: the entry points launched {launches}, want "
+             "one of each kernel")
+    return out, launches
+
+
+def phase_layer_parity(card):
+    """The Layer-tree Llama at 8B widths (depth and vocabulary cut, fp32,
+    TF32 off) trained 3 steps on the card and, from the same weights
+    (drawn on the card, copied to the CPU), on the CPU: train_parity's
+    limits; the flash kernels once a layer a step each. Then the
+    entry points' check (`_layer_entry_points`)."""
+    import copy
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              num_hidden_layers=LAYER_PARITY_LAYERS,
+                              vocab_size=LAYER_PARITY_VOCAB)
+    batch = _layer_batch(cfg.vocab_size, 1, 256, seed=3)
+    paddle = _paddle("gpu:0")
+    paddle.seed(0)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cpu_model = copy.deepcopy(model).to("cpu")
+    res = {}
+    for dev, m in (("gpu:0", model), ("cpu", cpu_model)):
+        paddle = _paddle(dev)
+        _reset_train_counts()
+        t0 = time.perf_counter()
+        losses, first, lrs = _layer_steps(paddle, m, batch,
+                                          LAYER_PARITY_STEPS)
+        res[dev] = {"losses": losses, "grads": first,
+                    "params": [p._value.detach().cpu()
+                               for p in m.parameters()],
+                    "launches": _train_counts(), "lrs": lrs,
+                    "seconds": time.perf_counter() - t0}
+    del model, cpu_model
+    gc_cuda()
+    L, steps = LAYER_PARITY_LAYERS, LAYER_PARITY_STEPS
+    want = {k: 0 for k in _train_counts()}
+    want.update({"flash_fwd": L * steps, "flash_bwd_dq": L * steps,
+                 "flash_bwd_dkv": L * steps})
+    gpu, cpu = res["gpu:0"], res["cpu"]
+    if gpu["launches"] != want:
+        fail(f"layer_parity: launches {gpu['launches']}, want {want}")
+    if any(cpu["launches"].values()):
+        fail("layer_parity: the CPU steps launched a CUDA kernel")
+    loss_err = [abs(a - c) for a, c in zip(gpu["losses"], cpu["losses"])]
+    if any(e > 1e-5 * abs(c) + 1e-5
+           for e, c in zip(loss_err, cpu["losses"])):
+        fail(f"layer_parity: losses {gpu['losses']} vs {cpu['losses']}")
+    grad_worst = 0.0
+    for a, c in zip(gpu["grads"], cpu["grads"]):
+        allowed = (PARITY_GRAD_RTOL * c.abs()
+                   + PARITY_GRAD_SCALE * float(c.abs().max()) + 1e-30)
+        grad_worst = max(grad_worst, float(((a - c).abs() / allowed).max()))
+    if grad_worst > 1.0:
+        fail(f"layer_parity: step-1 gradients off, worst {grad_worst} of "
+             "the tolerance")
+    p_err = max(float((a - c).abs().max())
+                for a, c in zip(gpu["params"], cpu["params"]))
+    p_rel = max(float((a - c).norm() / c.norm())
+                for a, c in zip(gpu["params"], cpu["params"]))
+    if p_err > 2.5 * sum(gpu["lrs"]) or p_rel > 1e-5:
+        fail(f"layer_parity: parameters off by {p_err} (relative norm "
+             f"{p_rel})")
+    entry, entry_launches = _layer_entry_points(card)
+    row = {"phase": "layer_parity", "card": card,
+           "config": LAYER_PARITY_CONFIG, "steps": steps,
+           "lrs": gpu["lrs"], "losses_cuda": gpu["losses"],
+           "losses_cpu": cpu["losses"], "loss_abs_err": loss_err,
+           "grad_worst_share_of_tol": grad_worst,
+           "param_max_abs_err": p_err, "param_max_rel_norm_err": p_rel,
+           "param_abs_limit": 2.5 * sum(gpu["lrs"]),
+           "launches": gpu["launches"], "params_init_s": init_s,
+           "cuda_seconds": gpu["seconds"], "cpu_seconds": cpu["seconds"],
+           "entry_points": {
+               "shape": LAYER_ENTRY_ATTN, "docs": list(LAYER_ENTRY_DOCS),
+               "dtype": "float32", "rtol_atol": list(LAYER_ENTRY_TOL),
+               "max_abs_err_out_dq_dk_dv": entry,
+               "launches": entry_launches}}
+    emit(row)
+    return row
+
+
+def layer_train_setup():
+    """layer_train's run: the bf16 Layer tree at 8B widths cut to
+    LAYER_TRAIN_LAYERS (random weights after `paddle.seed(0)`, drawn on
+    the card), AdamW with fp32 masters and clip 1.0, one batch of 2 x
+    2048 tokens (numpy seed 4). Returns (config, model, step), where
+    step() takes one training step and returns the loss Tensor."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              num_hidden_layers=LAYER_TRAIN_LAYERS)
+    paddle = _paddle("gpu:0")
+    paddle.seed(0)
+    model = LlamaForCausalLM(cfg).bfloat16()
+    opt = paddle.optimizer.AdamW(
+        3e-4, parameters=model.parameters(), multi_precision=True,
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+    ids, labels = (paddle.to_tensor(a) for a in
+                   _layer_batch(cfg.vocab_size, 2, 2048, seed=4))
+
+    def step():
+        loss, _ = model(ids, labels=labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    return cfg, model, step
+
+
+def phase_layer_train(card, train):
+    """The bf16 Layer-tree Llama (model.bfloat16(), fp32 masters in
+    AdamW) at 8B widths, depth 4, full vocabulary: 6 steps on one batch
+    of 2 x 2048 (`layer_train_setup`); the loss must fall, the flash
+    kernels launch once a layer a step each. Reports tokens/s (median of
+    steps 2-6) and the peak beside the functional train phase's."""
+    import gc
+    import statistics as st
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg, model, step = layer_train_setup()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _reset_train_counts()
+    losses, times = [], []
+    for _ in range(LAYER_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step().item())        # waits for the step
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = _train_counts()
+    peak = torch.cuda.max_memory_allocated()
+    L, steps = LAYER_TRAIN_LAYERS, LAYER_TRAIN_STEPS
+    want = {k: 0 for k in launches}
+    want.update({"flash_fwd": L * steps, "flash_bwd_dq": L * steps,
+                 "flash_bwd_dkv": L * steps})
+    if launches != want:
+        fail(f"layer_train: launches {launches}, want {want}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"layer_train: losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"layer_train: loss did not fall: {losses}")
+    b, s = 2, 2048
+    step_ms = st.median(times[1:])          # the first step allocates
+    tok_s = b * s / (step_ms / 1e3)
+    H, F_, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    kv = cfg.num_key_value_heads * (H // cfg.num_attention_heads)
+    n_layers = L * (2 * H * H + 2 * H * kv + 3 * H * F_)
+    flops_tok = 6 * (n_layers + V * H) + 12 * L * H * s
+    row = {"phase": "layer_train", "card": card,
+           "config": LAYER_TRAIN_CONFIG, "steps": steps, "losses": losses,
+           "step_ms": times, "median_step_ms": step_ms,
+           "tokens_per_s": tok_s, "model_flops_per_token": flops_tok,
+           "model_flops_share_of_989T": flops_tok * tok_s / 989e12,
+           "max_memory_allocated_gb": peak / 1e9, "launches": launches,
+           "params_and_state_init_s": init_s,
+           "params": sum(p.size for p in model.parameters()),
+           "train_phase_tokens_per_s": train.get("tokens_per_s"),
+           "train_phase_max_memory_allocated_gb":
+               train.get("max_memory_allocated_gb"),
+           "tokens_per_s_vs_train_phase":
+               tok_s / train["tokens_per_s"] if train else None}
+    emit(row)
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5885,6 +6224,10 @@ def main(argv=None):
         if "tp_serve" in phases:
             tps = timed("tp_serve", phase_tp_serve, smi, spawned, bserve,
                         serve)
+    lpar = timed("layer_parity", phase_layer_parity, smi) \
+        if "layer_parity" in phases else {}
+    ltrain = timed("layer_train", phase_layer_train, smi, train) \
+        if "layer_train" in phases else {}
     emit({"phase_seconds": secs})
     # launches the prefix_serve runs added, by kernel (the returning turns
     # of the multi-turn runs, the whole system-prompt runs)
@@ -6004,6 +6347,13 @@ def main(argv=None):
                 for pool, prow in rows.items()}
         else:
             row["tp_launches"] = None
+        # the Layer-tree Llama's launches: layer_train's run for rows
+        # 3-5, the entry points' calls of layer_parity for rows 6-11
+        # (None for the others)
+        row["layer_launches"] = ltrain.get("launches", {}).get(
+            row["name"]) if row["name"] in FLASH_KERNELS else \
+            lpar.get("entry_points", {}).get("launches", {}).get(
+                row["name"])
         for (kname, variant, shape), k in pk.items():
             if kname == row["name"] and variant in ("bfloat16", "int8"):
                 row.setdefault("prefix_kernel", {})[str(shape)] = {

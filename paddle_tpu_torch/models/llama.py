@@ -1,10 +1,29 @@
-"""Llama-3 family configuration (counterpart of
-`paddle_tpu/models/llama.py`'s `LlamaConfig`). The Layer-tree model is
-not ported yet; the serving path runs the stacked-parameter layout of
-`models/llama_spmd.py`."""
+"""Llama-3 family (counterpart of `paddle_tpu/models/llama.py`): the
+configuration, and the Paddle-shaped Layer tree `LlamaForCausalLM`
+(`LlamaAttention`, `LlamaMLP`, `LlamaDecoderLayer`, `LlamaModel`) on the
+port's Tensor, nn and ops: RoPE from `ops/rope.py`, the SwiGLU of
+`ops/fused.py` and the flash-attention kernels through
+`ops.flash_attention.flash_attention_bhsd`, with GQA's K/V heads
+repeated before the kernel. The serving and training paths run the
+stacked-parameter layout of `models/llama_spmd.py` instead.
+
+The Layer tree's KV cache (`kv_caches=`) and `generate` need causal
+attention over more keys than queries, which the kernels do not align
+(ROADMAP.md, Queue 3): they raise NotImplementedError (item 13b)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import torch
+
+from .. import nn
+from .._core.tensor import apply
+from ..nn import functional as F
+from ..nn.initializer import Normal
+from ..ops.flash_attention import flash_attention_bhsd
+from ..ops.fused import swiglu
+from ..ops.rope import apply_rotary_emb, rope_cos_sin
+from ..parallel.mesh import P
 
 
 @dataclass(unsafe_hash=True)
@@ -35,3 +54,163 @@ class LlamaConfig:
         return cls(vocab_size=vocab, hidden_size=hidden, intermediate_size=ffn,
                    num_hidden_layers=layers, num_attention_heads=heads,
                    num_key_value_heads=kv_heads, max_position_embeddings=seq)
+
+
+def _no_kv_cache(what):
+    raise NotImplementedError(
+        f"paddle_tpu_torch: the Layer-tree Llama's {what} needs causal "
+        "attention over more keys than queries, which the flash kernels "
+        "do not align; it is not ported yet (ROADMAP.md, Queue 1 item 13b)."
+        " Serve through models.llama_serving instead")
+
+
+class LlamaAttention(nn.Layer):
+    def __init__(self, config: LlamaConfig, tp_axis="tp"):
+        super().__init__()
+        c = config
+        self.num_heads = c.num_attention_heads
+        self.num_kv_heads = c.num_key_value_heads
+        self.head_dim = c.hidden_size // c.num_attention_heads
+        init = Normal(0.0, c.initializer_range)
+        h = c.hidden_size
+        kv = self.num_kv_heads * self.head_dim
+        attr = lambda: nn.ParamAttr(initializer=init)
+        self.q_proj = nn.Linear(h, h, weight_attr=attr(), bias_attr=False)
+        self.k_proj = nn.Linear(h, kv, weight_attr=attr(), bias_attr=False)
+        self.v_proj = nn.Linear(h, kv, weight_attr=attr(), bias_attr=False)
+        self.o_proj = nn.Linear(h, h, weight_attr=attr(), bias_attr=False)
+        # megatron TP: qkv column-parallel, o row-parallel
+        for p in (self.q_proj.weight, self.k_proj.weight, self.v_proj.weight):
+            p.dist_spec = P(None, tp_axis)
+        self.o_proj.weight.dist_spec = P(tp_axis, None)
+
+    def forward(self, x, cos, sin, kv_cache=None, causal=True):
+        if kv_cache is not None:
+            _no_kv_cache("KV cache")
+        b, s, h = x.shape
+        nh, kvh, hd = self.num_heads, self.num_kv_heads, self.head_dim
+
+        def fn(xr, wq, wk, wv, wo):
+            q = (xr @ wq).reshape(b, s, nh, hd)
+            k = (xr @ wk).reshape(b, s, kvh, hd)
+            v = (xr @ wv).reshape(b, s, kvh, hd)
+            q, k = apply_rotary_emb(q.transpose(1, 2), k.transpose(1, 2),
+                                    cos, sin)
+            v = v.transpose(1, 2)
+            if nh > kvh:
+                k = k.repeat_interleave(nh // kvh, 1)
+                v = v.repeat_interleave(nh // kvh, 1)
+            o = flash_attention_bhsd(q, k, v, causal=causal)
+            return o.transpose(1, 2).reshape(b, s, h) @ wo
+
+        return apply(fn, x, self.q_proj.weight, self.k_proj.weight,
+                     self.v_proj.weight, self.o_proj.weight)
+
+
+class LlamaMLP(nn.Layer):
+    def __init__(self, config: LlamaConfig, tp_axis="tp"):
+        super().__init__()
+        c = config
+        init = Normal(0.0, c.initializer_range)
+        attr = lambda: nn.ParamAttr(initializer=init)
+        self.gate_proj = nn.Linear(c.hidden_size, c.intermediate_size,
+                                   weight_attr=attr(), bias_attr=False)
+        self.up_proj = nn.Linear(c.hidden_size, c.intermediate_size,
+                                 weight_attr=attr(), bias_attr=False)
+        self.down_proj = nn.Linear(c.intermediate_size, c.hidden_size,
+                                   weight_attr=attr(), bias_attr=False)
+        self.gate_proj.weight.dist_spec = P(None, tp_axis)
+        self.up_proj.weight.dist_spec = P(None, tp_axis)
+        self.down_proj.weight.dist_spec = P(tp_axis, None)
+
+    def forward(self, x):
+        return apply(swiglu, x, self.gate_proj.weight, self.up_proj.weight,
+                     self.down_proj.weight)
+
+
+class LlamaDecoderLayer(nn.Layer):
+    def __init__(self, config: LlamaConfig):
+        super().__init__()
+        self.input_layernorm = nn.RMSNorm(config.hidden_size,
+                                          epsilon=config.rms_norm_eps)
+        self.self_attn = LlamaAttention(config)
+        self.post_attention_layernorm = nn.RMSNorm(
+            config.hidden_size, epsilon=config.rms_norm_eps)
+        self.mlp = LlamaMLP(config)
+
+    def forward(self, x, cos, sin, kv_cache=None, causal=True):
+        h = x + self.self_attn(self.input_layernorm(x), cos, sin, kv_cache,
+                               causal)
+        return h + self.mlp(self.post_attention_layernorm(h))
+
+
+class LlamaModel(nn.Layer):
+    def __init__(self, config: LlamaConfig):
+        super().__init__()
+        self.config = config
+        init = Normal(0.0, config.initializer_range)
+        self.embed_tokens = nn.Embedding(
+            config.vocab_size, config.hidden_size,
+            weight_attr=nn.ParamAttr(initializer=init))
+        self.embed_tokens.weight.dist_spec = P("tp", None)
+        self.layers = nn.LayerList([LlamaDecoderLayer(config)
+                                    for _ in range(config.num_hidden_layers)])
+        self.norm = nn.RMSNorm(config.hidden_size, epsilon=config.rms_norm_eps)
+        self._rope_cache = {}
+
+    def rope(self, seq_len, dtype=torch.float32, offset=0):
+        """fp32 cos/sin tables of positions offset .. offset+seq_len-1,
+        on the embedding's device."""
+        dev = self.embed_tokens.weight._value.device
+        key = (seq_len + offset, dtype, dev)
+        if key not in self._rope_cache:
+            self._rope_cache[key] = rope_cos_sin(
+                seq_len + offset, self.config.hidden_size //
+                self.config.num_attention_heads, self.config.rope_theta,
+                dtype, device=dev)
+        cos, sin = self._rope_cache[key]
+        return cos[offset:], sin[offset:]
+
+    def forward(self, input_ids, position_offset=0, kv_caches=None,
+                causal=True):
+        if kv_caches is not None:
+            _no_kv_cache("KV cache (kv_caches=)")
+        cos, sin = self.rope(input_ids.shape[1], offset=position_offset)
+        x = self.embed_tokens(input_ids)
+        for layer in self.layers:
+            x = layer(x, cos, sin, None, causal)
+        return self.norm(x)
+
+
+class LlamaForCausalLM(nn.Layer):
+    def __init__(self, config: LlamaConfig):
+        super().__init__()
+        self.config = config
+        self.llama = LlamaModel(config)
+        if not config.tie_word_embeddings:
+            self.lm_head = nn.Linear(
+                config.hidden_size, config.vocab_size,
+                weight_attr=nn.ParamAttr(
+                    initializer=Normal(0.0, config.initializer_range)),
+                bias_attr=False)
+            self.lm_head.weight.dist_spec = P(None, "tp")
+        else:
+            self.lm_head = None
+
+    def forward(self, input_ids, labels=None, position_offset=0,
+                kv_caches=None):
+        h = self.llama(input_ids, position_offset, kv_caches)
+        if self.lm_head is not None:
+            logits = self.lm_head(h)
+        else:
+            from ..tensor.linalg import matmul
+            logits = matmul(h, self.llama.embed_tokens.weight,
+                            transpose_y=True)
+        if labels is not None:
+            loss = F.cross_entropy(logits, labels, reduction="mean")
+            return loss, logits
+        return logits
+
+    def generate(self, input_ids, max_new_tokens=32, temperature=1.0,
+                 top_k=0, top_p=1.0, eos_token_id=None):
+        _no_kv_cache("generate")

@@ -12,7 +12,9 @@ tiny-width train steps (plain and packed documents, the fused
 linear+CE head and remat="dots") on the card against the CPU, and on
 two gloo ranks sharing the card (tp 2, pp 2 with 1F1B) against the
 single-rank card step, with each collective staged through the host
-against the same collective on CPU tensors.
+against the same collective on CPU tensors; and the Paddle-shaped
+surface: the Layer-tree Llama's AdamW steps and the nn.functional
+attention entry points through Tensors on the card against the CPU.
 
 Every test here needs a CUDA device and skips without one. This file
 imports neither jax nor paddle_tpu, so on a machine without jax it runs
@@ -2085,3 +2087,117 @@ def test_parallel_step_on_two_ranks_sharing_the_card_matches_one_rank(
                     np.testing.assert_allclose(
                         b[kk] if kk else b, a[kk] if kk else a,
                         err_msg=f"rank {r} {tree} {k} {kk}", **tol)
+
+
+# ------------------------------------------------ the Paddle-shaped surface
+@pytest.fixture
+def paddle_on(card):
+    """The Paddle-shaped surface, its device state restored after."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch._core import state
+    prev = state._device
+    yield paddle
+    state._device = prev
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _layer_llama_run(paddle, device, sd, ids, labels, steps=3):
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    paddle.set_device(device)
+    model = LlamaForCausalLM(LlamaConfig.tiny())
+    model.set_state_dict(sd)
+    opt = paddle.optimizer.AdamW(1e-3, parameters=model.parameters())
+    losses = []
+    for _ in range(steps):
+        loss, _ = model(paddle.to_tensor(ids), labels=paddle.to_tensor(labels))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+    return losses, {k: v.numpy() for k, v in model.state_dict().items()}
+
+
+def test_layer_llama_adamw_on_card_matches_cpu(paddle_on):
+    """tests/test_models_llm.py's 3 AdamW steps of the Layer-tree Llama on
+    the card (the flash kernels, fp32, TF32 off) against the same steps
+    on the CPU (their plain versions): losses within 1e-5 relative,
+    parameters within 2.5 lr a step elementwise (AdamW's first steps on
+    near-zero gradients) and 1e-5 in relative norm; the flash kernels
+    launch once a layer a step each."""
+    paddle = paddle_on
+    torch.backends.cuda.matmul.allow_tf32 = False
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    sd = {k: v.numpy() for k, v in
+          LlamaForCausalLM(LlamaConfig.tiny()).state_dict().items()}
+    rs = np.random.RandomState(0)
+    ids, labels = rs.randint(0, 256, (2, 16)), rs.randint(0, 256, (2, 16))
+    before = (fa.launches_fwd, fa.launches_dq, fa.launches_dkv)
+    gpu = _layer_llama_run(paddle, "gpu:0", sd, ids, labels)
+    after = (fa.launches_fwd, fa.launches_dq, fa.launches_dkv)
+    assert [a - b for a, b in zip(after, before)] == [6, 6, 6]
+    cpu = _layer_llama_run(paddle, "cpu", sd, ids, labels)
+    assert (fa.launches_fwd, fa.launches_dq, fa.launches_dkv) == after
+    np.testing.assert_allclose(gpu[0], cpu[0], rtol=1e-5)
+    assert gpu[0][-1] < gpu[0][0]
+    for k, ref in cpu[1].items():
+        got = gpu[1][k]
+        assert np.abs(got - ref).max() <= 2.5 * 1e-3 * 3, k
+        assert np.linalg.norm(got - ref) <= 1e-5 * np.linalg.norm(ref), k
+
+
+def _surface_attention(paddle, device, case, arrays, ints):
+    paddle.set_device(device)
+    ts = [paddle.to_tensor(a, stop_gradient=False) for a in arrays]
+    F = paddle.nn.functional
+    extra = [paddle.to_tensor(i) for i in ints]
+    out = {
+        "sdpa": lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True),
+        "flash_attention": lambda q, k, v: F.flash_attention(
+            q, k, v, causal=True)[0],
+        "flash_attn_unpadded": lambda q, k, v, cu: F.flash_attn_unpadded(
+            q, k, v, cu, cu, 64, 64, causal=True)[0],
+        "flash_attn_varlen_qkvpacked": lambda qkv, cu:
+            F.flash_attn_varlen_qkvpacked(qkv, cu, cu, 64, 64,
+                                          causal=True)[0],
+        "flashmask_attention": lambda q, k, v, sri: F.flashmask_attention(
+            q, k, v, sri, causal=True),
+    }[case](*ts, *extra)
+    w = paddle.to_tensor(np.random.RandomState(9).randn(
+        *out.shape).astype(arrays[0].dtype))
+    (out * w).sum().backward()
+    return [out.numpy()] + [t.grad.numpy() for t in ts]
+
+
+@pytest.mark.parametrize("case", ["sdpa", "flash_attention",
+                                  "flash_attn_unpadded",
+                                  "flash_attn_varlen_qkvpacked",
+                                  "flashmask_attention"])
+def test_surface_attention_on_card_matches_plain(paddle_on, case):
+    """The five nn.functional.attention entry points through Tensors on
+    the card (the flash, varlen and FlashMask kernels) against the same
+    calls on CPU Tensors (their plain versions), forward and grads, fp32
+    to 1e-4."""
+    paddle = paddle_on
+    rs = np.random.RandomState(1)
+    b, s, h, kvh, d = 2, 64, 4, 2, 32
+    qkv = [(rs.randn(b, s, n, d) * 0.5).astype(np.float32)
+           for n in (h, kvh, kvh)]
+    cu = np.array([0, 20, 64, 100, 128], np.int32)
+    sri = np.minimum(s, np.arange(s)[None, None, :, None] + 8 +
+                     np.zeros((b, kvh, 1, 1), np.int64)).astype(np.int32)
+    arrays, ints = {
+        "sdpa": (qkv, ()), "flash_attention": (qkv, ()),
+        "flash_attn_unpadded": ([a.reshape(b * s, -1, d) for a in qkv],
+                                (cu,)),
+        "flash_attn_varlen_qkvpacked": (
+            [(rs.randn(b * s, h // kvh + 2, kvh, d) * 0.5).astype(
+                np.float32)], (cu,)),
+        "flashmask_attention": (qkv, (sri,)),
+    }[case]
+    got = _surface_attention(paddle, "gpu:0", case, arrays, ints)
+    ref = _surface_attention(paddle, "cpu", case, arrays, ints)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-4)

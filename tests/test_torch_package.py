@@ -28,7 +28,14 @@ def test_every_module_imports_without_jax_or_paddle_tpu():
               "distributed", "distributed.rpc", "distributed.collective",
               "distributed.env", "distributed.launch", "parallel",
               "parallel.mesh", "parallel.pp", "parallel.ring",
-              "parallel.ulysses",
+              "parallel.ulysses", "_core", "_core.dtypes", "_core.state",
+              "_core.tensor", "_core.engine", "device", "autograd",
+              "tensor", "tensor.creation", "tensor.math", "tensor.linalg",
+              "tensor.manipulation", "tensor.random", "nn",
+              "nn.functional", "nn.functional.attention", "nn.layer",
+              "nn.layer.layers", "nn.initializer", "nn.clip", "optimizer",
+              "optimizer.optimizer", "optimizer.rules", "optimizer.lr",
+              "regularizer",
               *(f"serving.{n}" for n in (
                   "client", "faults", "fleet", "metrics", "replica",
                   "router", "scheduler", "server", "timeline", "wire")),
@@ -198,3 +205,65 @@ def test_fleet_worker_without_device_raises_on_a_box_without_cuda(no_card):
             "world_size": 2, "model": vars(LlamaConfig.tiny())}
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_worker(spec)
+
+
+@pytest.fixture
+def card_missing(monkeypatch):
+    """No CUDA device, and no set_device("cpu") in effect."""
+    from paddle_tpu_torch._core import state
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(state, "_device", None)
+
+
+@pytest.mark.parametrize("make", [
+    lambda p: p.to_tensor([1.0, 2.0]),
+    lambda p: p.randn([2, 3]),
+    lambda p: p.nn.Linear(4, 2),
+], ids=["to_tensor", "randn", "nn.Linear"])
+def test_surface_without_a_card_names_set_device_cpu(card_missing, make):
+    """The Paddle-shaped surface makes tensors and parameters on the card:
+    without one it raises, naming the way to the CPU."""
+    import paddle_tpu_torch as paddle
+    assert paddle.get_device() == "gpu:0"
+    with pytest.raises(RuntimeError, match=r'set_device\("cpu"\)'):
+        make(paddle)
+
+
+def test_set_device_maps_gpu_to_cuda_and_cpu_to_cpu(monkeypatch):
+    from paddle_tpu_torch._core import state
+    monkeypatch.setattr(state, "_device", None)
+    assert state.set_device("gpu") == "gpu:0"
+    assert state.set_device("cuda:1") == "gpu:1"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            state.torch_device()
+    assert state.set_device("cpu") == "cpu"
+    assert state.torch_device() == torch.device("cpu")
+    with pytest.raises(ValueError, match="unknown device"):
+        state.set_device("tpu")
+
+
+def test_top_level_names_of_the_reference_surface():
+    """The reference's top-level names for the ported surface
+    (paddle_tpu/__init__.py:17-35, the device names and every op of the
+    ported tensor modules) are the port's top level too."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.tensor import (creation, linalg, logic,
+                                         manipulation, math, random,
+                                         search, stat)
+    names = ["bool", "uint8", "int8", "int16", "int32", "int64", "float16",
+             "bfloat16", "float32", "float64", "complex64", "complex128",
+             "float8_e4m3fn", "float8_e5m2", "set_default_dtype",
+             "get_default_dtype", "finfo", "iinfo", "Tensor", "Parameter",
+             "seed", "get_rng_state", "is_tensor", "rank", "is_complex",
+             "is_floating_point", "is_integer", "no_grad", "enable_grad",
+             "grad", "dtype", "in_dynamic_mode", "set_grad_enabled",
+             "autograd", "nn", "optimizer", "device", "regularizer",
+             "set_device", "get_device", "is_compiled_with_cuda",
+             "CPUPlace", "CUDAPlace", "synchronize", "ParamAttr"]
+    for mod in (creation, linalg, logic, manipulation, math, random,
+                search, stat):
+        names += [n for n in mod.__all__ if n != "linalg"]
+    missing = [n for n in names if not hasattr(paddle, n)]
+    assert not missing
+    assert paddle.linalg.inv is linalg.inv

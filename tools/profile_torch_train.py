@@ -14,10 +14,14 @@ window's wall time, summed kernel time, the device's busy share (summed
 kernel time over wall time, one stream), kernel time grouped as
 attention (the port's flash or FlashMask kernels), matmul and everything
 else, with the kernels that take the most device time, and the peak
-memory of the window.
+memory of the window. With --layer it profiles layer_train's step
+instead (`chip_smoke.layer_train_setup`: the Paddle-shaped Layer-tree
+Llama, bf16, no remat, eager AdamW with fp32 masters, the same batch
+shape), which takes no other option.
 
     python3 tools/profile_torch_train.py [--packed] [--remat dots]
                                          [--fused-ce]
+    python3 tools/profile_torch_train.py --layer
 """
 from __future__ import annotations
 
@@ -38,7 +42,12 @@ def main():
                     help="the step's activation checkpointing")
     ap.add_argument("--fused-ce", action="store_true",
                     help="the loss through the fused linear+CE head")
+    ap.add_argument("--layer", action="store_true",
+                    help="profile layer_train's Layer-tree step")
     args = ap.parse_args()
+    if args.layer and (args.packed or args.fused_ce or
+                       args.remat != "full"):
+        ap.error("--layer takes no other option")
     import torch
     if not torch.cuda.is_available():
         print("profile_torch_train: no CUDA device", file=sys.stderr)
@@ -52,6 +61,23 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    if args.layer:
+        cfg, model, layer_step = chip_smoke.layer_train_setup()
+        for _ in range(2):                      # warm-up
+            layer_step().item()
+
+        def layer_steps():
+            for _ in range(STEPS):
+                layer_step()
+            return STEPS
+        torch.cuda.reset_peak_memory_stats()
+        _window(f"layer train step ({chip_smoke.LAYER_TRAIN_CONFIG})",
+                layer_steps, card)
+        print(json.dumps({"max_memory_allocated_gb":
+                          torch.cuda.max_memory_allocated() / 1e9}),
+              flush=True)
+        print(card, flush=True)
+        return 0
     setup, config = ((chip_smoke.train_packed_setup,
                       chip_smoke.TRAIN_PACKED_CONFIG) if args.packed else
                      (chip_smoke.train_setup, chip_smoke.TRAIN_CONFIG))
