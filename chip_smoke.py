@@ -47,8 +47,9 @@ non-zero):
                TF32 off) served by a card engine and a CPU engine from
                the same weights: 4 greedy requests must give identical
                tokens;
-  5. serve   — Llama-3-8B at full width (32 layers, bf16 random weights
-               from a seed) serving 8 requests through run_pipelined(),
+  5. serve   — Llama-3-8B at full width (cut to 16 layers: SERVE_LAYERS;
+               bf16 random weights from a seed) serving 8 requests
+               through run_pipelined(),
                with a bf16 pool and with an int8 pool;
   6. train_kernel — the three flash-attention kernels (forward, dQ,
                dK/dV) against their plain versions at the attention
@@ -332,8 +333,9 @@ non-zero):
                tolerance.
 
  26. parallel_parity — hybrid-parallel training (`make_train_step` on a
-               rank mesh): Llama-3-8B widths at 4 layers (pp 2 x vpp 2
-               needs L % 4 == 0) with the vocabulary cut to 4096, fp32,
+               rank mesh): Llama-3-8B widths at 2 layers (the interleaved
+               layout at 4: pp 2 x vpp 2 needs L % 4 == 0; its
+               reference is a third run) with the vocabulary cut to 4096, fp32,
                TF32 off, remat, train_parity's batch 2 x 512 (seed 3)
                and packed_parity's rows for doc_ids; two steps of each
                layout on 2 ranks (dp 2, dp 2 + doc_ids, tp 2, pp 2 with
@@ -347,10 +349,10 @@ non-zero):
                launches of rows 3-5 (6-8 with doc_ids) equal to what its
                layers, microbatches and steps imply (none for the
                ring);
- 27. parallel — the train phase's bf16 model at 8B widths (4 layers; dp
-               2 at depth 2: two 4-layer replicas do not fit one card),
-               batch 2 x 2048 (seed 4), 4 steps each of tp 2, pp 2 with
-               1f1b and sp 2 with Ulysses: finite, falling losses, median
+ 27. parallel — the train phase's bf16 model at 8B widths (tp 2 at 4
+               layers; pp 2 with 1f1b and sp 2 with Ulysses at 2, dp 2 at
+               1: depths cut to pay for the layer phases), batch 2 x 2048
+               (seed 4), 4 steps each: finite, falling losses, median
                step (steps 2-4) and global tokens/s, each rank's peak
                memory, collective bytes, calls and host seconds a step
                (`distributed/collective.py`'s counters) and launches of
@@ -406,7 +408,7 @@ non-zero):
                bucket_serve too), whose engines must leave under 1 GB
                allocated in this process (`serve_block`).
 30. layer_parity — the Paddle-shaped surface: the Layer-tree
-               `LlamaForCausalLM` at 8B widths, depth cut to 2,
+               `LlamaForCausalLM` at 8B widths, depth cut to 1,
                vocabulary cut to 4096, fp32, TF32 off, batch 1 x 256,
                drawn on the card after `paddle.seed(0)` and copied to
                the CPU; 3 steps of `paddle.optimizer.AdamW` with
@@ -425,7 +427,36 @@ non-zero):
                depth 4, full vocabulary, 6 steps on 2 x 2048 tokens: the
                loss must fall, the flash kernels once a layer a step;
                tokens/s (median of steps 2-6) and the peak beside the
-               train phase's (run `train` with it for those).
+               train phase's (run `train` with it for those);
+32. layer_parallel_parity — the parallel layer surface, in
+               parallel_spawn's world of 2 (ranks sharing the card over
+               gloo): the Layer-tree Llama at 8B widths, depth 2,
+               vocabulary 4096, fp32, TF32 off, batch 2 x 256, 2 steps
+               of `parallel.Trainer` (AdamW, grad_clip_norm 1.0) in four
+               layouts, (a) tp 2 through `fleet.init(mp_degree=2)` and
+               `fleet.distributed_model`, (b) dp 2 through
+               `DataParallel`, (c) dp 2 with `group_sharded_parallel`
+               "os_g", (d) "p_g_os", each held to the single-rank
+               Trainer (run once in this process before the spawn) by
+               train_parity's limits (losses, the step-1 gradients and
+               the parameters, gathered whole); rows 3-5 once a layer a
+               step on every rank. (e) `MoELayer` at Mixtral-8x7B's
+               block widths (4096, FFN 14336, 8 experts, top 2, capacity
+               factor 1.0), fp32, 512 tokens, on ep 2 against one rank:
+               the output and every gradient within train_parity's
+               gradient limit, the aux loss within 1e-6, the same
+               assignments dropped (at least one). (f) `PipelineLayer`
+               of eight LayerDesc(nn.Linear, 4096, 4096) staged on pp 2
+               against the same layers in sequence (output, input and
+               the rank's layers' gradients, the same limit);
+33. layer_parallel — layer_train's model (bf16, multi_precision AdamW,
+               clip 1.0) at depth 4 and full vocabulary on tp 2 through
+               `fleet.init` and the Trainer, 6 steps on 2 x 2048 tokens
+               in the world of 2: the loss must fall, rows 3-5 once a
+               layer a step on each rank; global tokens/s (median of
+               steps 2-6) beside layer_train's and the parallel phase's
+               functional tp 2, each rank's peak, the collectives'
+               calls, bytes and host seconds a rank and step.
 
 After the phases, one line gives each phase's wall seconds
 (`phase_seconds`; the serve phases' shared 8B parameters are built
@@ -439,7 +470,9 @@ launches in each layout of the parallel phases for rows 3-8
 (`parallel_launches`), each rank's launches in each run of the tp
 phases for rows 3, 9 and 12-14q (`tp_launches`), the Layer-tree
 Llama's (`layer_launches`: layer_train's for rows 3-5, layer_parity's
-entry points' for rows 6-11) and, for the ragged and verify rows,
+entry points' for rows 6-11), each rank's launches of rows 3-5 under
+the Trainer in the layer phases' layouts (`layer_parallel_launches`)
+and, for the ragged and verify rows,
 prefix_kernel's shapes (`prefix_kernel`); the last line is {"ok": true,
 "device": {...}}.
 """
@@ -463,7 +496,8 @@ PHASES = ("device", "build", "kernel", "parity", "serve", "train_kernel",
           "spec_kernel", "spec_parity", "spec_serve", "prefix_kernel",
           "prefix_parity", "prefix_serve", "runtime", "fleet",
           "varlen_kernel", "fused_parity", "train_fused", "parallel_parity",
-          "parallel", "tp_parity", "tp_serve", "layer_parity", "layer_train")
+          "parallel", "tp_parity", "tp_serve", "layer_parity", "layer_train",
+          "layer_parallel_parity", "layer_parallel")
 SOURCES = ("ragged_paged_attention", "flash_attention", "flashmask_attention",
            "varlen_attention", "paged_attention")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
@@ -746,7 +780,6 @@ def _library_call(q, k, v, ks, vs, ptab, slot, pos, info):
 def phase_kernel(card):
     import torch
     import paddle_tpu_torch.kernels.ragged_paged_attention as rpa
-    from paddle_tpu_torch.models.llama import LlamaConfig
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {}
@@ -834,8 +867,7 @@ def phase_kernel(card):
                "bound_bytes": nbytes, "bound_flops": flops,
                "tf32": False,
                # one launch per layer; the serve phase checks the count
-               "launches_per_engine_step":
-                   LlamaConfig.llama3_8b().num_hidden_layers}
+               "launches_per_engine_step": SERVE_LAYERS}
         emit(_design_row(row, "ragged_paged_attention", VARIANTS[name][1]))
         out[name] = row
         del q, k, v, ks, vs, ker, ref, lib
@@ -941,16 +973,28 @@ def phase_parity(card):
     torch.cuda.empty_cache()
 
 
-SERVE_CONFIG = "llama3_8b, 32 layers, bf16 random weights (seed 0)"
+# the serve phases' depth: Llama-3-8B's 32 layers cut to 16 to pay for
+# the parallel layer phases (PERF.md §4); every width is the 8B model's
+SERVE_LAYERS = 16
+SERVE_CONFIG = (f"llama3_8b widths, {SERVE_LAYERS} layers, bf16 random "
+                "weights (seed 0)")
+
+
+def serve_config():
+    """The serve phases' model configuration: Llama-3-8B's widths at
+    SERVE_LAYERS layers."""
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    return dataclasses.replace(LlamaConfig.llama3_8b(),
+                               num_hidden_layers=SERVE_LAYERS)
 
 
 def serve_params():
-    """The serve phase's model: Llama-3-8B at full width, bf16 random
-    weights from seed 0, on the card. Returns (config, params)."""
+    """The serve phase's model: Llama-3-8B at full width (SERVE_LAYERS
+    deep), bf16 random weights from seed 0, on the card. Returns
+    (config, params)."""
     import torch
-    from paddle_tpu_torch.models.llama import LlamaConfig
     from paddle_tpu_torch.models.llama_spmd import init_params
-    cfg = LlamaConfig.llama3_8b()
+    cfg = serve_config()
     return cfg, init_params(cfg, seed=0, dtype=torch.bfloat16,
                             device="cuda")
 
@@ -4774,7 +4818,7 @@ PARALLEL_PARITY_LAYOUTS = {
                  "plain"),
     "pp2_interleave": (2, {"pp": 2}, {"batch_spec": (),
                                       "schedule": "interleave", "vpp": 2,
-                                      "n_micro": 2}, "plain"),
+                                      "n_micro": 2}, "plain_deep"),
     "sp2_ring": (2, {"sp": 2}, {"batch_spec": (None, "sp"),
                                 "sp_axis": "sp"}, "plain"),
     "sp2_ulysses": (2, {"sp": 2}, {"batch_spec": (None, "sp"),
@@ -4782,16 +4826,21 @@ PARALLEL_PARITY_LAYOUTS = {
                     "plain"),
     "dp2_tp2": (4, {"dp": 2, "tp": 2}, {}, "plain"),
 }
-PARALLEL_PARITY_LAYERS = 4      # pp 2 x vpp 2 needs L % 4 == 0
+# a reference kind: the batch it trains on and its depth. Two layers,
+# cut from 4 to pay for the layer phases (PERF.md §4); pp 2 x vpp 2 needs
+# L % 4 == 0, so the interleaved layout keeps 4 ("plain_deep")
+PARALLEL_PARITY_KINDS = {"plain": ("plain", 2), "packed": ("packed", 2),
+                         "plain_deep": ("plain", 4)}
 PARALLEL_LAYOUTS = {
     "tp2": (2, {"tp": 2}, {"batch_spec": ()}, 4),
-    "pp2_1f1b": (2, {"pp": 2}, {"batch_spec": (), "schedule": "1f1b"}, 4),
+    # depths cut to pay for the layer phases (PERF.md §4): pp 2 and
+    # Ulysses at 2 layers, dp at 1 (two full replicas of the 4-layer
+    # model, 42.8 GB each, do not fit one card anyway)
+    "pp2_1f1b": (2, {"pp": 2}, {"batch_spec": (), "schedule": "1f1b"}, 2),
     "sp2_ulysses": (2, {"sp": 2}, {"batch_spec": (None, "sp"),
                                    "sp_axis": "sp", "sp_impl": "ulysses"},
-                    4),
-    # two full replicas of the 4-layer model (42.8 GB each on one card,
-    # PERF.md) do not fit one card: dp runs at depth 2
-    "dp2": (2, {"dp": 2}, {}, 2),
+                    2),
+    "dp2": (2, {"dp": 2}, {}, 1),
 }
 PARALLEL_STEPS = 4
 PARALLEL_DEADLINE_S = 420
@@ -4840,9 +4889,9 @@ def _parallel_batches(vocab):
             "packed": _packed_batch(vocab, PACKED_PARITY_ROWS, seed=3)}
 
 
-def _parallel_parity_config():
-    return dataclasses.replace(_parity_config(),
-                               num_hidden_layers=PARALLEL_PARITY_LAYERS)
+def _parallel_parity_config(kind):
+    return dataclasses.replace(
+        _parity_config(), num_hidden_layers=PARALLEL_PARITY_KINDS[kind][1])
 
 
 PARALLEL_LR, PARALLEL_PARITY_STEPS = 3e-4, 2
@@ -4858,11 +4907,12 @@ def _parallel_references(kinds, out_dir, dev="cuda"):
     import numpy as np
     import torch
     from paddle_tpu_torch.models import llama_spmd as T
-    cfg = _parallel_parity_config()
-    batches = _parallel_batches(cfg.vocab_size)
     out = {}
     for kind in kinds:
-        batch = tuple(torch.from_numpy(a).to(dev) for a in batches[kind])
+        cfg = _parallel_parity_config(kind)
+        batches = _parallel_batches(cfg.vocab_size)
+        batch = tuple(torch.from_numpy(a).to(dev) for a in
+                      batches[PARALLEL_PARITY_KINDS[kind][0]])
         params = T.init_params(cfg, seed=0, dtype=torch.float32, device=dev)
         opt = T.init_opt_state(params)
         _, grads = T.loss_and_grads(params, batch, cfg, remat=True)
@@ -4969,8 +5019,6 @@ def _parity_layouts(rank, world, layouts, dev, refs):
     from paddle_tpu_torch.parallel import P, create_mesh
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = _parallel_parity_config()
-    batches = _parallel_batches(cfg.vocab_size)
     ref = {}
     for kind in sorted({b for _, _, _, b in layouts.values()}):
         # the parent's files, mapped; with two ranks on the card each
@@ -4989,7 +5037,9 @@ def _parity_layouts(rank, world, layouts, dev, refs):
         vpp = kw.get("vpp", 2) if kw.get("schedule") == "interleave" \
             else None
         mesh = create_mesh(axes)
-        batch = tuple(torch.from_numpy(a).to(dev) for a in batches[kind])
+        cfg = _parallel_parity_config(kind)
+        batch = tuple(torch.from_numpy(a).to(dev) for a in _parallel_batches(
+            cfg.vocab_size)[PARALLEL_PARITY_KINDS[kind][0]])
         full = T.init_params(cfg, seed=0, dtype=torch.float32, device=dev)
         params = T.place_params(full, cfg, mesh, vpp=vpp)
         del full
@@ -5090,6 +5140,8 @@ def parallel_rank(rank, world, job):
         out["speed"] = _speed_layouts(rank, world, job["speed"], dev)
     if job.get("tp"):
         out["tp"] = _tp_rank(rank, world, job["tp"], dev)
+    if job.get("layer"):
+        out["layer"] = _layer_rank(rank, world, job["layer"], dev)
     return out
 
 
@@ -5123,9 +5175,20 @@ def _spawn_parallel(phases, bserve=None):
             "parity": "tp_parity" in phases,
             "serve": {pool: row["streams"] for pool, row in bserve.items()}
             if "tp_serve" in phases else None}
+    layer = {"layer_parallel_parity", "layer_parallel"} & set(phases)
+    if layer:
+        jobs.setdefault(2, {})["layer"] = {
+            "parity": "layer_parallel_parity" in phases,
+            "speed": "layer_parallel" in phases}
     results, info = {}, {}
     ref_dir = tempfile.mkdtemp(prefix="pt_parallel_ref_")
     try:
+        layer_ref = None
+        if "layer_parallel_parity" in phases:
+            t0 = time.perf_counter()
+            layer_ref = _layer_parallel_references(ref_dir)
+            jobs[2]["layer"].update(refs=layer_ref, dir=ref_dir)
+            layer_ref_s = time.perf_counter() - t0
         if "parallel_parity" in phases:
             t0 = time.perf_counter()
             kinds = sorted({lay[3] for lay in
@@ -5139,7 +5202,8 @@ def _spawn_parallel(phases, bserve=None):
             backend, per_card = _parallel_backend(world)
             t0 = time.perf_counter()
             deadline = PARALLEL_DEADLINE_S + (TP_DEADLINE_S if "tp" in job
-                                              else 0)
+                                              else 0) + (
+                LAYER_DEADLINE_S if "layer" in job else 0)
             results[world] = spawn(parallel_rank, world, backend, "cuda",
                                    deadline, args=(job,), env=env)
             info[world] = {"backend": backend, "ranks_per_card": per_card,
@@ -5147,6 +5211,12 @@ def _spawn_parallel(phases, bserve=None):
                            "parent_cuda_reserved_gb": parent_gb}
             if "refs" in job:
                 info[world]["reference_seconds"] = ref_s
+            if layer_ref is not None and "layer" in job:
+                info[world]["layer_reference_seconds"] = layer_ref_s
+                info[world]["layer_reference"] = {
+                    "losses": layer_ref["losses"],
+                    "launches": layer_ref["launches"],
+                    "moe_dropped": layer_ref["moe"]["dropped"]}
     finally:
         shutil.rmtree(ref_dir, ignore_errors=True)
     torch.cuda.synchronize()
@@ -5165,8 +5235,9 @@ def _check_launches(phase, name, axes, kw, batch, layers, ranks, steps):
     return want
 
 
-PARALLEL_PARITY_CONFIG = ("llama3_8b widths, 4 layers, vocab 4096, fp32, TF32 "
-                          "off, remat, batch 2 x 512 (packed: documents "
+PARALLEL_PARITY_CONFIG = ("llama3_8b widths, {layers} layers, vocab 4096, "
+                          "fp32, TF32 off, remat, batch 2 x 512 (packed: "
+                          "documents "
                           f"{list(map(list, PACKED_PARITY_ROWS))})")
 
 
@@ -5175,11 +5246,12 @@ def phase_parallel_parity(card, spawned):
     out = {}
     for name, (world, axes, kw, kind) in PARALLEL_PARITY_LAYOUTS.items():
         ranks = [res["parity"][name] for res in results[world]]
-        want = _check_launches("parallel_parity", name, axes, kw, kind,
-                               PARALLEL_PARITY_LAYERS, ranks, 2)
+        batch, layers = PARALLEL_PARITY_KINDS[kind]
+        want = _check_launches("parallel_parity", name, axes, kw, batch,
+                               layers, ranks, 2)
         row = {"phase": "parallel_parity", "card": card, "layout": name,
-               "config": PARALLEL_PARITY_CONFIG, "mesh": axes,
-               "options": kw, "batch": kind, **info[world],
+               "config": PARALLEL_PARITY_CONFIG.format(layers=layers),
+               "mesh": axes, "options": kw, "batch": batch, **info[world],
                "losses": ranks[0]["losses"],
                "launches_per_rank": [r["launches"] for r in ranks],
                "want_launches": want,
@@ -5261,7 +5333,7 @@ TP_PARITY_MODES = {"spec": {"spec_decode": 4}, "decode": {}}
 # must lie beyond each limit: else the limit would not tell a lower
 # precision from the tp engine's
 TP_PARITY_LP_ATOL = {"fp32": 1e-4, "int8": 5e-3}
-# tp_serve against bucket_serve (bf16, 32 layers): each rank rounds its
+# tp_serve against bucket_serve (bf16, the serve depth): each rank rounds its
 # partial products of wo and w_down to bf16 before the sum over the
 # ranks, where one rank rounds the whole product once, and the random 8B
 # model carries such roundings far. Two single-rank engines already put
@@ -5445,10 +5517,9 @@ def _tp_serve_rank(rank, world, dev, streams):
     import torch
     import paddle_tpu_torch.distributed.collective as C
     from paddle_tpu_torch.models import llama_spmd as T
-    from paddle_tpu_torch.models.llama import LlamaConfig
     from paddle_tpu_torch.models.serving_capture import StepLogits
     from paddle_tpu_torch.parallel import create_mesh
-    cfg = LlamaConfig.llama3_8b()
+    cfg = serve_config()
     mesh = create_mesh({"tp": world})
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -5707,10 +5778,9 @@ def _forced_gaps(tp_rows, one, want):
 
 def phase_tp_serve(card, spawned, bserve, serve):
     import torch
-    from paddle_tpu_torch.models.llama import LlamaConfig
     results, info = spawned
     ranks = [res["tp"]["serve"] for res in results[2]]
-    cfg = LlamaConfig.llama3_8b()
+    cfg = serve_config()
     out = {}
     for pool in ("bf16", "int8"):
         rows = [r[pool] for r in ranks]
@@ -5800,7 +5870,7 @@ def phase_tp_serve(card, spawned, bserve, serve):
 
 
 # --------------------------------------------- the Paddle-shaped surface
-LAYER_PARITY_LAYERS = 2
+LAYER_PARITY_LAYERS = 1      # cut from 2 to pay for the layer phases
 LAYER_PARITY_VOCAB = 4096
 LAYER_PARITY_STEPS = 3
 LAYER_PARITY_CONFIG = ("LlamaForCausalLM (Layer tree) at llama3_8b widths, "
@@ -6116,6 +6186,519 @@ def phase_layer_train(card, train):
     return row
 
 
+# ------------------------------------------- the parallel layer surface
+# layer_parallel_parity: the Layer-tree Llama at 8B widths (depth and
+# vocabulary cut as layer_parity's), fp32, TF32 off, batch 2 x 256, 2
+# Trainer steps (AdamW, grad_clip_norm 1.0) in four layouts on the two
+# ranks, each held to the single-rank Trainer (the parent's, on the
+# card) by `_step_parity`'s limits; then MoELayer at Mixtral-8x7B's
+# block widths on ep 2 and PipelineLayer on pp 2, each against one rank
+LAYER_PAR_LAYERS = 2
+LAYER_PAR_VOCAB = 4096
+LAYER_PAR_STEPS = 2
+LAYER_PAR_LR = 3e-4
+LAYER_PAR_LAYOUTS = {
+    "tp2_fleet": "fleet.init(mp_degree=2) + fleet.distributed_model",
+    "dp2_data_parallel": "DataParallel on {dp: 2, tp: 1}, batch_spec P(dp)",
+    "dp2_zero2": "group_sharded_parallel(level='os_g') on {dp: 2, tp: 1}",
+    "dp2_zero3": "group_sharded_parallel(level='p_g_os') on {dp: 2, tp: 1}",
+}
+LAYER_PAR_CONFIG = ("LlamaForCausalLM (Layer tree) at llama3_8b widths, "
+                    f"{LAYER_PAR_LAYERS} layers, vocab {LAYER_PAR_VOCAB}, "
+                    "fp32, TF32 off, no remat, batch 2 x 256, Trainer: "
+                    f"AdamW({LAYER_PAR_LR}), grad_clip_norm 1.0, "
+                    f"{LAYER_PAR_STEPS} steps")
+# Mixtral-8x7B's MoE block (hidden 4096, FFN 14336, 8 experts, top 2),
+# capacity factor 1.0 over 512 tokens (capacity 128 a expert), fp32
+LAYER_MOE = dict(d_model=4096, d_ff=14336, experts=8, top_k=2,
+                 capacity_factor=1.0, tokens=512)
+LAYER_MOE_AUX = 0.01
+# eight LayerDesc(nn.Linear, 4096, 4096) staged over pp 2, x (4, 256,
+# 4096) fp32 in 2 microbatches
+LAYER_PIPE = dict(layers=8, width=4096, batch=(4, 256), n_micro=2)
+LAYER_PARALLEL_LAYERS = 4
+LAYER_PARALLEL_STEPS = 6
+LAYER_PARALLEL_CONFIG = (
+    "LlamaForCausalLM (Layer tree) at llama3_8b widths, "
+    f"{LAYER_PARALLEL_LAYERS} layers, full vocabulary, model.bfloat16(), "
+    "AdamW(multi_precision=True, lr 3e-4), Trainer grad_clip_norm 1.0, no "
+    "remat, random weights (paddle.seed(0)), batch 2 x 2048 (seed 4), "
+    "tp 2 through fleet.init(mp_degree=2)")
+LAYER_DEADLINE_S = 420
+
+
+def _layer_loss(model, batch):
+    return model(batch[0], labels=batch[1])[0]
+
+
+class _TrainerFirstGrads:
+    """Keeps the gradients the parallel Trainer's first step reduced
+    over the batch's axes (before the clip), and the spec each is held
+    by, by wrapping `Trainer._reduce_grads` while it is entered."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.parallel.trainer import Trainer
+        self.grads, self._cls = None, Trainer
+        self._orig = orig = Trainer._reduce_grads
+
+        def reduce(tr, grads, data_axes):
+            out = orig(tr, grads, data_axes)
+            if self.grads is None:
+                self.grads = ({n: g.detach().clone() for n, g in
+                               out[0].items()}, dict(out[1]))
+            return out
+        Trainer._reduce_grads = reduce
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._reduce_grads = self._orig
+        return False
+
+
+def _layer_par_model(paddle, layers, vocab=None):
+    """The Layer-tree Llama at 8B widths drawn on this process's card
+    after `paddle.seed(0)` (the same weights in the parent and in every
+    rank)."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              num_hidden_layers=layers,
+                              **({"vocab_size": vocab} if vocab else {}))
+    paddle.seed(0)
+    return cfg, LlamaForCausalLM(cfg)
+
+
+def _moe_inputs():
+    import numpy as np
+    rng = np.random.default_rng(6)
+    m = LAYER_MOE["d_model"]
+    return (rng.standard_normal((1, LAYER_MOE["tokens"], m)).astype(
+        np.float32), rng.standard_normal((1, LAYER_MOE["tokens"], m)).astype(
+        np.float32))
+
+
+def _moe_run(paddle, mesh=None):
+    """MoELayer at LAYER_MOE drawn after paddle.seed(1) (placed on
+    `mesh`'s ep axis when given): out, aux loss, dropped count, and the
+    gradients of sum(out * w) + LAYER_MOE_AUX * aux (the experts' this
+    rank's block)."""
+    import torch
+    from paddle_tpu_torch.parallel import MoELayer, place_layer
+    paddle.seed(1)
+    c = LAYER_MOE
+    layer = MoELayer(c["d_model"], c["d_ff"], c["experts"], top_k=c["top_k"],
+                     capacity_factor=c["capacity_factor"])
+    if mesh is not None:
+        place_layer(layer, mesh)
+    x, w = _moe_inputs()
+    xt = paddle.to_tensor(x, stop_gradient=False)
+    out = layer(xt)
+    loss = (out._value * torch.from_numpy(w).to(out._value.device)).sum() \
+        + LAYER_MOE_AUX * layer.aux_loss._value
+    loss.backward()
+    grads = {n: p.grad._value for n, p in layer.named_parameters()}
+    grads["x"] = xt.grad._value
+    return {"out": out._value.detach(),
+            "aux": float(layer.aux_loss._value.detach()),
+            "dropped": int(layer.dropped._value), "grads": grads}
+
+
+def _layer_parallel_references(out_dir):
+    """Before the ranks start, on the card: the single-rank Trainer's
+    losses, step-1 gradients and parameters after LAYER_PAR_STEPS steps
+    (leaves saved by name order in `out_dir`), and MoELayer's outputs
+    and gradients on one rank."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.parallel import Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    paddle = _paddle("gpu:0")
+    cfg, model = _layer_par_model(paddle, LAYER_PAR_LAYERS, LAYER_PAR_VOCAB)
+    opt = paddle.optimizer.AdamW(LAYER_PAR_LR, parameters=model.parameters())
+    tr = Trainer(model, opt, _layer_loss, grad_clip_norm=1.0)
+    batch = _layer_batch(cfg.vocab_size, 2, 256, seed=3)
+    _reset_train_counts()
+    with _TrainerFirstGrads() as first:
+        losses = [float(tr.step(batch)) for _ in range(LAYER_PAR_STEPS)]
+    names = list(tr.params)
+    grads = first.grads[0]
+    for i, n in enumerate(names):
+        np.save(os.path.join(out_dir, f"layer_grads_{i}.npy"),
+                grads[n].cpu().numpy())
+        np.save(os.path.join(out_dir, f"layer_params_{i}.npy"),
+                tr.params[n].cpu().numpy())
+    ref = {"names": names, "losses": losses,
+           "grad_max": [float(grads[n].abs().max()) for n in names],
+           "launches": _train_counts()}
+    del model, opt, tr, first, grads
+    gc_cuda()
+    moe = _moe_run(paddle)
+    for k, g in moe["grads"].items():
+        np.save(os.path.join(out_dir, f"moe_grads_{k}.npy"), g.cpu().numpy())
+    np.save(os.path.join(out_dir, "moe_out.npy"), moe["out"].cpu().numpy())
+    ref["moe"] = {"aux": moe["aux"], "dropped": moe["dropped"],
+                  "names": list(moe["grads"])}
+    del moe
+    gc_cuda()
+    return ref
+
+
+def _tol_worst(got, want, scale=None):
+    """Largest |got - want| over PARITY_GRAD_RTOL |want| + PARITY_GRAD_SCALE
+    x the largest |want| (of the whole tensor: `scale`)."""
+    want = want.to(got.device).float()
+    m = float(want.abs().max()) if scale is None else scale
+    allowed = PARITY_GRAD_RTOL * want.abs() + PARITY_GRAD_SCALE * m + 1e-30
+    return float(((got.float() - want).abs() / allowed).max())
+
+
+def _layer_parity_layout(paddle, name, world, ref, ref_leaves):
+    """One layout of layer_parallel_parity on this rank: the layout's
+    Trainer from the reference's weights, its errors against the
+    reference (`ref_leaves`: its step-1 gradients and parameters on
+    this rank's card, by name order; each layout's gathered whole),
+    launches and collectives."""
+    import paddle_tpu_torch.distributed.collective as C
+    from paddle_tpu_torch.distributed import (DataParallel, fleet,
+                                              group_sharded_parallel)
+    from paddle_tpu_torch.parallel import P, Trainer, create_mesh
+    from paddle_tpu_torch.parallel.mesh import gather
+    cfg, model = _layer_par_model(paddle, LAYER_PAR_LAYERS, LAYER_PAR_VOCAB)
+    opt = paddle.optimizer.AdamW(LAYER_PAR_LR, parameters=model.parameters())
+    if name == "tp2_fleet":
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs["mp_degree"] = world
+        fleet.init(is_collective=True, strategy=strategy)
+        mesh = fleet.fleet.get_mesh()
+        model = fleet.distributed_model(model)
+        opt = fleet.distributed_optimizer(opt)
+    else:
+        mesh = create_mesh({"dp": world, "tp": 1})
+        if name == "dp2_data_parallel":
+            model = DataParallel(model)
+        else:
+            model, opt = group_sharded_parallel(
+                model, opt, "os_g" if name == "dp2_zero2" else "p_g_os")
+    tr = Trainer(model, opt, _layer_loss, mesh=mesh, batch_spec=P("dp"),
+                 grad_clip_norm=1.0)
+    batch = _layer_batch(cfg.vocab_size, 2, 256, seed=3)
+    _reset_train_counts()
+    C.reset_counters()
+    t0 = time.perf_counter()
+    with _TrainerFirstGrads() as first:
+        losses = [float(tr.step(batch)) for _ in range(LAYER_PAR_STEPS)]
+    secs = time.perf_counter() - t0
+    launches, coll = _train_counts(), C.counters()
+    label = f"layer_parallel_parity {name} (rank {mesh.rank})"
+    loss_err = [abs(a - c) for a, c in zip(losses, ref["losses"])]
+    if any(e > 1e-5 * abs(c) + 1e-5 for e, c in zip(loss_err,
+                                                    ref["losses"])):
+        fail(f"{label}: losses {losses} vs {ref['losses']}")
+    grads, held = first.grads
+    named = {n.replace("_layers.", ""): n for n in tr.params}
+    worst = p_err = p_rel = 0.0
+    for i, n in enumerate(ref["names"]):
+        mine = named[n]
+        g = gather(grads[mine].contiguous(), held[mine], mesh)
+        worst = max(worst, _tol_worst(g, ref_leaves["grads"][i],
+                                      ref["grad_max"][i]))
+        p = gather(tr.params[mine].contiguous(), tr.param_specs[mine], mesh)
+        c = ref_leaves["params"][i]
+        p_err = max(p_err, float((p - c).abs().max()))
+        p_rel = max(p_rel, float((p - c).norm() / c.norm()))
+    if worst > 1.0:
+        fail(f"{label}: step-1 gradients off, worst {worst} of the "
+             "tolerance")
+    if p_err > 2.5 * LAYER_PAR_LR * LAYER_PAR_STEPS or p_rel > 1e-5:
+        fail(f"{label}: parameters off by {p_err} (relative norm {p_rel})")
+    out = {"losses": losses, "loss_abs_err": loss_err,
+           "grad_worst_share_of_tol": worst, "param_max_abs_err": p_err,
+           "param_max_rel_norm_err": p_rel, "launches": launches,
+           "collectives": coll, "seconds": secs, "mesh": dict(mesh.shape),
+           "zero_stage": tr.sharding_stage,
+           "sliced_leaves": sum("dp" in map(str, s) for s in
+                                tr.param_specs.values()) if
+           tr.sharding_stage >= 3 else sum(
+               "dp" in map(str, lf.update) for lf in tr._leaves.values())}
+    del model, opt, tr, first, grads
+    gc_cuda()
+    return out
+
+
+def _layer_moe_rank(paddle, world, ref, ref_dir):
+    """MoELayer on ep `world` against the parent's one-rank run: the
+    whole output, the aux loss, the dropped count, the input's and the
+    gate's gradients and this rank's experts' block of theirs."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.parallel import create_mesh
+    mesh = create_mesh({"ep": world})
+    t0 = time.perf_counter()
+    got = _moe_run(paddle, mesh)
+    secs = time.perf_counter() - t0
+    r = mesh.coord("ep")
+    label = f"layer_parallel_parity moe (rank {mesh.rank})"
+    load = lambda f: torch.from_numpy(np.load(  # noqa: E731
+        os.path.join(ref_dir, f), mmap_mode="c"))
+    errs = {"out": _tol_worst(got["out"], load("moe_out.npy"))}
+    for n in ref["names"]:
+        want = load(f"moe_grads_{n}.npy")
+        g = got["grads"][n]
+        if g.shape != want.shape:          # this rank's experts
+            scale = float(want.abs().max())
+            want = want.chunk(world, 0)[r]
+            errs[n] = _tol_worst(g, want, scale)
+        else:
+            errs[n] = _tol_worst(g, want)
+    aux_err = abs(got["aux"] - ref["aux"])
+    if max(errs.values()) > 1.0:
+        fail(f"{label}: off, share of the tolerance {errs}")
+    if aux_err > 1e-6 * abs(ref["aux"]) + 1e-7:
+        fail(f"{label}: aux loss {got['aux']} vs {ref['aux']}")
+    if got["dropped"] != ref["dropped"] or ref["dropped"] < 1:
+        fail(f"{label}: dropped {got['dropped']}, one rank {ref['dropped']}")
+    return {"worst_share_of_tol": errs, "aux": got["aux"],
+            "aux_abs_err": aux_err, "dropped": got["dropped"],
+            "seconds": secs}
+
+
+def _layer_pipe_rank(paddle, world):
+    """PipelineLayer over LAYER_PIPE's linears staged on pp `world`
+    against the same layers run in sequence on this rank: output, the
+    input's gradient and this rank's staged layers' gradients."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.parallel import (LayerDesc, PipelineLayer,
+                                           create_mesh)
+    c = LAYER_PIPE
+    mesh = create_mesh({"pp": world})
+    paddle.seed(2)
+    pl = PipelineLayer([LayerDesc(nn.Linear, c["width"], c["width"])
+                        for _ in range(c["layers"])], num_stages=world,
+                       mesh=mesh, n_micro=c["n_micro"])
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((*c["batch"], c["width"])).astype(np.float32)
+    w = torch.from_numpy(rng.standard_normal(
+        (*c["batch"], c["width"])).astype(np.float32))
+    runs = {}
+    for label in ("staged", "sequential"):
+        for layer in pl.built:
+            layer.clear_gradients()
+        xt = paddle.to_tensor(x, stop_gradient=False)
+        t0 = time.perf_counter()
+        if label == "staged":
+            out = pl(xt)
+        else:
+            out = xt
+            for layer in pl.built:
+                out = layer(out)
+        (out._value * w.to(out._value.device)).sum().backward()
+        runs[label] = {"out": out._value.detach(), "x": xt.grad._value,
+                       "grads": [[p.grad._value.clone() if p.grad is not None
+                                  else None for p in layer.parameters()]
+                                 for layer in pl.built],
+                       "seconds": time.perf_counter() - t0}
+    r, per = mesh.coord("pp"), c["layers"] // world
+    a, b = runs["staged"], runs["sequential"]
+    errs = {"out": _tol_worst(a["out"], b["out"]),
+            "x_grad": _tol_worst(a["x"], b["x"])}
+    for i in range(r * per, (r + 1) * per):
+        for j, (ga, gb) in enumerate(zip(a["grads"][i], b["grads"][i])):
+            errs[f"layer{i}.{j}"] = _tol_worst(ga, gb)
+    if max(errs.values()) > 1.0 or not pl._will_stage():
+        fail(f"layer_parallel_parity pipeline (rank {mesh.rank}): off, "
+             f"share of the tolerance {errs}")
+    return {"worst_share_of_tol": max(errs.values()),
+            "segments": pl._segments, "staged_seconds": a["seconds"],
+            "sequential_seconds": b["seconds"]}
+
+
+def _layer_speed_rank(paddle, world, dev):
+    """layer_parallel on this rank: the bf16 Layer tree at 8B widths on
+    tp `world` through fleet.init and the Trainer, LAYER_PARALLEL_STEPS
+    steps."""
+    import torch
+    import paddle_tpu_torch.distributed.collective as C
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.parallel import P, Trainer
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cfg, model = _layer_par_model(paddle, LAYER_PARALLEL_LAYERS)
+    model = model.bfloat16()
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs["mp_degree"] = world
+    fleet.init(is_collective=True, strategy=strategy)
+    model = fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(paddle.optimizer.AdamW(
+        3e-4, parameters=model.parameters(), multi_precision=True))
+    tr = Trainer(model, opt, _layer_loss, mesh=fleet.fleet.get_mesh(),
+                 batch_spec=P("dp"), grad_clip_norm=1.0)
+    batch = _layer_batch(cfg.vocab_size, 2, 2048, seed=4)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    _reset_train_counts()
+    losses, times, coll = [], [], []
+    for _ in range(LAYER_PARALLEL_STEPS):
+        C.reset_counters()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        losses.append(tr.step(batch).item())      # waits for the step
+        times.append((time.perf_counter() - t0) * 1e3)
+        coll.append(C.counters())
+    out = {"losses": losses, "step_ms": times, "launches": _train_counts(),
+           "collectives": coll, "init_s": init_s,
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated(dev) / 1e9,
+           "params_a_rank": sum(t.numel() for t in tr.params.values())}
+    del model, opt, tr
+    gc_cuda()
+    return out
+
+
+def _layer_rank(rank, world, job, dev):
+    """The layer phases on this rank (the world-2 job of
+    `_spawn_parallel`)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    paddle = _paddle(f"gpu:{dev.index}")
+    out = {}
+    if job.get("parity"):
+        import numpy as np
+        ref, ref_dir = job["refs"], job["dir"]
+        # the reference on this rank's card once, for every layout
+        ref_leaves = {what: [torch.from_numpy(np.load(os.path.join(
+            ref_dir, f"layer_{what}_{i}.npy"))).to(dev)
+            for i in range(len(ref["names"]))]
+            for what in ("grads", "params")}
+        out["parity"] = {name: _layer_parity_layout(paddle, name, world,
+                                                    ref, ref_leaves)
+                         for name in LAYER_PAR_LAYOUTS}
+        del ref_leaves
+        gc_cuda()
+        out["moe"] = _layer_moe_rank(paddle, world, ref["moe"], ref_dir)
+        out["pipe"] = _layer_pipe_rank(paddle, world)
+    if job.get("speed"):
+        out["speed"] = _layer_speed_rank(paddle, world, dev)
+    return out
+
+
+def phase_layer_parallel_parity(card, spawned):
+    results, info = spawned
+    ranks = [res["layer"] for res in results[2]]
+    L, steps = LAYER_PAR_LAYERS, LAYER_PAR_STEPS
+    want = {k: 0 for k in _train_counts()}
+    want.update({"flash_fwd": L * steps, "flash_bwd_dq": L * steps,
+                 "flash_bwd_dkv": L * steps})
+    out = {}
+    for name, how in LAYER_PAR_LAYOUTS.items():
+        rows = [r["parity"][name] for r in ranks]
+        for i, row in enumerate(rows):
+            if row["launches"] != want:
+                fail(f"layer_parallel_parity {name}: rank {i} launches "
+                     f"{row['launches']}, want {want}")
+        row = {"phase": "layer_parallel_parity", "card": card,
+               "layout": name, "how": how, "config": LAYER_PAR_CONFIG,
+               "mesh": rows[0]["mesh"], "zero_stage": rows[0]["zero_stage"],
+               "dp_sliced_leaves": rows[0]["sliced_leaves"],
+               **info[2], "losses": rows[0]["losses"],
+               "reference_losses": info[2]["layer_reference"]["losses"],
+               "loss_abs_err": rows[0]["loss_abs_err"],
+               "grad_worst_share_of_tol": max(
+                   r["grad_worst_share_of_tol"] for r in rows),
+               "param_max_abs_err": max(r["param_max_abs_err"] for r in rows),
+               "param_max_rel_norm_err": max(r["param_max_rel_norm_err"]
+                                             for r in rows),
+               "launches_per_rank": [r["launches"] for r in rows],
+               "want_launches": want,
+               "collective_bytes_per_rank": [r["collectives"]["bytes_sent"]
+                                             for r in rows],
+               "collective_calls_per_rank": [r["collectives"]["calls"]
+                                             for r in rows],
+               "steps_seconds": max(r["seconds"] for r in rows)}
+        row.pop("layer_reference", None)
+        emit(row)
+        out[name] = row
+    moe = [r["moe"] for r in ranks]
+    out["moe"] = {"phase": "layer_parallel_parity", "card": card,
+                  "layout": "moe_ep2", "config": (
+                      "MoELayer at Mixtral-8x7B block widths "
+                      f"{LAYER_MOE}, fp32, TF32 off, loss sum(out * w) + "
+                      f"{LAYER_MOE_AUX} aux; ep 2 against one rank"),
+                  "dropped": moe[0]["dropped"],
+                  "aux": moe[0]["aux"],
+                  "aux_abs_err": max(m["aux_abs_err"] for m in moe),
+                  "worst_share_of_tol_per_rank": [m["worst_share_of_tol"]
+                                                  for m in moe],
+                  "seconds": max(m["seconds"] for m in moe)}
+    emit(out["moe"])
+    pipe = [r["pipe"] for r in ranks]
+    out["pipe"] = {"phase": "layer_parallel_parity", "card": card,
+                   "layout": "pipeline_pp2", "config": (
+                       f"PipelineLayer of {LAYER_PIPE['layers']} LayerDesc("
+                       f"nn.Linear, {LAYER_PIPE['width']}, "
+                       f"{LAYER_PIPE['width']}), x {LAYER_PIPE['batch']} x "
+                       f"{LAYER_PIPE['width']} fp32, {LAYER_PIPE['n_micro']}"
+                       " microbatches, staged on pp 2 against sequential"),
+                   "segments": pipe[0]["segments"],
+                   "worst_share_of_tol": max(p["worst_share_of_tol"]
+                                             for p in pipe),
+                   "staged_seconds": [p["staged_seconds"] for p in pipe],
+                   "sequential_seconds": [p["sequential_seconds"]
+                                          for p in pipe]}
+    emit(out["pipe"])
+    return out
+
+
+def phase_layer_parallel(card, spawned, ltrain, par):
+    import statistics as st
+    results, info = spawned
+    ranks = [res["layer"]["speed"] for res in results[2]]
+    L, steps = LAYER_PARALLEL_LAYERS, LAYER_PARALLEL_STEPS
+    want = {k: 0 for k in _train_counts()}
+    want.update({"flash_fwd": L * steps, "flash_bwd_dq": L * steps,
+                 "flash_bwd_dkv": L * steps})
+    for i, r in enumerate(ranks):
+        if r["launches"] != want:
+            fail(f"layer_parallel: rank {i} launches {r['launches']}, want "
+                 f"{want}")
+    losses = ranks[0]["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"layer_parallel: losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"layer_parallel: loss did not fall: {losses}")
+    step_ms = max(st.median(r["step_ms"][1:]) for r in ranks)
+    tok_s = 2 * 2048 / (step_ms / 1e3)
+    per_step = lambda r, k: [c[k] for c in r["collectives"]]  # noqa: E731
+    functional = par.get("tp2", {}).get("global_tokens_per_s")
+    row = {"phase": "layer_parallel", "card": card,
+           "config": LAYER_PARALLEL_CONFIG, **info[2],
+           "steps": steps, "losses": losses,
+           "step_ms_per_rank": [r["step_ms"] for r in ranks],
+           "median_step_ms": step_ms, "global_tokens_per_s": tok_s,
+           "layer_train_tokens_per_s": ltrain.get("tokens_per_s"),
+           "functional_tp2_global_tokens_per_s": functional,
+           "vs_layer_train": tok_s / ltrain["tokens_per_s"]
+           if ltrain else None,
+           "vs_functional_tp2": tok_s / functional if functional else None,
+           "max_memory_allocated_gb_per_rank":
+               [r["max_memory_allocated_gb"] for r in ranks],
+           "collective_bytes_per_step_per_rank":
+               [per_step(r, "bytes_sent") for r in ranks],
+           "collective_seconds_per_step_per_rank":
+               [per_step(r, "seconds") for r in ranks],
+           "collective_calls_per_step_per_rank":
+               [per_step(r, "calls") for r in ranks],
+           "launches_per_rank": [r["launches"] for r in ranks],
+           "want_launches": want,
+           "params_per_rank": [r["params_a_rank"] for r in ranks],
+           "init_s": [r["init_s"] for r in ranks]}
+    row.pop("layer_reference", None)
+    emit(row)
+    return row
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -6209,8 +6792,9 @@ def main(argv=None):
     if "train_fused" in phases:
         timed("train_fused", phase_train_fused, smi, packed)
     par_parity, par, tpp, tps = {}, {}, {}, {}
-    if {"parallel_parity", "parallel", "tp_parity", "tp_serve"} & \
-            set(phases):
+    spawned = None
+    if {"parallel_parity", "parallel", "tp_parity", "tp_serve",
+            "layer_parallel_parity", "layer_parallel"} & set(phases):
         # each world size spawned once for the layouts of the parallel
         # phases; the tp phases run in the world of 2
         spawned = timed("parallel_spawn", _spawn_parallel, phases, bserve)
@@ -6228,6 +6812,12 @@ def main(argv=None):
         if "layer_parity" in phases else {}
     ltrain = timed("layer_train", phase_layer_train, smi, train) \
         if "layer_train" in phases else {}
+    # the layer phases ran in the parallel phases' world of 2; their rows
+    # come after layer_train's, which layer_parallel reports beside its own
+    lpp = timed("layer_parallel_parity", phase_layer_parallel_parity, smi,
+                spawned) if "layer_parallel_parity" in phases else {}
+    lparallel = timed("layer_parallel", phase_layer_parallel, smi, spawned,
+                      ltrain, par) if "layer_parallel" in phases else {}
     emit({"phase_seconds": secs})
     # launches the prefix_serve runs added, by kernel (the returning turns
     # of the multi-turn runs, the whole system-prompt runs)
@@ -6354,6 +6944,19 @@ def main(argv=None):
             row["name"]) if row["name"] in FLASH_KERNELS else \
             lpar.get("entry_points", {}).get("launches", {}).get(
                 row["name"])
+        # each rank's launches of rows 3-5 under the Trainer: every
+        # layout of layer_parallel_parity and layer_parallel's tp 2 run
+        # (None for the other rows)
+        if row["name"] in FLASH_KERNELS and (lpp or lparallel):
+            row["layer_parallel_launches"] = {
+                f"layer_parallel_parity {name}": [
+                    r[row["name"]] for r in prow["launches_per_rank"]]
+                for name, prow in lpp.items() if name in LAYER_PAR_LAYOUTS}
+            if lparallel:
+                row["layer_parallel_launches"]["layer_parallel"] = [
+                    r[row["name"]] for r in lparallel["launches_per_rank"]]
+        else:
+            row["layer_parallel_launches"] = None
         for (kname, variant, shape), k in pk.items():
             if kname == row["name"] and variant in ("bfloat16", "int8"):
                 row.setdefault("prefix_kernel", {})[str(shape)] = {

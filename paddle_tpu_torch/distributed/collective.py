@@ -20,7 +20,9 @@ The backend is the process group's, as `init_parallel_env` was given it.
 Differentiable collectives, for what a train step differentiates:
 `copy_to_group` (identity forward, all-reduce backward) and
 `reduce_from_group` (all-reduce forward, identity backward), Megatron's
-pair; `all_to_all` (backward: the inverse all-to-all); `ppermute`
+pair; `gather_from_group` (all-gather forward, this rank's block of
+the gradient backward) and `scatter_to_group` (the converse);
+`all_to_all` (backward: the inverse all-to-all); `ppermute`
 (backward: the inverse permutation). Under activation checkpointing a
 layer's collectives run again in the recompute, in the same order on
 every rank.
@@ -507,6 +509,30 @@ class _ReduceFromGroup(torch.autograd.Function):
         return g, None
 
 
+class _GatherFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.args = group, dim
+        return all_gather_cat(x.contiguous(), group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim = ctx.args
+        return g.chunk(group.nranks, dim)[group.rank].contiguous(), None, None
+
+
+class _ScatterToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.args = group, dim
+        return x.chunk(group.nranks, dim)[group.rank].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim = ctx.args
+        return all_gather_cat(g.contiguous(), group, dim), None, None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, split_dim, concat_dim):
@@ -566,6 +592,28 @@ def reduce_from_group(x, group):
     if _group(group).nranks == 1:
         return x
     return _ReduceFromGroup.apply(x, _group(group))
+
+
+def gather_from_group(x, group, dim=-1):
+    """Every rank's block of `dim` concatenated in group order; the
+    gradient cut back to this rank's block (where a split result must
+    become whole)."""
+    if _group(group).nranks == 1:
+        return x
+    return _GatherFromGroup.apply(x, _group(group), dim % x.dim())
+
+
+def scatter_to_group(x, group, dim=-1):
+    """This rank's block of `dim` of a replicated `x`; the gradient
+    gathered whole again (where a replicated input enters a computation
+    split over the group along that dim)."""
+    g = _group(group)
+    if g.nranks == 1:
+        return x
+    if x.shape[dim] % g.nranks:
+        raise ValueError(f"scatter_to_group: dim {dim} ({x.shape[dim]}) "
+                         f"does not divide over {g.nranks} ranks")
+    return _ScatterToGroup.apply(x, g, dim % x.dim())
 
 
 def all_to_all(x, group, split_dim, concat_dim):

@@ -78,7 +78,10 @@ def ragged_paged_attention_reference(q, k_pages, v_pages, page_table,
                    device=q.device)
     l = torch.zeros_like(m)
     cols = torch.arange(page_size, device=q.device)
-    for pi in range(n_pages):
+    # pages wholly past every row's limit leave the state untouched:
+    # the loop stops at the last page a row reaches
+    live = min(n_pages, -(-int(limit.max()) // page_size)) if t else 0
+    for pi in range(live):
         pg = pages[:, pi]
         k = k_pages[:, pg].to(torch.float32)              # (KVH, T, page, D)
         v = v_pages[:, pg].to(torch.float32)

@@ -7,6 +7,13 @@ port's Tensor, nn and ops: RoPE from `ops/rope.py`, the SwiGLU of
 repeated before the kernel. The serving and training paths run the
 stacked-parameter layout of `models/llama_spmd.py` instead.
 
+Every weight carries its Megatron `dist_spec`. Placed on a mesh (the
+parallel `Trainer` cuts each to the rank's block), the attention runs
+the rank's heads and the MLP its FFN columns between `copy_to_group`
+and `reduce_from_group`, the embedding looks up the rank's vocabulary
+rows, and the lm_head gives the vocabulary-parallel loss
+(`parallel/tp.py`).
+
 The Layer tree's KV cache (`kv_caches=`) and `generate` need causal
 attention over more keys than queries, which the kernels do not align
 (ROADMAP.md, Queue 3): they raise NotImplementedError (item 13b)."""
@@ -23,7 +30,9 @@ from ..nn.initializer import Normal
 from ..ops.flash_attention import flash_attention_bhsd
 from ..ops.fused import swiglu
 from ..ops.rope import apply_rotary_emb, rope_cos_sin
+from ..distributed import collective as C
 from ..parallel.mesh import P
+from ..parallel.tp import split_group, vocab_parallel_nll
 
 
 @dataclass(unsafe_hash=True)
@@ -54,6 +63,20 @@ class LlamaConfig:
         return cls(vocab_size=vocab, hidden_size=hidden, intermediate_size=ffn,
                    num_hidden_layers=layers, num_attention_heads=heads,
                    num_key_value_heads=kv_heads, max_position_embeddings=seq)
+
+
+def _tp_heads(wq, wk, nh, kvh, hd):
+    """(tp group or None, this rank's query heads, its KV heads): the
+    heads of the block of the q / k projections' columns it holds."""
+    g = split_group(wq, 1, nh * hd)
+    if g is None:
+        return None, nh, kvh
+    if nh % g.nranks or kvh % g.nranks:
+        raise ValueError(f"the query heads ({nh}) and KV heads ({kvh}) do "
+                         f"not divide over tp={g.nranks}")
+    if split_group(wk, 1, kvh * hd) is not g:
+        raise ValueError("q_proj and k_proj are split over different axes")
+    return g, nh // g.nranks, kvh // g.nranks
 
 
 def _no_kv_cache(what):
@@ -101,8 +124,16 @@ class LlamaAttention(nn.Layer):
                 k = k.repeat_interleave(nh // kvh, 1)
                 v = v.repeat_interleave(nh // kvh, 1)
             o = flash_attention_bhsd(q, k, v, causal=causal)
-            return o.transpose(1, 2).reshape(b, s, h) @ wo
+            return o.transpose(1, 2).reshape(b, s, nh * hd) @ wo
 
+        g, nh, kvh = _tp_heads(self.q_proj.weight, self.k_proj.weight,
+                               nh, kvh, hd)
+        if g is not None:
+            inner = fn
+
+            def fn(xr, wq, wk, wv, wo):
+                return C.reduce_from_group(
+                    inner(C.copy_to_group(xr, g), wq, wk, wv, wo), g)
         return apply(fn, x, self.q_proj.weight, self.k_proj.weight,
                      self.v_proj.weight, self.o_proj.weight)
 
@@ -124,7 +155,12 @@ class LlamaMLP(nn.Layer):
         self.down_proj.weight.dist_spec = P(tp_axis, None)
 
     def forward(self, x):
-        return apply(swiglu, x, self.gate_proj.weight, self.up_proj.weight,
+        g = split_group(self.gate_proj.weight, 1,
+                        self.gate_proj._out_features)
+        fn = swiglu if g is None else (
+            lambda xr, wg, wu, wd: C.reduce_from_group(
+                swiglu(C.copy_to_group(xr, g), wg, wu, wd), g))
+        return apply(fn, x, self.gate_proj.weight, self.up_proj.weight,
                      self.down_proj.weight)
 
 
@@ -200,6 +236,10 @@ class LlamaForCausalLM(nn.Layer):
     def forward(self, input_ids, labels=None, position_offset=0,
                 kv_caches=None):
         h = self.llama(input_ids, position_offset, kv_caches)
+        g = None if self.lm_head is None else split_group(
+            self.lm_head.weight, 1, self.config.vocab_size)
+        if g is not None:
+            return self._vocab_parallel_head(h, labels, g)
         if self.lm_head is not None:
             logits = self.lm_head(h)
         else:
@@ -210,6 +250,31 @@ class LlamaForCausalLM(nn.Layer):
             loss = F.cross_entropy(logits, labels, reduction="mean")
             return loss, logits
         return logits
+
+    def _vocab_parallel_head(self, h, labels, g):
+        """The lm_head split over tp on the vocabulary: this rank's
+        logits columns. Under labels the loss is the vocabulary-parallel
+        cross-entropy (mean over the labels other than -100), and the
+        logits returned are this rank's columns (PaddleNLP's
+        tensor_parallel_output): they are never gathered. Without labels
+        the logits come back whole."""
+        def local(hr, w):
+            return C.copy_to_group(hr, g) @ w
+        if labels is None:
+            return apply(lambda hr, w: C.gather_from_group(local(hr, w), g,
+                                                           -1),
+                         h, self.lm_head.weight)
+
+        def fn(hr, w, lab):
+            logits = local(hr, w)
+            lab = lab.long()
+            valid = lab != -100
+            nll = vocab_parallel_nll(logits.float(),
+                                     torch.where(valid, lab, 0), g)
+            loss = torch.where(valid, nll, 0.0).sum() / \
+                valid.float().sum().clamp_min(1.0)
+            return loss, logits
+        return apply(fn, h, self.lm_head.weight, labels, multi=True)
 
     def generate(self, input_ids, max_new_tokens=32, temperature=1.0,
                  top_k=0, top_p=1.0, eos_token_id=None):

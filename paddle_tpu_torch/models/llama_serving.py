@@ -187,6 +187,13 @@ def _filtered_logits(lg, temp, top_k, top_p):
     # masks them); guard the divide so temp=0 rows cannot overflow
     lt = lg / torch.where(sampled_on, torch.clamp_min(temp, 1e-6),
                           1.0)[:, None]
+    if lg.device.type == "cpu" and not bool(
+            ((top_k > 0) & (top_k < V)).any()) and bool((top_p >= 1.0).all()):
+        # nothing to filter: every row keeps its whole vocabulary (the
+        # threshold below would be each row's least logit). On the card
+        # the arithmetic runs anyway (no host sync); on the CPU skip its
+        # sort over the vocabulary
+        return lt
     k = torch.where(top_k > 0, torch.clamp_max(top_k, V), V).long()
     sv = torch.sort(lt, dim=-1, descending=True).values
     probs = torch.softmax(sv, dim=-1)
@@ -311,15 +318,13 @@ def _qkv(x, lw, li, shape, nh, nkv, hd):
 
 class _TPPlan:
     """This rank's place in tensor-parallel serving, the `par` of the
-    step functions: its tp group and the first vocabulary row of its
-    embedding and `lm_head` shard (what `llama_spmd._embed` reads)."""
+    step functions: its tp group (`llama_spmd._embed` takes the rank's
+    vocabulary rows by its index in it)."""
 
-    __slots__ = ("tp", "vocab_lo")
+    __slots__ = ("tp",)
 
     def __init__(self, mesh, config):
         self.tp = mesh.group("tp")
-        self.vocab_lo = mesh.coord("tp") * (config.vocab_size
-                                            // mesh.shape["tp"])
 
     def __repr__(self):
         # the step functions' compile telemetry keys calls by the reprs

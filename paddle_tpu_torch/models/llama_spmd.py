@@ -46,12 +46,13 @@ from ..ops.fused import fused_linear_cross_entropy
 from ..ops.fused import rms_norm as _rms
 from ..ops.fused import swiglu
 from ..ops.rope import apply_rotary_emb, rope_cos_sin
+from ..parallel import mesh as MESH
 from ..parallel import pp as PP
+from ..parallel import tp as TP
 from ..parallel.mesh import P, RankMesh
 from ..parallel.ring import ring_attention_local
 from ..parallel.ulysses import ulysses_attention_local
 from .llama import LlamaConfig
-from .llama_serving import _not_ported
 
 __all__ = ["init_params", "params_from_jax", "param_specs", "place_params",
            "gather_params", "doc_end_indices",
@@ -273,10 +274,7 @@ def _embed(ids, embed, par):
     of the vocabulary, the other rows zero, summed over the axis."""
     if par is None or par.tp is None:
         return F.embedding(ids, embed)
-    local = ids - par.vocab_lo
-    own = (local >= 0) & (local < embed.shape[0])
-    h = F.embedding(torch.where(own, local, 0), embed)
-    return C.reduce_from_group(torch.where(own[..., None], h, 0), par.tp)
+    return TP.vocab_parallel_embedding(ids, embed, par.tp)
 
 
 def forward(params, input_ids, config: LlamaConfig, remat=True,
@@ -338,16 +336,19 @@ def _masked_nll(logits, labels):
 FUSED_CE_CHUNK = 8192
 
 
-def _fused_masked_nll(h, lm_head, labels, chunk=FUSED_CE_CHUNK):
+def _fused_masked_nll(h, lm_head, labels, chunk=FUSED_CE_CHUNK, tp=None):
     """(nll_sum, valid_count) through `fused_linear_cross_entropy`: the
     (B, S, V) logits are never held. The same numbers as
-    `_masked_nll(h @ lm_head, labels)`, with fp32 logits."""
+    `_masked_nll(h @ lm_head, labels)`, with fp32 logits. tp: the group
+    that splits lm_head's vocabulary columns (each chunk then covers
+    this rank's columns, the max, the sum of exponentials and the target
+    logit reduced over the group)."""
     b, s, hidden = h.shape
     lab = labels.reshape(b * s).long()
     valid = lab >= 0
     per_tok = fused_linear_cross_entropy(
         h.reshape(b * s, hidden), lm_head, torch.where(valid, lab, 0),
-        chunk_size=chunk, reduction="none")
+        chunk_size=chunk, reduction="none", group=tp)
     return torch.where(valid, per_tok, 0.0).sum(), valid.float().sum()
 
 
@@ -365,27 +366,19 @@ def _tp_masked_nll(h, lm_head, labels, par):
     row max and the sum of exponentials reduced over the axis, the
     target logit taken from the rank that owns it. The same numbers as
     `_masked_nll` of the full logits, replicated over the axis."""
-    tp = par.tp
-    h = C.copy_to_group(h, tp)
-    logits = (h @ lm_head).float()
-    m = C.all_reduce(logits.detach().amax(-1), C.ReduceOp.MAX, tp)
-    sumexp = C.reduce_from_group(torch.exp(logits - m[..., None]).sum(-1),
-                                 tp)
-    lse = torch.log(sumexp) + m
-    local = labels.clamp_min(0).long() - par.vocab_lo
-    own = (local >= 0) & (local < logits.shape[-1])
-    picked = torch.gather(logits, -1,
-                          torch.where(own, local, 0)[..., None])[..., 0]
-    picked = C.reduce_from_group(torch.where(own, picked, 0.0), tp)
+    h = C.copy_to_group(h, par.tp)
+    nll = TP.vocab_parallel_nll((h @ lm_head).float(), labels.clamp_min(0),
+                                par.tp)
     valid = (labels >= 0).float()
-    return ((lse - picked) * valid).sum(), valid.sum()
+    return (nll * valid).sum(), valid.sum()
 
 
 def _head_nll(h, head, labels, config, fused_ce, par):
     """(nll_sum, valid_count) of the final-normed hidden states h."""
+    tp = par.tp if par is not None else None
     if fused_ce:
-        return _fused_masked_nll(h, head["lm_head"], labels)
-    if par is not None and par.tp is not None:
+        return _fused_masked_nll(h, head["lm_head"], labels, tp=tp)
+    if tp is not None:
         return _tp_masked_nll(h, head["lm_head"], labels, par)
     return _masked_nll(h @ head["lm_head"], labels)
 
@@ -575,30 +568,7 @@ def param_specs(config, mesh, pp=False, fsdp_axis=None):
     }
 
 
-def _spec_axes(entry):
-    return () if entry is None else (
-        tuple(entry) if isinstance(entry, tuple) else (entry,))
-
-
-def _block(mesh, axes):
-    """(index, count) of this rank's block of a dim split over `axes`
-    (major first)."""
-    idx, n = 0, 1
-    for ax in axes:
-        size = mesh.shape.get(ax, 1)
-        idx, n = idx * size + mesh.coord(ax), n * size
-    return idx, n
-
-
-def _shard(a, spec, mesh):
-    for dim, entry in enumerate(spec):
-        idx, n = _block(mesh, _spec_axes(entry))
-        if n > 1:
-            if a.shape[dim] % n:
-                raise ValueError(f"dim {dim} of a {tuple(a.shape)} leaf "
-                                 f"does not divide over {entry}={n}")
-            a = a.chunk(n, dim)[idx]
-    return a.clone(memory_format=torch.contiguous_format)
+_spec_axes, _block, _shard = MESH.spec_axes, MESH.block, MESH.shard
 
 
 def _map_specs(fn, tree, specs):
@@ -655,12 +625,7 @@ def place_params(params, config, mesh, pp=None, vpp=None):
     return _map_specs(shard, params, param_specs(config, mesh, pp=pp))
 
 
-def _gather(a, spec, mesh):
-    for dim, entry in enumerate(spec):
-        for ax in reversed(_spec_axes(entry)):
-            if mesh.shape.get(ax, 1) > 1:
-                a = C.all_gather_cat(a.contiguous(), mesh.group(ax), dim)
-    return a
+_gather = MESH.gather
 
 
 def gather_params(params, config, mesh, pp=None, vpp=None):
@@ -680,13 +645,33 @@ def gather_params(params, config, mesh, pp=None, vpp=None):
 _SCHEDULES = ("gpipe", "1f1b", "interleave")
 
 
+def _fleet_schedule(vpp):
+    """(schedule, vpp) for schedule=None: the initialised fleet
+    strategy's (`fleet.pipeline_schedule`; its virtual_pp_degree under
+    the interleaved schedule), else GPipe."""
+    from ..distributed.fleet import fleet as _fleet
+    if not _fleet._is_initialized:
+        return "gpipe", vpp
+    schedule = _fleet.pipeline_schedule()
+    if schedule == "interleave":
+        fleet_vpp = _fleet.virtual_pp_degree()
+        if fleet_vpp <= 1:
+            # never pick a virtual degree the user did not configure
+            raise ValueError(
+                "schedule_mode 'interleave' needs hybrid_configs "
+                f"pp_configs virtual_pp_degree >= 2 (got {fleet_vpp}); "
+                "set it, or pass vpp= explicitly with "
+                "schedule='interleave'")
+        vpp = fleet_vpp
+    return schedule, vpp
+
+
 class _Plan:
     """One rank's layout of the hybrid-parallel step: the mesh's groups,
     the batch's data axes, the checks the layout needs. Layers, the
     embedding and the loss read it as `par`: the tp, sp and pp groups
     (None where the axis is absent or of one rank), the sp scheme and
-    this rank's block of the sequence, the first vocabulary row of its
-    embedding / head shard, GPipe's microbatches."""
+    this rank's block of the sequence, GPipe's microbatches."""
 
     def __init__(self, config, mesh, batch_spec, n_micro, remat, sp_axis,
                  schedule, fused_ce, vpp, sp_impl):
@@ -700,7 +685,8 @@ class _Plan:
         self.remat, self.fused_ce, self.vpp = remat, fused_ce, vpp
         self.sp_axis = sp_axis
         if schedule is None:
-            schedule = "gpipe"  # the port has no fleet strategy to consult
+            schedule, vpp = _fleet_schedule(vpp)
+            self.vpp = vpp
         if schedule not in _SCHEDULES:
             raise ValueError(f"schedule {schedule!r}: one of {_SCHEDULES}")
         self.schedule = schedule
@@ -721,10 +707,6 @@ class _Plan:
             if n % m:
                 raise ValueError(f"{what} ({n}) do not divide over the mesh "
                                  f"({m}: tp={n_tp}, pp={n_pp})")
-        if fused_ce and self.tp is not None:
-            raise _not_ported("the fused linear+CE head under tensor "
-                              "parallelism (fused_ce=True with tp > 1)",
-                              "12b")
         # the batch's dims: dim 0 by batch_spec, dim 1 by sp_axis too
         spec = ([_spec_axes(e) for e in tuple(batch_spec)] + [(), ()])[:2]
         if sp_axis is not None:
@@ -750,7 +732,6 @@ class _Plan:
         self.sp_impl = sp_impl
         self.sp_size = self.sp.nranks if self.sp is not None else 1
         self.sp_rank = self.sp.rank if self.sp is not None else 0
-        self.vocab_lo = mesh.coord("tp") * (c.vocab_size // n_tp)
         use_pp = self.pp is not None
         self.pipelined = use_pp and schedule in ("1f1b", "interleave")
         self.specs = param_specs(c, mesh, pp=use_pp)
@@ -951,14 +932,17 @@ def make_train_step(config, mesh=None, batch_spec=P("dp"), n_micro=None,
     (`place_params`), takes its block of the batch by `batch_spec` (and
     of the sequence by `sp_axis`), and gets the global loss. sp_axis
     with sp_impl "ring" or "ulysses"; schedule (with a pp axis):
-    "gpipe" (None), "1f1b" or "interleave" with `vpp` chunks a stage
+    "gpipe", "1f1b" or "interleave" with `vpp` chunks a stage, or None
+    (the strategy's `fleet.pipeline_schedule()` once `fleet.init` ran,
+    else "gpipe")
     (params and opt_state then placed with `place_params(..., vpp=vpp)`:
     each rank holds its chunks).
     Where the JAX step refuses a combination (doc_ids with pp or sp, sp
     with pp) this step raises the same NotImplementedError; a layout
     the ranks cannot split (tp not dividing the heads, the vocabulary
-    or the FFN; pp (x vpp) not dividing the layers) raises ValueError;
-    fused_ce=True with tp > 1 is ROADMAP item 12b."""
+    or the FFN; pp (x vpp) not dividing the layers) raises ValueError.
+    Under tp, fused_ce=True runs each chunk of the fused head over this
+    rank's vocabulary columns: the logits are never gathered."""
     dev = resolve_device(device)
     fused_ce = _resolve_fused_ce(fused_ce)
     if _is_single(mesh):

@@ -11,6 +11,22 @@ def _sq_sum(g):
     return torch.sum(torch.square(g._value.float()))
 
 
+def _placed_sum(params, parts):
+    """Sum of per-parameter partial sums; for parameters placed on a
+    rank mesh (blocks of split tensors) over the ranks, each tensor
+    counted once."""
+    from ..parallel.mesh import placement, sum_over_shards
+    where = [placement(p) for p in params]
+    meshes = {id(w[0]) for w in where if w is not None}
+    if not meshes:
+        return sum(parts[1:], parts[0])
+    if len(meshes) > 1:
+        raise ValueError("the parameters are placed on different meshes")
+    mesh = next(w[0] for w in where if w is not None)
+    return sum_over_shards(parts, [w[1] if w is not None else ()
+                                   for w in where], mesh)
+
+
 class ClipGradBase:
     def __call__(self, params_grads):
         with torch.no_grad():
@@ -56,11 +72,12 @@ class ClipGradByGlobalNorm(ClipGradBase):
         self.clip_norm = float(clip_norm)
 
     def _dygraph_clip(self, params_grads):
-        sq = [_sq_sum(g) for p, g in params_grads
-              if g is not None and getattr(p, "need_clip", True)]
-        if not sq:
+        kept = [(p, g) for p, g in params_grads
+                if g is not None and getattr(p, "need_clip", True)]
+        if not kept:
             return params_grads
-        gnorm = torch.sqrt(sum(sq[1:], sq[0]))
+        gnorm = torch.sqrt(_placed_sum([p for p, _ in kept],
+                                       [_sq_sum(g) for _, g in kept]))
         scale = self.clip_norm / torch.clamp_min(gnorm, self.clip_norm)
         out = []
         for p, g in params_grads:
@@ -71,13 +88,17 @@ class ClipGradByGlobalNorm(ClipGradBase):
         return out
 
     @staticmethod
-    def functional(grads_tree, clip_norm):
+    def functional(grads_tree, clip_norm, reduce=None):
         """Clip a dict (or list) of raw gradients by their global norm;
-        returns (clipped, norm)."""
+        returns (clipped, norm). On a rank mesh `reduce(per_leaf)` sums
+        the leaves' sums of squares over the ranks that split each leaf
+        (counting a replicated leaf once; `parallel.mesh.sum_over_shards`),
+        so the norm is the whole tensors'."""
         leaves = list(grads_tree.values()) if isinstance(grads_tree, dict) \
             else list(grads_tree)
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                               for g in leaves))
+        parts = [torch.sum(torch.square(g.float())) for g in leaves]
+        gnorm = torch.sqrt(reduce(parts) if reduce is not None
+                           else sum(parts[1:], parts[0]))
         scale = clip_norm / torch.clamp_min(gnorm, clip_norm)
         clip = lambda g: (g * scale).to(g.dtype)
         if isinstance(grads_tree, dict):

@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import torch
 
+from ..._core.tensor import apply
 from .. import functional as F
 from ..initializer import Normal, XavierUniform
 from .layers import Layer, ParamAttr
@@ -31,7 +32,32 @@ class Linear(Layer):
             shape=[out_features], attr=bias_attr, is_bias=True)
 
     def forward(self, input):
+        if self.weight.shape != [self._in_features, self._out_features]:
+            return self._split_forward(input)
         return F.linear(input, self.weight, self.bias)
+
+    def _split_forward(self, input):
+        """The weight placed as a block of one dim (by a tp `dist_spec`):
+        the collectives that give the whole product (a column split
+        gathers the output, a row split sums it)."""
+        from ...parallel import tp
+        args = [input, self.weight] + ([self.bias] if self.bias is not None
+                                       else [])
+        g = tp.split_group(self.weight, 1, self._out_features)
+        if g is not None:
+            # a bias split with the columns is added before the gather,
+            # a whole one after it
+            split_bias = self.bias is not None and \
+                self.bias.shape[0] != self._out_features
+
+            def column(x, w, b=None):
+                out = tp.column_linear(x, w, b if split_bias else None, g,
+                                       True)
+                return out + b if b is not None and not split_bias else out
+            return apply(column, *args)
+        g = tp.split_group(self.weight, 0, self._in_features)
+        return apply(lambda x, w, b=None: tp.row_linear(x, w, b, g, False),
+                     *args)
 
     def extra_repr(self):
         return f"in={self._in_features}, out={self._out_features}"
@@ -122,6 +148,12 @@ class Embedding(Layer):
                 self.weight._value[self._padding_idx] = 0.0
 
     def forward(self, x):
+        if self.weight.shape[0] != self._num_embeddings:
+            # rows placed over a tp axis (a vocabulary-parallel dist_spec)
+            from ...parallel import tp
+            g = tp.split_group(self.weight, 0, self._num_embeddings)
+            return apply(lambda ids, w: tp.vocab_parallel_embedding(
+                ids, w, g), x, self.weight)
         return F.embedding(x, self.weight, padding_idx=self._padding_idx,
                            max_norm=self._max_norm, norm_type=self._norm_type)
 

@@ -22,8 +22,9 @@
     skew-corrected chrome trace, merged flight-ring dumps and fleet
     capture bundles;
   * `health`           — the training-health counters `/metrics`
-    renders (`pt_train_*`); the checks that feed them come with the
-    trainer (ROADMAP.md Queue 1 items 12 and 13).
+    renders (`pt_train_*`), fed by the parallel Trainer's
+    `health_stats` / `TrainingHealthMonitor`; `traced_check` and
+    `nan_blame` come with `amp/` (ROADMAP.md Queue 1 item 13b).
 
 Importing this package needs the standard library only (torch is
 imported inside the functions that read tensors or the card).
@@ -43,7 +44,7 @@ from .device_telemetry import (  # noqa: F401
     ACCOUNTANT, COSTS, CostRegistry, MemoryAccountant, device_peaks,
 )
 from .flight_recorder import FlightRecorder, RECORDER  # noqa: F401
-from .health import HEALTH  # noqa: F401
+from .health import HEALTH, TrainingHealthMonitor, health_stats  # noqa: F401
 from .logging import StructuredLogger, get_logger  # noqa: F401
 from .pulse import PulsePlane, PulseRing, PulseSampler  # noqa: F401
 from .trace_context import (  # noqa: F401
@@ -58,7 +59,7 @@ __all__ = [
     "CompileRegistry", "tracked", "track_jit", "signature_of",
     "CostRegistry", "COSTS", "MemoryAccountant", "ACCOUNTANT",
     "device_peaks",
-    "HEALTH",
+    "TrainingHealthMonitor", "HEALTH", "health_stats",
     "FlightRecorder", "RECORDER",
     "StructuredLogger", "get_logger",
     "Span", "bind", "span", "new_trace_id", "current_trace_id",

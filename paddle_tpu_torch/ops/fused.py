@@ -56,7 +56,7 @@ class _FusedLinearCE(torch.autograd.Function):
     time."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, labels, chunk):
+    def forward(ctx, x, weight, bias, labels, chunk, group=None):
         n, vocab = x.shape[0], weight.shape[1]
         m = torch.full((n,), -1e30, dtype=torch.float32, device=x.device)
         s = torch.zeros((n,), dtype=torch.float32, device=x.device)
@@ -72,6 +72,14 @@ class _FusedLinearCE(torch.autograd.Function):
             s = s * torch.exp(m - m_new) + torch.exp(
                 logits - m_new[:, None]).sum(1)
             m = m_new
+        if group is not None:
+            # this rank's columns: the max, the sum of exponentials and
+            # the target logit (0 where another rank owns it) over all
+            from ..distributed import collective as C
+            m_all = C.all_reduce(m.clone(), C.ReduceOp.MAX, group)
+            s = C.all_reduce(s * torch.exp(m - m_all), group=group)
+            lab = C.all_reduce(lab, group=group)
+            m = m_all
         lse = m + torch.log(s)
         ctx.save_for_backward(x, weight, bias, labels, lse)
         ctx.chunk = chunk
@@ -99,11 +107,12 @@ class _FusedLinearCE(torch.autograd.Function):
             dw[:, base:base + width] = _mm_f32(x.T, d_in).to(weight.dtype)
             if db is not None:
                 db[base:base + width] = d_logits.sum(0).to(bias.dtype)
-        return dx.to(x.dtype), dw, db, None, None
+        return dx.to(x.dtype), dw, db, None, None, None
 
 
 def fused_linear_cross_entropy(x, weight, labels, bias=None, chunk_size=8192,
-                               reduction="mean", ignore_index=-100):
+                               reduction="mean", ignore_index=-100,
+                               group=None):
     """CE(x @ weight + bias, labels) without materializing the logits.
 
     x: (N, H) hidden states; weight: (H, V); labels: (N,) integers, rows
@@ -111,12 +120,24 @@ def fused_linear_cross_entropy(x, weight, labels, bias=None, chunk_size=8192,
     the mean). reduction: "mean", "sum" or "none" (per row, fp32).
     Differentiable in x, weight and bias; the gradients come back in
     their dtypes. The logits are computed `chunk_size` vocabulary
-    columns at a time in fp32 and recomputed in the backward."""
+    columns at a time in fp32 and recomputed in the backward.
+
+    group: a process group (`distributed.collective.Group`) over which
+    the vocabulary is split: `weight` (and `bias`) hold this rank's
+    block of columns, labels stay whole-vocabulary ids, x enters through
+    `copy_to_group`, and every rank gets every row's loss; the logits
+    are never gathered."""
     labels = labels.long()
     chunk = min(int(chunk_size), weight.shape[1])
     valid = labels != ignore_index
     safe = torch.where(valid, labels, 0)
-    loss = _FusedLinearCE.apply(x, weight, bias, safe, chunk)
+    if group is not None and group.nranks > 1:
+        from ..distributed import collective as C
+        x = C.copy_to_group(x, group)
+        safe = safe - group.rank * weight.shape[1]
+    else:
+        group = None
+    loss = _FusedLinearCE.apply(x, weight, bias, safe, chunk, group)
     loss = torch.where(valid, loss, 0.0)
     if reduction == "mean":
         return loss.sum() / valid.sum().clamp_min(1)

@@ -9,12 +9,51 @@ bf16 and fp16 parameters keep float32 master weights in their slots.
 """
 from __future__ import annotations
 
+import contextlib
 from collections import OrderedDict
 
 import torch
 
 from .._core.tensor import Parameter, Tensor, as_torch
 from ..regularizer import L1Decay, L2Decay
+
+
+# the groups over which the parameter being updated is split (its
+# block's sums are partial): set around each update by the parallel
+# Trainer and by step() for a placed parameter
+_split_groups = ()
+
+
+@contextlib.contextmanager
+def split_over(groups):
+    """Run the updates inside with tensor-wide sums (`whole_sum`) taken
+    over `groups` as well: the update's parameter is this rank's block
+    of a tensor split over them."""
+    global _split_groups
+    saved, _split_groups = _split_groups, tuple(groups)
+    try:
+        yield
+    finally:
+        _split_groups = saved
+
+
+def whole_sum(x):
+    """torch.sum(x) over the whole tensor `x` is a block of (Lamb's and
+    LarsMomentum's norms): summed over the split groups."""
+    s = torch.sum(x)
+    if _split_groups:
+        from ..distributed import collective as C
+        for g in _split_groups:
+            s = C.all_reduce(s.clone(), group=g)
+    return s
+
+
+def _placed_groups(p):
+    """The groups a placed Parameter's block splits it over."""
+    from ..parallel.mesh import placement
+    where = placement(p)
+    return () if where is None else tuple(where[0].group(ax)
+                                          for ax in where[1])
 
 
 def _tree_map(fn, *trees):
@@ -127,10 +166,12 @@ class Optimizer:
                 self._accumulators[key] = self._create_slots(
                     p._value.detach())
             param_lr = p.optimize_attr.get("learning_rate", 1.0)
-            new_p, self._accumulators[key] = self._apply_one(
-                p._value.detach(), g._value, self._accumulators[key], lr,
-                param_lr, regularizer=getattr(p, "regularizer", None) or
-                self._regularization)
+            with split_over(_placed_groups(p)):
+                new_p, self._accumulators[key] = self._apply_one(
+                    p._value.detach(), g._value, self._accumulators[key],
+                    lr, param_lr, regularizer=getattr(p, "regularizer",
+                                                      None) or
+                    self._regularization)
             p._replace(new_p)
         self._global_step += 1
 

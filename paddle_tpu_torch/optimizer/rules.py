@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from .optimizer import Optimizer, _DecoupledWeightDecayMixin
+from .optimizer import Optimizer, _DecoupledWeightDecayMixin, whole_sum
 
 
 class SGD(Optimizer):
@@ -184,8 +184,8 @@ class Lamb(Optimizer, _DecoupledWeightDecayMixin):
         mhat = m / (1 - self._beta1 ** t)
         vhat = v / (1 - self._beta2 ** t)
         r = mhat / (torch.sqrt(vhat) + self._epsilon) + self._lamb_wd * p
-        w_norm = torch.sqrt(torch.sum(p * p))
-        r_norm = torch.sqrt(torch.sum(r * r))
+        w_norm = torch.sqrt(whole_sum(p * p))
+        r_norm = torch.sqrt(whole_sum(r * r))
         trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
                             torch.ones_like(w_norm))
         return p - lr * trust * r, slots
@@ -227,8 +227,8 @@ class LarsMomentum(Optimizer):
 
     def _rule(self, p, g, slots, lr):
         g = g * self._rescale_grad
-        p_norm = torch.sqrt(torch.sum(p.float() ** 2))
-        g_norm = torch.sqrt(torch.sum(g.float() ** 2))
+        p_norm = torch.sqrt(whole_sum(p.float() ** 2))
+        g_norm = torch.sqrt(whole_sum(g.float() ** 2))
         denom = g_norm + self._lars_wd * p_norm + self._epsilon
         # gate on g_norm (not denom): the reference kernel falls back to
         # plain lr when EITHER norm is zero, so a zero-grad param decays

@@ -9,6 +9,7 @@ fsdp / sharding, sp / ep, tp."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..distributed import collective, env
 
@@ -136,3 +137,96 @@ def fsdp_spec(shape, mesh, axis="dp", min_size=1024):
             spec[d] = axis
             return P(*spec)
     return P()
+
+
+# ------------------------------------------------------------ placement
+def spec_axes(entry):
+    """The mesh axes one PartitionSpec entry names (major first)."""
+    return () if entry is None else (
+        tuple(entry) if isinstance(entry, tuple) else (entry,))
+
+
+def check_spec(spec, mesh, what="a parameter"):
+    """ValueError when `spec` names an axis `mesh` lacks (GSPMD refuses
+    such a sharding with these words)."""
+    for entry in spec:
+        for ax in spec_axes(entry):
+            if ax not in mesh.shape:
+                raise ValueError(
+                    f"Resource axis: {ax} of {spec!r} ({what}) is not found "
+                    f"in mesh: {tuple(mesh.axis_names)}.")
+
+
+def block(mesh, axes):
+    """(index, count) of this rank's block of a dim split over `axes`
+    (major first)."""
+    idx, n = 0, 1
+    for ax in axes:
+        size = mesh.shape.get(ax, 1)
+        idx, n = idx * size + mesh.coord(ax), n * size
+    return idx, n
+
+
+def shard(a, spec, mesh):
+    """This rank's block of the full tensor `a` by `spec`: a contiguous
+    copy. ValueError when a split dim does not divide."""
+    for dim, entry in enumerate(spec):
+        idx, n = block(mesh, spec_axes(entry))
+        if n > 1:
+            if a.shape[dim] % n:
+                raise ValueError(f"dim {dim} of a {tuple(a.shape)} leaf "
+                                 f"does not divide over {entry}={n}")
+            a = a.chunk(n, dim)[idx]
+    return a.clone(memory_format=torch.contiguous_format)
+
+
+def gather(a, spec, mesh):
+    """The full tensor from every rank's block (collective over the
+    axes `spec` names; the inverse of `shard`)."""
+    for dim, entry in enumerate(spec):
+        for ax in reversed(spec_axes(entry)):
+            if mesh.shape.get(ax, 1) > 1:
+                a = collective.all_gather_cat(a.contiguous(), mesh.group(ax),
+                                              dim)
+    return a
+
+
+def split_axes(spec, mesh):
+    """The axes of `mesh` of more than one rank that `spec` splits."""
+    return tuple(ax for e in spec for ax in spec_axes(e)
+                 if mesh.shape.get(ax, 1) > 1)
+
+
+def sum_over_shards(parts, axes, mesh):
+    """The global sum of per-leaf partial sums: `parts[i]` is leaf i's
+    sum over the block this rank holds, `axes[i]` the axes the leaf is
+    split over. A leaf replicated on an axis counts once (its block on
+    coordinate 0 of that axis); the result, a 0-dim fp32 tensor, is the
+    same on every rank."""
+    model = sorted({ax for a in axes for ax in a},
+                   key=lambda ax: mesh.axis_names.index(ax))
+    total = torch.zeros((), dtype=torch.float32, device=parts[0].device)
+    for part, ax in zip(parts, axes):
+        if not any(m not in ax and mesh.coord(m) != 0 for m in model):
+            total = total + part.float()
+    for m in model:
+        collective.all_reduce(total, group=mesh.group(m))
+    return total
+
+
+# parameters placed on a mesh: id -> (mesh, the axes their blocks split)
+_PLACED = {}
+
+
+def mark_placed(param, mesh, axes):
+    """Record that `param` holds its block over `axes` of `mesh` (read
+    by the eager clip and the norm-taking optimizer rules)."""
+    import weakref
+    if id(param) not in _PLACED:
+        weakref.finalize(param, _PLACED.pop, id(param), None)
+    _PLACED[id(param)] = (mesh, tuple(axes))
+
+
+def placement(param):
+    """(mesh, split axes) of a placed parameter, else None."""
+    return _PLACED.get(id(param))

@@ -19,8 +19,9 @@ point-to-point transfers on the axis's group, one hop a tick:
     driven by the static tables of `build_interleaved_schedule` (a copy
     of the JAX package's: the tables are equal).
 
-`LayerDesc`, `SharedLayerDesc` and `PipelineLayer` (the Paddle layer
-surface) are ROADMAP.md Queue 1 item 12b."""
+The Paddle layer surface: `LayerDesc`, `SharedLayerDesc` and
+`PipelineLayer`, which stages every maximal run of same-signature layers
+of a LayerDesc list over the pp ranks through `pipeline_apply`."""
 from __future__ import annotations
 
 import numpy as np
@@ -479,3 +480,176 @@ def pipeline_bubble_fraction(n_micro, n_stages, schedule="1f1b", vpp=1):
     else:
         fill = S - 1
     return fill / (M + fill)
+
+
+class LayerDesc:
+    """reference: fleet.meta_parallel LayerDesc."""
+
+    def __init__(self, layer_cls, *args, **kwargs):
+        self.layer_cls = layer_cls
+        self.args = args
+        self.kwargs = kwargs
+
+    def build(self):
+        return self.layer_cls(*self.args, **self.kwargs)
+
+
+class SharedLayerDesc(LayerDesc):
+    def __init__(self, key, layer_cls, *args, forward_func=None,
+                 shared_weight_attr=None, **kwargs):
+        super().__init__(layer_cls, *args, **kwargs)
+        self.key = key
+
+
+class PipelineLayer:
+    """API-parity container (reference: fleet.meta_parallel.PipelineLayer):
+    splits a LayerDesc list into pp stages.
+
+    With a mesh whose pp axis has `num_stages` ranks, forward() runs
+    stage-parallel: every maximal run of layers of one class and the
+    same parameter shapes (no buffers) long enough to fill the stages
+    is trimmed to a multiple of num_stages, and each rank runs its
+    contiguous block of it through `pipeline_apply` (GPipe, `n_micro`
+    microbatches), the activations moving between the stages; the
+    layers between runs run on every rank. The result reaches every
+    rank. Every rank builds every layer (from the same draws), and a
+    staged layer's gradients land on the rank that runs it. Without a
+    mesh, or when nothing can be staged, forward is sequential.
+
+    seg_method: "uniform" (default) stages every eligible run;
+    "layer:ClassName" only runs of that class. recompute_interval > 0
+    runs each staged layer under `torch.utils.checkpoint`
+    (non-reentrant): its activations are recomputed in the backward.
+    """
+
+    def __init__(self, layers, num_stages=None, topology=None, loss_fn=None,
+                 seg_method="uniform", recompute_interval=0, mesh=None,
+                 pp_axis="pp", n_micro=None, **kwargs):
+        import warnings
+        self.descs = layers
+        self.num_stages = num_stages or 1
+        self.loss_fn = loss_fn
+        self.mesh = mesh
+        self.pp_axis = pp_axis
+        self.n_micro = n_micro
+        self.seg_method = seg_method
+        self.recompute_interval = int(recompute_interval)
+        if not (seg_method == "uniform"
+                or str(seg_method).startswith("layer:")):
+            raise ValueError(
+                f"seg_method={seg_method!r} unsupported: use 'uniform' "
+                "or 'layer:ClassName'")
+        self.built = [d.build() if isinstance(d, LayerDesc) else d
+                      for d in layers]
+        self._segments = (self._find_stageable_segments()
+                          if self.num_stages > 1 else [])
+        if self.num_stages > 1 and self.mesh is not None:
+            mesh_pp = self.mesh.shape.get(self.pp_axis, 1)
+            if not self._segments:
+                warnings.warn(
+                    f"PipelineLayer(num_stages={self.num_stages}): no "
+                    f"homogeneous run of >= {self.num_stages} stackable "
+                    "layers found — forward() will run SEQUENTIALLY "
+                    "(replicated), not pipelined. Stage-parallel "
+                    "execution needs same-class layers with identical "
+                    f"param shapes (seg_method={seg_method!r}).",
+                    stacklevel=2)
+            elif mesh_pp != self.num_stages:
+                warnings.warn(
+                    f"PipelineLayer(num_stages={self.num_stages}): mesh "
+                    f"'{self.pp_axis}' axis has {mesh_pp} devices — "
+                    "forward() will run SEQUENTIALLY (replicated), not "
+                    "pipelined. Make num_stages match the mesh's pp "
+                    "axis.", stacklevel=2)
+        if self.recompute_interval > 0 and not self._will_stage():
+            warnings.warn(
+                f"PipelineLayer: recompute_interval="
+                f"{self.recompute_interval} only applies on the staged "
+                "pipeline path; this construction runs sequentially "
+                "(no mesh / mesh-axis mismatch / nothing stackable), so "
+                "NO activation recompute will happen.", stacklevel=2)
+
+    def _will_stage(self):
+        """True iff forward() will take the stage-parallel path."""
+        return bool(
+            self._segments and self.mesh is not None
+            and self.mesh.shape.get(self.pp_axis, 1) == self.num_stages)
+
+    def _layer_sig(self, layer):
+        if not hasattr(layer, "functional_state"):
+            return None
+        p, b = layer.functional_state()
+        # a layer with buffers is not stackable: every stacked layer
+        # would run with the template's buffers
+        if b:
+            return None
+        sig = (type(layer), tuple(sorted((n, tuple(a.shape), str(a.dtype))
+                                         for n, a in p.items())))
+        if str(self.seg_method).startswith("layer:"):
+            want = str(self.seg_method)[len("layer:"):]
+            if type(layer).__name__ != want:
+                return None
+        return sig
+
+    def _find_stageable_segments(self):
+        """All maximal runs of same-signature layers, each trimmed to
+        the largest multiple of num_stages (leftover tail layers run
+        sequentially); empty when nothing can fill every stage."""
+        sigs = [self._layer_sig(layer) for layer in self.built]
+        segments = []
+        i, n = 0, len(sigs)
+        while i < n:
+            if sigs[i] is None:
+                i += 1
+                continue
+            j = i
+            while j < n and sigs[j] == sigs[i]:
+                j += 1
+            count = (j - i) // self.num_stages * self.num_stages
+            if count >= self.num_stages and count >= 2:
+                segments.append((i, i + count))
+            i = j
+        return segments
+
+    def _staged(self, seg, x):
+        """This rank's block of the segment through pipeline_apply."""
+        from torch.utils.checkpoint import checkpoint
+        start, end = seg
+        per = (end - start) // self.num_stages
+        r = self.mesh.coord(self.pp_axis)
+        mine = self.built[start + r * per:start + (r + 1) * per]
+        template = mine[0]
+        stage = stack_layer_params([layer.functional_state()[0]
+                                    for layer in mine])
+
+        def layer_fn(lp, h, extra):
+            return template.functional_call(lp, {}, h)
+        if self.recompute_interval > 0:
+            plain = layer_fn
+
+            def layer_fn(lp, h, extra):
+                return checkpoint(plain, lp, h, extra, use_reentrant=False)
+        return pipeline_apply(stage, x, layer_fn, self.mesh, self.pp_axis,
+                              self.n_micro)
+
+    def _staged_forward(self, x):
+        from .._core.tensor import Tensor, unwrap
+        pos = 0
+        for start, end in self._segments:
+            for layer in self.built[pos:start]:
+                x = layer(x)
+            x = Tensor(self._staged((start, end), unwrap(x)))
+            pos = end
+        for layer in self.built[pos:]:
+            x = layer(x)
+        return x
+
+    def forward(self, x):
+        if self._will_stage():
+            return self._staged_forward(x)
+        for layer in self.built:
+            x = layer(x)
+        return x
+
+    def __call__(self, x):
+        return self.forward(x)

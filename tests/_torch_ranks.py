@@ -498,3 +498,373 @@ def card_tp_serve(rank, world, data):
             "single": single, "tp": tp, "forced_ok": forced == single,
             "parts": parts, "launches": launches}
     return out
+
+
+# ------------------------------------------------ the Paddle layer surface
+def _paddle_cpu():
+    import paddle_tpu_torch as paddle
+    paddle.set_device("cpu")
+    return paddle
+
+
+def _wrap(a, grad=False):
+    """A Tensor of `a` on the surface's device."""
+    from paddle_tpu_torch._core.state import torch_device
+    from paddle_tpu_torch._core.tensor import Tensor
+    return Tensor(torch.from_numpy(np.array(a)).to(torch_device()),
+                  stop_gradient=not grad)
+
+
+def _gathered(layer, mesh):
+    """{name: the whole gradient} of every parameter of a placed layer
+    (each rank's block gathered by its dist_spec)."""
+    from paddle_tpu_torch.parallel.mesh import gather
+    out = {}
+    for n, p in layer.named_parameters():
+        spec = p.dist_spec if p.dist_spec is not None else P()
+        g = p.grad._value if p.grad is not None else torch.zeros_like(
+            p._value)
+        out[n] = gather(g.contiguous(), spec, mesh).cpu().numpy()
+    return out
+
+
+def _tp_layer(case):
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.parallel import tp as TPL
+    kind, kw = case["kind"], dict(case["kw"])
+    if kind == "annotated":
+        model = nn.Sequential(nn.Linear(*kw["dims"][:2]),
+                              nn.Linear(*kw["dims"][1:]))
+        return TPL.annotate_module_tp(model, {k: P(*v) for k, v in
+                                              case["rules"].items()})
+    return getattr(TPL, kind)(*case["args"], **kw)
+
+
+def _tp_layer_case(case, mesh):
+    """Forward and the gradients of sum(out * w) of one tp layer placed
+    on `mesh` (its whole output gathered)."""
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.parallel import place_layer
+    layer = _tp_layer(case)
+    layer.set_state_dict(case["sd"])
+    place_layer(layer, mesh)
+    g = mesh.group("tp")
+    x = case["x"]
+    if case["kind"] == "ParallelCrossEntropy":
+        xt = _wrap(np.array_split(x, g.nranks, -1)[g.rank], grad=True)
+        out = layer(xt, _wrap(case["label"]))
+    else:
+        if case["kw"].get("input_is_parallel"):
+            x = np.array_split(x, g.nranks, -1)[g.rank]
+        xt = _wrap(x, grad=x.dtype.kind == "f")
+        out = layer(xt)
+    local = out._value
+    whole = local if not case.get("split_out") else C.all_gather_cat(
+        local.detach().contiguous(), g, local.dim() - 1)
+    w = torch.from_numpy(case["w"]).to(local.device)
+    if case.get("split_out"):
+        w = w.chunk(g.nranks, -1)[g.rank]
+    (local * w).sum().backward()
+    res = {"out": whole.detach().cpu().numpy(),
+           "grads": _gathered(layer, mesh)}
+    if xt.grad is not None:
+        gx = xt.grad._value
+        if case["kind"] == "ParallelCrossEntropy" or case["kw"].get(
+                "input_is_parallel"):
+            gx = C.all_gather_cat(gx.contiguous(), g, gx.dim() - 1)
+        res["x_grad"] = gx.cpu().numpy()
+    return res
+
+
+def _moe_case(case, mesh):
+    from paddle_tpu_torch.parallel import MoELayer, place_layer
+    layer = MoELayer(*case["args"], **case["kw"])
+    layer.set_state_dict(case["sd"])
+    place_layer(layer, mesh)
+    xt = _wrap(case["x"], grad=True)
+    out = layer(xt)
+    loss = (out._value * torch.from_numpy(case["w"])).sum() + \
+        layer.aux_loss._value * case["aux_weight"]
+    loss.backward()
+    return {"out": out._value.detach().numpy(),
+            "aux": float(layer.aux_loss._value),
+            "dropped": int(layer.dropped._value),
+            "grads": _gathered(layer, mesh), "x_grad": xt.grad.numpy()}
+
+
+def _pp_case(case, mesh):
+    """PipelineLayer staged over the mesh's pp axis and sequential (no
+    mesh), from the same weights: outputs, the input's gradient and each
+    rank's own staged layers' gradients."""
+    import warnings
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.parallel import LayerDesc, PipelineLayer
+    descs = [LayerDesc(getattr(nn, cls), *args) for cls, args in
+             case["descs"]]
+    res = {}
+    for label, m in (("staged", mesh), ("sequential", None)):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            pl = PipelineLayer(descs, num_stages=case["stages"], mesh=m,
+                               n_micro=case.get("n_micro"),
+                               recompute_interval=case.get("recompute", 0))
+        for layer, sd in zip(pl.built, case["sds"]):
+            layer.set_state_dict(sd)
+        xt = _wrap(case["x"], grad=True)
+        out = pl(xt)
+        (out._value * torch.from_numpy(case["w"])).sum().backward()
+        grads = [{n: (p.grad._value.clone() if p.grad is not None
+                      else torch.zeros_like(p._value))
+                  for n, p in layer.named_parameters()} for layer in pl.built]
+        # a staged layer's gradient lives on the rank that ran it
+        staged = {i for a, b in (pl._segments if m is not None else ())
+                  for i in range(a, b)}
+        for i, grad in enumerate(grads):
+            for t in grad.values():
+                if i in staged:
+                    C.all_reduce(t, group=mesh.group("pp"))
+        res[label] = {"out": out._value.detach().numpy(),
+                      "x_grad": xt.grad.numpy(),
+                      "grads": [{n: t.numpy() for n, t in gr.items()}
+                                for gr in grads],
+                      "segments": pl._segments, "staged": pl._will_stage(),
+                      "warnings": [str(w.message) for w in caught]}
+    return res
+
+
+def layer_cases(rank, world, data):
+    """The tp layers (mesh {"tp": world}), MoELayer ({"ep": world}) and
+    PipelineLayer ({"pp": world}) cases of `data`; rank 0's results."""
+    _paddle_cpu()
+    out = {}
+    for name, case in data.get("tp", {}).items():
+        out[name] = _tp_layer_case(case, create_mesh({"tp": world}))
+    for name, case in data.get("moe", {}).items():
+        out[name] = _moe_case(case, create_mesh({"ep": world}))
+    for name, case in data.get("pp", {}).items():
+        out[name] = _pp_case(case, create_mesh({"pp": world}))
+    return out if rank == 0 else None
+
+
+# ----------------------------------------------------------- the Trainer
+def _tiny_llama(dims, sd):
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    model = LlamaForCausalLM(LlamaConfig.tiny(**dims))
+    model.set_state_dict(sd)
+    return model
+
+
+def _mlp(dims, sd):
+    from paddle_tpu_torch import nn
+    model = nn.Sequential(nn.Linear(dims[0], dims[1]), nn.Tanh(),
+                          nn.Linear(dims[1], dims[2]))
+    model.set_state_dict(sd)
+    return model
+
+
+def llama_loss(model, batch):
+    return model(batch[0], labels=batch[1])[0]
+
+
+def mlp_loss(model, batch):
+    import paddle_tpu_torch as paddle
+    return paddle.nn.functional.cross_entropy(model(batch[0]), batch[1])
+
+
+def _optimizer(paddle, spec, params):
+    kind, kw = spec
+    lr = kw.pop("lr")
+    if isinstance(lr, dict):
+        lr = paddle.optimizer.lr.StepDecay(**lr)
+    return getattr(paddle.optimizer, kind)(lr, parameters=params, **kw)
+
+
+def trainer_case(case, mesh):
+    """`steps` Trainer steps of one case from the JAX package's weights:
+    losses, the lrs, the parameters after the steps (whole, gathered
+    from every rank, the model's names), the health records."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import DataParallel
+    from paddle_tpu_torch.distributed import group_sharded_parallel
+    from paddle_tpu_torch.observability.health import TrainingHealthMonitor
+    from paddle_tpu_torch.parallel import Trainer
+    from paddle_tpu_torch.parallel.mesh import gather
+    model = (_tiny_llama if case["model"] == "llama" else _mlp)(
+        case["dims"], case["sd"])
+    opt = _optimizer(paddle, (case["opt"][0], dict(case["opt"][1])),
+                     model.parameters())
+    loss_fn = llama_loss if case["model"] == "llama" else mlp_loss
+    if case.get("wrap"):
+        model = DataParallel(model)
+    if case.get("level"):
+        model, opt = group_sharded_parallel(model, opt, case["level"])
+    if case.get("eager"):
+        return _eager_case(paddle, case, model, mesh)
+    monitor = TrainingHealthMonitor() if case.get("health") else None
+    bs = case.get("batch_spec")
+    tr = Trainer(model, opt, loss_fn, mesh=mesh,
+                 batch_spec=None if bs is None else tuple(
+                     P(*s) for s in bs),
+                 sharding_stage=case.get("stage", 0),
+                 grad_clip_norm=case.get("clip"), health_monitor=monitor)
+    losses, lrs, health = [], [], []
+    for _ in range(case["steps"]):
+        lrs.append(opt.get_lr())
+        losses.append(float(tr.step(case["batch"])))
+        if monitor is not None:
+            health.append(dict(monitor.last))
+    tr.sync_model()
+    params = {}
+    for n, p in model.named_parameters():
+        v = p._value.detach()
+        if mesh is not None:
+            spec = p.dist_spec if p.dist_spec is not None else P()
+            v = gather(v.contiguous(), spec, mesh)
+        params[n.replace("_layers.", "")] = v.numpy()
+    return {"losses": losses, "lrs": lrs, "params": params,
+            "health": health,
+            "state_specs": {n: {k: list(map(str, s)) for k, s in d.items()}
+                            for n, d in tr.state_specs.items()},
+            "slot_shapes": {n: {k: list(v.shape) for k, v in d.items()}
+                            for n, d in tr.opt_state.items()}}
+
+
+def _eager_case(paddle, case, model, mesh):
+    """An eager loop (backward, the optimizer's step with its own
+    global-norm clip) on a layer placed on `mesh`: the clip and the
+    rule's norms take the placed parameters' blocks over their axes."""
+    from paddle_tpu_torch.parallel import place_layer
+    from paddle_tpu_torch.parallel.mesh import gather
+    kind, kw = case["opt"][0], dict(case["opt"][1])
+    lr = kw.pop("lr")
+    place_layer(model, mesh)
+    opt = getattr(paddle.optimizer, kind)(
+        lr, parameters=model.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(case["clip"]), **kw)
+    x, y = (paddle.to_tensor(a) for a in case["batch"])
+    losses = []
+    for _ in range(case["steps"]):
+        loss = llama_loss(model, (x, y))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+    params = {n: gather(p._value.detach().contiguous(),
+                        p.dist_spec if p.dist_spec is not None else P(),
+                        mesh).numpy()
+              for n, p in model.named_parameters()}
+    return {"losses": losses, "params": params}
+
+
+def _refusal_case(case):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.parallel import Trainer
+    try:
+        mesh = create_mesh(case["axes"])
+        model = _tiny_llama(case["dims"], case["sd"])
+        opt = paddle.optimizer.AdamW(1e-3, parameters=model.parameters())
+        Trainer(model, opt, llama_loss, mesh=mesh).step(case["batch"])
+    except Exception as e:        # the test holds the class and the words
+        return type(e).__name__, str(e)
+    return None
+
+
+def trainer_cases(rank, world, data):
+    """Every Trainer case of `data` for this world (each on its own
+    mesh; refusals report their exception); rank 0's results."""
+    _paddle_cpu()
+    out = {}
+    for name, case in data["cases"].items():
+        if case.get("refusal"):
+            out[name] = _refusal_case(case)
+        else:
+            out[name] = trainer_case(case, create_mesh(case["axes"]))
+    return out if rank == 0 else None
+
+
+# ------------------------------------------------------------- fleet
+def fleet_cases(rank, world, data):
+    """fleet.init under each strategy of `data` (every rank's view of
+    the topology, gathered), and DataParallel's eager gradient average
+    against rank 0's whole-batch gradient."""
+    import torch.distributed as dist
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import DataParallel, fleet
+    _paddle_cpu()
+    out = {}
+    for name, hc in data["strategies"].items():
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs.update(hc)
+        try:
+            fleet.init(is_collective=True, strategy=strategy)
+        except ValueError as e:
+            out[name] = ("ValueError", str(e))
+            continue
+        hcg = fleet.get_hybrid_communicate_group()
+        mine = {"mesh": dict(fleet.fleet.get_mesh().shape),
+                "dp": (hcg.get_data_parallel_world_size(),
+                       hcg.get_data_parallel_rank(),
+                       hcg.get_data_parallel_group().ranks),
+                "mp": (hcg.get_model_parallel_world_size(),
+                       hcg.get_model_parallel_rank(),
+                       hcg.get_model_parallel_group().ranks),
+                "pp": (hcg.get_pipe_parallel_world_size(),
+                       hcg.get_stage_id(),
+                       hcg.get_pipe_parallel_group().ranks),
+                "rank": fleet.worker_index(), "world": fleet.worker_num()}
+        every = [None] * world
+        dist.all_gather_object(every, mine)
+        out[name] = every
+    # DataParallel in an eager loop: the averaged gradients of each
+    # rank's half of the batch are the whole batch's
+    dp = data["data_parallel"]
+    create_mesh({"dp": world})
+    model = _mlp(dp["dims"], dp["sd"])
+    x, y = (np.array_split(a, world)[rank] for a in dp["batch"])
+    wrapped = DataParallel(model)
+    loss = mlp_loss(wrapped, (paddle.to_tensor(x), paddle.to_tensor(y)))
+    loss.backward()
+    wrapped.apply_collective_grads()
+    out["data_parallel"] = {n: p.grad.numpy()
+                            for n, p in model.named_parameters()}
+    return out if rank == 0 else None
+
+
+def card_layer_parallel(rank, world, data):
+    """On the card (ranks sharing it over gloo): the tp layers of
+    data["tp"] placed on {"tp": world}, and the tiny Layer-tree Llama's
+    Trainer on tp `world` and on one rank (no mesh) from the same
+    weights; each with the flash kernels' launches."""
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.ops.flash_attention as fa
+    from paddle_tpu_torch.distributed.launch import rank_device
+    from paddle_tpu_torch.parallel import Trainer
+    from paddle_tpu_torch.parallel.mesh import gather
+    dev = torch.device(rank_device("cuda"))
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    paddle.set_device(f"gpu:{dev.index}")
+    out = {name: _tp_layer_case(case, create_mesh({"tp": world}))
+           for name, case in data["tp"].items()}
+    import paddle_tpu_torch.distributed.env as env
+    for label, axes in (("single", None), ("tp", {"tp": world})):
+        env.set_global_mesh(None)       # Trainer(mesh=None) reads it
+        mesh = create_mesh(axes) if axes else None
+        model = _tiny_llama(data["dims"], data["sd"])
+        opt = paddle.optimizer.AdamW(data["lr"],
+                                     parameters=model.parameters())
+        tr = Trainer(model, opt, llama_loss, mesh=mesh, grad_clip_norm=1.0)
+        fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+        losses = [float(tr.step(data["batch"])) for _ in range(data["steps"])]
+        params = {}
+        for n, p in model.named_parameters():
+            v = p._value.detach()
+            if mesh is not None:
+                v = gather(v.contiguous(), p.dist_spec or P(), mesh)
+            params[n] = v.cpu().numpy()
+        out[label] = {"losses": losses, "params": params,
+                      "device": str(tr.params[n].device),
+                      "launches": (fa.launches_fwd, fa.launches_dq,
+                                   fa.launches_dkv)}
+    return out

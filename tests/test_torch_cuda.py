@@ -14,7 +14,10 @@ two gloo ranks sharing the card (tp 2, pp 2 with 1F1B) against the
 single-rank card step, with each collective staged through the host
 against the same collective on CPU tensors; and the Paddle-shaped
 surface: the Layer-tree Llama's AdamW steps and the nn.functional
-attention entry points through Tensors on the card against the CPU.
+attention entry points through Tensors on the card against the CPU; and
+the parallel layer surface: the Trainer on one rank on the card against
+the CPU, and the tensor-parallel layers and the Trainer on tp 2 (two
+gloo ranks sharing the card) against one rank.
 
 Every test here needs a CUDA device and skips without one. This file
 imports neither jax nor paddle_tpu, so on a machine without jax it runs
@@ -2201,3 +2204,150 @@ def test_surface_attention_on_card_matches_plain(paddle_on, case):
     ref = _surface_attention(paddle, "cpu", case, arrays, ints)
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------- the parallel layer surface
+def _trainer_run(paddle, device, sd, batch, steps=3):
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.parallel import Trainer
+    paddle.set_device(device)
+    model = LlamaForCausalLM(LlamaConfig.tiny())
+    model.set_state_dict(sd)
+    opt = paddle.optimizer.AdamW(1e-3, parameters=model.parameters())
+    tr = Trainer(model, opt, lambda m, b: m(b[0], labels=b[1])[0],
+                 grad_clip_norm=1.0)
+    losses = [float(tr.step(batch)) for _ in range(steps)]
+    assert all(t.device.type == ("cuda" if device != "cpu" else "cpu")
+               for t in tr.params.values())
+    return losses, {k: v.numpy() for k, v in model.state_dict().items()}
+
+
+def test_trainer_on_one_rank_on_card_matches_cpu(paddle_on):
+    """3 Trainer steps (AdamW, clip 1.0) of the tiny Layer-tree Llama on
+    the card (the flash kernels, fp32, TF32 off) against the same steps
+    on the CPU: losses within 1e-5 relative, parameters within 2.5 lr a
+    step and 1e-5 in relative norm; the parameters stay on the card and
+    the flash kernels launch once a layer a step each."""
+    paddle = paddle_on
+    torch.backends.cuda.matmul.allow_tf32 = False
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    sd = {k: v.numpy() for k, v in
+          LlamaForCausalLM(LlamaConfig.tiny()).state_dict().items()}
+    rs = np.random.RandomState(0)
+    batch = (rs.randint(0, 256, (2, 16)), rs.randint(0, 256, (2, 16)))
+    before = (fa.launches_fwd, fa.launches_dq, fa.launches_dkv)
+    gpu = _trainer_run(paddle, "gpu:0", sd, batch)
+    after = (fa.launches_fwd, fa.launches_dq, fa.launches_dkv)
+    assert [a - b for a, b in zip(after, before)] == [6, 6, 6]
+    cpu = _trainer_run(paddle, "cpu", sd, batch)
+    np.testing.assert_allclose(gpu[0], cpu[0], rtol=1e-5)
+    for k, ref in cpu[1].items():
+        got = gpu[1][k]
+        assert np.abs(got - ref).max() <= 2.5 * 1e-3 * 3, k
+        assert np.linalg.norm(got - ref) <= 1e-5 * np.linalg.norm(ref), k
+
+
+LP_LAYERS = {
+    "column": ("ColumnParallelLinear", (64, 128), {}),
+    "column_split": ("ColumnParallelLinear", (64, 128),
+                     {"gather_output": False}),
+    "row": ("RowParallelLinear", (128, 64), {}),
+    "vocab_embedding": ("VocabParallelEmbedding", (256, 64), {}),
+    "parallel_ce": ("ParallelCrossEntropy", (), {}),
+}
+
+
+@pytest.fixture(scope="module")
+def card_layer_ranks():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the ranks compute on the card")
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import parallel as PAR
+    from paddle_tpu_torch._core import state
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    prev = state._device
+    paddle.set_device("cpu")
+    paddle.seed(0)
+    rng = np.random.default_rng(4)
+    tp = {}
+    for name, (kind, args, kw) in LP_LAYERS.items():
+        layer = getattr(PAR, kind)(*args, **kw)
+        sd = {k: v.numpy() for k, v in layer.state_dict().items()}
+        if kind == "VocabParallelEmbedding":
+            x, w = rng.integers(0, 256, (2, 8)), rng.standard_normal(
+                (2, 8, 64))
+        elif kind == "ParallelCrossEntropy":
+            x, w = rng.standard_normal((2, 8, 256)), rng.standard_normal(
+                (2, 8))
+        else:
+            x, w = rng.standard_normal((2, 8, args[0])), \
+                rng.standard_normal((2, 8, args[1]))
+        case = {"kind": kind, "args": args, "kw": kw, "sd": sd,
+                "x": x.astype(np.float32) if x.dtype.kind == "f" else x,
+                "w": w.astype(np.float32),
+                "split_out": kw.get("gather_output") is False}
+        if kind == "ParallelCrossEntropy":
+            case["label"] = rng.integers(0, 256, (2, 8))
+        tp[name] = case
+    sd = {k: v.numpy() for k, v in
+          LlamaForCausalLM(LlamaConfig.tiny()).state_dict().items()}
+    state._device = prev
+    rs = np.random.RandomState(1)
+    batch = (rs.randint(0, 256, (2, 32)), rs.randint(0, 256, (2, 32)))
+    return _par_spawn("card_layer_parallel", {
+        "tp": tp, "dims": {}, "sd": sd, "batch": batch, "steps": 2,
+        "lr": 1e-3}), tp
+
+
+@pytest.mark.parametrize("name", list(LP_LAYERS))
+def test_tp_layer_on_two_ranks_sharing_the_card_matches_one_rank(
+        card_layer_ranks, name):
+    """Each tp layer split over two gloo ranks on the card (fp32, TF32
+    off): its whole output and the gathered gradients of sum(out * w)
+    (the input's too) against the same layer whole on one rank of the
+    card, within 1e-5."""
+    ranks, cases = card_layer_ranks
+    import _torch_ranks as R
+    from paddle_tpu_torch.parallel.mesh import RankMesh
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch._core import state
+    import paddle_tpu_torch.distributed.env as env
+    prev, prev_mesh = state._device, env.get_global_mesh()
+    paddle.set_device("gpu")
+    try:
+        want = R._tp_layer_case(dict(cases[name]),
+                                RankMesh(np.zeros((1,), int), ("tp",), 0))
+    finally:
+        state._device = prev
+        env.set_global_mesh(prev_mesh)
+    for r, res in enumerate(ranks):
+        got = res[name]
+        np.testing.assert_allclose(got["out"], want["out"], rtol=1e-5,
+                                   atol=1e-5, err_msg=f"rank {r}")
+        for k, v in want["grads"].items():
+            np.testing.assert_allclose(got["grads"][k], v, rtol=1e-5,
+                                       atol=1e-5, err_msg=f"rank {r} {k}")
+        if "x_grad" in want:
+            np.testing.assert_allclose(got["x_grad"], want["x_grad"],
+                                       rtol=1e-5, atol=1e-5,
+                                       err_msg=f"rank {r} x_grad")
+
+
+def test_trainer_tp2_on_two_ranks_sharing_the_card_matches_one_rank(
+        card_layer_ranks):
+    """The tiny Layer-tree Llama's Trainer (AdamW, clip 1.0) on tp 2 over
+    two gloo ranks sharing the card against the single-rank Trainer on
+    the card from the same weights: losses within 1e-5 relative,
+    parameters within 2.5 lr a step; each rank runs the flash kernels
+    on its own heads once a layer a step."""
+    ranks, _ = card_layer_ranks
+    L, steps = LlamaConfig.tiny().num_hidden_layers, 2
+    for r, res in enumerate(ranks):
+        one, got = res["single"], res["tp"]
+        assert got["device"].startswith("cuda")
+        assert got["launches"] == one["launches"] == (L * steps,) * 3
+        np.testing.assert_allclose(got["losses"], one["losses"], rtol=1e-5)
+        for k, v in one["params"].items():
+            assert np.abs(got["params"][k] - v).max() <= 2.5e-3 * steps, k

@@ -391,9 +391,9 @@ def test_router_matches_the_reference(stacks, roles):
 
 def test_exports_mirror_the_reference():
     """The packages' `__all__` are the reference's (the fleet plane
-    included), less the training-health checks, which come with their
-    callers (the trainer, item 12; `nn`, item 13)."""
-    training = {"TrainingHealthMonitor", "health_stats", "nan_blame"}
+    and the trainer's health checks included), less `nan_blame`, which
+    hooks `nn` sublayers and comes with item 13b."""
+    training = {"nan_blame"}
     assert set(PSV.__all__) == set(JSV.__all__)
     assert set(PO.__all__) == set(JO.__all__) - training
     for name in PO.__all__:

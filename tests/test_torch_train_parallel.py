@@ -5,8 +5,10 @@ Both packages start from the JAX package's weights and optimizer state
 (the port's ranks take them through `params_from_jax`, then
 `place_params`) and take 2 steps on the same batch, whose labels are
 partly ignored (< 0), on every layout: dp 2 (also with packed
-documents, and with n_micro 2), tp 2, dp 2 x tp 2, pp 2 with GPipe and
-1F1B, pp 4 interleaved (vpp 2), sp 2 ring and sp 4 Ulysses. The JAX side
+documents, and with n_micro 2), tp 2 (also with the fused linear+CE
+head, each chunk over the rank's vocabulary columns), dp 2 x tp 2,
+pp 2 with GPipe and 1F1B, pp 4 interleaved (vpp 2), sp 2 ring and
+sp 4 Ulysses. The JAX side
 runs on conftest's CPU devices, the port's as gloo ranks spawned once
 per world size (`tests/_torch_ranks.py`, a deadline each). The port's
 step-1 gradients and its parameters and optimizer state after the
@@ -70,6 +72,7 @@ LAYOUTS = {
     "dp2_docs": _case(2, {"dp": 2}, batch="docs"),
     "dp2_n_micro2": _case(2, {"dp": 2}, n_micro=2),
     "tp2": _case(2, {"tp": 2}, batch_spec=NO_DP),
+    "tp2_fused_ce": _case(2, {"tp": 2}, batch_spec=NO_DP, fused_ce=True),
     "pp2_gpipe": _case(2, {"pp": 2}, batch_spec=NO_DP, schedule="gpipe"),
     "pp2_1f1b": _case(2, {"pp": 2}, batch_spec=NO_DP, schedule="1f1b",
                       n_micro=2),
@@ -103,9 +106,6 @@ PORT_LIMITS = {
     "tp4_two_kv_heads": (_case(4, {"tp": 4}, refusal=True,
                                batch_spec=NO_DP),
                          "ValueError", "KV heads (2) do not divide"),
-    "tp2_fused_ce": (_case(2, {"tp": 2}, refusal=True, batch_spec=NO_DP,
-                           fused_ce=True),
-                     "NotImplementedError", "item 12b"),
 }
 
 
