@@ -47,7 +47,7 @@ non-zero):
                TF32 off) served by a card engine and a CPU engine from
                the same weights: 4 greedy requests must give identical
                tokens;
-  5. serve   — Llama-3-8B at full width (cut to 16 layers: SERVE_LAYERS;
+  5. serve   — Llama-3-8B at full width (cut to 8 layers: SERVE_LAYERS;
                bf16 random weights from a seed) serving 8 requests
                through run_pipelined(),
                with a bf16 pool and with an int8 pool;
@@ -450,13 +450,47 @@ non-zero):
                against the same layers in sequence (output, input and
                the rank's layers' gradients, the same limit);
 33. layer_parallel — layer_train's model (bf16, multi_precision AdamW,
-               clip 1.0) at depth 4 and full vocabulary on tp 2 through
+               clip 1.0) at depth 2 and full vocabulary on tp 2 through
                `fleet.init` and the Trainer, 6 steps on 2 x 2048 tokens
                in the world of 2: the loss must fall, rows 3-5 once a
                layer a step on each rank; global tokens/s (median of
                steps 2-6) beside layer_train's and the parallel phase's
                functional tp 2, each rank's peak, the collectives'
                calls, bytes and host seconds a rank and step.
+34. family_kernel — rows 3-5 at the wide heads the decoder families
+               run, bf16 and fp32: timed (as train_kernel, the causal
+               half counted) at D = 192, DeepSeek's MLA training shape
+               (B=2, H=32, S=2048), and at D = 256 (B=2, H=16, S=2048),
+               each row with `design`, `library_factor`, `bound_share`
+               (no library-factor limit at these widths) and its
+               instantiation's registers and spill bytes (`ptxas`);
+               then correctness against the plain versions at head dims
+               136, 192, 200 and 256, causal and not, one query row
+               against 64 and 1500 keys without causal (GPT-2's cached
+               step) at 64 and 192, and the FlashMask and varlen kernels
+               at 192 and 256 on packed documents and a ragged axis;
+35. family_parity — the decoder families on the card against the CPU,
+               fp32, TF32 off, from the same weights (drawn on the card
+               after paddle.seed(0), copied): Qwen2 at qwen2_7b()
+               widths, 1 layer, vocabulary 4096; GPT-2 at GPT2Config()
+               widths, 2 layers; the MoE LLM at MoEConfig() widths, 1
+               layer, vocabulary 4096; DeepSeek at DeepSeekConfig()
+               widths, 2 layers (one dense, one MoE), vocabulary 4096;
+               batch 1 x 128: the logits, 16 greedy tokens from a
+               32-token prompt (GPT-2's KV-cached decode, Qwen2's eager
+               loop) identical, then 2 of layer_parity's steps
+               under train_parity's limits, rows 3-5 launched as the
+               forwards and steps imply; and models.llama_decode at
+               llama3_8b widths (1 layer, vocabulary 4096): the prefill's
+               and a step's logits and make_generate's 16 greedy tokens;
+36. family_run — (a) DeepSeek at DeepSeekConfig() widths, 2 layers
+               (1.71 B parameters), bf16 as layer_train trains it, 6
+               steps on 2 x 2048 tokens: the loss must fall and rows 3-5
+               launch once a layer a step at D = 192; median step,
+               tokens/s, peak memory; (b) GPT-2 small (12 layers, bf16)
+               generating 64 greedy tokens for 8 prompts of 64 through
+               its KV-cached decode: output tokens/s and fa_fwd's
+               launches (one query row a layer a step).
 
 After the phases, one line gives each phase's wall seconds
 (`phase_seconds`; the serve phases' shared 8B parameters are built
@@ -471,7 +505,9 @@ launches in each layout of the parallel phases for rows 3-8
 phases for rows 3, 9 and 12-14q (`tp_launches`), the Layer-tree
 Llama's (`layer_launches`: layer_train's for rows 3-5, layer_parity's
 entry points' for rows 6-11), each rank's launches of rows 3-5 under
-the Trainer in the layer phases' layouts (`layer_parallel_launches`)
+the Trainer in the layer phases' layouts (`layer_parallel_launches`),
+the decoder families' launches of rows 3-5 (`family_launches`; rows 3-5
+also appear at D = 192, `*_d192`, with family_run's DeepSeek launches)
 and, for the ragged and verify rows,
 prefix_kernel's shapes (`prefix_kernel`); the last line is {"ok": true,
 "device": {...}}.
@@ -497,7 +533,8 @@ PHASES = ("device", "build", "kernel", "parity", "serve", "train_kernel",
           "prefix_parity", "prefix_serve", "runtime", "fleet",
           "varlen_kernel", "fused_parity", "train_fused", "parallel_parity",
           "parallel", "tp_parity", "tp_serve", "layer_parity", "layer_train",
-          "layer_parallel_parity", "layer_parallel")
+          "layer_parallel_parity", "layer_parallel", "family_kernel",
+          "family_parity", "family_run")
 SOURCES = ("ragged_paged_attention", "flash_attention", "flashmask_attention",
            "varlen_attention", "paged_attention")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
@@ -974,8 +1011,9 @@ def phase_parity(card):
 
 
 # the serve phases' depth: Llama-3-8B's 32 layers cut to 16 to pay for
-# the parallel layer phases (PERF.md §4); every width is the 8B model's
-SERVE_LAYERS = 16
+# the parallel layer phases, then to 8 for the decoder family phases
+# (PERF.md §4); every width is the 8B model's
+SERVE_LAYERS = 8
 SERVE_CONFIG = (f"llama3_8b widths, {SERVE_LAYERS} layers, bf16 random "
                 "weights (seed 0)")
 
@@ -1187,9 +1225,9 @@ PAGED_DESIGN = ("tensor cores: a sequence's columns split over blocks (S = "
 MAX_PAGED_LIBRARY_FACTOR = 1.0
 
 
-def _design_row(row, kname, dname):
+def _design_row(row, kname, dname, enforce=True):
     """Add `design`, `library_factor` and `bound_share` to a kernel row;
-    fail a bf16 tensor-core kernel slower than its limit
+    with `enforce`, fail a bf16 tensor-core kernel slower than its limit
     (MAX_FWD_LIBRARY_FACTOR, MAX_BWD_LIBRARY_FACTOR,
     MAX_RAGGED_LIBRARY_FACTOR, MAX_PAGED_LIBRARY_FACTOR) x its library
     call."""
@@ -1208,7 +1246,7 @@ def _design_row(row, kname, dname):
         row["design"], limit = BWD_DESIGN, MAX_BWD_LIBRARY_FACTOR
     row["library_factor"] = row["kernel_ms"] / row["library_ms"]
     row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
-    if limit is not None and row["library_factor"] > limit:
+    if enforce and limit is not None and row["library_factor"] > limit:
         fail(f"{kname} (bf16): {row['kernel_ms']} ms, "
              f"{row['library_factor']:.2f}x its library call: the "
              "tensor-core kernel did not run at its speed")
@@ -1310,14 +1348,25 @@ def _attn_bound(kernel, dtype, b, h, s, d, pairs, extra_bytes=0):
 
 
 def phase_train_kernel(card):
+    b, h, s, d = (TRAIN_ATTN[x] for x in "BHSD")
+    return _flash_timed(card, "train_kernel", b, h, s, d)
+
+
+def _flash_timed(card, phase, b, h, s, d):
+    """Rows 3-5 at (b, h, s, d), causal, bf16 and fp32: each kernel
+    against its plain version, then timed beside the plain version, the
+    SDPA yardstick and the bound; a row a kernel and dtype, emitted under
+    `phase`. Head dims above 128 run the wide designs (FAMILY_DESIGN),
+    which carry no library-factor limit, and their rows add the
+    instantiation's registers and spill bytes (ptxas)."""
     import math
     import torch
     import torch.nn.functional as F
     import paddle_tpu_torch.ops.flash_attention as fa
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    b, h, s, d = (TRAIN_ATTN[x] for x in "BHSD")
     scale = 1.0 / math.sqrt(d)
+    wide = d > 128
     out = {}
     for dname in ("bfloat16", "float32"):
         dt = getattr(torch, dname)
@@ -1336,18 +1385,20 @@ def phase_train_kernel(card):
         dk_ref, dv_ref = fa.flash_bwd_dkv_reference(*args)
         atol, rtol = TOL[dname]
         errs = _check_kernels(
-            "train_kernel", dname,
+            phase, dname,
             {"flash_fwd": [o], "flash_bwd_dq": [dq],
              "flash_bwd_dkv": [dk, dv]},
             {"flash_fwd": [o_ref], "flash_bwd_dq": [dq_ref],
              "flash_bwd_dkv": [dk_ref, dv_ref]}, lse, lse_ref)
         lse_err = errs["lse"]
         del o, lse, dq, dk, dv, dq_ref, dk_ref, dv_ref
+        reps = 3 if wide and dname == "float32" else 10
         kernel_ms = {
             "flash_fwd": cuda_ms(lambda: fa._launch_fwd(q, k, v, True, scale),
-                                 reps=10),
-            "flash_bwd_dq": cuda_ms(lambda: fa._launch_dq(*args), reps=10),
-            "flash_bwd_dkv": cuda_ms(lambda: fa._launch_dkv(*args), reps=10)}
+                                 reps=reps),
+            "flash_bwd_dq": cuda_ms(lambda: fa._launch_dq(*args), reps=reps),
+            "flash_bwd_dkv": cuda_ms(lambda: fa._launch_dkv(*args),
+                                     reps=reps)}
         plain_ms = {
             "flash_fwd": cuda_ms(lambda: fa.flash_fwd_reference(
                 q, k, v, True, scale), reps=3, warmup=1),
@@ -1368,7 +1419,7 @@ def phase_train_kernel(card):
         for kname in FLASH_KERNELS:
             bound_ms, bound_by, nbytes, flops = _attn_bound(
                 kname, dname, b, h, s, d, b * h * s * (s + 1) // 2)
-            row = {"phase": "train_kernel", "card": card, "kernel": kname,
+            row = {"phase": phase, "card": card, "kernel": kname,
                    "dtype": dname, "shape_bhsd": [b, h, s, d],
                    "causal": True, "atol": atol, "rtol": rtol,
                    "max_abs_err": errs[kname], "kernel_ms": kernel_ms[kname],
@@ -1385,7 +1436,11 @@ def phase_train_kernel(card):
                 row["pair_library_factor"] = (
                     kernel_ms["flash_bwd_dq"] + kernel_ms["flash_bwd_dkv"]) \
                     / lib_bwd
-            emit(_design_row(row, kname, dname))
+            _design_row(row, kname, dname, enforce=not wide)
+            if wide:
+                row["design"] = FAMILY_DESIGN[dname]
+                row["ptxas"] = _flash_ptxas(kname, dname, d)
+            emit(row)
             out[(kname, dname)] = row
         del q, k, v, do, qg, kg, vg, args, o_ref, lse_ref, delta
         torch.cuda.empty_cache()
@@ -4832,7 +4887,8 @@ PARALLEL_PARITY_LAYOUTS = {
 PARALLEL_PARITY_KINDS = {"plain": ("plain", 2), "packed": ("packed", 2),
                          "plain_deep": ("plain", 4)}
 PARALLEL_LAYOUTS = {
-    "tp2": (2, {"tp": 2}, {"batch_spec": ()}, 4),
+    # tp 2 at 2 layers (a depth cut, PERF.md §4), beside layer_parallel's tp 2
+    "tp2": (2, {"tp": 2}, {"batch_spec": ()}, 2),
     # depths cut to pay for the layer phases (PERF.md §4): pp 2 and
     # Ulysses at 2 layers, dp at 1 (two full replicas of the 4-layer
     # model, 42.8 GB each, do not fit one card anyway)
@@ -6216,7 +6272,7 @@ LAYER_MOE_AUX = 0.01
 # eight LayerDesc(nn.Linear, 4096, 4096) staged over pp 2, x (4, 256,
 # 4096) fp32 in 2 microbatches
 LAYER_PIPE = dict(layers=8, width=4096, batch=(4, 256), n_micro=2)
-LAYER_PARALLEL_LAYERS = 4
+LAYER_PARALLEL_LAYERS = 2   # cut from 4 to pay for the family phases
 LAYER_PARALLEL_STEPS = 6
 LAYER_PARALLEL_CONFIG = (
     "LlamaForCausalLM (Layer tree) at llama3_8b widths, "
@@ -6699,6 +6755,538 @@ def phase_layer_parallel(card, spawned, ltrain, par):
     return row
 
 
+# ------------------------------------------------- the decoder families
+# family_kernel's timed shapes, causal: DeepSeek's MLA training shape at
+# D = 192 (qk_nope 128 + qk_rope 64) and a D = 256 one
+FAMILY_ATTN = {192: (2, 32, 2048), 256: (2, 16, 2048)}
+FAMILY_DESIGN = {
+    "bfloat16": "tensor cores: mma.sync m16n8k16, cp.async ring of 2, P and "
+                "dS as bf16 hi + lo; a block owns 64 of the output's "
+                "columns (a grid axis) and forms the scores over the whole "
+                "head dim",
+    "float32": "cuda-core fp32; dQ and dK/dV stream the other operands in "
+               "64-dim chunks, a block owns 64 of the output's columns"}
+FAMILY_PARITY_VOCAB = 4096
+FAMILY_PARITY_BATCH = (1, 128)
+FAMILY_PARITY_STEPS = 2
+# family_parity's limit on the update of a leaf drawn at zero or of a MoE
+# router (see _family_parity_one): AdamW's update is a ratio of the
+# gradients' moments, so its relative error may reach twice theirs
+FAMILY_UPDATE_RTOL = 2 * PARITY_GRAD_RTOL
+FAMILY_GEN_NEW = 16          # greedy tokens the parity phase generates
+FAMILY_GENERATE = ("qwen2", "gpt2")   # the families with a generate
+# family_parity's models: name -> (config constructor, layers, vocab cut)
+FAMILY_PARITY = {"qwen2": ("qwen2_7b", 1, True), "gpt2": ("gpt2", 2, False),
+                 "moe": ("moe", 1, True), "deepseek": ("deepseek", 2, True)}
+FAMILY_RUN_LAYERS = 2
+FAMILY_RUN_STEPS = 6
+FAMILY_RUN_CONFIG = ("DeepSeekForCausalLM at DeepSeekConfig() widths "
+                     "(hidden 4096, 32 heads, MLA: kv_lora 512, qk 128 + 64, "
+                     "v 128; FFN 11008, 8 routed experts top 2 + 1 shared), "
+                     f"{FAMILY_RUN_LAYERS} layers (one dense, one MoE), "
+                     "vocabulary 32000, model.bfloat16(), "
+                     "AdamW(multi_precision=True, lr 3e-4) + "
+                     "ClipGradByGlobalNorm(1.0), random weights (seed 0), "
+                     "batch 2 x 2048")
+FAMILY_GPT2_PROMPTS = (8, 64)
+FAMILY_GPT2_NEW = 64
+
+
+def _flash_ptxas(kname, dname, dp):
+    """The registers and spill bytes of row kname's instantiation at
+    padded head dim dp (from the build's ptxas report), or None."""
+    from paddle_tpu_torch.kernels import _build
+    kind = {"flash_fwd": "fwd", "flash_bwd_dq": "dq",
+            "flash_bwd_dkv": "dkv"}[kname]
+    label = (f"{kind}_tc_kernel<{dp}, FlashPolicy>" if dname == "bfloat16"
+             else f"{kind}_kernel<{dp}>")
+    for k in _ptxas_kernels(_build.ptxas_report("flash_attention")):
+        if k["kernel"] == label:
+            return k
+    return None
+
+
+def _family_flash_case(dt, b, h, sq, sk, d, causal, seed):
+    """Rows 3-5 on one case against their plain versions: the largest
+    |error| of o, dq, dk, dv (fails past TOL) and of lse."""
+    import math
+    import torch
+    import paddle_tpu_torch.ops.flash_attention as fa
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    q, do = (torch.randn((b, h, sq, d), generator=g, device="cuda").to(dt)
+             for _ in range(2))
+    k, v = (torch.randn((b, h, sk, d), generator=g, device="cuda").to(dt)
+            for _ in range(2))
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fa._launch_fwd(q, k, v, causal, scale)
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal, scale)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    args = (q, k, v, do, lse_ref, delta, causal, scale)
+    dq = fa._launch_dq(*args)
+    dk, dv = fa._launch_dkv(*args)
+    torch.cuda.synchronize()
+    dname = str(dt).split(".")[1]
+    label = f"family_kernel flash d={d} sq={sq} sk={sk} causal={causal}"
+    errs = _check_kernels(
+        label, dname, {"o": [o], "dq": [dq], "dkv": [dk, dv]},
+        {"o": [o_ref], "dq": [fa.flash_bwd_dq_reference(*args)],
+         "dkv": list(fa.flash_bwd_dkv_reference(*args))}, lse, lse_ref)
+    return max(errs.values())
+
+
+def _family_flashmask_case(dt, d, seed):
+    """The FlashMask kernels at head dim d on packed documents (causal,
+    the (B, 1, S, 1) doc-end mask of three documents in 300 tokens)."""
+    import math
+    import numpy as np
+    import torch
+    import paddle_tpu_torch.ops.flashmask_attention as fm
+    b, h, s = 2, 4, 300
+    ends = np.repeat([120, 190, 300], [120, 70, 110])
+    sri = torch.from_numpy(np.ascontiguousarray(np.broadcast_to(
+        ends[None, None, :, None], (b, 1, s, 1)), dtype=np.int32)).to("cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    q, k, v, do = (torch.randn((b, h, s, d), generator=g,
+                               device="cuda").to(dt) for _ in range(4))
+    m = fm._Mask(True, None, 1.0 / math.sqrt(d), 0.0, None)
+    o, lse, _ = fm._launch_fwd(q, k, v, sri, m, count_tiles=True)
+    o_ref, lse_ref = fm.flashmask_fwd_reference(q, k, v, sri, *m)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    args = (q, k, v, sri, do, lse_ref, delta)
+    dq, _ = fm._launch_dq(*args, m, count_tiles=True)
+    dk, dv, _ = fm._launch_dkv(*args, m, count_tiles=True)
+    torch.cuda.synchronize()
+    errs = _check_kernels(
+        f"family_kernel flashmask d={d}", str(dt).split(".")[1],
+        {"o": [o], "dq": [dq], "dkv": [dk, dv]},
+        {"o": [o_ref], "dq": [fm.flashmask_bwd_dq_reference(*args, *m)],
+         "dkv": list(fm.flashmask_bwd_dkv_reference(*args, *m))},
+        lse, lse_ref)
+    return max(errs.values())
+
+
+def _family_varlen_case(dt, d, seed):
+    """The varlen kernels at head dim d on one ragged axis (segments of
+    70, 1, 130 and 64 tokens and 35 pads in 300; 4 query heads over 2
+    KV heads, causal)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch.ops.varlen_attention as va
+    lens = [70, 1, 130, 64]
+    seg = np.full((300,), -1, np.int32)
+    seg[:sum(lens)] = np.repeat(np.arange(len(lens)), lens)
+    seg = torch.from_numpy(seg).to("cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    q, do = (torch.randn((300, 4, d), generator=g, device="cuda").to(dt)
+             for _ in range(2))
+    k, v = (torch.randn((300, 2, d), generator=g, device="cuda").to(dt)
+            for _ in range(2))
+    scale = d ** -0.5
+    sq, sk = va._sentinels(seg, seg)
+    o, lse = va._launch_fwd(q, k, v, sq, sk, True, scale, True)
+    o_ref, lse_ref, delta, dq_ref, dk_ref, dv_ref = _varlen_bwd_plain(
+        q, k, v, do, seg, seg, True, scale)
+    args = (q, k, v, do, lse_ref, delta, sq, sk, True, scale)
+    dq = va._launch_bwd_dq(*args, True)
+    dk, dv = va._launch_bwd_dkv(*args, True)
+    torch.cuda.synchronize()
+    errs = _check_kernels(
+        f"family_kernel varlen d={d}", str(dt).split(".")[1],
+        {"o": [o], "dq": [dq], "dkv": [dk, dv]},
+        {"o": [o_ref], "dq": [dq_ref], "dkv": [dk_ref, dv_ref]}, lse,
+        lse_ref)
+    return max(errs.values())
+
+
+def phase_family_kernel(card):
+    """Rows 3-5 at the wide heads: timed at FAMILY_ATTN (`_flash_timed`),
+    then correctness cases, bf16 and fp32: head dims 136, 192, 200 and
+    256 (136 and 200 run at 192 and 256), causal and not; one query row
+    against 64 and 1500 keys without causal (GPT-2's cached step) at 64
+    and 192; FlashMask and varlen at 192 and 256."""
+    import torch
+    out = {}
+    for d, (b, h, s) in FAMILY_ATTN.items():
+        for key, row in _flash_timed(card, "family_kernel", b, h, s,
+                                     d).items():
+            out[(*key, d)] = row
+        gc_cuda()
+    cases = {}
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        for d in (136, 192, 200, 256):
+            for causal in (False, True):
+                cases[f"flash d={d} s=200 causal={causal} {dname}"] = \
+                    _family_flash_case(dt, 2, 4, 200, 200, d, causal, d)
+        for d in (64, 192):
+            for sk in (64, 1500):
+                cases[f"flash d={d} sq=1 sk={sk} {dname}"] = \
+                    _family_flash_case(dt, 8, 12, 1, sk, d, False, sk + d)
+        for d in (192, 256):
+            cases[f"flashmask d={d} {dname}"] = \
+                _family_flashmask_case(dt, d, d)
+            cases[f"varlen d={d} {dname}"] = _family_varlen_case(dt, d, d)
+    emit({"phase": "family_kernel", "card": card, "cases": len(cases),
+          "max_abs_err": cases})
+    return out
+
+
+def _family_config(name):
+    """family_parity's config for `name` (FAMILY_PARITY): the family's
+    published widths, depth and vocabulary cut, dropout 0."""
+    from paddle_tpu_torch.models import (DeepSeekConfig, GPT2Config,
+                                         MoEConfig, Qwen2Config)
+    ctor, layers, cut = FAMILY_PARITY[name]
+    cfg = {"qwen2_7b": Qwen2Config.qwen2_7b, "gpt2": GPT2Config,
+           "moe": MoEConfig, "deepseek": DeepSeekConfig}[ctor]()
+    kw = {"num_hidden_layers": layers}
+    if cut:
+        kw["vocab_size"] = FAMILY_PARITY_VOCAB
+    if name == "gpt2":
+        kw["dropout"] = 0.0
+    return dataclasses.replace(cfg, **kw)
+
+
+def _family_class(name):
+    from paddle_tpu_torch import models as M
+    return {"qwen2": M.Qwen2ForCausalLM, "gpt2": M.GPT2LMHeadModel,
+            "moe": M.MoEForCausalLM, "deepseek": M.DeepSeekForCausalLM}[name]
+
+
+def _family_close(name, what, a, c):
+    """a (card) against c (CPU): |a - c| <= 1e-3 |c| + 1e-4 max |c|, as
+    train_parity holds gradients; returns the worst share of it. Compared
+    on the card (a leaf of 1.1 B elements takes seconds on the CPU)."""
+    import torch
+    a, c = (t.to("cuda", torch.float32) for t in (a, c))
+    allowed = (PARITY_GRAD_RTOL * c.abs()
+               + PARITY_GRAD_SCALE * float(c.abs().max()) + 1e-30)
+    worst = float(((a - c).abs() / allowed).max())
+    if worst > 1.0:
+        fail(f"family_parity {name}: {what} off, worst {worst} of the "
+             "tolerance")
+    return worst
+
+
+def _record_routing():
+    """Records each parallel.moe.top_k_gating call's choices until the
+    returned function is called, which restores it and returns them: a
+    (T, E) int16 tensor a call, a token's slot + 1 at an expert that takes
+    it and 0 elsewhere."""
+    import torch
+    from paddle_tpu_torch.parallel import moe
+    orig, calls = moe.top_k_gating, []
+
+    def recorded(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        d = out[0].detach()
+        calls.append(((d.argmax(-1) + 1) * (d.sum(-1) > 0)).to(
+            "cpu", torch.int16))
+        return out
+
+    moe.top_k_gating = recorded
+
+    def done():
+        moe.top_k_gating = orig
+        return calls
+    return done
+
+
+def _family_parity_one(card, name):
+    """One family on the card and on the CPU from the same weights (drawn
+    on the card after paddle.seed(0), copied): the logits of one batch,
+    greedy generation (GPT-2's KV-cached decode, or the eager loop), then
+    layer_parity's steps (`_layer_steps`) under train_parity's limits;
+    rows 3-5 launched as the forwards and steps imply."""
+    import copy
+    import torch
+    cfg = _family_config(name)
+    paddle = _paddle("gpu:0")
+    paddle.seed(0)
+    t0 = time.perf_counter()
+    model = _family_class(name)(cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    names = [n for n, _ in model.named_parameters()]
+    drawn_zero = [not bool(p._value.any()) for p in model.parameters()]
+    # leaves held by their update (FAMILY_UPDATE_RTOL), as drawn
+    by_update = {n: p._value.detach().cpu().clone()
+                 for (n, p), z in zip(model.named_parameters(), drawn_zero)
+                 if z or n.endswith("gate_weight")}
+    cpu_model = copy.deepcopy(model).to("cpu")
+    batch = _layer_batch(cfg.vocab_size, *FAMILY_PARITY_BATCH, seed=11)
+    prompt = batch[0][:, :32]
+    res = {}
+    for dev, m in (("gpu:0", model), ("cpu", cpu_model)):
+        paddle = _paddle(dev)
+        _reset_train_counts()
+        routes = _record_routing()
+        t0 = time.perf_counter()
+        try:
+            with paddle.no_grad():
+                logits = m(paddle.to_tensor(batch[0]))._value.float().cpu()
+            # GPT-2's own KV-cached decode, Qwen2's the eager loop (MoE
+            # and DeepSeek have no generate, as in JAX)
+            gen = m.generate(paddle.to_tensor(prompt),
+                             max_new_tokens=FAMILY_GEN_NEW,
+                             temperature=0.0).numpy() \
+                if name in FAMILY_GENERATE else None
+            losses, first, lrs = _layer_steps(paddle, m, batch,
+                                              FAMILY_PARITY_STEPS)
+        finally:
+            routes = routes()
+        res[dev] = {"logits": logits, "gen": gen, "losses": losses,
+                    "grads": first, "lrs": lrs, "routes": routes,
+                    "params": [p._value.detach().cpu()
+                               for p in m.parameters()],
+                    "launches": _train_counts(),
+                    "seconds": time.perf_counter() - t0}
+    del model, cpu_model
+    gc_cuda()
+    gpu, cpu = res["gpu:0"], res["cpu"]
+    L, steps = cfg.num_hidden_layers, FAMILY_PARITY_STEPS
+    # the logits forward, the generation's forwards (GPT-2: the prefill
+    # and one a new token; the eager loop: one a new token), then steps
+    gen_fwd = (FAMILY_GEN_NEW + (name == "gpt2")) \
+        if name in FAMILY_GENERATE else 0
+    want = {k: 0 for k in gpu["launches"]}
+    want.update({"flash_fwd": L * (1 + gen_fwd + steps),
+                 "flash_bwd_dq": L * steps, "flash_bwd_dkv": L * steps})
+    if gpu["launches"] != want:
+        fail(f"family_parity {name}: launches {gpu['launches']}, want "
+             f"{want}")
+    if any(cpu["launches"].values()):
+        fail(f"family_parity {name}: the CPU launched a CUDA kernel")
+    logit_worst = _family_close(name, "logits", gpu["logits"], cpu["logits"])
+    if gpu["gen"] is not None and not (gpu["gen"] == cpu["gen"]).all():
+        fail(f"family_parity {name}: greedy tokens differ: "
+             f"{gpu['gen'].tolist()} vs {cpu['gen'].tolist()}")
+    loss_err = [abs(a - c) for a, c in zip(gpu["losses"], cpu["losses"])]
+    if any(e > 1e-5 * abs(c) + 1e-5
+           for e, c in zip(loss_err, cpu["losses"])):
+        fail(f"family_parity {name}: losses {gpu['losses']} vs "
+             f"{cpu['losses']}")
+    grad_worst = max(_family_close(name, "step-1 gradients", a, c)
+                     for a, c in zip(gpu["grads"], cpu["grads"]))
+    # MoE routing: the tokens whose (expert, slot) choices differ between
+    # card and CPU, for each top_k_gating call in order (the logits
+    # forward, then one a MoE layer a step)
+    if len(gpu["routes"]) != len(cpu["routes"]):
+        fail(f"family_parity {name}: {len(gpu['routes'])} routing calls on "
+             f"the card, {len(cpu['routes'])} on the CPU")
+    route_diff = [int((a != c).any(-1).sum())
+                  for a, c in zip(gpu["routes"], cpu["routes"])]
+    # Each leaf after the steps, as _step_parity holds it: its largest
+    # element error within 2.5 lr a step, and its error's norm within
+    # 1e-5 of its own norm. The leaves in `by_update` are held instead by
+    # what the steps moved them, over the elements whose step-1 gradient
+    # lies above the gradient limit's floor (PARITY_GRAD_SCALE of the
+    # leaf's largest; below it that limit holds no sign, and AdamW moves
+    # an element by about lr whatever its gradient's size):
+    # |err| <= FAMILY_UPDATE_RTOL |update|. A leaf drawn at zero (Qwen2's
+    # q/k/v biases, GPT-2's biases) is its update alone, so 1e-5 of its
+    # norm asks the update for more than its gradients hold (2.0e-3 for
+    # Qwen2's k bias over all elements, 1.2e-4 of its update above the
+    # floor). A router's `gate_weight` moves about 1% of its norm in two
+    # steps, and DeepSeek's update lies 1.3e-3 from the CPU's (1.3e-5 of
+    # the leaf) with every routing choice equal on both sides
+    # (`routing_tokens_differ`). (on the card, a leaf at a time)
+    p_err, rel, upd = 0.0, {}, {}
+    for n, a, c, g in zip(names, gpu["params"], cpu["params"], cpu["grads"]):
+        a, c, g = (t.to("cuda", torch.float32) for t in (a, c, g))
+        p_err = max(p_err, float((a - c).abs().max()))
+        rel[n] = float((a - c).norm() / c.norm())
+        if n in by_update:
+            kept = g.abs() >= PARITY_GRAD_SCALE * float(g.abs().max())
+            moved = c - by_update[n].to("cuda", torch.float32)
+            upd[n] = float((a - c)[kept].norm() / moved[kept].norm())
+        del a, c, g
+    held = {n: e for n, e in rel.items() if n not in upd}
+    worst_leaf = max(held, key=held.get)
+    p_rel = held[worst_leaf]
+    if p_err > 2.5 * sum(gpu["lrs"]) or p_rel > 1e-5:
+        fail(f"family_parity {name}: parameters off by {p_err} (relative "
+             f"norm {p_rel}, {worst_leaf})")
+    if upd and max(upd.values()) > FAMILY_UPDATE_RTOL:
+        fail(f"family_parity {name}: updates off {upd}")
+    return {"config": {k: v for k, v in dataclasses.asdict(cfg).items()
+                       if not isinstance(v, (dict, list))},
+            "batch": list(FAMILY_PARITY_BATCH), "steps": steps,
+            "losses_cuda": gpu["losses"], "losses_cpu": cpu["losses"],
+            "loss_abs_err": loss_err, "logits_worst_share_of_tol":
+            logit_worst, "grad_worst_share_of_tol": grad_worst,
+            "param_max_abs_err": p_err, "param_max_rel_norm_err": p_rel,
+            "param_worst_leaf": worst_leaf, "update_rel_norm_err": upd,
+            "by_update_rel_norm": {n: rel[n] for n in upd},
+            "routing_calls": len(route_diff),
+            "routing_tokens_differ": route_diff,
+            "greedy_tokens": FAMILY_GEN_NEW if gpu["gen"] is not None
+            else 0,
+            "launches": gpu["launches"], "params_init_s": init_s,
+            "cuda_seconds": gpu["seconds"], "cpu_seconds": cpu["seconds"]}
+
+
+def _family_decode_parity():
+    """models.llama_decode at llama3_8b widths (1 layer, vocabulary
+    4096, fp32, TF32 off) on llama_spmd.init_params weights, card against
+    CPU: the prefill's and one step's logits (train_parity's gradient
+    limit) and make_generate's greedy tokens, identical."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import llama_decode as D
+    from paddle_tpu_torch.models import llama_spmd as T
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_hidden_layers=1,
+                              vocab_size=FAMILY_PARITY_VOCAB)
+    cpu_params = T.init_params(cfg, seed=0, dtype=torch.float32,
+                               device="cpu")
+    ids = torch.from_numpy(np.random.default_rng(12).integers(
+        0, cfg.vocab_size, (2, 32)))
+    gen = D.make_generate(cfg, 64, FAMILY_GEN_NEW)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        params = _tree_to(cpu_params, dev)
+        cache = D.init_cache(cfg, 2, 64, device=dev)
+        t0 = time.perf_counter()
+        pre, cache = D.forward_with_cache(params, ids.to(dev), cache, 0, cfg)
+        step, _ = D.forward_with_cache(params, ids[:, :1].to(dev), cache,
+                                       32, cfg)
+        toks = gen(params, ids.to(dev)).cpu()
+        res[dev] = {"logits": [pre.cpu(), step.cpu()], "tokens": toks,
+                    "seconds": time.perf_counter() - t0}
+        del params, cache
+    gc_cuda()
+    worst = max(_family_close("llama_decode", "logits", a, c) for a, c in
+                zip(res["cuda"]["logits"], res["cpu"]["logits"]))
+    if not torch.equal(res["cuda"]["tokens"], res["cpu"]["tokens"]):
+        fail("family_parity llama_decode: greedy tokens differ")
+    return {"config": "llama3_8b widths, 1 layer, vocab 4096, fp32, "
+                      "prompt 2 x 32, max_len 64",
+            "logits_worst_share_of_tol": worst,
+            "greedy_tokens": FAMILY_GEN_NEW,
+            "cuda_seconds": res["cuda"]["seconds"],
+            "cpu_seconds": res["cpu"]["seconds"]}
+
+
+def phase_family_parity(card):
+    """Each decoder family (FAMILY_PARITY) and llama_decode, card against
+    CPU, fp32, TF32 off (`_family_parity_one`, `_family_decode_parity`)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for name in FAMILY_PARITY:
+        out[name] = _family_parity_one(card, name)
+        emit({"phase": "family_parity", "card": card, "family": name,
+              **out[name]})
+    out["llama_decode"] = _family_decode_parity()
+    emit({"phase": "family_parity", "card": card, "family": "llama_decode",
+          **out["llama_decode"]})
+    return out
+
+
+def phase_family_run(card):
+    """(a) DeepSeek at DeepSeekConfig() widths, FAMILY_RUN_LAYERS layers,
+    bf16 (FAMILY_RUN_CONFIG), FAMILY_RUN_STEPS steps as layer_train takes
+    them: the loss must fall and rows 3-5 launch once a layer a step at
+    D = 192; median step (2-6), tokens/s, peak memory. (b) GPT-2 small
+    (GPT2Config(), 12 layers, bf16) generating FAMILY_GPT2_NEW greedy
+    tokens for 8 prompts of 64 through its KV-cached decode: output
+    tokens/s and fa_fwd's launches (the prefill's and one query row a
+    layer a step)."""
+    import statistics as st
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import (DeepSeekConfig, DeepSeekForCausalLM,
+                                         GPT2Config, GPT2LMHeadModel)
+    gc_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(DeepSeekConfig(),
+                              num_hidden_layers=FAMILY_RUN_LAYERS)
+    paddle = _paddle("gpu:0")
+    paddle.seed(0)
+    t0 = time.perf_counter()
+    model = DeepSeekForCausalLM(cfg).bfloat16()
+    n_params = sum(p._value.numel() for p in model.parameters())
+    opt = paddle.optimizer.AdamW(
+        3e-4, parameters=model.parameters(), multi_precision=True,
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+    ids, labels = (paddle.to_tensor(a) for a in
+                   _layer_batch(cfg.vocab_size, 2, 2048, seed=13))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    _reset_train_counts()
+    losses, times = [], []
+    for _ in range(FAMILY_RUN_STEPS):
+        t0 = time.perf_counter()
+        loss, _ = model(ids, labels=labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+    launches = _train_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del model, opt, ids, labels, loss
+    gc_cuda()
+    L, n = FAMILY_RUN_LAYERS, FAMILY_RUN_STEPS
+    want = {k: 0 for k in launches}
+    want.update({"flash_fwd": L * n, "flash_bwd_dq": L * n,
+                 "flash_bwd_dkv": L * n})
+    if launches != want:
+        fail(f"family_run deepseek: launches {launches}, want {want}")
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        fail(f"family_run deepseek: losses {losses}")
+    step_s = st.median(times[1:])
+    ds = {"phase": "family_run", "card": card, "model": "deepseek",
+          "config": FAMILY_RUN_CONFIG, "params": n_params,
+          "head_dim": cfg.qk_nope_head_dim + cfg.qk_rope_head_dim,
+          "losses": losses, "step_seconds": times,
+          "median_step_ms": step_s * 1e3,
+          "tokens_per_s": 2 * 2048 / step_s, "peak_gb": peak,
+          "params_init_s": init_s, "launches": launches}
+    emit(ds)
+
+    gcfg = GPT2Config()
+    paddle.seed(1)
+    model = GPT2LMHeadModel(gcfg).bfloat16()
+    model.eval()
+    b, plen = FAMILY_GPT2_PROMPTS
+    prompt = paddle.to_tensor(np.random.default_rng(14).integers(
+        0, gcfg.vocab_size, (b, plen)))
+    model.generate(prompt, max_new_tokens=2, temperature=0.0)   # warm-up
+    _reset_train_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.generate(prompt, max_new_tokens=FAMILY_GPT2_NEW,
+                         temperature=0.0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    gl = _train_counts()
+    del model
+    gc_cuda()
+    nl = gcfg.num_hidden_layers
+    if out.shape != [b, plen + FAMILY_GPT2_NEW] or \
+            gl["flash_fwd"] != nl * (1 + FAMILY_GPT2_NEW) or \
+            gl["flash_bwd_dq"] or gl["flash_bwd_dkv"]:
+        fail(f"family_run gpt2: output {out.shape}, launches {gl}")
+    gpt = {"phase": "family_run", "card": card, "model": "gpt2",
+           "config": "GPT2Config() (12 layers, 768 wide, 12 heads of 64, "
+                     "vocabulary 50257), bf16, random weights (seed 1), "
+                     f"{b} prompts of {plen}, {FAMILY_GPT2_NEW} greedy "
+                     "tokens, KV-cached generate",
+           "seconds": secs, "output_tokens_per_s":
+           b * FAMILY_GPT2_NEW / secs, "launches": gl,
+           "fa_fwd_sq1_launches": nl * FAMILY_GPT2_NEW,
+           "fa_fwd_prefill_launches": nl}
+    emit(gpt)
+    return {"deepseek": ds, "gpt2": gpt}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -6719,6 +7307,9 @@ def main(argv=None):
         t0 = time.perf_counter()
         out = fn(*args)
         secs[phase] = time.perf_counter() - t0
+        # as each phase ends, so that a run cut short still tells them
+        print(f"chip_smoke: {phase} {secs[phase]:.1f} s", file=sys.stderr,
+              flush=True)
         return out
 
     smi, name = timed("device", phase_device)
@@ -6818,6 +7409,12 @@ def main(argv=None):
                 spawned) if "layer_parallel_parity" in phases else {}
     lparallel = timed("layer_parallel", phase_layer_parallel, smi, spawned,
                       ltrain, par) if "layer_parallel" in phases else {}
+    fk = timed("family_kernel", phase_family_kernel, smi) \
+        if "family_kernel" in phases else {}
+    fpar = timed("family_parity", phase_family_parity, smi) \
+        if "family_parity" in phases else {}
+    frun = timed("family_run", phase_family_run, smi) \
+        if "family_run" in phases else {}
     emit({"phase_seconds": secs})
     # launches the prefix_serve runs added, by kernel (the returning turns
     # of the multi-turn runs, the whole system-prompt runs)
@@ -6853,6 +7450,23 @@ def main(argv=None):
             "max_abs_err": k["max_abs_err"], "ms": k["kernel_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+    for kname in FLASH_KERNELS:
+        # rows 3-5 at DeepSeek's head dim: launched by family_run's
+        # DeepSeek (D = 192 is all its attention runs)
+        k = fk.get((kname, "bfloat16", 192))
+        if k is None:
+            continue
+        kernels.append({
+            "name": f"{kname}_d192", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+            "replaces": FLASH_TPU_KERNELS[kname],
+            "launches": frun["deepseek"]["launches"][kname] if frun
+            else None,
+            "max_abs_err": k["max_abs_err"], "ms": k["kernel_ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+            "design": k["design"], "library_factor": k["library_factor"],
+            "ptxas": k["ptxas"]})
     for kname in FLASHMASK_KERNELS:
         k = mk.get((kname, "bfloat16"))
         if k is None:
@@ -6940,6 +7554,22 @@ def main(argv=None):
         # the Layer-tree Llama's launches: layer_train's run for rows
         # 3-5, the entry points' calls of layer_parity for rows 6-11
         # (None for the others)
+        # the decoder families' launches of rows 3-5: each
+        # family_parity model (the card side: its logits forward,
+        # generation and steps) and family_run's two runs; on the D = 192
+        # rows DeepSeek's alone (the others run 64 and 128)
+        kn, d192 = row["name"].removesuffix("_d192"), \
+            row["name"].endswith("_d192")
+        if kn in FLASH_KERNELS and (fpar or frun):
+            row["family_launches"] = {
+                **{f"family_parity {n}": r["launches"][kn]
+                   for n, r in fpar.items() if "launches" in r
+                   and (n == "deepseek" or not d192)},
+                **{f"family_run {n}": r["launches"][kn]
+                   for n, r in frun.items()
+                   if n == "deepseek" or not d192}}
+        else:
+            row["family_launches"] = None
         row["layer_launches"] = ltrain.get("launches", {}).get(
             row["name"]) if row["name"] in FLASH_KERNELS else \
             lpar.get("entry_points", {}).get("launches", {}).get(

@@ -61,6 +61,15 @@
 //     A policy with a per-row test (kRowTest) is asked for its two keys'
 //     test data the same way, and tests them against the q tile's row
 //     data staged beside lse and delta.
+//   * Wide heads (DP = 192 or 256): a block owns 64 columns of its output
+//     (`out_cols`, the chunk a grid axis folded into x beside the slices),
+//     as in the forward. It forms S and dP (or S^T and dP^T) over the
+//     whole head dim from DP-wide tiles and accumulates only its columns
+//     of dQ (from K's) or of dK and dV (from Q's and dO's). The two 16 x
+//     DP fp32 accumulators of the dK/dV loop would take 256 registers a
+//     thread at DP = 256; a chunk takes 64. Chunk 0 alone counts tiles.
+//     Shared memory stays six DP-wide tiles: 192 KB at DP = 256, one block
+//     an SM.
 //   * Masking selects 0 for every dropped pair after its product, so a
 //     row past sq (lse and delta zero-filled) or a row that keeps nothing
 //     (lse = -1e30) never brings an inf into a sum.
@@ -106,6 +115,7 @@ using attn_fwd_sm90::load_tile;
 using attn_fwd_sm90::mma_bf16;
 using attn_fwd_sm90::mma_rows;
 using attn_fwd_sm90::operands_ok;
+using attn_fwd_sm90::out_cols;
 using attn_fwd_sm90::pack_bf16;
 using attn_fwd_sm90::Span;
 using attn_fwd_sm90::split_a;
@@ -161,8 +171,8 @@ inline bool strides_ok(const BwdLayout& l) {
 inline bool strides_ok(const ContiguousBwdLayout&) { return true; }
 
 // Write a warp's 16 x DP fp32 accumulator rows (this thread's rows r_a and
-// r_a + 8 of a (rows, D) slice whose rows lie rs apart) as bf16 pairs;
-// rows past `rows` and dims past D are not written.
+// r_a + 8 of a (rows, D) slice whose rows lie rs apart; DP columns from
+// `out`) as bf16 pairs; rows past `rows` and dims past D are not written.
 template <int DP, class RS>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* out,
                                            const float (*acc)[4], int r_a,
@@ -199,7 +209,9 @@ __global__ void __launch_bounds__(kThreads, 2)
                  __nv_bfloat16* __restrict__ dq, const L lay, int sq, int sk,
                  int D, float scale, P pol, int* __restrict__ tile_count) {
   constexpr int KS = DP / 16;  // k-steps of the score products
-  constexpr int NB = DP / 8;   // 8-dim blocks of dQ
+  constexpr int DV = out_cols<DP>();  // dQ columns of this block
+  constexpr int NCH = DP / DV;
+  constexpr int NB = DV / 8;   // 8-dim blocks of dQ
   constexpr int kTileElems = kTileQ * DP;
   extern __shared__ __align__(128) unsigned char bwd_tc_smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(bwd_tc_smem);
@@ -215,7 +227,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int qt = static_cast<int>(blockIdx.z * gridDim.y + blockIdx.y);
   if (qt >= n_qt) return;  // the last z slice's tail: the whole block
   const int q0 = (n_qt - 1 - qt) * kTileQ;
-  const int bh = blockIdx.x;
+  // x: the slices fastest, then dQ's column chunks
+  const int bh = NCH == 1 ? static_cast<int>(blockIdx.x)
+                          : static_cast<int>(blockIdx.x % (gridDim.x / NCH));
+  const int c0 =
+      NCH == 1 ? 0 : static_cast<int>(blockIdx.x / (gridDim.x / NCH)) * DV;
   const int bkv = bh / lay.group;
   const size_t qoff = static_cast<size_t>(bh) * sq;  // lse and delta
   const __nv_bfloat16* kb = k + bkv * lay.k_hs;
@@ -271,7 +287,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       issue(nxt, st ^ 1, full_nxt);
       cp_async_commit();
     }
-    if (tile_count != nullptr && threadIdx.x == 0) atomicAdd(tile_count, 1);
+    if (tile_count != nullptr && threadIdx.x == 0 && c0 == 0)
+      atomicAdd(tile_count, 1);
     const __nv_bfloat16* ks = kv0 + 2 * st * kTileElems;
     const __nv_bfloat16* vs = ks + kTileElems;
     const unsigned char* extra = extra0 + st * P::kExtraBytes;
@@ -340,13 +357,14 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int t = 0; t < 4; ++t) {
       unsigned hi[4], lo[4];
       split_a(s[2 * t], s[2 * t + 1], hi, lo);
-      mma_rows<DP>(acc, hi, lo, ks, 16 * t);
+      mma_rows<DP, DV>(acc, hi, lo, ks, 16 * t, c0);
     }
     kt = nxt;
     full = full_nxt;
     st ^= 1;
   }
-  store_rows<DP>(dq + bh * lay.dq_hs, acc, row_a, sq, D, lay.dq_rs);
+  store_rows<DV>(dq + bh * lay.dq_hs + c0, acc, row_a, sq, min(D - c0, DV),
+                 lay.dq_rs);
 }
 
 // --------------------------------------------------------------- dK/dV
@@ -408,7 +426,9 @@ __global__ void __launch_bounds__(kThreads, 2)
                   int sk, int D, float scale, P pol,
                   int* __restrict__ tile_count) {
   constexpr int KS = DP / 16;
-  constexpr int NB = DP / 8;
+  constexpr int DV = out_cols<DP>();  // dK and dV columns of this block
+  constexpr int NCH = DP / DV;
+  constexpr int NB = DV / 8;
   constexpr int kTileElems = kTileQ * DP;
   constexpr size_t kExtra = dkv_extra_bytes<P>();
   extern __shared__ __align__(128) unsigned char bwd_tc_smem[];
@@ -434,10 +454,14 @@ __global__ void __launch_bounds__(kThreads, 2)
   // once and stepped to the next slice by the walk; dK and dV's offset is
   // computed here too (computed after the loop, it spilled FmPolicy's
   // loop at DP = 128: 24 bytes)
-  const int bkv = blockIdx.x;
+  // x: the KV slices fastest, then dK and dV's column chunks
+  const int bkv = NCH == 1 ? static_cast<int>(blockIdx.x)
+                           : static_cast<int>(blockIdx.x % (gridDim.x / NCH));
+  const int c0 =
+      NCH == 1 ? 0 : static_cast<int>(blockIdx.x / (gridDim.x / NCH)) * DV;
   const int bh0 = bkv * lay.group;
   size_t qoff = static_cast<size_t>(bh0) * sq;
-  const size_t kvoff = static_cast<size_t>(bkv) * lay.dkv_hs;
+  const size_t kvoff = static_cast<size_t>(bkv) * lay.dkv_hs + c0;
   const __nv_bfloat16* qb = q + bh0 * lay.q_hs;
   const __nv_bfloat16* ob = dout + bh0 * lay.do_hs;
   pol.begin_k(bkv, k0, sq, sk);
@@ -499,7 +523,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       issue(nxt, st ^ 1, full_nxt);
       cp_async_commit();
     }
-    if (tile_count != nullptr && threadIdx.x == 0) atomicAdd(tile_count, 1);
+    if (tile_count != nullptr && threadIdx.x == 0 && c0 == 0)
+      atomicAdd(tile_count, 1);
     const __nv_bfloat16* qs = qd0 + 2 * st * kTileElems;
     const __nv_bfloat16* dos = qs + kTileElems;
     const float* ls = vec0 + 2 * st * kTileQ;
@@ -585,17 +610,17 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int t = 0; t < kSub / 16; ++t) {
         unsigned hi[4], lo[4];
         split_a(s[2 * t], s[2 * t + 1], hi, lo);
-        mma_rows<DP>(dva, hi, lo, dos, kSub * h + 16 * t);
+        mma_rows<DP, DV>(dva, hi, lo, dos, kSub * h + 16 * t, c0);
         split_a(dpt[2 * t], dpt[2 * t + 1], hi, lo);
-        mma_rows<DP>(dka, hi, lo, qs, kSub * h + 16 * t);
+        mma_rows<DP, DV>(dka, hi, lo, qs, kSub * h + 16 * t, c0);
       }
     }
     qt = nxt;
     full = full_nxt;
     st ^= 1;
   }
-  store_rows<DP>(dk + kvoff, dka, key_a, sk, D, lay.dkv_rs);
-  store_rows<DP>(dv + kvoff, dva, key_a, sk, D, lay.dkv_rs);
+  store_rows<DV>(dk + kvoff, dka, key_a, sk, min(D - c0, DV), lay.dkv_rs);
+  store_rows<DV>(dv + kvoff, dva, key_a, sk, min(D - c0, DV), lay.dkv_rs);
 }
 
 // ---------------------------------------------------------------- launch
@@ -612,8 +637,8 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  kernel<<<tile_grid(bh, (sq + kTileQ - 1) / kTileQ), kThreads, smem,
-           stream>>>(
+  kernel<<<tile_grid(bh * (DP / out_cols<DP>()), (sq + kTileQ - 1) / kTileQ),
+           kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
@@ -637,8 +662,9 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  kernel<<<tile_grid(bh / lay.group, (sk + kTileK - 1) / kTileK), kThreads,
-           smem, stream>>>(
+  kernel<<<tile_grid(bh / lay.group * (DP / out_cols<DP>()),
+                     (sk + kTileK - 1) / kTileK),
+           kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
@@ -660,7 +686,7 @@ cudaError_t by_dropout(const P& pol, F f) {
   return f(std::false_type{});
 }
 
-// Dispatch on dropout and the padded head dim (32, 64 or 128), for
+// Dispatch on dropout and the padded head dim (32, 64, 128, 192 or 256), for
 // operands where `lay` says. tile_count: null, or one int to which the
 // number of computed (q tile, k tile, query slice) triples is added.
 template <class P, class L>
@@ -681,7 +707,15 @@ cudaError_t run_dq(const void* q, const void* k, const void* v,
       return launch_dq<64, P, L, kDrop>(q, k, v, dout, lse, delta, dq, lay,
                                         bh, sq, sk, d, scale, pol,
                                         tile_count, stream);
-    return launch_dq<128, P, L, kDrop>(q, k, v, dout, lse, delta, dq, lay,
+    if (d <= 128)
+      return launch_dq<128, P, L, kDrop>(q, k, v, dout, lse, delta, dq, lay,
+                                         bh, sq, sk, d, scale, pol,
+                                         tile_count, stream);
+    if (d <= 192)
+      return launch_dq<192, P, L, kDrop>(q, k, v, dout, lse, delta, dq, lay,
+                                         bh, sq, sk, d, scale, pol,
+                                         tile_count, stream);
+    return launch_dq<256, P, L, kDrop>(q, k, v, dout, lse, delta, dq, lay,
                                        bh, sq, sk, d, scale, pol, tile_count,
                                        stream);
   });
@@ -706,7 +740,15 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v,
       return launch_dkv<64, P, L, kDrop>(q, k, v, dout, lse, delta, dk, dv,
                                          lay, bh, sq, sk, d, scale, pol,
                                          tile_count, stream);
-    return launch_dkv<128, P, L, kDrop>(q, k, v, dout, lse, delta, dk, dv,
+    if (d <= 128)
+      return launch_dkv<128, P, L, kDrop>(q, k, v, dout, lse, delta, dk, dv,
+                                          lay, bh, sq, sk, d, scale, pol,
+                                          tile_count, stream);
+    if (d <= 192)
+      return launch_dkv<192, P, L, kDrop>(q, k, v, dout, lse, delta, dk, dv,
+                                          lay, bh, sq, sk, d, scale, pol,
+                                          tile_count, stream);
+    return launch_dkv<256, P, L, kDrop>(q, k, v, dout, lse, delta, dk, dv,
                                         lay, bh, sq, sk, d, scale, pol,
                                         tile_count, stream);
   });

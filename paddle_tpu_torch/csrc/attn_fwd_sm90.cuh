@@ -23,9 +23,9 @@
 //     (GQA) run side by side, sharing its K/V tiles through L2; warp w owns
 //     rows 16w .. 16w+15.
 //   * Q, K and V tiles live in shared memory as 64 rows of DP bf16 (DP =
-//     32, 64 or 128, the head dim padded), in 16-byte chunks XOR-swizzled
-//     by row, so that every ldmatrix phase reads eight distinct bank
-//     groups. They arrive by cp.async.cg 16-byte copies; rows past the
+//     32, 64, 128, 192 or 256, the head dim padded), in 16-byte chunks
+//     XOR-swizzled by row, so that every ldmatrix phase reads eight
+//     distinct bank groups. They arrive by cp.async.cg 16-byte copies; rows past the
 //     sequence and chunks past D are zero-filled by the copy's source size.
 //     K and V go through a ring of two stages: the copies of the next
 //     kept tile are issued before the current one is computed.
@@ -47,6 +47,17 @@
 //   * Skip decisions come from the policy before any copy is issued, so
 //     the pipeline never waits on a mask. The copies of the next kept
 //     tile are issued right after the one barrier of each tile.
+//   * Wide heads (DP = 192 or 256): a block owns DV = 64 of the output's
+//     columns (`out_cols`), the column chunk a grid axis folded into x
+//     beside the slices. Each block still forms S = Q K^T over the whole
+//     head dim (Q in registers, K tiles DP wide), but holds and writes
+//     only its 64 columns of O, from V tiles 64 wide. The accumulators of
+//     all DP columns (128 registers at DP = 256) beside Q's fragments (64)
+//     and the scores (32) would pass the 255 a thread may hold; a chunk
+//     keeps the registers of DP = 128. Every chunk recomputes the scores
+//     and softmax (the same arithmetic, so the same P); chunk 0 alone
+//     writes lse and counts tiles. Shared memory: Q and K at DP, V at
+//     64: 112 KB at DP = 256, one block an SM.
 //
 // What bounds it: 4 flops per kept pair and head dim against each operand
 // byte once, hundreds of flops a byte at training shapes, so the bf16
@@ -146,6 +157,27 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 }
 
 // ---------------------------------------------------------------- tiles
+// The output columns one block owns at padded head dim DP: all of them up
+// to 128, a chunk of 64 above (the registers of a wider accumulator would
+// spill). The fp32 kernels beside these loops stage their streamed
+// operands in chunks of the same width, and size shared memory and the
+// grid from it on the host.
+__host__ __device__ constexpr int out_cols(int dp) {
+  return dp <= 128 ? dp : 64;
+}
+template <int DP>
+__host__ __device__ constexpr int out_cols() {
+  return out_cols(DP);
+}
+
+// The first dim of the i-th of NCH streamed chunks of DC dims, for a block
+// whose own output chunk is oc: that chunk comes last, so it stays staged
+// for the output product.
+template <int NCH, int DC>
+__device__ __forceinline__ int chunk_at(int i, int oc) {
+  return NCH == 1 ? 0 : (oc + 1 + i) % NCH * DC;
+}
+
 // Element offset of 16-byte chunk c of row r in a [64][DP] bf16 tile. The
 // chunk index is XORed with bits of the row so that eight consecutive
 // rows at one logical chunk sit in eight distinct bank groups: at DP >=
@@ -162,32 +194,60 @@ __device__ __forceinline__ int swz(int r, int c) {
 // rows lie rs elements apart (rs % 8 == 0) into a swizzled tile; rows past
 // `rows` and chunks past D (D % 8 == 0) are zero-filled. The source of a
 // zero-fill is the slice's base, never read. A thread copies one chunk
-// column c of every (kThreads / chunks)-th row, so c and the row's swizzle
-// bits stay fixed and each further copy is one step of a pointer.
+// column c of every (kThreads / chunks)-th row. The swizzle repeats every
+// 8 rows, so along rows 8 apart c's place stays fixed and each further
+// copy is one step of a pointer: where the thread's rows lie closer (DP =
+// 256: 4 rows apart) it walks them as 8 / 4 runs of rows 8 apart (one
+// computed place each: a place computed for every copy cost the dK/dV
+// loop 50-80 registers and spilled FmPolicy's). Where the chunks of a row
+// do not divide the threads (DP = 192: 24 chunks), thread t copies chunks
+// t, t + 128, ... of the tile in row order, each at its own place.
 template <int DP>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src, int row0,
                                           int rows, int D, long long rs) {
   constexpr int kChunks = DP / 8;
-  constexpr int kStep = kThreads / kChunks;  // rows between two copies
-  const int r0 = threadIdx.x / kChunks;
-  const int c = threadIdx.x % kChunks;
-  const bool col_in = c * 8 < D;
-  const __nv_bfloat16* g = src + (row0 + r0) * rs + c * 8;
-  __nv_bfloat16* d = dst + swz<DP>(r0, c);
+  if constexpr (kThreads % kChunks != 0) {
+    static_assert(kTileQ * kChunks % kThreads == 0, "whole copy rounds");
 #pragma unroll
-  for (int i = 0; i < kTileQ / kStep; ++i) {
-    const bool in = col_in && row0 + r0 + i * kStep < rows;
-    cp_async16(d + i * kStep * DP, in ? g : src, in ? 16 : 0);
-    g += kStep * rs;
+    for (int i = 0; i < kTileQ * kChunks / kThreads; ++i) {
+      const int x = threadIdx.x + i * kThreads;
+      const int r = x / kChunks;
+      const int c = x % kChunks;
+      const bool in = c * 8 < D && row0 + r < rows;
+      cp_async16(dst + swz<DP>(r, c), in ? src + (row0 + r) * rs + c * 8 : src,
+                 in ? 16 : 0);
+    }
+  } else {
+    constexpr int kStep = kThreads / kChunks;  // rows between two copies
+    constexpr int kRowStep = kStep >= 8 ? kStep : 8;  // along one run
+    static_assert(kRowStep % kStep == 0 && kRowStep % 8 == 0,
+                  "runs of rows that keep the swizzle");
+    const int r0 = threadIdx.x / kChunks;
+    const int c = threadIdx.x % kChunks;
+    const bool col_in = c * 8 < D;
+#pragma unroll
+    for (int run = 0; run < kRowStep / kStep; ++run) {
+      const int ra = r0 + run * kStep;
+      const __nv_bfloat16* g = src + (row0 + ra) * rs + c * 8;
+      __nv_bfloat16* d = dst + swz<DP>(ra, c);
+#pragma unroll
+      for (int i = 0; i < kTileQ / kRowStep; ++i) {
+        const bool in = col_in && row0 + ra + i * kRowStep < rows;
+        cp_async16(d + i * kRowStep * DP, in ? g : src, in ? 16 : 0);
+        g += kRowStep * rs;
+      }
+    }
   }
 }
 
 // Shared memory of the kernel for head dim DP and policy P: the Q tile,
-// kStages K/V pairs, and kStages of the policy's per-tile extra.
+// kStages K/V pairs (V out_cols wide), and kStages of the policy's
+// per-tile extra.
 template <int DP, class P>
 constexpr size_t smem_bytes() {
-  return static_cast<size_t>(kTileQ) * DP * 2 * (1 + 2 * kStages) +
+  return static_cast<size_t>(kTileQ) * 2 *
+             (DP + kStages * (DP + out_cols<DP>())) +
          static_cast<size_t>(kStages) * P::kExtraBytes;
 }
 
@@ -236,19 +296,21 @@ __device__ __forceinline__ void split_a(const float (&x0)[4],
 }
 
 // acc[2j], acc[2j + 1] += (hi + lo) B over 16 rows of a swizzled [64][DP]
-// tile (rows row0 .. row0 + 15 are the k dimension, DP the n dimension),
-// B by ldmatrix.trans, two 8-dim blocks a load.
-template <int DP>
+// tile (rows row0 .. row0 + 15 are the k dimension, the DV columns from
+// col0 (a multiple of 16) the n dimension), B by ldmatrix.trans, two
+// 8-dim blocks a load.
+template <int DP, int DV = DP>
 __device__ __forceinline__ void mma_rows(float (*acc)[4],
                                          const unsigned (&hi)[4],
                                          const unsigned (&lo)[4],
-                                         const __nv_bfloat16* tile, int row0) {
+                                         const __nv_bfloat16* tile, int row0,
+                                         int col0 = 0) {
   const int lane = threadIdx.x % 32;
 #pragma unroll
-  for (int dp = 0; dp < DP / 16; ++dp) {
+  for (int dp = 0; dp < DV / 16; ++dp) {
     unsigned b[4];
     ldsm_x4_trans(b, tile + swz<DP>(row0 + (lane % 8) + (lane / 8) % 2 * 8,
-                                    2 * dp + lane / 16));
+                                    col0 / 8 + 2 * dp + lane / 16));
     mma_bf16(acc[2 * dp], hi, b[0], b[1]);
     mma_bf16(acc[2 * dp + 1], hi, b[2], b[3]);
     mma_bf16(acc[2 * dp], lo, b[0], b[1]);
@@ -350,15 +412,19 @@ __global__ void __launch_bounds__(kThreads, 2)
                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                   const L lay, int sq, int sk, int D, float scale, P pol,
                   int* __restrict__ tile_count) {
-  constexpr int KS = DP / 16;  // k-steps of Q K^T, and pairs of 8-dim blocks
-  constexpr int NB = DP / 8;   // 8-dim blocks of the output
+  constexpr int KS = DP / 16;  // k-steps of Q K^T
+  constexpr int DV = out_cols<DP>();  // output columns of this block
+  constexpr int NCH = DP / DV;        // column chunks of the output
+  constexpr int NB = DV / 8;   // 8-dim blocks of the output
   constexpr int kTileElems = kTileQ * DP;
+  constexpr int kStageElems = kTileElems + kTileQ * DV;  // K, then V
   extern __shared__ __align__(128) unsigned char fwd_tc_smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(fwd_tc_smem);
-  // stage s: K at kv0 + 2s tiles, V one tile after it
+  // stage s: K at kv0 + s * kStageElems, V one K tile after it
   __nv_bfloat16* kv0 = qs + kTileElems;
   unsigned char* extra0 =
-      fwd_tc_smem + static_cast<size_t>(kTileElems) * 2 * (1 + 2 * kStages);
+      fwd_tc_smem +
+      static_cast<size_t>(kTileElems + kStages * kStageElems) * 2;
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -366,11 +432,16 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int qt = static_cast<int>(blockIdx.z * gridDim.y + blockIdx.y);
   if (qt >= n_qt) return;  // the last z slice's tail: the whole block
   const int q0 = (n_qt - 1 - qt) * kTileQ;
-  const int bh = blockIdx.x;
+  // x: the slices fastest, then the output's column chunks
+  const int bh = NCH == 1 ? static_cast<int>(blockIdx.x)
+                          : static_cast<int>(blockIdx.x % (gridDim.x / NCH));
+  const int c0 =
+      NCH == 1 ? 0 : static_cast<int>(blockIdx.x / (gridDim.x / NCH)) * DV;
+  const int dv = min(D - c0, DV);  // real output columns of the chunk
   const int bkv = bh / lay.group;
   const __nv_bfloat16* qb = q + bh * lay.q_hs;
   const __nv_bfloat16* kb = k + bkv * lay.k_hs;
-  const __nv_bfloat16* vb = v + bkv * lay.v_hs;
+  const __nv_bfloat16* vb = v + bkv * lay.v_hs + c0;
   pol.begin(bh, q0, sq, sk);
 
   // this thread's two rows: fragment rows lane/4 and lane/4 + 8
@@ -391,9 +462,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   TileScan scan;
   auto needed = [&](int t) { return pol.needed(t); };
   auto issue = [&](int kt, int st, bool whole) {
-    __nv_bfloat16* ks = kv0 + 2 * st * kTileElems;
+    __nv_bfloat16* ks = kv0 + st * kStageElems;
     load_tile<DP>(ks, kb, kt * kTileK, sk, D, lay.k_rs);
-    load_tile<DP>(ks + kTileElems, vb, kt * kTileK, sk, D, lay.v_rs);
+    load_tile<DV>(ks + kTileElems, vb, kt * kTileK, sk, dv, lay.v_rs);
     if (!whole) pol.stage(kt, extra0 + st * P::kExtraBytes);
   };
 
@@ -426,7 +497,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                 qs + swz<DP>(warp * 16 + (lane % 16), 2 * t + lane / 16));
     }
     ++computed;
-    const __nv_bfloat16* ks = kv0 + 2 * st * kTileElems;
+    const __nv_bfloat16* ks = kv0 + st * kStageElems;
     const __nv_bfloat16* vs = ks + kTileElems;
     const unsigned char* extra = extra0 + st * P::kExtraBytes;
     const int k0 = kt * kTileK;
@@ -523,7 +594,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int t = 0; t < 4; ++t) {
       unsigned hi[4], lo[4];
       split_a(s[2 * t], s[2 * t + 1], hi, lo);
-      mma_rows<DP>(acc, hi, lo, vs, 16 * t);
+      mma_rows<DV>(acc, hi, lo, vs, 16 * t);
     }
     kt = nxt;
     full = full_nxt;
@@ -542,19 +613,19 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (row >= sq) continue;
     const float inv = l[r] == 0.f ? 0.f : 1.f / l[r];
     __nv_bfloat16* orow =
-        o + bh * lay.o_hs + static_cast<long long>(row) * lay.o_rs;
+        o + bh * lay.o_hs + static_cast<long long>(row) * lay.o_rs + c0;
 #pragma unroll
     for (int j = 0; j < NB; ++j) {
       const int d = 8 * j + col_in;
-      if (d < D)
+      if (d < dv)
         *reinterpret_cast<unsigned*>(orow + d) =
             pack_bf16(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
     }
-    if (lane % 4 == 0)
+    if (lane % 4 == 0 && c0 == 0)
       lse[static_cast<size_t>(bh) * sq + row] =
           l[r] == 0.f ? kMaskedLse : m[r] * kLn2 + logf(l[r]);
   }
-  if (tile_count != nullptr && threadIdx.x == 0)
+  if (tile_count != nullptr && threadIdx.x == 0 && c0 == 0)
     atomicAdd(tile_count, computed);
 }
 
@@ -571,8 +642,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  kernel<<<tile_grid(bh, (sq + kTileQ - 1) / kTileQ), kThreads, smem,
-           stream>>>(
+  kernel<<<tile_grid(bh * (DP / out_cols<DP>()), (sq + kTileQ - 1) / kTileQ),
+           kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
@@ -580,18 +651,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-// What the kernels (this forward and the backward of attn_bwd_sm90.cuh)
-// need of their operands: D a multiple of 8 up to 128 and every bf16
-// base 16-byte aligned (the wrappers pad or realign to meet it).
+// The widest head dim the kernels take (this forward and the backward of
+// attn_bwd_sm90.cuh).
+constexpr int kMaxHeadDim = 256;
+
+// What the kernels need of their operands: D a multiple of 8 up to 256
+// and every bf16 base 16-byte aligned (the wrappers pad or realign to meet
+// it).
 inline bool operands_ok(int d, std::initializer_list<const void*> ptrs) {
-  if (d % 8 != 0 || d > 128) return false;
+  if (d % 8 != 0 || d > kMaxHeadDim) return false;
   for (const void* p : ptrs)
     if ((reinterpret_cast<uintptr_t>(p) & 15) != 0) return false;
   return true;
 }
 
-// Dispatch on the padded head dim (32, 64 or 128), for operands where
-// `lay` says.
+// Dispatch on the padded head dim (32, 64, 128, 192 or 256), for operands
+// where `lay` says.
 template <class P, class L>
 cudaError_t run(const void* q, const void* k, const void* v, void* o,
                 void* lse, const L& lay, int bh, int sq, int sk, int d,
@@ -605,7 +680,13 @@ cudaError_t run(const void* q, const void* k, const void* v, void* o,
   if (d <= 64)
     return launch<64>(q, k, v, o, lse, lay, bh, sq, sk, d, scale, pol,
                       tile_count, stream);
-  return launch<128>(q, k, v, o, lse, lay, bh, sq, sk, d, scale, pol,
+  if (d <= 128)
+    return launch<128>(q, k, v, o, lse, lay, bh, sq, sk, d, scale, pol,
+                       tile_count, stream);
+  if (d <= 192)
+    return launch<192>(q, k, v, o, lse, lay, bh, sq, sk, d, scale, pol,
+                       tile_count, stream);
+  return launch<256>(q, k, v, o, lse, lay, bh, sq, sk, d, scale, pol,
                      tile_count, stream);
 }
 

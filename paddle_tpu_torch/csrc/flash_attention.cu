@@ -39,9 +39,16 @@
 // conflicts. 256 threads as a 16 x 16 grid: thread (ty, tx) owns 4 rows
 // (ty*4 .. ty*4+3) and every 16th column starting at tx, so row
 // statistics reduce over 16 lanes of one warp with shuffles. Head dims
-// up to 128 run through instantiations for 32, 64 and 128, padded with
-// zeros; ragged final tiles are zero-filled on load and masked. P stays
-// fp32 in the products (the plain PyTorch version does the same).
+// up to 256 run through instantiations for 32, 64, 128, 192 and 256,
+// padded with zeros; ragged final tiles are zero-filled on load and
+// masked. P stays fp32 in the products (the plain PyTorch version does the
+// same). Wide heads (DP = 192 or 256): four DP-wide fp32 tiles would pass
+// the 227 KB a block may use (dK/dV 235 KB at 192, 302 KB at 256), so dQ
+// and dK/dV keep their block's own operands whole (Q and dO, or K and V)
+// and stream the other two through shared memory in chunks of 64 dims
+// (`out_cols` of attn_fwd_sm90.cuh) for the score products, and a block owns one chunk of
+// its output's columns (a grid axis): its chunk is streamed last and
+// stays for the output product. The forward fits whole (217 KB at 256).
 //
 // What bounds it: at the training shapes (S = 2048, D = 128, causal) each
 // kernel does 4-8 flops per S-pair per head dim, hundreds of flops per
@@ -68,6 +75,9 @@
 
 namespace {
 
+using attn_fwd_sm90::chunk_at;
+using attn_fwd_sm90::out_cols;
+
 constexpr int kThreads = 256;    // 16 x 16
 constexpr int kTile = 64;        // rows of a q tile and of a k tile
 constexpr int kPad = kTile + 1;  // stride of a d-major staged tile
@@ -93,18 +103,25 @@ __device__ __forceinline__ float row_max(float x) {
 // Stage rows [row0, row0 + kTile) of one (rows, D) slice into shared
 // memory, d-major: dst[d * kPad + r]. Rows past `rows` and dims past D
 // (up to DP) are zero. Consecutive threads read consecutive elements.
+// Rows lie ld elements apart (D, or the head dim of a column chunk).
 template <int DP>
 __device__ __forceinline__ void stage(float* dst,
                                       const float* __restrict__ src, int row0,
-                                      int rows, int D) {
+                                      int rows, int D, int ld) {
   for (int i = threadIdx.x; i < kTile * DP; i += kThreads) {
     const int r = i / DP;
     const int d = i % DP;
     float x = 0.f;
     if (row0 + r < rows && d < D)
-      x = src[static_cast<size_t>(row0 + r) * D + d];
+      x = src[static_cast<size_t>(row0 + r) * ld + d];
     dst[d * kPad + r] = x;
   }
+}
+template <int DP>
+__device__ __forceinline__ void stage(float* dst,
+                                      const float* __restrict__ src, int row0,
+                                      int rows, int D) {
+  stage<DP>(dst, src, row0, rows, D, D);
 }
 
 __device__ __forceinline__ bool visible(int row, int col, int sq, int sk,
@@ -234,19 +251,22 @@ __global__ void __launch_bounds__(kThreads, 1)
               const float* __restrict__ lse, const float* __restrict__ delta,
               float* __restrict__ dq, int sq, int sk, int D, float scale,
               int causal) {
-  constexpr int NC = DP / 16;
+  constexpr int DC = out_cols<DP>();  // K and V dims staged at once
+  constexpr int NCH = DP / DC;
+  constexpr int NC = DC / 16;
   extern __shared__ float smem[];
   float* qs = smem;
   float* dos = qs + DP * kPad;
-  float* ks = dos + DP * kPad;
-  float* vs = ks + DP * kPad;
-  float* dss = vs + DP * kPad;  // kTile x kPS
+  float* ks = dos + DP * kPad;  // DC dims of K
+  float* vs = ks + DC * kPad;   // DC dims of V
+  float* dss = vs + DC * kPad;  // kTile x kPS
 
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
   const int n_qt = (sq + kTile - 1) / kTile;
   const int q0 = (n_qt - 1 - blockIdx.x) * kTile;
   const size_t bh = blockIdx.y;
+  const int oc = blockIdx.z;  // this block's chunk of dQ's columns
   const float* kb = k + bh * sk * D;
   const float* vb = v + bh * sk * D;
 
@@ -266,32 +286,34 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kTile;
-    __syncthreads();
-    stage<DP>(ks, kb, k0, sk, D);
-    stage<DP>(vs, vb, k0, sk, D);
-    __syncthreads();
-
     float s[4][4] = {}, dp[4][4] = {};
+    for (int ci = 0; ci < NCH; ++ci) {
+      const int c0 = chunk_at<NCH, DC>(ci, oc);
+      __syncthreads();
+      stage<DC>(ks, kb + c0, k0, sk, D - c0, D);
+      stage<DC>(vs, vb + c0, k0, sk, D - c0, D);
+      __syncthreads();
 #pragma unroll 4
-    for (int d = 0; d < DP; ++d) {
-      float a[4], g[4], b[4], w[4];
+      for (int d = 0; d < DC; ++d) {
+        float a[4], g[4], b[4], w[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = qs[d * kPad + ty * 4 + i];
-        g[i] = dos[d * kPad + ty * 4 + i];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        b[j] = ks[d * kPad + tx + 16 * j];
-        w[j] = vs[d * kPad + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
+          a[i] = qs[(c0 + d) * kPad + ty * 4 + i];
+          g[i] = dos[(c0 + d) * kPad + ty * 4 + i];
+        }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], b[j], s[i][j]);
-          dp[i][j] = fmaf(g[i], w[j], dp[i][j]);
+          b[j] = ks[d * kPad + tx + 16 * j];
+          w[j] = vs[d * kPad + tx + 16 * j];
         }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(a[i], b[j], s[i][j]);
+            dp[i][j] = fmaf(g[i], w[j], dp[i][j]);
+          }
+      }
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -323,11 +345,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= sq) continue;
-    float* drow = dq + (bh * sq + row) * D;
+    float* drow = dq + (bh * sq + row) * D + oc * DC;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = tx + 16 * c;
-      if (d < D) drow[d] = acc[i][c];
+      if (d < D - oc * DC) drow[d] = acc[i][c];
     }
   }
 }
@@ -341,13 +363,15 @@ __global__ void __launch_bounds__(kThreads, 1)
                const float* __restrict__ delta, float* __restrict__ dk,
                float* __restrict__ dv, int sq, int sk, int D, float scale,
                int causal) {
-  constexpr int NC = DP / 16;
+  constexpr int DC = out_cols<DP>();  // Q and dO dims staged at once
+  constexpr int NCH = DP / DC;
+  constexpr int NC = DC / 16;
   extern __shared__ float smem[];
   float* ks = smem;
   float* vs = ks + DP * kPad;
-  float* qs = vs + DP * kPad;
-  float* dos = qs + DP * kPad;
-  float* pts = dos + DP * kPad;  // kTile x kPS: P^T of the tile
+  float* qs = vs + DP * kPad;    // DC dims of Q
+  float* dos = qs + DC * kPad;   // DC dims of dO
+  float* pts = dos + DC * kPad;  // kTile x kPS: P^T of the tile
   float* dst = pts + kTile * kPS;  // kTile x kPS: dS^T of the tile
   float* ls = dst + kTile * kPS;   // lse of the tile's q rows
   float* dl = ls + kTile;          // delta of the tile's q rows
@@ -356,6 +380,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int ty = threadIdx.x / 16;
   const int k0 = blockIdx.x * kTile;
   const size_t bh = blockIdx.y;
+  const int oc = blockIdx.z;  // this block's chunk of dK's and dV's columns
   const float* qb = q + bh * sq * D;
   const float* ob = dout + bh * sq * D;
 
@@ -372,38 +397,42 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int qt0 = causal ? k0 / kTile : 0;
   for (int qt = qt0; qt < n_qt; ++qt) {
     const int q0 = qt * kTile;
-    __syncthreads();
-    stage<DP>(qs, qb, q0, sq, D);
-    stage<DP>(dos, ob, q0, sq, D);
-    for (int r = threadIdx.x; r < kTile; r += kThreads) {
-      const bool in = q0 + r < sq;
-      ls[r] = in ? lse[bh * sq + q0 + r] : 0.f;
-      dl[r] = in ? delta[bh * sq + q0 + r] : 0.f;
-    }
-    __syncthreads();
-
     // thread (ty, tx): key rows ty*4+i, q rows tx+16j
     float s[4][4] = {}, dp[4][4] = {};
+    for (int ci = 0; ci < NCH; ++ci) {
+      const int c0 = chunk_at<NCH, DC>(ci, oc);
+      __syncthreads();
+      stage<DC>(qs, qb + c0, q0, sq, D - c0, D);
+      stage<DC>(dos, ob + c0, q0, sq, D - c0, D);
+      if (ci == 0) {
+        for (int r = threadIdx.x; r < kTile; r += kThreads) {
+          const bool in = q0 + r < sq;
+          ls[r] = in ? lse[bh * sq + q0 + r] : 0.f;
+          dl[r] = in ? delta[bh * sq + q0 + r] : 0.f;
+        }
+      }
+      __syncthreads();
 #pragma unroll 4
-    for (int d = 0; d < DP; ++d) {
-      float a[4], w[4], b[4], g[4];
+      for (int d = 0; d < DC; ++d) {
+        float a[4], w[4], b[4], g[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = ks[d * kPad + ty * 4 + i];
-        w[i] = vs[d * kPad + ty * 4 + i];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        b[j] = qs[d * kPad + tx + 16 * j];
-        g[j] = dos[d * kPad + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
+          a[i] = ks[(c0 + d) * kPad + ty * 4 + i];
+          w[i] = vs[(c0 + d) * kPad + ty * 4 + i];
+        }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], b[j], s[i][j]);
-          dp[i][j] = fmaf(w[i], g[j], dp[i][j]);
+          b[j] = qs[d * kPad + tx + 16 * j];
+          g[j] = dos[d * kPad + tx + 16 * j];
         }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(a[i], b[j], s[i][j]);
+            dp[i][j] = fmaf(w[i], g[j], dp[i][j]);
+          }
+      }
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -443,12 +472,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = 0; i < 4; ++i) {
     const int row = k0 + ty * 4 + i;
     if (row >= sk) continue;
-    float* krow = dk + (bh * sk + row) * D;
-    float* vrow = dv + (bh * sk + row) * D;
+    float* krow = dk + (bh * sk + row) * D + oc * DC;
+    float* vrow = dv + (bh * sk + row) * D + oc * DC;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = tx + 16 * c;
-      if (d < D) {
+      if (d < D - oc * DC) {
         krow[d] = dka[i][c];
         vrow[d] = dva[i][c];
       }
@@ -456,11 +485,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// Shared memory of each kernel, in floats, for padded head dim DP.
+// Shared memory of each kernel, in floats, for padded head dim DP (dQ and
+// dK/dV: two whole tiles and two streamed chunks).
 size_t fwd_floats(int dp) { return 3 * dp * kPad + kTile * kPS; }
-size_t dq_floats(int dp) { return 4 * dp * kPad + kTile * kPS; }
+size_t dq_floats(int dp) {
+  return 2 * (dp + out_cols(dp)) * kPad + kTile * kPS;
+}
 size_t dkv_floats(int dp) {
-  return 4 * dp * kPad + 2 * kTile * kPS + 2 * kTile;
+  return 2 * (dp + out_cols(dp)) * kPad + 2 * kTile * kPS + 2 * kTile;
 }
 
 template <typename K>
@@ -470,7 +502,9 @@ cudaError_t prepare(K kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-int padded_dim(int d) { return d <= 32 ? 32 : d <= 64 ? 64 : 128; }
+int padded_dim(int d) {
+  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : d <= 192 ? 192 : 256;
+}
 
 template <int DP>
 cudaError_t fwd_f32(const void* q, const void* k, const void* v, void* o,
@@ -497,7 +531,7 @@ cudaError_t dq_f32(const void* q, const void* k, const void* v,
   const size_t smem = dq_floats(DP) * sizeof(float);
   cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((sq + kTile - 1) / kTile, bh);
+  dim3 grid((sq + kTile - 1) / kTile, bh, DP / out_cols<DP>());
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
@@ -515,7 +549,7 @@ cudaError_t dkv_f32(const void* q, const void* k, const void* v,
   const size_t smem = dkv_floats(DP) * sizeof(float);
   cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((sk + kTile - 1) / kTile, bh);
+  dim3 grid((sk + kTile - 1) / kTile, bh, DP / out_cols<DP>());
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
@@ -527,7 +561,7 @@ cudaError_t dkv_f32(const void* q, const void* k, const void* v,
 
 bool args_ok(int bh, int sq, int sk, int d, int dtype) {
   return bh >= 1 && bh <= 65535 && sq >= 1 && sk >= 1 && d >= 1 &&
-         d <= 128 && (dtype == kF32 || dtype == kBF16);
+         d <= attn_fwd_sm90::kMaxHeadDim && (dtype == kF32 || dtype == kBF16);
 }
 
 // The mask of the tensor-core loops (attn_fwd_sm90.cuh, attn_bwd_sm90.cuh):
@@ -599,7 +633,9 @@ struct FlashPolicy {
   const int dp = padded_dim(d);                                          \
   if (dp == 32) return F<32>(__VA_ARGS__, s);                            \
   if (dp == 64) return F<64>(__VA_ARGS__, s);                            \
-  return F<128>(__VA_ARGS__, s)
+  if (dp == 128) return F<128>(__VA_ARGS__, s);                          \
+  if (dp == 192) return F<192>(__VA_ARGS__, s);                          \
+  return F<256>(__VA_ARGS__, s)
 
 extern "C" {
 

@@ -88,6 +88,9 @@
 
 namespace {
 
+using attn_fwd_sm90::chunk_at;
+using attn_fwd_sm90::out_cols;
+
 constexpr int kThreads = 256;    // 16 x 16
 constexpr int kTile = 64;        // rows of a q tile and of a k tile
 constexpr int kPad = kTile + 1;  // stride of a d-major staged tile
@@ -112,20 +115,33 @@ __device__ __forceinline__ float row_max(float x) {
 
 // Stage rows [row0, row0 + kTile) of one (rows, D) slice into shared
 // memory, d-major: dst[d * kPad + r]; rows past `rows` and dims past D
-// (up to DP) are zero.
+// (up to DP) are zero. Rows lie ld elements apart (D, or the head dim of
+// a column chunk).
 template <int DP>
 __device__ __forceinline__ void stage(float* dst,
                                       const float* __restrict__ src, int row0,
-                                      int rows, int D) {
+                                      int rows, int D, int ld) {
   for (int i = threadIdx.x; i < kTile * DP; i += kThreads) {
     const int r = i / DP;
     const int d = i % DP;
     float x = 0.f;
     if (row0 + r < rows && d < D)
-      x = src[static_cast<size_t>(row0 + r) * D + d];
+      x = src[static_cast<size_t>(row0 + r) * ld + d];
     dst[d * kPad + r] = x;
   }
 }
+template <int DP>
+__device__ __forceinline__ void stage(float* dst,
+                                      const float* __restrict__ src, int row0,
+                                      int rows, int D) {
+  stage<DP>(dst, src, row0, rows, D, D);
+}
+
+// Wide heads (DP = 192 or 256), as in csrc/flash_attention.cu: dQ and
+// dK/dV keep their block's own operands whole and stream the other two in
+// chunks of 64 dims for the score products; a block owns one chunk of its
+// output's columns (grid z), streamed last: `attn_fwd_sm90::out_cols`
+// dims at once, in the order `attn_fwd_sm90::chunk_at` gives.
 
 // What masks a pair besides the ragged bounds.
 struct Mask {
@@ -395,13 +411,15 @@ __global__ void __launch_bounds__(kThreads, 1)
                  const float* __restrict__ delta, float* __restrict__ dq,
                  int sq, int sk, int D, float scale, Mask m,
                  int* __restrict__ tile_count) {
-  constexpr int NC = DP / 16;
+  constexpr int DC = out_cols<DP>();  // K and V dims staged at once
+  constexpr int NCH = DP / DC;
+  constexpr int NC = DC / 16;
   extern __shared__ float smem[];
   float* qs = smem;
   float* dos = qs + DP * kPad;
-  float* ks = dos + DP * kPad;
-  float* vs = ks + DP * kPad;
-  float* dss = vs + DP * kPad;  // kTile x kPS
+  float* ks = dos + DP * kPad;  // DC dims of K
+  float* vs = ks + DC * kPad;   // DC dims of V
+  float* dss = vs + DC * kPad;  // kTile x kPS
   int* cols = reinterpret_cast<int*>(dss + kTile * kPS);
   int* half = cols + kMaxN * kTile;
 
@@ -411,6 +429,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int q0 = (n_qt - 1 - blockIdx.x) * kTile;
   const int r1 = min(q0 + kTile, sq) - 1;
   const int bh = blockIdx.y;
+  const int oc = blockIdx.z;  // this block's chunk of dQ's columns
   const size_t qoff = static_cast<size_t>(bh) * sq;
   const float* kb = k + static_cast<size_t>(bh) * sk * D;
   const float* vb = v + static_cast<size_t>(bh) * sk * D;
@@ -445,31 +464,34 @@ __global__ void __launch_bounds__(kThreads, 1)
       stage<DP>(dos, dout + qoff * D, q0, sq, D);
       q_staged = true;
     }
-    stage<DP>(ks, kb, k0, sk, D);
-    stage<DP>(vs, vb, k0, sk, D);
-    __syncthreads();
-
     float s[4][4] = {}, dp[4][4] = {};
+    for (int ci = 0; ci < NCH; ++ci) {
+      const int c0 = chunk_at<NCH, DC>(ci, oc);
+      if (ci > 0) __syncthreads();  // the previous chunk's reads are done
+      stage<DC>(ks, kb + c0, k0, sk, D - c0, D);
+      stage<DC>(vs, vb + c0, k0, sk, D - c0, D);
+      __syncthreads();
 #pragma unroll 4
-    for (int d = 0; d < DP; ++d) {
-      float a[4], g[4], b[4], w[4];
+      for (int d = 0; d < DC; ++d) {
+        float a[4], g[4], b[4], w[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = qs[d * kPad + ty * 4 + i];
-        g[i] = dos[d * kPad + ty * 4 + i];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        b[j] = ks[d * kPad + tx + 16 * j];
-        w[j] = vs[d * kPad + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
+          a[i] = qs[(c0 + d) * kPad + ty * 4 + i];
+          g[i] = dos[(c0 + d) * kPad + ty * 4 + i];
+        }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], b[j], s[i][j]);
-          dp[i][j] = fmaf(g[i], w[j], dp[i][j]);
+          b[j] = ks[d * kPad + tx + 16 * j];
+          w[j] = vs[d * kPad + tx + 16 * j];
         }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(a[i], b[j], s[i][j]);
+            dp[i][j] = fmaf(g[i], w[j], dp[i][j]);
+          }
+      }
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -503,14 +525,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= sq) continue;
-    float* drow = dq + (qoff + row) * D;
+    float* drow = dq + (qoff + row) * D + oc * DC;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = tx + 16 * c;
-      if (d < D) drow[d] = acc[i][c];
+      if (d < D - oc * DC) drow[d] = acc[i][c];
     }
   }
-  if (tile_count != nullptr && threadIdx.x == 0)
+  if (tile_count != nullptr && threadIdx.x == 0 && oc == 0)
     atomicAdd(tile_count, computed);
 }
 
@@ -524,13 +546,15 @@ __global__ void __launch_bounds__(kThreads, 1)
                   const float* __restrict__ delta, float* __restrict__ dk,
                   float* __restrict__ dv, int sq, int sk, int D, float scale,
                   Mask m, int* __restrict__ tile_count) {
-  constexpr int NC = DP / 16;
+  constexpr int DC = out_cols<DP>();  // Q and dO dims staged at once
+  constexpr int NCH = DP / DC;
+  constexpr int NC = DC / 16;
   extern __shared__ float smem[];
   float* ks = smem;
   float* vs = ks + DP * kPad;
-  float* qs = vs + DP * kPad;
-  float* dos = qs + DP * kPad;
-  float* pts = dos + DP * kPad;    // kTile x kPS: dropped P^T of the tile
+  float* qs = vs + DP * kPad;      // DC dims of Q
+  float* dos = qs + DC * kPad;     // DC dims of dO
+  float* pts = dos + DC * kPad;    // kTile x kPS: dropped P^T of the tile
   float* dst = pts + kTile * kPS;  // kTile x kPS: dS^T of the tile
   float* ls = dst + kTile * kPS;   // lse of the tile's q rows
   float* dl = ls + kTile;          // delta of the tile's q rows
@@ -542,6 +566,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int k0 = blockIdx.x * kTile;
   const int c1 = min(k0 + kTile, sk) - 1;
   const int bh = blockIdx.y;
+  const int oc = blockIdx.z;  // this block's chunk of dK's and dV's columns
   const size_t qoff = static_cast<size_t>(bh) * sq;
   const size_t koff = static_cast<size_t>(bh) * sk;
 
@@ -567,43 +592,47 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (!tile_may_keep(q0, r1, k0, c1, m)) continue;
     if (m.n && sri_all_masked(q0, r1, half, m)) continue;
     ++computed;
-    __syncthreads();
-    if (!kv_staged) {
-      stage<DP>(ks, k + koff * D, k0, sk, D);
-      stage<DP>(vs, v + koff * D, k0, sk, D);
-      kv_staged = true;
-    }
-    stage<DP>(qs, q + qoff * D, q0, sq, D);
-    stage<DP>(dos, dout + qoff * D, q0, sq, D);
-    for (int r = threadIdx.x; r < kTile; r += kThreads) {
-      const bool in = q0 + r < sq;
-      ls[r] = in ? lse[qoff + q0 + r] : 0.f;
-      dl[r] = in ? delta[qoff + q0 + r] : 0.f;
-    }
-    __syncthreads();
-
     // thread (ty, tx): key rows ty*4+i, q rows tx+16j
     float s[4][4] = {}, dp[4][4] = {};
+    for (int ci = 0; ci < NCH; ++ci) {
+      const int c0 = chunk_at<NCH, DC>(ci, oc);
+      __syncthreads();
+      if (!kv_staged) {
+        stage<DP>(ks, k + koff * D, k0, sk, D);
+        stage<DP>(vs, v + koff * D, k0, sk, D);
+        kv_staged = true;
+      }
+      stage<DC>(qs, q + qoff * D + c0, q0, sq, D - c0, D);
+      stage<DC>(dos, dout + qoff * D + c0, q0, sq, D - c0, D);
+      if (ci == 0) {
+        for (int r = threadIdx.x; r < kTile; r += kThreads) {
+          const bool in = q0 + r < sq;
+          ls[r] = in ? lse[qoff + q0 + r] : 0.f;
+          dl[r] = in ? delta[qoff + q0 + r] : 0.f;
+        }
+      }
+      __syncthreads();
 #pragma unroll 4
-    for (int d = 0; d < DP; ++d) {
-      float a[4], w[4], b[4], g[4];
+      for (int d = 0; d < DC; ++d) {
+        float a[4], w[4], b[4], g[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = ks[d * kPad + ty * 4 + i];
-        w[i] = vs[d * kPad + ty * 4 + i];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        b[j] = qs[d * kPad + tx + 16 * j];
-        g[j] = dos[d * kPad + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
+          a[i] = ks[(c0 + d) * kPad + ty * 4 + i];
+          w[i] = vs[(c0 + d) * kPad + ty * 4 + i];
+        }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], b[j], s[i][j]);
-          dp[i][j] = fmaf(w[i], g[j], dp[i][j]);
+          b[j] = qs[d * kPad + tx + 16 * j];
+          g[j] = dos[d * kPad + tx + 16 * j];
         }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(a[i], b[j], s[i][j]);
+            dp[i][j] = fmaf(w[i], g[j], dp[i][j]);
+          }
+      }
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -650,27 +679,31 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = 0; i < 4; ++i) {
     const int row = k0 + ty * 4 + i;
     if (row >= sk) continue;
-    float* krow = dk + (koff + row) * D;
-    float* vrow = dv + (koff + row) * D;
+    float* krow = dk + (koff + row) * D + oc * DC;
+    float* vrow = dv + (koff + row) * D + oc * DC;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = tx + 16 * c;
-      if (d < D) {
+      if (d < D - oc * DC) {
         krow[d] = dka[i][c];
         vrow[d] = dva[i][c];
       }
     }
   }
-  if (tile_count != nullptr && threadIdx.x == 0)
+  if (tile_count != nullptr && threadIdx.x == 0 && oc == 0)
     atomicAdd(tile_count, computed);
 }
 
-// Shared memory of each kernel, in 4-byte words, for padded head dim DP.
+// Shared memory of each kernel, in 4-byte words, for padded head dim DP
+// (dQ and dK/dV: two whole tiles and two streamed chunks).
 constexpr size_t kSriWords = kMaxN * kTile + 2 * kMaxN;
 size_t fwd_words(int dp) { return 3 * dp * kPad + kTile * kPS + kSriWords; }
-size_t dq_words(int dp) { return 4 * dp * kPad + kTile * kPS + kSriWords; }
+size_t dq_words(int dp) {
+  return 2 * (dp + out_cols(dp)) * kPad + kTile * kPS + kSriWords;
+}
 size_t dkv_words(int dp) {
-  return 4 * dp * kPad + 2 * kTile * kPS + 2 * kTile + kSriWords;
+  return 2 * (dp + out_cols(dp)) * kPad + 2 * kTile * kPS + 2 * kTile +
+         kSriWords;
 }
 
 template <typename K>
@@ -680,7 +713,9 @@ cudaError_t prepare(K kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-int padded_dim(int d) { return d <= 32 ? 32 : d <= 64 ? 64 : 128; }
+int padded_dim(int d) {
+  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : d <= 192 ? 192 : 256;
+}
 
 template <int DP>
 cudaError_t fwd_f32(const void* q, const void* k, const void* v, void* o,
@@ -707,7 +742,7 @@ cudaError_t dq_f32(const void* q, const void* k, const void* v,
   const size_t smem = dq_words(DP) * 4;
   cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((sq + kTile - 1) / kTile, bh);
+  dim3 grid((sq + kTile - 1) / kTile, bh, DP / out_cols<DP>());
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
@@ -726,7 +761,7 @@ cudaError_t dkv_f32(const void* q, const void* k, const void* v,
   const size_t smem = dkv_words(DP) * 4;
   cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((sk + kTile - 1) / kTile, bh);
+  dim3 grid((sk + kTile - 1) / kTile, bh, DP / out_cols<DP>());
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
@@ -741,7 +776,8 @@ bool args_ok(const void* sri, int b, int h, int sq, int sk, int d,
   const bool n_ok = causal ? (n == 0 || n == 1 || n == 2)
                            : (n == 0 || n == 2 || n == 4);
   return b >= 1 && h >= 1 && b * h <= 65535 && sq >= 1 && sk >= 1 &&
-         d >= 1 && d <= 128 && (dtype == kF32 || dtype == kBF16) && n_ok &&
+         d >= 1 && d <= attn_fwd_sm90::kMaxHeadDim &&
+         (dtype == kF32 || dtype == kBF16) && n_ok &&
          (n == 0 || (sri != nullptr && (sri_heads == 1 || sri_heads == h)));
 }
 
@@ -994,7 +1030,9 @@ FmPolicy fm_policy(const Mask& m, const void* agg) {
   const int dp = padded_dim(d);                                            \
   if (dp == 32) return F<32>(__VA_ARGS__, m, count, s);                    \
   if (dp == 64) return F<64>(__VA_ARGS__, m, count, s);                    \
-  return F<128>(__VA_ARGS__, m, count, s)
+  if (dp == 128) return F<128>(__VA_ARGS__, m, count, s);                  \
+  if (dp == 192) return F<192>(__VA_ARGS__, m, count, s);                  \
+  return F<256>(__VA_ARGS__, m, count, s)
 
 // The arguments every entry point shares after its pointers.
 #define FM_ARGS                                                            \

@@ -73,8 +73,11 @@
 //     neither dK nor dV.
 // fp32 operands; the products take P and dS in fp32 (the TPU forward casts
 // P to V's dtype for the MXU); dK and dV of a group are summed in fp32.
-// Head dims up to 128 through instantiations for 32, 64 and 128, padded
-// with zeros.
+// Head dims up to 256 through instantiations for 32, 64, 128, 192 and 256,
+// padded with zeros. Wide heads (192, 256), as in csrc/flash_attention.cu:
+// dQ and dK/dV keep their block's own operands whole and stream the other
+// two in chunks of 64 dims for the score products, and a block owns one
+// chunk of its output's columns (grid z), streamed last.
 //
 // What bounds them: at the packed training row (8192 tokens, H = 32, D =
 // 128, bf16, eight documents, 7.14 M kept pairs a head) dQ needs 6 and
@@ -96,6 +99,9 @@
 #include "attn_fwd_sm90.cuh"
 
 namespace {
+
+using attn_fwd_sm90::chunk_at;
+using attn_fwd_sm90::out_cols;
 
 constexpr int kThreads = 256;    // 16 x 16
 constexpr int kTile = 64;        // rows of a q tile and of a k tile
@@ -556,13 +562,15 @@ struct BwdArgs {
 // ------------------------------------------------------------------ dQ
 template <int DP>
 __global__ void __launch_bounds__(kThreads, 1) va_dq_kernel(const BwdArgs a) {
-  constexpr int NC = DP / 16;  // output dims per thread
+  constexpr int DC = out_cols<DP>();  // K and V dims staged at once
+  constexpr int NCH = DP / DC;
+  constexpr int NC = DC / 16;  // output dims per thread
   extern __shared__ float smem[];
   float* qs = smem;
   float* dos = qs + DP * kPad;
-  float* ks = dos + DP * kPad;
-  float* vs = ks + DP * kPad;
-  float* dss = vs + DP * kPad;                               // kTile x kPS
+  float* ks = dos + DP * kPad;                               // DC dims of K
+  float* vs = ks + DC * kPad;                                // DC dims of V
+  float* dss = vs + DC * kPad;                               // kTile x kPS
   int* sk_s = reinterpret_cast<int*>(dss + kTile * kPS);     // kTile
   int* pk_s = sk_s + kTile;                                  // kTile
   int* kr_s = pk_s + kTile;                                  // 2 x n_kt
@@ -575,6 +583,7 @@ __global__ void __launch_bounds__(kThreads, 1) va_dq_kernel(const BwdArgs a) {
   const int qt = n_qt - 1 - blockIdx.x;  // longest causal rows first
   const int q0 = qt * kTile;
   const int h = blockIdx.y;
+  const int oc = blockIdx.z;  // this block's chunk of dQ's columns
   const long long o_rs = static_cast<long long>(a.heads) * D;
   float* dq = static_cast<float*>(a.dq);
   const int q_lo = a.ranges[2 * qt];
@@ -623,37 +632,39 @@ __global__ void __launch_bounds__(kThreads, 1) va_dq_kernel(const BwdArgs a) {
     if (k_hi < 0 || k_lo > q_hi || k_hi < q_lo) continue;
     ++computed;
     const int k0 = kt * kTile;
-    __syncthreads();  // the previous tile's reads of ks, vs, dss are done
-    stage<DP>(ks, kb, a.k_rs, k0, tk, D);
-    stage<DP>(vs, vb, a.v_rs, k0, tk, D);
-    if (threadIdx.x < kTile) {
-      const int c = k0 + threadIdx.x;
-      sk_s[threadIdx.x] = c < tk ? a.seg_k[c] : -2;
-      pk_s[threadIdx.x] = c < tk ? a.pos_k[c] : 0;
-    }
-    __syncthreads();
-
     float s[4][4] = {}, dp[4][4] = {};
+    for (int ci = 0; ci < NCH; ++ci) {
+      const int c0 = chunk_at<NCH, DC>(ci, oc);
+      __syncthreads();  // the previous reads of ks, vs, dss are done
+      stage<DC>(ks, kb + c0, a.k_rs, k0, tk, D - c0);
+      stage<DC>(vs, vb + c0, a.v_rs, k0, tk, D - c0);
+      if (ci == 0 && threadIdx.x < kTile) {
+        const int c = k0 + threadIdx.x;
+        sk_s[threadIdx.x] = c < tk ? a.seg_k[c] : -2;
+        pk_s[threadIdx.x] = c < tk ? a.pos_k[c] : 0;
+      }
+      __syncthreads();
 #pragma unroll 4
-    for (int d = 0; d < DP; ++d) {
-      float x[4], g[4], b[4], w[4];
+      for (int d = 0; d < DC; ++d) {
+        float x[4], g[4], b[4], w[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        x[i] = qs[d * kPad + ty * 4 + i];
-        g[i] = dos[d * kPad + ty * 4 + i];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        b[j] = ks[d * kPad + tx + 16 * j];
-        w[j] = vs[d * kPad + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
+          x[i] = qs[(c0 + d) * kPad + ty * 4 + i];
+          g[i] = dos[(c0 + d) * kPad + ty * 4 + i];
+        }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(x[i], b[j], s[i][j]);
-          dp[i][j] = fmaf(g[i], w[j], dp[i][j]);
+          b[j] = ks[d * kPad + tx + 16 * j];
+          w[j] = vs[d * kPad + tx + 16 * j];
         }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(x[i], b[j], s[i][j]);
+            dp[i][j] = fmaf(g[i], w[j], dp[i][j]);
+          }
+      }
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -687,14 +698,14 @@ __global__ void __launch_bounds__(kThreads, 1) va_dq_kernel(const BwdArgs a) {
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= tq) continue;
-    float* drow = dq + row * o_rs + h * D;
+    float* drow = dq + row * o_rs + h * D + oc * DC;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = tx + 16 * c;
-      if (d < D) drow[d] = acc[i][c];
+      if (d < D - oc * DC) drow[d] = acc[i][c];
     }
   }
-  if (a.tile_count != nullptr && threadIdx.x == 0)
+  if (a.tile_count != nullptr && threadIdx.x == 0 && oc == 0)
     atomicAdd(a.tile_count, computed);
 }
 
@@ -702,13 +713,15 @@ __global__ void __launch_bounds__(kThreads, 1) va_dq_kernel(const BwdArgs a) {
 template <int DP>
 __global__ void __launch_bounds__(kThreads, 1)
     va_dkv_kernel(const BwdArgs a) {
-  constexpr int NC = DP / 16;
+  constexpr int DC = out_cols<DP>();  // Q and dO dims staged at once
+  constexpr int NCH = DP / DC;
+  constexpr int NC = DC / 16;
   extern __shared__ float smem[];
   float* ks = smem;
   float* vs = ks + DP * kPad;
-  float* qs = vs + DP * kPad;
-  float* dos = qs + DP * kPad;
-  float* pts = dos + DP * kPad;    // kTile x kPS: P^T of the tile
+  float* qs = vs + DP * kPad;      // DC dims of Q
+  float* dos = qs + DC * kPad;     // DC dims of dO
+  float* pts = dos + DC * kPad;    // kTile x kPS: P^T of the tile
   float* dst = pts + kTile * kPS;  // kTile x kPS: dS^T of the tile
   float* ls = dst + kTile * kPS;   // lse of the tile's q rows
   float* dl = ls + kTile;          // delta of the tile's q rows
@@ -723,6 +736,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int kt = blockIdx.x;
   const int k0 = kt * kTile;
   const int hk = blockIdx.y;
+  const int oc = blockIdx.z;  // this block's chunk of dK's and dV's columns
   const int group = a.heads / a.kv_heads;
   const long long kv_rs = static_cast<long long>(a.kv_heads) * D;
   float* dk = static_cast<float*>(a.dk);
@@ -771,42 +785,44 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (q_hi < 0 || q_lo > k_hi || q_hi < k_lo) continue;  // uniform
       ++computed;
       const int q0 = qt * kTile;
-      __syncthreads();  // the previous tile's reads are done
-      stage<DP>(qs, qb, a.q_rs, q0, tq, D);
-      stage<DP>(dos, ob, a.do_rs, q0, tq, D);
-      if (threadIdx.x < kTile) {
-        const int r = threadIdx.x;
-        const bool in = q0 + r < tq;
-        const long long at = static_cast<long long>(h) * tq + q0 + r;
-        ls[r] = in ? a.lse[at] : 0.f;
-        dl[r] = in ? a.delta[at] : 0.f;
-        sq_s[r] = in ? a.seg_q[q0 + r] : -1;
-        pq_s[r] = in ? a.pos_q[q0 + r] : 0;
-      }
-      __syncthreads();
-
       // thread (ty, tx): key rows ty*4+i, q rows tx+16j
       float s[4][4] = {}, dp[4][4] = {};
+      for (int ci = 0; ci < NCH; ++ci) {
+        const int c0 = chunk_at<NCH, DC>(ci, oc);
+        __syncthreads();  // the previous reads are done
+        stage<DC>(qs, qb + c0, a.q_rs, q0, tq, D - c0);
+        stage<DC>(dos, ob + c0, a.do_rs, q0, tq, D - c0);
+        if (ci == 0 && threadIdx.x < kTile) {
+          const int r = threadIdx.x;
+          const bool in = q0 + r < tq;
+          const long long at = static_cast<long long>(h) * tq + q0 + r;
+          ls[r] = in ? a.lse[at] : 0.f;
+          dl[r] = in ? a.delta[at] : 0.f;
+          sq_s[r] = in ? a.seg_q[q0 + r] : -1;
+          pq_s[r] = in ? a.pos_q[q0 + r] : 0;
+        }
+        __syncthreads();
 #pragma unroll 4
-      for (int d = 0; d < DP; ++d) {
-        float x[4], w[4], b[4], gg[4];
+        for (int d = 0; d < DC; ++d) {
+          float x[4], w[4], b[4], gg[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          x[i] = ks[d * kPad + ty * 4 + i];
-          w[i] = vs[d * kPad + ty * 4 + i];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          b[j] = qs[d * kPad + tx + 16 * j];
-          gg[j] = dos[d * kPad + tx + 16 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
+          for (int i = 0; i < 4; ++i) {
+            x[i] = ks[(c0 + d) * kPad + ty * 4 + i];
+            w[i] = vs[(c0 + d) * kPad + ty * 4 + i];
+          }
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(x[i], b[j], s[i][j]);
-            dp[i][j] = fmaf(w[i], gg[j], dp[i][j]);
+            b[j] = qs[d * kPad + tx + 16 * j];
+            gg[j] = dos[d * kPad + tx + 16 * j];
           }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              s[i][j] = fmaf(x[i], b[j], s[i][j]);
+              dp[i][j] = fmaf(w[i], gg[j], dp[i][j]);
+            }
+        }
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -850,18 +866,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = 0; i < 4; ++i) {
     const int row = k0 + ty * 4 + i;
     if (row >= tk) continue;
-    float* krow = dk + row * kv_rs + hk * D;
-    float* vrow = dv + row * kv_rs + hk * D;
+    float* krow = dk + row * kv_rs + hk * D + oc * DC;
+    float* vrow = dv + row * kv_rs + hk * D + oc * DC;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = tx + 16 * c;
-      if (d < D) {
+      if (d < D - oc * DC) {
         krow[d] = dka[i][c];
         vrow[d] = dva[i][c];
       }
     }
   }
-  if (a.tile_count != nullptr && threadIdx.x == 0)
+  if (a.tile_count != nullptr && threadIdx.x == 0 && oc == 0)
     atomicAdd(a.tile_count, computed);
 }
 
@@ -872,17 +888,20 @@ size_t fwd_bytes(int dp, int n_other) {
   return (3 * static_cast<size_t>(dp) * kPad + kTile * kPS) * sizeof(float) +
          (2 * kTile + 2 * static_cast<size_t>(n_other)) * sizeof(int);
 }
+// dQ and dK/dV stage two whole tiles and two streamed chunks.
 size_t dq_bytes(int dp, int n_other) {
-  return (4 * static_cast<size_t>(dp) * kPad + kTile * kPS) * sizeof(float) +
+  return (2 * (dp + out_cols(dp)) * kPad + kTile * kPS) * sizeof(float) +
          (2 * kTile + 2 * static_cast<size_t>(n_other)) * sizeof(int);
 }
 size_t dkv_bytes(int dp, int n_other) {
-  return (4 * static_cast<size_t>(dp) * kPad + 2 * kTile * kPS + 2 * kTile) *
+  return (2 * (dp + out_cols(dp)) * kPad + 2 * kTile * kPS + 2 * kTile) *
              sizeof(float) +
          (2 * kTile + 2 * static_cast<size_t>(n_other)) * sizeof(int);
 }
 
-int padded_dim(int d) { return d <= 32 ? 32 : d <= 64 ? 64 : 128; }
+int padded_dim(int d) {
+  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : d <= 192 ? 192 : 256;
+}
 
 // Shared memory of the bf16 tensor-core loops at padded head dim DP: the
 // forward, dQ and dK/dV.
@@ -913,7 +932,8 @@ attn_bwd_sm90::BwdLayout bwd_layout(int heads, int kv_heads, int d,
 
 bool args_ok(int tq, int tk, int heads, int kv_heads, int d, int dtype) {
   return tq >= 1 && tk >= 1 && heads >= 1 && heads <= 65535 &&
-         kv_heads >= 1 && heads % kv_heads == 0 && d >= 1 && d <= 128 &&
+         kv_heads >= 1 && heads % kv_heads == 0 && d >= 1 &&
+         d <= attn_fwd_sm90::kMaxHeadDim &&
          (dtype == kF32 || dtype == kBF16);
 }
 
@@ -972,7 +992,8 @@ cudaError_t dq_f32(const BwdArgs& a, cudaStream_t stream) {
   const size_t smem = dq_bytes(DP, n_kt);
   cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3(n_qt, a.heads), kThreads, smem, stream>>>(a);
+  kernel<<<dim3(n_qt, a.heads, DP / out_cols<DP>()), kThreads, smem,
+           stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -984,7 +1005,8 @@ cudaError_t dkv_f32(const BwdArgs& a, cudaStream_t stream) {
   const size_t smem = dkv_bytes(DP, n_qt);
   cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3(n_kt, a.kv_heads), kThreads, smem, stream>>>(a);
+  kernel<<<dim3(n_kt, a.kv_heads, DP / out_cols<DP>()), kThreads, smem,
+           stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -1039,7 +1061,9 @@ cudaError_t bwd_prepare(BwdArgs& a, const void* q, const void* k,
   const int dp = padded_dim(d);           \
   if (dp == 32) return F<32>(__VA_ARGS__); \
   if (dp == 64) return F<64>(__VA_ARGS__); \
-  return F<128>(__VA_ARGS__)
+  if (dp == 128) return F<128>(__VA_ARGS__); \
+  if (dp == 192) return F<192>(__VA_ARGS__); \
+  return F<256>(__VA_ARGS__)
 
 #define VA_BWD_ARGS                                                         \
   q, k, v, dout, lse, delta, seg_q, seg_k, pos_q, pos_k, ranges, tq, tk,    \
@@ -1076,9 +1100,11 @@ int va_positions(const void* seg_q, const void* seg_k, int tq, int tk,
 size_t va_smem_bytes(int kernel, int n_other, int d) {
   const int dp = padded_dim(d);
   if (kernel >= 3)
-    return dp == 32   ? tc_bytes<32>(kernel)
-           : dp == 64 ? tc_bytes<64>(kernel)
-                      : tc_bytes<128>(kernel);
+    return dp == 32    ? tc_bytes<32>(kernel)
+           : dp == 64  ? tc_bytes<64>(kernel)
+           : dp == 128 ? tc_bytes<128>(kernel)
+           : dp == 192 ? tc_bytes<192>(kernel)
+                       : tc_bytes<256>(kernel);
   return kernel == 0   ? fwd_bytes(dp, n_other)
          : kernel == 1 ? dq_bytes(dp, n_other)
                        : dkv_bytes(dp, n_other);
@@ -1117,9 +1143,11 @@ int va_fwd(const void* q, const void* k, const void* v, const void* seg_q,
         static_cast<int*>(tile_count), s));
   }
   const int dp = padded_dim(d);
-  const auto fwd = dp == 32   ? fwd_f32<32>
-                   : dp == 64 ? fwd_f32<64>
-                              : fwd_f32<128>;
+  const auto fwd = dp == 32    ? fwd_f32<32>
+                   : dp == 64  ? fwd_f32<64>
+                   : dp == 128 ? fwd_f32<128>
+                   : dp == 192 ? fwd_f32<192>
+                               : fwd_f32<256>;
   return static_cast<int>(fwd(q, k, v, seg_q, seg_k, pos_q, pos_k, ranges, o,
                               lse, tq, tk, heads, heads / kv_heads, d, q_rs,
                               q_hs, k_rs, k_hs, v_rs, v_hs, scale, causal,

@@ -14,9 +14,15 @@ and `reduce_from_group`, the embedding looks up the rank's vocabulary
 rows, and the lm_head gives the vocabulary-parallel loss
 (`parallel/tp.py`).
 
-The Layer tree's KV cache (`kv_caches=`) and `generate` need causal
-attention over more keys than queries, which the kernels do not align
-(ROADMAP.md, Queue 3): they raise NotImplementedError (item 13b)."""
+The Layer tree's KV cache (`kv_caches=`, a (k, v) pair a layer of
+(B, KVH, S_cache, D) keys and values put before the step's) runs a
+one-token step without the causal mask: one query row after the cache
+sees every key, which is what the reference's bottom-right mask gives
+(its CPU path, `mha_reference`). A causal step of more rows over a
+non-empty cache would need that mask, which the kernels do not align
+(ROADMAP.md, Queue 3, causal alignment): it raises NotImplementedError.
+`generate` is `models.generation.generate`, the reference's eager loop,
+which hands no cache back (ROADMAP.md, Queue 3)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -81,10 +87,25 @@ def _tp_heads(wq, wk, nh, kvh, hd):
 
 def _no_kv_cache(what):
     raise NotImplementedError(
-        f"paddle_tpu_torch: the Layer-tree Llama's {what} needs causal "
-        "attention over more keys than queries, which the flash kernels "
-        "do not align; it is not ported yet (ROADMAP.md, Queue 1 item 13b)."
-        " Serve through models.llama_serving instead")
+        f"paddle_tpu_torch: {what} of more than one query row over a "
+        "non-empty KV cache needs causal attention over more keys than "
+        "queries, aligned bottom-right as the reference's CPU path does; "
+        "the flash kernels align the mask top-left (ROADMAP.md, Queue 3, "
+        "causal alignment). Step one token at a time, or serve through "
+        "models.llama_serving")
+
+
+def _cached_causal(kv_cache, s, causal):
+    """The causal flag a step of s query rows runs with after kv_cache:
+    a one-token step sees every key (non-causal), a step over an empty
+    or no cache keeps it, anything else raises."""
+    if kv_cache is None or not causal:
+        return causal
+    if s == 1:
+        return False
+    if kv_cache[0].shape[2] > 0:
+        _no_kv_cache("a causal step")
+    return causal
 
 
 class LlamaAttention(nn.Layer):
@@ -108,18 +129,27 @@ class LlamaAttention(nn.Layer):
         self.o_proj.weight.dist_spec = P(tp_axis, None)
 
     def forward(self, x, cos, sin, kv_cache=None, causal=True):
-        if kv_cache is not None:
-            _no_kv_cache("KV cache")
         b, s, h = x.shape
         nh, kvh, hd = self.num_heads, self.num_kv_heads, self.head_dim
+        causal = _cached_causal(kv_cache, s, causal)
+        # q/k/v biases (Qwen2), then the cache's keys and values
+        biases = [] if self.q_proj.bias is None else [
+            p.bias for p in (self.q_proj, self.k_proj, self.v_proj)]
+        nb = len(biases)
 
-        def fn(xr, wq, wk, wv, wo):
-            q = (xr @ wq).reshape(b, s, nh, hd)
-            k = (xr @ wk).reshape(b, s, kvh, hd)
-            v = (xr @ wv).reshape(b, s, kvh, hd)
+        def fn(xr, wq, wk, wv, wo, *rest):
+            q, k, v = xr @ wq, xr @ wk, xr @ wv
+            if nb:
+                q, k, v = q + rest[0], k + rest[1], v + rest[2]
+            q = q.reshape(b, s, nh, hd)
+            k = k.reshape(b, s, kvh, hd)
+            v = v.reshape(b, s, kvh, hd)
             q, k = apply_rotary_emb(q.transpose(1, 2), k.transpose(1, 2),
                                     cos, sin)
             v = v.transpose(1, 2)
+            if len(rest) > nb:
+                k = torch.cat([rest[nb], k], dim=2)
+                v = torch.cat([rest[nb + 1], v], dim=2)
             if nh > kvh:
                 k = k.repeat_interleave(nh // kvh, 1)
                 v = v.repeat_interleave(nh // kvh, 1)
@@ -131,11 +161,12 @@ class LlamaAttention(nn.Layer):
         if g is not None:
             inner = fn
 
-            def fn(xr, wq, wk, wv, wo):
+            def fn(xr, *rest):
                 return C.reduce_from_group(
-                    inner(C.copy_to_group(xr, g), wq, wk, wv, wo), g)
+                    inner(C.copy_to_group(xr, g), *rest), g)
         return apply(fn, x, self.q_proj.weight, self.k_proj.weight,
-                     self.v_proj.weight, self.o_proj.weight)
+                     self.v_proj.weight, self.o_proj.weight, *biases,
+                     *(kv_cache if kv_cache is not None else ()))
 
 
 class LlamaMLP(nn.Layer):
@@ -209,12 +240,11 @@ class LlamaModel(nn.Layer):
 
     def forward(self, input_ids, position_offset=0, kv_caches=None,
                 causal=True):
-        if kv_caches is not None:
-            _no_kv_cache("KV cache (kv_caches=)")
         cos, sin = self.rope(input_ids.shape[1], offset=position_offset)
         x = self.embed_tokens(input_ids)
-        for layer in self.layers:
-            x = layer(x, cos, sin, None, causal)
+        for i, layer in enumerate(self.layers):
+            cache = kv_caches[i] if kv_caches is not None else None
+            x = layer(x, cos, sin, cache, causal)
         return self.norm(x)
 
 
@@ -278,4 +308,6 @@ class LlamaForCausalLM(nn.Layer):
 
     def generate(self, input_ids, max_new_tokens=32, temperature=1.0,
                  top_k=0, top_p=1.0, eos_token_id=None):
-        _no_kv_cache("generate")
+        from .generation import generate as _gen
+        return _gen(self, input_ids, max_new_tokens, temperature, top_k,
+                    top_p, eos_token_id)

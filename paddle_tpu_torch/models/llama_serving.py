@@ -84,7 +84,8 @@ plan each hook is an attribute test. `serving.RequestScheduler`,
 `ServingServer` and `Router` drive the engine; on the card `python3
 chip_smoke.py --phases device,build,runtime` serves it over HTTP.
 
-Tensor-parallel serving (ROADMAP.md, Queue 1 item 10b):
+Tensor-parallel serving (ported as ROADMAP.md item 10b; the host KV
+tier and handoffs under a tp mesh are item 10c):
 `ServingEngine(..., ragged=False, mesh=create_mesh({"tp": n}))` in each
 of n ranks (processes on torch.distributed, `parallel/mesh.py`) keeps
 this rank's Megatron shard of the weights (`llama_spmd.place_params`,

@@ -52,7 +52,7 @@ launches_dq = 0
 launches_dkv = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_HEAD_DIM = 128
+_MAX_HEAD_DIM = 256
 
 
 def mha_reference(q, k, v, bias=None, causal=False, sm_scale=None):
@@ -176,7 +176,9 @@ def _check_operands(q, k, v, do=None, lse=None, delta=None):
            f"dtype {q.dtype} not float32/bfloat16")
     _check(k.dtype == q.dtype and v.dtype == q.dtype,
            f"q, k, v dtypes differ ({q.dtype}, {k.dtype}, {v.dtype})")
-    _check(1 <= d <= _MAX_HEAD_DIM, f"head_dim {d} outside 1..{_MAX_HEAD_DIM}")
+    _check(1 <= d <= _MAX_HEAD_DIM,
+           f"head_dim {d} outside 1..{_MAX_HEAD_DIM}: the card's attention "
+           "kernels stop at 256 (ROADMAP.md, Queue 3)")
     _check(sq >= 1 and sk >= 1, "empty sequence")
     _check(1 <= b * h <= 65535, f"batch*heads {b * h} outside 1..65535")
     operands = [q, k, v]
@@ -333,7 +335,7 @@ def flash_attention_bhsd(q, k, v, causal=False, sm_scale=None):
     sq == sk, and raises ValueError otherwise.
 
     A CPU q runs the plain versions. A CUDA q launches the Hopper
-    kernels, which take float32 or bfloat16 with head_dim up to 128 and
+    kernels, which take float32 or bfloat16 with head_dim up to 256 and
     raise on anything else."""
     sq, sk = q.shape[-2], k.shape[-2]
     if causal and sq != sk:

@@ -72,7 +72,7 @@ launches_dq = 0
 launches_dkv = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_HEAD_DIM = 128
+_MAX_HEAD_DIM = 256
 _VALID_N = {True: (1, 2), False: (2, 4)}   # causal -> allowed sri widths
 _M32 = 0xFFFFFFFF
 TILE = 64                     # rows of a q tile and columns of a k tile
@@ -418,7 +418,9 @@ def _check_operands(q, k, v, sri, m, do=None, lse=None, delta=None):
            f"dtype {q.dtype} not float32/bfloat16")
     _check(k.dtype == q.dtype and v.dtype == q.dtype,
            f"q, k, v dtypes differ ({q.dtype}, {k.dtype}, {v.dtype})")
-    _check(1 <= d <= _MAX_HEAD_DIM, f"head_dim {d} outside 1..{_MAX_HEAD_DIM}")
+    _check(1 <= d <= _MAX_HEAD_DIM,
+           f"head_dim {d} outside 1..{_MAX_HEAD_DIM}: the card's attention "
+           "kernels stop at 256 (ROADMAP.md, Queue 3)")
     _check(sq >= 1 and sk >= 1, "empty sequence")
     _check(1 <= b * h <= 65535, f"batch*heads {b * h} outside 1..65535")
     operands = [q, k, v]
@@ -630,7 +632,7 @@ def flashmask_attention_bhsd(q, k, v, startend_row_indices=None,
     the probability-dropout rate, which needs dropout_seed.
 
     A CPU q runs the plain versions. A CUDA q launches the Hopper
-    kernels, which take float32 or bfloat16 with head_dim up to 128 and
+    kernels, which take float32 or bfloat16 with head_dim up to 256 and
     raise on anything else."""
     d = q.shape[-1]
     scale = float(sm_scale if sm_scale is not None else 1.0 / math.sqrt(d))

@@ -69,7 +69,7 @@ launches_dq = 0
 launches_dkv = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_HEAD_DIM = 128
+_MAX_HEAD_DIM = 256
 _MAX_SMEM = 232448  # bytes of shared memory one Hopper block may use
 
 
@@ -318,7 +318,9 @@ def _check_operands(q, k, v, seg_q, seg_k, do=None, lse=None, delta=None):
     _check(tuple(v.shape) == (tk, hk, dk),
            f"v {tuple(v.shape)} must equal k's shape {(tk, hk, dk)}")
     _check(dk == d, f"head_dim of q ({d}) and k ({dk}) differ")
-    _check(1 <= d <= _MAX_HEAD_DIM, f"head_dim {d} outside 1..{_MAX_HEAD_DIM}")
+    _check(1 <= d <= _MAX_HEAD_DIM,
+           f"head_dim {d} outside 1..{_MAX_HEAD_DIM}: the card's attention "
+           "kernels stop at 256 (ROADMAP.md, Queue 3)")
     _check(hk >= 1 and hq % hk == 0,
            f"q heads ({hq}) not a multiple of KV heads ({hk})")
     _check(1 <= hq <= 65535, f"heads {hq} outside 1..65535")
@@ -538,7 +540,7 @@ def flash_attention_varlen(q, k, v, seg_q, seg_k, causal=False,
     diagonal. Returns (Tq, H, D) in q's dtype.
 
     A CPU q runs the plain versions. A CUDA q launches the Hopper
-    kernels, which take float32 or bfloat16 with head_dim up to 128 and
+    kernels, which take float32 or bfloat16 with head_dim up to 256 and
     the head dim contiguous (other strides are read as they are; the
     bf16 kernels pad a head dim that is not a multiple of 8 and copy
     operands whose base or strides do not suit their 16-byte copies), and

@@ -371,7 +371,10 @@ def _offset_view(t):
 # tile, a long one; head dims of each instantiation and D = 72 and 100,
 # padded by the wrapper to 72 and 104); S_k longer than S_q without
 # causal, short and at the training length; operands at an unaligned
-# storage offset
+# storage offset; the wide heads (D = 136 and 200 padded by the wrapper
+# only to 136 and 200, running at 192 and 256, and 192 and 256 themselves,
+# with a GQA repeat); and one query row against a longer key axis without
+# causal ("decode": S_q = 1, S_k = s), GPT-2's cached step
 FLASH_CASES = (
     [(s, d, c, rep, "contiguous") for s in (64, 200, 1024) for d in (64, 128)
      for c in (False, True) for rep in (1, 4)]
@@ -381,7 +384,13 @@ FLASH_CASES = (
        for d in (72, 100, 128)]
     + [(2048, d, False, 1, "sk_longer") for d in (72, 128)]
     + [(s, d, c, 1, "offset") for s in (65, 200) for d in (64, 100, 128)
-       for c in (False, True)])
+       for c in (False, True)]
+    + [(s, d, c, 1, "contiguous") for s in (1, 65, 200)
+       for d in (136, 192, 200, 256) for c in (False, True)]
+    + [(200, d, True, 4, "contiguous") for d in (192, 256)]
+    + [(200, 256, False, 1, "offset"), (63, 192, False, 1, "sk_longer")]
+    + [(s, d, False, 1, "decode") for s in (64, 1500)
+       for d in (64, 128, 192, 256)])
 
 
 @pytest.mark.parametrize("s,d,causal,rep,layout", FLASH_CASES)
@@ -394,11 +403,12 @@ def test_flash_kernels_match_plain(card, dtype, s, d, causal, rep, layout):
     g.manual_seed(s + d)
     b, h = 2, 4
     sk = s + 77 if layout == "sk_longer" else s
+    sq = 1 if layout == "decode" else s
 
     def rnd(heads, rows=s):
         return torch.randn((b, heads, rows, d), generator=g,
                            device=card).to(dt)
-    q, do = rnd(h), rnd(h)
+    q, do = rnd(h, sq), rnd(h, sq)
     k, v = (rnd(h // rep, sk).repeat_interleave(rep, dim=1)
             for _ in range(2))
     if layout == "offset":
@@ -482,9 +492,12 @@ def test_flash_kernels_refuse_what_they_do_not_take(card):
     before = _counts()
     with pytest.raises(ValueError, match="float32/bfloat16"):
         fa._launch_fwd(q.half(), q.half(), q.half(), True, 1.0)
-    with pytest.raises(ValueError, match="head_dim"):
-        big = torch.zeros((1, 2, 64, 160), device=card)
+    with pytest.raises(ValueError, match="head_dim 264 .*Queue 3"):
+        big = torch.zeros((1, 2, 64, 264), device=card)
         fa._launch_fwd(big, big, big, True, 1.0)
+    with pytest.raises(ValueError, match="head_dim 264"):
+        fa._launch_fwd(big.bfloat16(), big.bfloat16(), big.bfloat16(), True,
+                       1.0)
     with pytest.raises(ValueError, match="contiguous"):
         qt = q.transpose(2, 3).contiguous().transpose(2, 3)
         fa._launch_fwd(qt, q, q, True, 1.0)
@@ -619,13 +632,16 @@ def _fm_check(card, dt, s, d, flavor, dropout=0.0, seed=None,
 
 # (s, d, layout): the first grid, then the bf16 forward's edges (one
 # short of and one past a 64-row tile, a long row; D = 32, 72 and 100,
-# the last padded by the wrapper), operands at an unaligned offset, and
-# S_k longer than S_q
+# the last padded by the wrapper), operands at an unaligned offset, S_k
+# longer than S_q, and the wide heads (192 and 256; 200 padded to 200 and
+# run at 256)
 FM_CASES = ([(s, d, "contiguous") for s in (64, 200, 1024) for d in (64, 128)]
             + [(s, d, "contiguous") for s in (63, 65, 2048)
                for d in (32, 72, 100, 128)]
             + [(s, d, "offset") for s, d in ((65, 64), (200, 100))]
-            + [(s, d, "sk_longer") for s, d in ((63, 64), (200, 100))])
+            + [(s, d, "sk_longer") for s, d in ((63, 64), (200, 100))]
+            + [(s, d, "contiguous") for s in (65, 200) for d in (192, 256)]
+            + [(200, 200, "sk_longer")])
 
 
 @pytest.mark.parametrize("flavor", FM_FLAVORS)
@@ -707,8 +723,8 @@ def test_flashmask_kernels_refuse_what_they_do_not_take(card):
     with pytest.raises(ValueError, match="must be"):
         fm._launch_fwd(q, q, q, torch.zeros((1, 3, 64, 1), dtype=torch.int32,
                                             device=card), m)
-    with pytest.raises(ValueError, match="head_dim"):
-        big = torch.zeros((1, 2, 64, 160), device=card)
+    with pytest.raises(ValueError, match="head_dim 264 .*Queue 3"):
+        big = torch.zeros((1, 2, 64, 264), device=card)
         fm._launch_fwd(big, big, big, sri, m)
     with pytest.raises(ValueError, match="invalid"):
         fm._launch_fwd(q, q, q, sri.repeat(1, 1, 1, 4).contiguous(), m)
@@ -781,12 +797,14 @@ VARLEN_FWD_LAYOUTS = {**VARLEN_LAYOUTS,
                       "unequal_t65": ([10, 40], 65, [30, 45, 20], 130)}
 # (layout, h, kvh, d): the GQA grid over VARLEN_LAYOUTS; the edges at the
 # head dims of each instantiation and at 40, 72 and 100 (the wrapper pads
-# a bf16 D = 100 to 104)
+# a bf16 D = 100 to 104); the wide heads (192, 256 and 200, run at 256)
 VARLEN_FWD_CASES = (
     [(lay, h, kvh, d) for lay in sorted(VARLEN_LAYOUTS)
      for h, kvh, d in ((4, 4, 64), (8, 2, 128), (4, 1, 40))]
     + [(lay, 4, 2, d) for lay in ("t1", "t63", "t65", "t2048", "unequal_t65")
-       for d in (32, 40, 72, 100, 128)])
+       for d in (32, 40, 72, 100, 128)]
+    + [(lay, 4, 2, d) for lay in ("t65", "unequal", "unequal_t65")
+       for d in (192, 200, 256)])
 
 
 @pytest.mark.parametrize("layout,h,kvh,d", VARLEN_FWD_CASES)
@@ -908,8 +926,8 @@ def test_varlen_kernel_refuses_what_it_does_not_take(card):
     kv = torch.randn((64, 2, 32), device=card)
     with pytest.raises(ValueError, match="dtype"):
         va.flash_attention_varlen(q, kv.bfloat16(), kv.bfloat16(), seg, seg)
-    with pytest.raises(ValueError, match="head_dim"):
-        big = torch.randn((64, 2, 160), device=card)
+    with pytest.raises(ValueError, match="head_dim 264 .*Queue 3"):
+        big = torch.randn((64, 2, 264), device=card)
         va.flash_attention_varlen(big, big, big, seg, seg)
     with pytest.raises(ValueError, match="multiple"):
         va.flash_attention_varlen(q, torch.randn((64, 3, 32), device=card),
@@ -980,7 +998,7 @@ def _host_tiles(seg_q, seg_k, diag):
 @pytest.mark.parametrize("layout", sorted(VARLEN_LAYOUTS))
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("h,kvh,d", [(4, 4, 64), (8, 2, 128), (4, 1, 40),
-                                     (4, 2, 100)])
+                                     (4, 2, 100), (4, 2, 192), (4, 1, 256)])
 @pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
 def test_varlen_backward_kernels_match_plain(card, dtype, h, kvh, d, causal,
                                              layout):
@@ -2148,6 +2166,59 @@ def test_layer_llama_adamw_on_card_matches_cpu(paddle_on):
         got = gpu[1][k]
         assert np.abs(got - ref).max() <= 2.5 * 1e-3 * 3, k
         assert np.linalg.norm(got - ref) <= 1e-5 * np.linalg.norm(ref), k
+
+
+@pytest.mark.parametrize("family", ["qwen2", "gpt2", "moe", "deepseek"])
+def test_family_forward_on_card_matches_cpu(paddle_on, family):
+    """A decoder family's tiny config (DeepSeek's MLA at head dim 24:
+    16 + 8) from the same weights on the card and on the CPU, fp32, TF32
+    off: loss and logits within 1e-5 relative plus 1e-5, the backward's
+    gradients within 1e-4, and the flash kernels once a layer each way;
+    then GPT-2's and Qwen2's greedy tokens identical."""
+    from paddle_tpu_torch import models as M
+    from paddle_tpu_torch.models import generation as G
+    paddle = paddle_on
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, cls = {"qwen2": (M.Qwen2Config.tiny(), M.Qwen2ForCausalLM),
+                "gpt2": (M.GPT2Config.tiny(), M.GPT2LMHeadModel),
+                "moe": (M.MoEConfig.tiny_moe(), M.MoEForCausalLM),
+                "deepseek": (M.DeepSeekConfig.tiny_mla(),
+                             M.DeepSeekForCausalLM)}[family]
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    sd = {k: v.numpy() for k, v in cls(cfg).state_dict().items()}
+    rs = np.random.RandomState(1)
+    ids = rs.randint(0, cfg.vocab_size, (2, 24))
+    out = {}
+    for dev in ("gpu:0", "cpu"):
+        paddle.set_device(dev)
+        model = cls(cfg)
+        model.set_state_dict(sd)
+        before = (fa.launches_fwd, fa.launches_dq, fa.launches_dkv)
+        loss, logits = model(paddle.to_tensor(ids),
+                             labels=paddle.to_tensor(ids))
+        loss.backward()
+        grads = {n: p.grad.numpy() for n, p in model.named_parameters()}
+        launched = [a - b for a, b in zip(
+            (fa.launches_fwd, fa.launches_dq, fa.launches_dkv), before)]
+        gen = None
+        if family in ("qwen2", "gpt2"):
+            generate = getattr(model, "generate", None) or \
+                (lambda *a, **k: G.generate(model, *a, **k))
+            gen = generate(paddle.to_tensor(ids[:, :8]), max_new_tokens=6,
+                           temperature=0.0).numpy()
+        out[dev] = (float(loss), logits.numpy(), grads, launched, gen)
+    n = cfg.num_hidden_layers
+    assert out["gpu:0"][3] == [n, n, n] and out["cpu"][3] == [0, 0, 0]
+    np.testing.assert_allclose(out["gpu:0"][0], out["cpu"][0], rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(out["gpu:0"][1], out["cpu"][1], rtol=1e-5,
+                               atol=1e-5)
+    for k, ref in out["cpu"][2].items():
+        np.testing.assert_allclose(out["gpu:0"][2][k], ref, rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+    if out["cpu"][4] is not None:
+        np.testing.assert_array_equal(out["gpu:0"][4], out["cpu"][4])
 
 
 def _surface_attention(paddle, device, case, arrays, ints):

@@ -26,7 +26,15 @@ ATOL_DENSE = 1e-5
 ATOL_KERNEL = 1e-4
 BLOCK = 64
 
-SHAPES = {"b2h2s96d16": (2, 2, 96, 16), "b1h4s64d32": (1, 4, 64, 32)}
+# and the wide heads the card's kernels take since their 192 and 256
+# instantiations (DeepSeek's MLA runs at 192), at small S. The Pallas
+# forward refuses 192 (its lane-replicated statistics need a head dim
+# that is a multiple of 128 above 128: `_fit_lanes`), so at 192 the plain
+# forward is held to `mha_reference` and the plain backward to the Pallas
+# backward fed that reference's o and lse.
+SHAPES = {"b2h2s96d16": (2, 2, 96, 16), "b1h4s64d32": (1, 4, 64, 32),
+          "b1h1s64d256": (1, 1, 64, 256)}
+WIDE = {"b1h1s96d192": (1, 1, 96, 192), "b1h1s64d256": (1, 1, 64, 256)}
 
 
 def _inputs(shape, seed=0):
@@ -43,7 +51,8 @@ def _j(*arrays):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("shape", list(SHAPES.values()), ids=list(SHAPES))
+@pytest.mark.parametrize("shape", list({**SHAPES, **WIDE}.values()),
+                         ids=list({**SHAPES, **WIDE}))
 def test_plain_fwd_matches_mha_reference(shape, causal):
     q, k, v, _ = _inputs(shape)
     scale = 1.0 / math.sqrt(shape[-1])
@@ -98,6 +107,39 @@ def test_plain_versions_match_pallas_interpret(shape, causal):
     for name, a, b in (("dq", dq, dq_j), ("dk", dk, dk_j), ("dv", dv, dv_j)):
         np.testing.assert_allclose(a.numpy(), b, atol=ATOL_KERNEL,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", list(WIDE.values()), ids=list(WIDE))
+def test_wide_plain_backward_matches_pallas_interpret(shape, causal):
+    """dQ and dK/dV at the wide heads against the Pallas backward in
+    interpret mode, both fed `mha_reference`'s o and lse."""
+    q, k, v, do = _inputs(shape, seed=3)
+    scale = 1.0 / math.sqrt(shape[-1])
+    o_j, lse_j = mha_reference(*_j(q, k, v), None, causal, scale)
+    dq_j, dk_j, dv_j = _bwd_pallas(*_j(q, k, v), o_j, lse_j,
+                                   jnp.asarray(do), causal, scale, BLOCK,
+                                   BLOCK, interpret=True)
+    tq, tk, tv, tdo = _t(q, k, v, do)
+    o_t, lse_t = _t(np.array(o_j), np.array(lse_j))
+    delta = (tdo * o_t).sum(-1)
+    dq = fa.flash_bwd_dq_reference(tq, tk, tv, tdo, lse_t, delta, causal,
+                                   scale)
+    dk, dv = fa.flash_bwd_dkv_reference(tq, tk, tv, tdo, lse_t, delta,
+                                        causal, scale)
+    for name, a, b in (("dq", dq, dq_j), ("dk", dk, dk_j), ("dv", dv, dv_j)):
+        np.testing.assert_allclose(a.numpy(), b, atol=ATOL_KERNEL,
+                                   err_msg=name)
+
+
+def test_pallas_forward_refuses_head_dim_192():
+    """The reference's Pallas forward at D = 192 (DeepSeek's MLA at its
+    default widths) fails while it traces (ROADMAP.md, Queue 3); off the
+    TPU the reference runs `mha_reference`, which the port's plain
+    version matches above."""
+    q = jnp.zeros((1, 1, 64, 192), jnp.float32)
+    with pytest.raises(AssertionError, match="multiple of 128"):
+        _fwd_pallas(q, q, q, True, 0.1, BLOCK, BLOCK, interpret=True)
 
 
 @pytest.mark.parametrize("causal", [False, True])

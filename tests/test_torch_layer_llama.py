@@ -7,8 +7,8 @@ parameters within 1e-5 (see the comment above that test for the
 elements AdamW's first steps leave to rounding). On the CPU the port's
 attention runs the flash kernels' plain versions, the JAX model its XLA
 reference. Also the causality and GQA
-shape checks, the kv_caches= refusal, and the README's opening snippet
-run as `import paddle_tpu_torch as paddle`."""
+shape checks, the kv_caches= options and their refusal, and the
+README's opening snippet run as `import paddle_tpu_torch as paddle`."""
 import numpy as np
 import pytest
 
@@ -138,12 +138,24 @@ def test_parameters_follow_the_key_stream():
 
 
 def test_kv_cache_and_generate_name_item_13():
+    """The options item 13b part 1 ported: kv_caches= of no cache a layer
+    is the plain forward, a one-token step over a cache runs (held to
+    JAX's in tests/test_torch_models.py), generate runs the reference's
+    eager loop; a causal step of more rows over a non-empty cache keeps
+    its named refusal (ROADMAP.md Queue 3, causal alignment)."""
+    tp.seed(0)
     model = LlamaForCausalLM(LlamaConfig.tiny())
     x = tp.to_tensor(_ids(1, 4, 256))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        model(x, kv_caches=[None, None])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        model.generate(x)
+    np.testing.assert_array_equal(model(x, kv_caches=[None, None]).numpy(),
+                                  model(x).numpy())
+    cache = [(tp.zeros([1, 2, 3, 16]), tp.zeros([1, 2, 3, 16]))] * 2
+    assert model(x[:, :1], position_offset=3,
+                 kv_caches=cache).shape == [1, 1, 256]
+    with pytest.raises(NotImplementedError, match="Queue 3"):
+        model(x, position_offset=3, kv_caches=cache)
+    out = model.generate(x, max_new_tokens=3, temperature=0.0)
+    assert out.shape == [1, 7]
+    np.testing.assert_array_equal(out.numpy()[:, :4], x.numpy())
 
 
 def test_readme_snippet_runs_unchanged():

@@ -36,6 +36,9 @@ def test_every_module_imports_without_jax_or_paddle_tpu():
               "nn.layer.layers", "nn.initializer", "nn.clip", "optimizer",
               "optimizer.optimizer", "optimizer.rules", "optimizer.lr",
               "regularizer",
+              *(f"models.{n}" for n in (
+                  "qwen2", "gpt2", "moe_llm", "deepseek", "llama_decode",
+                  "generation")),
               *(f"serving.{n}" for n in (
                   "client", "faults", "fleet", "metrics", "replica",
                   "router", "scheduler", "server", "timeline", "wire")),
